@@ -1,0 +1,188 @@
+#!/usr/bin/env python3
+"""Práctica-1 CLI on the PyTorch/CUDA port: traffic-sign detection over a
+test directory.
+
+Same grammar and output files as ``main_detection.py`` for the MSER
+detector, plus ``--device`` (default ``cuda``; ``cpu`` runs the kernels'
+plain PyTorch versions):
+
+    python main_detection_torch.py --detector MSER_7_200_2000_1 \
+        --train_path train_jpg --test_path test_alumnos_jpg
+
+Trains the mean-mask templates from train_path, detects on every frame of
+test_path, writes resultado.txt + annotated frames to resultado_imgs/, and
+prints per-type / total precision, recall and F1 against test_path/gt.txt.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import shutil
+import sys
+import time
+
+from opencv_traffic_sign_detector_tpu.config import (
+    ConfigError,
+    MSERConfig,
+    PipelineConfig,
+)
+from opencv_traffic_sign_detector_tpu.data.gt import boxes_by_file
+from opencv_traffic_sign_detector_tpu.data.images import (
+    list_frame_files,
+    load_image_bgr,
+)
+from opencv_traffic_sign_detector_tpu.eval.ap import score_detection_files
+from opencv_traffic_sign_detector_tpu.eval.stats import (
+    compute_detection_statistics,
+    format_stats_report,
+)
+from opencv_traffic_sign_detector_tpu.utils.annotate import (
+    draw_boxes_bgr,
+    save_image_bgr,
+)
+from opencv_traffic_sign_detector_tpu.utils.profiling import StageProfiler
+from opencv_traffic_sign_detector_tpu.utils.serialization import write_results_file
+from opencv_traffic_sign_detector_tpu.utils.stages import StageError, stage
+from opencv_traffic_sign_detector_tpu_torch.models.detector import DetectionPipeline
+from opencv_traffic_sign_detector_tpu_torch.models.mean_masks import train_mean_masks
+
+USAGE_HINT = """\
+Detector spec: MSER_<delta>_<minArea>_<maxArea>_<maxVariation>
+    delta          integer in (0, 40]
+    minArea        integer in (0, 20000], <= maxArea
+    maxArea        integer in (0, 20000]
+    maxVariation   decimal in (0, 1]
+Example: MSER_5_200_3000_0.45"""
+
+
+def _not_ported(what: str, slice_: str) -> int:
+    print(f"{what} is not ported to the PyTorch/CUDA package yet "
+          f"(ROADMAP.md queue 1, {slice_}); use main_detection.py")
+    return 2
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        description="Trains and executes a detector over a set of testing images")
+    parser.add_argument("--detector", type=str, default="MSER_7_200_2000_1",
+                        help="Detector string (default: MSER_7_200_2000_1)")
+    parser.add_argument("--train_path", default="train_jpg")
+    parser.add_argument("--test_path", default="test_alumnos_jpg")
+    parser.add_argument("--batch_size", type=int, default=32)
+    parser.add_argument("--device", default="cuda",
+                        help="torch device: cuda launches the CUDA kernels, "
+                             "cpu runs their plain PyTorch versions")
+    parser.add_argument("--input_format", default="bgr",
+                        choices=["bgr", "yuv420", "yuv420p", "patches8"],
+                        help="CNN-detector decode layout; ignored by MSER")
+    parser.add_argument("--upscale", type=float, default=1.0,
+                        help="CNN-detector upscaled inference; ignored by MSER")
+    parser.add_argument("--out", default="resultado.txt")
+    parser.add_argument("--out_imgs", default="resultado_imgs")
+    parser.add_argument("--no-images", action="store_true",
+                        help="skip writing annotated frames")
+    parser.add_argument("--per-file-stats", action="store_true")
+    parser.add_argument("--downscale", type=int, default=2,
+                        help="MSER-stage downscale (2 = tuned fast mode; "
+                             "1 = native-res sweep)")
+    parser.add_argument("--max_regions", type=int, default=128,
+                        help="proposal capacity per frame")
+    parser.add_argument("--n_devices", type=int, default=0,
+                        help="shard each batch over this many devices "
+                             "(not ported: must be 0)")
+    parser.add_argument("--profile", action="store_true",
+                        help="print per-stage wall-clock summary")
+    parser.add_argument("--trace_dir", default=None,
+                        help="profiler trace directory (not ported)")
+    parser.add_argument("--cnn_params", default="artifacts/cnn_detector/params.npz",
+                        help="weights for --detector CNN (not ported)")
+    parser.add_argument("--pixel_area_stability", action="store_true",
+                        help="XLA pixel-area sweep (not ported)")
+    args = parser.parse_args(argv)
+
+    if args.detector.upper().startswith("CNN"):
+        return _not_ported("The CNN detector", "slice 2")
+    if args.n_devices:
+        return _not_ported("Multi-device sharding (--n_devices)", "slice 5")
+    if args.pixel_area_stability:
+        return _not_ported("The XLA pixel-area sweep (--pixel_area_stability)",
+                           "slice 5")
+    if args.trace_dir:
+        return _not_ported("Profiler traces (--trace_dir)", "slice 5")
+
+    try:
+        mser = MSERConfig.from_string(args.detector)
+    except ConfigError as e:
+        print(f"Invalid detector spec: {e}\n{USAGE_HINT}")
+        return 2
+    if args.downscale > 1:
+        # fused-kernel tuned operating point, as in main_detection.py
+        mser = dataclasses.replace(mser, downscale=args.downscale, ccl_iters=2,
+                                   level_step=9, ccl_jumps=0)
+    if args.max_regions:
+        mser = dataclasses.replace(mser, max_regions=args.max_regions)
+    cfg = PipelineConfig(mser=mser, batch_size=args.batch_size)
+    train_path = args.train_path.replace("\\", "/")
+    test_path = args.test_path.replace("\\", "/")
+    prof = StageProfiler()
+
+    try:
+        print(f"[1/4] training mean-mask templates from {train_path} ...")
+        t0 = time.time()
+        with stage("train mean-mask templates"), prof.stage("train_templates"):
+            templates = train_mean_masks(train_path, args.device)
+        print(f"      done in {time.time() - t0:.1f}s")
+
+        print(f"[2/4] detecting over {test_path} on {args.device} "
+              f"(delta={mser.delta} area=[{mser.min_area},{mser.max_area}] "
+              f"maxVar={mser.max_variation}) ...")
+        with stage("detect over test directory"):
+            pipe = DetectionPipeline(cfg=cfg, templates=templates, device=args.device)
+            t0 = time.time()
+            n_frames = len(list_frame_files(test_path))
+            with prof.stage("detect", items=n_frames):
+                detections = pipe.run_directory(test_path, progress=True)
+            dt = time.time() - t0
+            print(f"      {len(detections)} detections over {n_frames} frames "
+                  f"in {dt:.1f}s ({n_frames / max(dt, 1e-9):.2f} fps)")
+
+        print(f"[3/4] writing {args.out}"
+              + ("" if args.no_images else f" and {args.out_imgs}/"))
+        with stage("serialize results"):
+            write_results_file(args.out, detections)
+            if not args.no_images:
+                if os.path.isdir(args.out_imgs):
+                    shutil.rmtree(args.out_imgs)
+                os.mkdir(args.out_imgs)
+                per_file = boxes_by_file(detections)
+                for fname in list_frame_files(test_path):
+                    img = load_image_bgr(os.path.join(test_path, fname))
+                    boxes = [(d.x1, d.y1, d.x2, d.y2) for d in per_file.get(fname, [])]
+                    save_image_bgr(os.path.join(args.out_imgs, fname),
+                                   draw_boxes_bgr(img, boxes))
+
+        gt_path = os.path.join(test_path, "gt.txt")
+        if os.path.exists(gt_path):
+            print("[4/4] statistics vs", gt_path)
+            with stage("statistics vs ground truth"):
+                stats = compute_detection_statistics(detections, gt_path)
+                print(format_stats_report(stats, per_file=args.per_file_stats))
+                ap = score_detection_files(args.out, gt_path)
+                print(f"\nPASCAL AP@0.5: {ap['ap']:.4f}  "
+                      f"(11pt: {ap['ap_11pt']:.4f}, "
+                      f"{ap['n_det']} detections, {ap['n_gt']} GT)")
+        else:
+            print("[4/4] no gt.txt found; skipping statistics")
+    except StageError:
+        return 1
+
+    if args.profile:
+        print("\n== stage profile ==")
+        print(prof.summary())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,125 @@
+"""Synthetic road-scene frames and sign crops, made from a seed with numpy.
+
+Frames carry a smooth gradient, sensor-like noise and sign-like shapes of
+20-70 px: red rings, red triangles and blue discs, in BGR uint8.  The
+detection path's quality cannot be judged on them, but they give the MSER
+sweep stable regions at sign scale, so every stage does real work.  The
+writers (JPEG via PIL) build a test directory and a ``train_jpg``-style
+directory with one crop folder per super-type.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from opencv_traffic_sign_detector_tpu.constants import SUPERTYPE_CLASS_DIRS
+
+RED = (30, 30, 200)
+BLUE = (190, 80, 20)
+WHITE = (235, 235, 235)
+
+
+def _grid(h: int, w: int, cy: float, cx: float):
+    yy, xx = np.mgrid[0:h, 0:w]
+    return yy - cy, xx - cx
+
+
+def _draw(img: np.ndarray, shape: str, cy: float, cx: float, size: int) -> None:
+    """Paint one sign of side ``size`` centred at (cy, cx), in place."""
+    h, w = img.shape[:2]
+    dy, dx = _grid(h, w, cy, cx)
+    r = size / 2.0
+    dist = np.hypot(dy, dx)
+    if shape == "ring":  # prohibition: red ring on white
+        img[dist <= r] = RED
+        img[dist <= 0.72 * r] = WHITE
+    elif shape == "disc":  # mandatory: blue disc with a white arrow bar
+        img[dist <= r] = BLUE
+        img[(np.abs(dy) <= 0.12 * r) & (np.abs(dx) <= 0.55 * r)] = WHITE
+    elif shape in ("triangle", "yield"):  # danger / yield: red outline
+        up = shape == "triangle"
+        t = (dy + r) / (2 * r) if up else (r - dy) / (2 * r)
+        outer = (np.abs(dy) <= r) & (np.abs(dx) <= t * r)
+        img[outer] = RED
+        ti = (t - 0.28) / 0.72
+        img[outer & (ti > 0) & (np.abs(dx) <= ti * 0.72 * r)
+            & (np.abs(dy) <= 0.7 * r)] = WHITE
+    elif shape == "stop":  # red octagon with a white band
+        oct_ = (np.abs(dy) <= r) & (np.abs(dx) <= r) & (np.abs(dx) + np.abs(dy) <= 1.4 * r)
+        img[oct_] = RED
+        img[oct_ & (np.abs(dy) <= 0.15 * r) & (np.abs(dx) <= 0.7 * r)] = WHITE
+    elif shape == "no_entry":  # red disc with a white bar
+        img[dist <= r] = RED
+        img[(np.abs(dy) <= 0.18 * r) & (np.abs(dx) <= 0.7 * r)] = WHITE
+    else:
+        raise ValueError(f"unknown shape {shape!r}")
+
+
+# shape drawn for each super-type (constants.SIGN_TYPES order)
+SUPERTYPE_SHAPES = ("ring", "triangle", "stop", "no_entry", "yield", "disc")
+
+
+def make_frames(n: int, h: int = 800, w: int = 1360, seed: int = 0,
+                signs_per_frame: int = 6) -> np.ndarray:
+    """[n, h, w, 3] uint8 BGR frames with red rings, triangles, blue discs."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    frames = np.empty((n, h, w, 3), np.uint8)
+    for i in range(n):
+        base = np.empty((h, w, 3), np.float32)
+        gy, gx = rng.uniform(-60, 60, 2)
+        for c in range(3):
+            base[..., c] = (rng.uniform(80, 150) + gy * yy / h + gx * xx / w
+                            + 25 * np.sin(xx / rng.uniform(60, 200) + rng.uniform(0, 6)))
+        base += rng.normal(0, 6, (h, w, 3))
+        img = np.clip(base, 0, 255).astype(np.uint8)
+        for _ in range(signs_per_frame):
+            size = int(rng.integers(20, min(71, min(h, w) // 2)))
+            cy = rng.uniform(size, h - size)
+            cx = rng.uniform(size, w - size)
+            y0, x0 = int(cy) - size, int(cx) - size
+            patch = img[y0:y0 + 2 * size + 1, x0:x0 + 2 * size + 1]
+            shape = ("ring", "triangle", "disc")[rng.integers(0, 3)]
+            _draw(patch, shape, cy - y0, cx - x0, size)
+        frames[i] = img
+    return frames
+
+
+def make_sign_crop(supertype: int, size: int = 40, seed: int = 0) -> np.ndarray:
+    """One [size+8, size+8, 3] BGR crop of super-type 1..6 on a grey margin."""
+    rng = np.random.default_rng(seed)
+    side = size + 8
+    img = np.clip(rng.normal(120, 8, (side, side, 3)), 0, 255).astype(np.uint8)
+    _draw(img, SUPERTYPE_SHAPES[supertype - 1], side / 2.0, side / 2.0, size)
+    return img
+
+
+def _save_jpeg(path: str, bgr: np.ndarray) -> None:
+    from PIL import Image
+
+    Image.fromarray(np.ascontiguousarray(bgr[..., ::-1])).save(path, quality=95)
+
+
+def write_test_dir(root: str, n: int, h: int, w: int, seed: int = 0) -> list[str]:
+    """Write ``n`` synthetic frames as ``00000.jpg``... into ``root``."""
+    os.makedirs(root, exist_ok=True)
+    names = []
+    for i, frame in enumerate(make_frames(n, h, w, seed)):
+        name = f"{i:05d}.jpg"
+        _save_jpeg(os.path.join(root, name), frame)
+        names.append(name)
+    return names
+
+
+def write_train_dir(root: str, seed: int = 0, per_type: int = 2) -> str:
+    """Write a ``train_jpg``-style tree: crops under the first class folder
+    of each super-type, enough for mean-mask training."""
+    for st, dirs in enumerate(SUPERTYPE_CLASS_DIRS, start=1):
+        d = os.path.join(root, dirs[0])
+        os.makedirs(d, exist_ok=True)
+        for k in range(per_type):
+            crop = make_sign_crop(st, size=32 + 8 * k, seed=seed * 100 + st * 10 + k)
+            _save_jpeg(os.path.join(d, f"{k:05d}.jpg"), crop)
+    return root

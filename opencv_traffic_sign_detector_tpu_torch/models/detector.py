@@ -1,0 +1,175 @@
+"""Práctica-1 detection pipeline, batched over frames on one device.
+
+Counterpart of ``opencv_traffic_sign_detector_tpu/models/detector.py``:
+
+    BGR [B,H,W,3] -> enhance_contrast -> MSER proposals [B,N,4]
+                  -> aspect filter + 1.30 grow -> crops [B,N,25,25,3]
+                  -> dedup (histogram pass, coords pass)
+                  -> mean-mask correlation classify -> compact [B,D] detections
+
+Every stage carries the batch dimension; there is no loop over frames on
+the device path.  The host side decodes frames, keeps one batch in flight
+and unpacks results into detection records.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from opencv_traffic_sign_detector_tpu.config import PipelineConfig
+from opencv_traffic_sign_detector_tpu.constants import (
+    DEDUP_COORD_TOL,
+    DEDUP_HIST_TOL,
+    DETECT_CROP,
+    DETECT_GROW,
+)
+from opencv_traffic_sign_detector_tpu.data.gt import GroundTruthBox
+from opencv_traffic_sign_detector_tpu.data.images import list_frame_files
+from opencv_traffic_sign_detector_tpu.data.prefetch import batched_frames
+
+from ..ops.dedup import dedup_by_coords, dedup_by_histogram
+from ..ops.geometry import filter_and_grow_boxes
+from ..ops.mser import check_supported, mser_regions, stage_scope
+from ..ops.preprocess import enhance_contrast
+from ..ops.resize import crop_and_resize
+from .mean_masks import MeanMaskTemplates, mask_correlation_classify, templates_to_torch
+
+
+def full_f32_matmuls() -> None:
+    """Keep f32 matrix products (crop resize, histogram correlation) in full
+    f32 on the card, as the reference computes them: no TF32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def detect_batch(frames: torch.Tensor, red_templates: torch.Tensor,
+                 blue_templates: torch.Tensor, cfg: PipelineConfig, timer=None):
+    """[B, H, W, 3] uint8 -> per-frame padded detections.
+
+    Returns (boxes int32 [B, D, 4] xyxy, types int32 [B, D], scores f32
+    [B, D], valid bool [B, D]) with D = cfg.max_detections.  ``timer``, when
+    given, is called with a stage name and returns a context manager.
+    """
+    full_f32_matmuls()
+    with stage_scope(timer, "preprocess"):
+        gray = enhance_contrast(frames)
+    props, pvalid = mser_regions(gray, cfg.mser, timer)
+    with stage_scope(timer, "classify"):
+        boxes, keep = filter_and_grow_boxes(props, pvalid, DETECT_GROW)
+        crops = crop_and_resize(frames, boxes, DETECT_CROP)
+        crops, boxes, keep = dedup_by_histogram(crops, boxes, keep, DEDUP_HIST_TOL)
+        crops, boxes, keep = dedup_by_coords(crops, boxes, keep, DEDUP_COORD_TOL)
+        types, scores, accept = mask_correlation_classify(
+            crops, red_templates, blue_templates, cfg.mask_corr_tol,
+            fine_scores=cfg.fine_scores)
+        final = keep & accept
+
+        # first D kept slots in order (nonzero(size=D, fill_value=n))
+        b, n = final.shape
+        d = cfg.max_detections
+        pos = torch.where(final, torch.arange(n, device=final.device), n)
+        idx = torch.sort(pos, dim=-1).values
+        if d > n:
+            idx = torch.cat([idx, idx.new_full((b, d - n), n)], dim=-1)
+        idx = idx[:, :d]
+        valid = torch.arange(d, device=final.device) < final.sum(-1, keepdim=True)
+
+        def take(x):
+            pad = torch.zeros((b, 1) + x.shape[2:], dtype=x.dtype, device=x.device)
+            xp = torch.cat([x, pad], dim=1)
+            gidx = idx.reshape((b, d) + (1,) * (x.dim() - 2)).expand((b, d) + x.shape[2:])
+            return torch.gather(xp, 1, gidx)
+
+        out = take(boxes), take(types), take(scores), valid
+    return out
+
+
+def _pack(boxes, types, scores, valid) -> torch.Tensor:
+    """All four outputs as one [B, D, 7] f32 tensor: one device->host copy."""
+    return torch.cat([boxes.to(torch.float32), types[..., None].to(torch.float32),
+                      scores[..., None], valid[..., None].to(torch.float32)], dim=-1)
+
+
+class DetectionPipeline:
+    """Host-facing detector: owns the templates on the device and runs
+    batches through :func:`detect_batch`, one batch in flight."""
+
+    def __init__(self, cfg: PipelineConfig, templates: MeanMaskTemplates,
+                 device="cuda", timer=None):
+        check_supported(cfg.mser)
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.timer = timer
+        self.red, self.blue = templates_to_torch(templates, self.device)
+
+    def dispatch(self, frames: np.ndarray):
+        """Enqueue one [B, H, W, 3] uint8 batch; returns a pending handle.
+
+        On the card the upload is pinned and non-blocking, the packed result
+        is copied back into pinned memory without blocking, and an event
+        marks its arrival, so the caller can decode and upload the next batch
+        meanwhile (:meth:`run_directory`).
+        """
+        host = torch.from_numpy(np.ascontiguousarray(frames))
+        if self.device.type != "cuda":
+            out = _pack(*detect_batch(host.to(self.device), self.red, self.blue,
+                                      self.cfg, self.timer))
+            return out, None, host
+        host = host.pin_memory()
+        dev_frames = host.to(self.device, non_blocking=True)
+        packed = _pack(*detect_batch(dev_frames, self.red, self.blue, self.cfg, self.timer))
+        out = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+        out.copy_(packed, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return out, done, host  # host stays referenced until the copy ran
+
+    def collect(self, pending, names: list[str]) -> list[GroundTruthBox]:
+        """Wait for a dispatched batch and unpad it into detection records."""
+        out, done, _ = pending
+        if done is not None:
+            done.synchronize()
+        packed = out.numpy()
+        boxes = packed[..., :4].astype(np.int64)
+        types = packed[..., 4].astype(np.int64)
+        scores = packed[..., 5]
+        valid = packed[..., 6] > 0.5
+        dets: list[GroundTruthBox] = []
+        for b in range(len(names)):
+            for i in np.nonzero(valid[b])[0]:
+                x1, y1, x2, y2 = (int(v) for v in boxes[b, i])
+                dets.append(GroundTruthBox(
+                    filename=names[b], x1=x1, y1=y1, x2=x2, y2=y2,
+                    class_id=int(types[b, i]), score=float(scores[b, i])))
+        return dets
+
+    def detect_frames(self, frames: np.ndarray, names: list[str]) -> list[GroundTruthBox]:
+        """Run a [B, H, W, 3] uint8 batch; unpad into detection records."""
+        return self.collect(self.dispatch(frames), names)
+
+    def run_directory(self, directory: str, progress: bool = False) -> list[GroundTruthBox]:
+        """Detect over every frame in a dataset directory.
+
+        The next batch is decoded on a background thread (``batched_frames``)
+        and one dispatched batch stays in flight while the previous one is
+        unpacked on the host.
+        """
+        files = list_frame_files(directory)
+        bsz = self.cfg.batch_size
+        detections: list[GroundTruthBox] = []
+        done = 0
+        pending = None
+        for frames, names in batched_frames(directory, files, bsz, device_put=False):
+            handle = self.dispatch(frames)
+            if pending is not None:
+                detections.extend(d for d in self.collect(*pending) if d.filename != "__pad__")
+                done = min(done + bsz, len(files))
+                if progress:
+                    print(f"  processed {done}/{len(files)} frames")
+            pending = (handle, names)
+        if pending is not None:
+            detections.extend(d for d in self.collect(*pending) if d.filename != "__pad__")
+            if progress:
+                print(f"  processed {len(files)}/{len(files)} frames")
+        return detections

@@ -1,0 +1,55 @@
+"""Box geometry: aspect filter + grow, and pairwise corner similarity.
+
+Counterpart of ``opencv_traffic_sign_detector_tpu/ops/geometry.py``, with
+the same f32 operation order.  Every function takes any leading batch dims.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from opencv_traffic_sign_detector_tpu.constants import ASPECT_MAX, ASPECT_MIN
+
+
+def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(x, dtype=torch.float32, device=like.device)
+
+
+def filter_and_grow_boxes(boxes_xywh: torch.Tensor, valid: torch.Tensor,
+                          grow: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Keep ASPECT_MIN < w/h < ASPECT_MAX, grow by ``grow`` about the centre,
+    clamp at 0, truncate.  -> (boxes_xyxy int32 [..., N, 4], keep [..., N])."""
+    b = boxes_xywh.to(torch.float32)
+    x, y, w, h = b.unbind(-1)
+    zero = _f32(0.0, b)
+    hsafe = torch.maximum(h, _f32(1.0, b))
+    ratio = w / hsafe
+    keep = valid & (ratio > _f32(ASPECT_MIN, b)) & (ratio < _f32(ASPECT_MAX, b)) & (h > 0)
+    g = _f32(grow - 1.0, b)  # in f64 first, like the reference's weak scalar
+    half = _f32(0.5, b)
+    dw = w * g * half
+    dh = h * g * half
+    x1 = torch.maximum(x - dw, zero)
+    y1 = torch.maximum(y - dh, zero)
+    x2 = torch.maximum(x + w + dw, zero)
+    y2 = torch.maximum(y + h + dh, zero)
+    return torch.stack([x1, y1, x2, y2], dim=-1).to(torch.int32), keep
+
+
+def sigmoid_distance_similarity(d: torch.Tensor) -> torch.Tensor:
+    """Distance -> closeness in (0, 1]; 1 at d == 0."""
+    d = d.to(torch.float32)
+    dsafe = torch.clamp(d, min=1e-20)
+    z = (0.154 * dsafe ** 1.2 - 31.8) / (0.2 * dsafe)
+    sim = 1.0 / (1.0 + torch.exp(z))
+    return torch.where(d > 0, sim, torch.ones_like(sim))
+
+
+def pairwise_coord_similarity(boxes_xyxy: torch.Tensor) -> torch.Tensor:
+    """[..., N, 4] -> [..., N, N] geometric mean of corner similarities."""
+    b = boxes_xyxy.to(torch.float32)
+    tl, br = b[..., :2], b[..., 2:]
+    d_tl = torch.linalg.vector_norm(tl[..., :, None, :] - tl[..., None, :, :], dim=-1)
+    d_br = torch.linalg.vector_norm(br[..., :, None, :] - br[..., None, :, :], dim=-1)
+    return torch.sqrt(sigmoid_distance_similarity(d_tl)
+                      * sigmoid_distance_similarity(d_br))

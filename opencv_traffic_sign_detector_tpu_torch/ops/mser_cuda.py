@@ -1,0 +1,247 @@
+"""K3: the fused MSER level sweep with in-kernel level collapse.
+
+Counterpart of ``opencv_traffic_sign_detector_tpu/ops/mser_pallas.py``:
+``fused_level_sweep`` pads a polarity stack into row-strip windows
+(``sweep_plan``/``plan_halo``), runs the bbox-area stability sweep over all
+levels on every window, and returns per pixel the max over levels of
+``(stability byte << lbits) | level index``.  The strips of one polarity are
+stacked as extra windows along the batch dimension, so one launch covers
+frames x polarities x strips.
+
+``level_sweep_windows`` launches the CUDA kernel (``csrc/mser_sweep.cu``) for
+CUDA tensors and takes ``level_sweep_windows_plain`` for CPU tensors; the
+two are exact against each other.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from opencv_traffic_sign_detector_tpu.config import MSERConfig
+
+from ..runtime import build as rt
+
+# The reference's per-strip VMEM pixel budget.  It fixes where the
+# reference cuts a frame into strips (and so which candidates it emits);
+# the port keeps it to keep those semantics.  It is not a limit on the GPU.
+_VMEM_PX = 1_110_000
+_HALO_MIN, _HALO_MAX = 32, 160
+_ROW_ALIGN = 8
+
+
+def plan_halo(cfg: MSERConfig) -> int:
+    """Halo rows per strip side for this config.
+
+    Any near-square candidate that passes the bbox-area cap has side
+    <= sqrt(max_area * cap_scale); 1.5x that covers moderately elongated
+    shapes (extreme thin-vertical components get truncated extents near
+    strip boundaries — they cannot survive the downstream aspect filter,
+    and end-to-end quality is revalidated per round, PARITY.md).
+    """
+    dim = (float(cfg.max_area) * cfg.bbox_area_cap_scale) ** 0.5
+    halo = -(-int(dim * 1.5) // _ROW_ALIGN) * _ROW_ALIGN
+    return max(_HALO_MIN, min(halo, _HALO_MAX))
+
+
+def sweep_plan(
+    h: int, w: int, pool: int, halo: int = _HALO_MAX
+) -> tuple[int, int, int] | None:
+    """Static strip plan for a padded (h, w) frame: (n_strips, core, halo).
+
+    core rows are aligned to lcm(8, pool); single-strip plans have halo 0.
+    Returns None when even a minimal strip exceeds the VMEM budget (w too
+    large).
+    """
+    pool = max(1, pool)
+    align = _ROW_ALIGN * pool // _gcd(_ROW_ALIGN, pool)
+    wp = -(-w // pool) * pool
+    h_aligned = -(-h // align) * align
+    rmax = _VMEM_PX // wp
+    rmax -= rmax % _ROW_ALIGN
+    if rmax >= h_aligned:
+        return (1, h_aligned, 0)
+    core = rmax - 2 * halo
+    core -= core % align
+    if core < align:
+        return None
+    n = -(-h // core)
+    return (n, core, halo)
+
+
+def _gcd(a: int, b: int) -> int:
+    while b:
+        a, b = b, a % b
+    return a
+
+
+def packing_bits(pool: int, num_levels: int) -> tuple[int, int]:
+    """(in-block position bits, level bits) of the packed candidate value."""
+    pool = max(1, pool)
+    bits = max((pool * pool - 1).bit_length(), 1)
+    lbits = max((num_levels - 1).bit_length(), 1)
+    return bits, lbits
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepParams:
+    """Per-level constants of the sweep body (``_body_kwargs`` there)."""
+
+    step: int
+    d: int
+    num_passes: int
+    min_area: float
+    max_area: float
+    max_variation: float
+    min_diversity: float
+
+    @classmethod
+    def from_config(cls, cfg: MSERConfig, d_idx: int) -> "SweepParams":
+        return cls(
+            step=cfg.level_step if cfg.level_step > 0 else cfg.delta,
+            d=d_idx,
+            num_passes=2 * cfg.ccl_iters,
+            min_area=float(cfg.min_area),
+            max_area=float(cfg.max_area) * cfg.bbox_area_cap_scale,
+            max_variation=float(cfg.max_variation),
+            min_diversity=float(cfg.min_diversity),
+        )
+
+
+def _nb(x: torch.Tensor, op) -> torch.Tensor:
+    """4-neighbour min/max with wraparound (pltpu.roll semantics)."""
+    return op(op(torch.roll(x, 1, 1), torch.roll(x, -1, 1)),
+              op(torch.roll(x, 1, 2), torch.roll(x, -1, 2)))
+
+
+def level_sweep_windows_plain(windows: torch.Tensor, p: SweepParams, core: int,
+                              halo: int, num_levels: int,
+                              lbits: int) -> torch.Tensor:
+    """[N, R, W] uint8 windows -> [N, core, W] int32 level-collapsed map."""
+    n, r, w = windows.shape
+    dev = windows.device
+    i32, f32, bf16 = torch.int32, torch.float32, torch.bfloat16
+    hw = r * w
+    big, bigc = 256 * hw, 1 << 28
+    im = windows.to(i32)
+    rows = torch.arange(r, device=dev, dtype=i32).view(1, r, 1)
+    cols = torch.arange(w, device=dev, dtype=i32).view(1, 1, w)
+    keys0 = im * hw + rows * w + cols
+
+    def full(v, dtype=i32):
+        return torch.full((n, r, w), v, dtype=dtype, device=dev)
+
+    keys, ymin, xmin, ymax, xmax = full(big), full(bigc), full(bigc), full(-1), full(-1)
+    nring = p.d + 1
+    aring = torch.zeros((nring, n, r, w), dtype=bf16, device=dev)
+    vring = torch.full((2, n, r, w), float("inf"), dtype=bf16, device=dev)
+    lastemit = torch.zeros((n, r, w), dtype=bf16, device=dev)
+    out = torch.zeros((n, core, w), dtype=i32, device=dev)
+
+    def c(v):
+        return torch.tensor(v, dtype=f32, device=dev)
+
+    min_area, max_area = c(p.min_area), c(p.max_area)
+    max_var, min_div = c(p.max_variation), c(p.min_diversity)
+    one, zero, inf = c(1.0), c(0.0), c(float("inf"))
+    mn, mx = torch.minimum, torch.maximum
+
+    for t in range(num_levels):
+        mask = (im <= t * p.step) & (rows > 0) & (rows < r - 1)
+        keys = torch.where(mask, mn(keys, keys0), big)
+        ymin = torch.where(mask, mn(ymin, rows), bigc)
+        ymax = torch.where(mask, mx(ymax, rows), -1)
+        xmin = torch.where(mask, mn(xmin, cols), bigc)
+        xmax = torch.where(mask, mx(xmax, cols), -1)
+        for _ in range(p.num_passes):  # Jacobi: every pass reads the last one
+            knew = torch.where(mask, mn(keys, _nb(keys, mn)), big)
+            live = mask & (knew >= 0)
+            ymin = torch.where(live, mn(ymin, _nb(ymin, mn)), bigc)
+            ymax = torch.where(live, mx(ymax, _nb(ymax, mx)), -1)
+            xmin = torch.where(live, mn(xmin, _nb(xmin, mn)), bigc)
+            xmax = torch.where(live, mx(xmax, _nb(xmax, mx)), -1)
+            keys = knew
+
+        anchor = mask & (keys == keys0)
+        bb = (ymax - ymin + 1).to(f32) * (xmax - xmin + 1).to(f32)
+        bb = mn(bb, c(65535.0))
+        a_cur = torch.where(anchor, bb, zero)
+        keys = torch.where(anchor & (bb > max_area), -1, keys)
+
+        s_old = (t + nring - (p.d + 1) % nring) % nring
+        s_td = (t + nring - p.d % nring) % nring
+        s_v_new = (t + 2 * nring - p.d) % 2
+        area_c = aring[s_old].to(f32)
+        a_td = aring[s_td].to(f32)
+        v_c = vring[1 - s_v_new].to(f32)
+        v_prev = vring[s_v_new].to(f32)
+        v_new = torch.where((a_td > 0) & (a_cur > 0),
+                            (a_cur - a_td) / mx(a_td, one), inf)
+        cand = ((area_c >= min_area) & (area_c <= max_area) & (v_c < max_var)
+                & (v_c <= v_prev) & (v_c <= v_new))
+        last = lastemit.to(f32)
+        diverse = (last <= 0) | ((area_c - last) >= min_div * mx(area_c, one))
+        cand = cand & diverse
+        lastemit = torch.where(cand, area_c, last).to(bf16)
+        qv = torch.clamp(c(254.0) - torch.floor(v_c * c(253.0)), 1.0, 254.0)
+        aring[t % nring] = a_cur.to(bf16)
+        vring[s_v_new] = v_new.to(bf16)
+
+        packed = torch.where(cand, qv, zero)[:, halo:halo + core].to(i32) * (1 << lbits) + t
+        out = mx(out, packed)
+    return out
+
+
+def level_sweep_windows(windows: torch.Tensor, p: SweepParams, core: int,
+                        halo: int, num_levels: int, lbits: int) -> torch.Tensor:
+    """K3 over stacked strip windows: [N, R, W] uint8 -> [N, core, W] int32.
+
+    Replaces ``mser_pallas.py: fused_level_sweep`` (``_collapsed_kernel``).
+    """
+    rt.check_tensor(windows, "windows", torch.uint8, 3)
+    n, r, w = windows.shape
+    if not (0 <= halo and core > 0 and core + 2 * halo == r):
+        raise ValueError(f"windows of {r} rows do not hold core {core} + 2*halo {halo}")
+    if rt.uses_plain(windows):
+        return level_sweep_windows_plain(windows, p, core, halo, num_levels, lbits)
+    dev = windows.device
+    out = torch.empty((n, core, w), dtype=torch.int32, device=dev)
+    state = torch.empty((2, 5, n, r, w), dtype=torch.int32, device=dev)
+    rings = torch.empty((p.d + 1 + 3, n, r, w), dtype=torch.bfloat16, device=dev)
+    rc = rt.library().tsd_level_sweep(
+        windows.data_ptr(), out.data_ptr(), state.data_ptr(), rings.data_ptr(),
+        n, r, w, core, halo, num_levels, p.step, p.d, p.num_passes, lbits,
+        p.min_area, p.max_area, p.max_variation, p.min_diversity,
+        rt.stream_ptr(dev))
+    rt.check(rc, "level_sweep")
+    rt.count_launch("level_sweep")
+    return out
+
+
+def fused_level_sweep(im2: torch.Tensor, cfg: MSERConfig, d_idx: int,
+                      num_levels: int) -> torch.Tensor:
+    """[P, H, W] polarity-stacked intensities -> level-collapsed candidate map.
+
+    Returns int32 [P, n_strips*core, ceilpool(W)]: per pixel
+    ``(stability_byte << lbits) | level_idx`` maximised over all levels;
+    level_idx t holds the candidates of threshold ``(t - d_idx - 1) * step``.
+    """
+    p, h, w = im2.shape
+    pool = max(1, cfg.topk_pool)
+    plan = sweep_plan(h, w, pool, plan_halo(cfg))
+    if plan is None:
+        raise ValueError(f"no strip plan for geometry {h}x{w}")
+    n_strips, core, halo = plan
+    _, lbits = packing_bits(pool, num_levels)
+    if num_levels > (1 << lbits):
+        raise ValueError(f"{num_levels} levels do not fit {lbits} level bits")
+    wp = -(-w // pool) * pool
+    h_tot = n_strips * core + 2 * halo
+    im2p = torch.full((p, h_tot, wp), 255, dtype=torch.uint8, device=im2.device)
+    im2p[:, halo:halo + h, :w] = im2
+    r = core + 2 * halo
+    windows = im2p.unfold(1, r, core).permute(0, 1, 3, 2).reshape(p * n_strips, r, wp)
+    out = level_sweep_windows(windows.contiguous(), SweepParams.from_config(cfg, d_idx),
+                              core, halo, num_levels, lbits)
+    return out.reshape(p, n_strips * core, wp)

@@ -1,0 +1,182 @@
+"""Build, load and call the port's hand-written CUDA kernels.
+
+The sources under ``csrc/`` are compiled at first use with ``nvcc`` into one
+shared library with a plain C interface, ``build/torch_kernels/<hash>/
+libtsd_kernels.so`` at the repository root, keyed by a hash of the sources
+and flags, and bound with :mod:`ctypes`.  No PyTorch headers are involved,
+so a build takes seconds.  Every pointer and the stream are passed as
+``c_void_p``; every entry point returns ``cudaGetLastError()`` after its
+launches and :func:`check` raises when that is not 0.
+
+Nothing here runs for CPU tensors: the op wrappers take their plain PyTorch
+versions for tensors on the CPU and call :func:`library` only for CUDA
+tensors.  Each wrapper adds one to its entry of the launch counts where it
+launches its kernel, so a run can show that it went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+LIB_NAME = "libtsd_kernels.so"
+# -fmad=false: kernels that must equal their plain versions bit for bit rely
+# on separately rounded products and sums (no contraction into FMA).
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
+)
+
+KERNELS = ("tile_histograms", "clahe_apply", "level_sweep", "flood_bbox")
+
+_V, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "tsd_tile_histograms": [_V, _V, _I, _I, _I, _I, _V],
+    "tsd_clahe_apply": [_V] * 9 + [_I, _I, _I, _I, _V],
+    "tsd_level_sweep": [_V] * 4 + [_I] * 10 + [_F] * 4 + [_V],
+    "tsd_flood_bbox": [_V, _V, _V] + [_I] * 8 + [_V],
+}
+
+_launches = dict.fromkeys(KERNELS, 0)
+_lib: ctypes.CDLL | None = None
+
+
+class KernelBuildError(RuntimeError):
+    """The CUDA kernels could not be built or loaded."""
+
+
+def find_nvcc() -> str:
+    """Path of ``nvcc``: PATH first, then ``$CUDA_HOME/bin``, then the
+    toolkit's default install prefix."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if root and os.access(os.path.join(root, "bin", "nvcc"), os.X_OK):
+            return os.path.join(root, "bin", "nvcc")
+    raise KernelBuildError(
+        "nvcc not found (looked on PATH, in $CUDA_HOME/bin and "
+        "/usr/local/cuda/bin): the CUDA kernels cannot be built.  CUDA "
+        "tensors need the CUDA toolkit; CPU tensors use the plain PyTorch "
+        "versions and need no build."
+    )
+
+
+def sources() -> list[Path]:
+    return sorted(p for p in CSRC_DIR.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the kernels unless this source hash is already built.
+
+    ``verbose`` adds ``-Xptxas -v`` and prints the compiler's report of
+    registers, shared memory and spills per kernel.
+    """
+    out_dir = BUILD_ROOT / source_hash()
+    lib_path = out_dir / LIB_NAME
+    if lib_path.exists() and not verbose:
+        return lib_path
+    nvcc = find_nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", tmp, *(str(p) for p in sources() if p.suffix == ".cu")]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise KernelBuildError(
+            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    if verbose:
+        print(proc.stdout + proc.stderr)
+    os.replace(tmp, lib_path)
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built at first use."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.tsd_error_string.argtypes = [ctypes.c_int]
+        lib.tsd_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def is_loaded() -> bool:
+    return _lib is not None
+
+
+def check(rc: int, kernel: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if rc != 0:
+        msg = library().tsd_error_string(rc).decode()
+        raise RuntimeError(f"CUDA kernel {kernel} failed: error {rc} ({msg})")
+
+
+def count_launch(kernel: str) -> None:
+    _launches[kernel] += 1
+
+
+def launch_counts() -> dict[str, int]:
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    for k in _launches:
+        _launches[k] = 0
+
+
+def uses_plain(*tensors: torch.Tensor) -> bool:
+    """True when the inputs lie on the CPU (take the plain version), False
+    when they lie on one CUDA device (launch the kernel); raises otherwise."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"inputs on several devices: {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}: expected cpu or cuda")
+    return False
+
+
+def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
+                 ndim: int) -> None:
+    """Raise unless ``t`` has the dtype and rank a kernel takes and is
+    contiguous."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim} dims, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
