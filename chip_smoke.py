@@ -3,22 +3,36 @@
 
     python3 chip_smoke.py [--seed 0] [--ptxas]
 
-Phases, one line each:
+Phases:
 
 1. device: requires ``torch.cuda.is_available()`` (else exit 1) and prints
    the card's name and ``nvidia-smi`` name and power limit;
-2. build: builds the CUDA kernels from ``csrc/`` (into ``build/``) and loads
-   them;
-3. kernels: captures the inputs that the main path hands each kernel
-   (K1-K4) on 32 synthetic 1360x800 frames, runs the kernel and its plain
-   PyTorch version on those same CUDA tensors, requires exact equality,
-   and times both with CUDA events (median of 10 after warm-up);
-4. slice: runs ``DetectionPipeline`` (batch 32, MSER_7_200_2000_1 at the
+2. build: builds the CUDA kernels from ``csrc/`` (into ``build/``, one nvcc
+   per source, in parallel) and loads them;
+3. kernels: captures the inputs that the paths hand each kernel on
+   synthetic 1360x800 frames (K1-K4, K7 on the tuned main path at batch
+   32; K6 on that path's refine windows; K5 on the XLA sweep of the recall
+   config at batch 8 and on the roll-flood refine of the tuned config with
+   ``refine_scan_passes=0`` at batch 32), runs the kernel and its plain
+   PyTorch version on those same CUDA tensors, requires exact equality, and
+   times both with CUDA events (median of 10 after warm-up);
+4. identities: K7's per-level maps folded into ``max((qv << lbits) | t)``
+   equal K3's output on the tuned single-strip windows, and the bbox and
+   area of ``K6(seed map, mask) == 0`` equal K4's output, both exactly
+   (the launches of K6 and K7 are counted here: they are oracles);
+5. slice 1: runs ``DetectionPipeline`` (batch 32, MSER_7_200_2000_1 at the
    tuned ``--downscale 2`` point) for one warm-up and 3 timed batches from
    host frames to detection records, with per-stage CUDA-event times, and
-   requires every kernel to have launched and every frame to have proposals;
-5. slice vs plain: the same pipeline on 2 frames on the CPU (plain
-   versions) must give identical proposals and matching detections.
+   requires K1-K4 to have launched and every frame to have proposals;
+6. slice 2: the same for the ``--pixel_area_stability`` config (XLA sweep,
+   pixel-count stability), requiring K1, K2 and K4 to launch, K3 not to
+   launch and every frame to have proposals; then one batch of 8 of the
+   recall config (requires K5 launches on the sweep) and one batch of 32
+   of the tuned config with the roll-flood refine (requires K5 launches on
+   the refine);
+7. slices vs plain: the tuned path on 2 frames, the pixel-area path on 2
+   frames and the recall path on 1 frame on the CPU (plain versions) must
+   give identical proposals, and the tuned path matching detections.
 
 Then one JSON line with the kernel table, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
@@ -91,6 +105,42 @@ def _time_ms(fn, runs: int = 10) -> float:
     return statistics.median(times)
 
 
+def _recording(calls, mod, attr, key):
+    """Context: wrap ``mod.attr`` so that every call's arguments are kept
+    in ``calls[key(args, kwargs)]``."""
+    orig = getattr(mod, attr)
+
+    def wrapped(*a, **kw):
+        calls[key(a, kw)].append((a, kw))
+        return orig(*a, **kw)
+
+    @contextlib.contextmanager
+    def ctx():
+        setattr(mod, attr, wrapped)
+        try:
+            yield
+        finally:
+            setattr(mod, attr, orig)
+
+    return ctx()
+
+
+def _run_path(rt, label, fn):
+    """Run one path with every launch count set to 0 just before it; return
+    its result and the counts read just after."""
+    rt.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = rt.launch_counts()
+    print(f"[launches] {label}: {counts}")
+    return out, counts
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise AssertionError(msg)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -109,7 +159,13 @@ def main() -> int:
         MeanMaskTemplates,
         templates_to_torch,
     )
-    from opencv_traffic_sign_detector_tpu_torch.ops import clahe_cuda, mser, mser_cuda, prop_cuda
+    from opencv_traffic_sign_detector_tpu_torch.ops import (
+        ccl,
+        clahe_cuda,
+        mser,
+        mser_cuda,
+        prop_cuda,
+    )
     from opencv_traffic_sign_detector_tpu_torch.ops.preprocess import enhance_contrast
     from opencv_traffic_sign_detector_tpu_torch.runtime import build as rt
 
@@ -124,19 +180,26 @@ def main() -> int:
     print(f"[build] {rt.build().relative_to(rt.BUILD_ROOT.parents[1])} "
           f"built and loaded in {time.perf_counter() - t0:.2f} s")
 
-    # main path: MSER_7_200_2000_1, tuned --downscale 2 point, batch 32
-    mcfg = dataclasses.replace(MSERConfig.from_string("MSER_7_200_2000_1"),
-                               downscale=2, ccl_iters=2, level_step=9,
+    # slice 1, the main path: MSER_7_200_2000_1, tuned --downscale 2 point
+    base = MSERConfig.from_string("MSER_7_200_2000_1")
+    mcfg = dataclasses.replace(base, downscale=2, ccl_iters=2, level_step=9,
                                ccl_jumps=0, max_regions=128)
-    cfg = PipelineConfig(mser=mcfg, batch_size=32)
+    # slice 2: main_detection.py --pixel_area_stability (XLA sweep, jumps)
+    pcfg = dataclasses.replace(base, max_regions=128, downscale=2, fused_sweep=False)
+    # the recall config of scripts/proposal_recall.py (XLA sweep, no jumps)
+    rcfg = dataclasses.replace(base, downscale=2, ccl_iters=24, ccl_jumps=0,
+                               level_step=3, max_regions=1024, fused_sweep=False)
+    # the tuned config with the roll-flood refine (--refine_scan 0)
+    fcfg = dataclasses.replace(mcfg, refine_scan_passes=0)
     frames = make_frames(32, 800, 1360, seed=args.seed)
     names = [f"{i:05d}.jpg" for i in range(len(frames))]
     templates = MeanMaskTemplates.load("artifacts/mean_masks.npz")
     red, blue = templates_to_torch(templates, dev)
     frames_dev = torch.from_numpy(frames).to(dev)
 
-    # --- 3. kernels vs plain at the main path's shapes -------------------
-    kernels = [
+    # --- 3. kernels vs plain at the paths' shapes -------------------------
+    pallas_prop = "opencv_traffic_sign_detector_tpu/ops/pallas_prop.py"
+    kernels = [  # launch counter, module, kernel, plain version, source, TPU kernel
         ("tile_histograms", clahe_cuda, "tile_histograms", "tile_histograms_plain",
          "csrc/clahe.cu", "opencv_traffic_sign_detector_tpu/ops/clahe_pallas.py:66"),
         ("clahe_apply", clahe_cuda, "clahe_apply", "clahe_apply_plain",
@@ -144,92 +207,165 @@ def main() -> int:
         ("level_sweep", mser_cuda, "level_sweep_windows", "level_sweep_windows_plain",
          "csrc/mser_sweep.cu", "opencv_traffic_sign_detector_tpu/ops/mser_pallas.py:507"),
         ("flood_bbox", prop_cuda, "flood_bbox", "flood_bbox_plain",
-         "csrc/flood.cu", "opencv_traffic_sign_detector_tpu/ops/pallas_prop.py:234"),
+         "csrc/flood.cu", f"{pallas_prop}:234"),
+        ("propagate_rolls", prop_cuda, "propagate_rolls", "propagate_rolls_plain",
+         "csrc/prop_rolls.cu", f"{pallas_prop}:69"),
+        ("propagate_rolls_refine", prop_cuda, "propagate_rolls", "propagate_rolls_plain",
+         "csrc/prop_rolls.cu", f"{pallas_prop}:69"),
+        ("propagate_scan", prop_cuda, "propagate_scan", "propagate_scan_plain",
+         "csrc/flood.cu", f"{pallas_prop}:137"),
+        ("level_sweep_full", mser_cuda, "fused_level_sweep_full",
+         "fused_level_sweep_full_plain", "csrc/mser_sweep.cu",
+         "opencv_traffic_sign_detector_tpu/ops/mser_pallas.py:569"),
     ]
-    captured = {}
-    originals = {}
-
-    def recorder(name, fn):
-        def wrapped(*a, **kw):
-            captured.setdefault(name, (a, kw))
-            return fn(*a, **kw)
-        return wrapped
-
-    # K4's wrapper is bound into ops/mser.py's namespace at import
-    for name, mod, fn, _, _, _ in kernels:
-        target = mser if fn == "flood_bbox" else mod
-        originals[name] = (target, fn, getattr(target, fn))
-        setattr(target, fn, recorder(name, getattr(target, fn)))
-    try:
-        det.detect_batch(frames_dev, red, blue, cfg)
-    finally:
-        for target, fn, orig in originals.values():
-            setattr(target, fn, orig)
+    calls = defaultdict(list)
+    by_name = lambda name: lambda a, kw: name  # noqa: E731
+    # K4's wrapper and K3's host function are bound into ops/mser.py's
+    # namespace at import, K5 into ops/ccl.py's; K5 calls are keyed by site
+    with contextlib.ExitStack() as stack:
+        for target, attr, key in [
+            (clahe_cuda, "tile_histograms", by_name("tile_histograms")),
+            (clahe_cuda, "clahe_apply", by_name("clahe_apply")),
+            (mser_cuda, "level_sweep_windows", by_name("level_sweep")),
+            (mser, "flood_bbox", by_name("flood_bbox")),
+            (mser, "fused_level_sweep", by_name("sweep_input")),
+            (ccl, "propagate_rolls", lambda a, kw: a[4]),
+        ]:
+            stack.enter_context(_recording(calls, target, attr, key))
+        det.detect_batch(frames_dev, red, blue, PipelineConfig(mser=mcfg))
+        det.detect_batch(frames_dev[:8], red, blue, PipelineConfig(mser=rcfg))
+        det.detect_batch(frames_dev, red, blue, PipelineConfig(mser=fcfg))
     torch.cuda.synchronize()
+
+    inputs = {k: calls[k][0] for k in ("tile_histograms", "clahe_apply", "level_sweep",
+                                       "flood_bbox")}
+    sweep_rolls = calls["propagate_rolls"]  # one call per level of the recall sweep
+    inputs["propagate_rolls"] = (sweep_rolls[len(sweep_rolls) // 2][0][:4], {})
+    inputs["propagate_rolls_refine"] = (calls["propagate_rolls_refine"][0][0][:4], {})
+    planes, cand, win_h, win_w, passes, big = inputs["flood_bbox"][0]
+    mask, seed = prop_cuda.candidate_windows(planes, cand, win_h, win_w)
+    seed_map = torch.where(seed, 0, big).to(torch.int32)
+    inputs["propagate_scan"] = ((seed_map, mask, big, passes), {})
+    im2, scfg, d_idx, num_levels = calls["sweep_input"][0][0]
+    inputs["level_sweep_full"] = ((im2, scfg, d_idx, num_levels), {})
+    del calls, sweep_rolls
 
     table = []
     for name, mod, fn, plain_fn, src, replaces in kernels:
-        a, kw = captured[name]
+        a, kw = inputs[name]
         kern, plain = getattr(mod, fn), getattr(mod, plain_fn)
         got = kern(*a, **kw)
         want = plain(*a, **kw)
         torch.cuda.synchronize()
-        if got.shape != want.shape or got.dtype != want.dtype:
-            raise AssertionError(f"{name}: {got.shape}/{got.dtype} vs plain "
-                                 f"{want.shape}/{want.dtype}")
+        _require(got.shape == want.shape and got.dtype == want.dtype,
+                 f"{name}: {got.shape}/{got.dtype} vs plain {want.shape}/{want.dtype}")
         err = (got.to(torch.int64) - want.to(torch.int64)).abs().max().item()
+        del got, want
         shapes = [tuple(x.shape) for x in a if isinstance(x, torch.Tensor)]
         ms = _time_ms(lambda: kern(*a, **kw))
         plain_ms = _time_ms(lambda: plain(*a, **kw))
-        print(f"[kernel] {name}: inputs {shapes} -> {tuple(got.shape)} "
-              f"max_abs_err {err} (exact required) kernel {ms:.3f} ms "
-              f"plain {plain_ms:.3f} ms")
-        if err != 0:
-            raise AssertionError(f"{name}: kernel differs from its plain version")
+        print(f"[kernel] {name}: inputs {shapes} -> exact required, max_abs_err {err}; "
+              f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms")
+        _require(err == 0, f"{name}: kernel differs from its plain version")
         table.append({"name": name, "route": "cuda",
                       "source": f"opencv_traffic_sign_detector_tpu_torch/{src}",
                       "replaces": replaces, "launches": 0,
                       "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms})
+    rows = {row["name"]: row for row in table}
 
-    # --- 4. the slice through DetectionPipeline --------------------------
-    timer = CudaStageTimer()
-    pipe = det.DetectionPipeline(cfg=cfg, templates=templates, device=dev)
-    rt.reset_launch_counts()
-    pipe.detect_frames(frames, names)  # warm-up batch
-    torch.cuda.synchronize()
-    pipe.timer = timer
-    batch_s = []
-    for _ in range(3):
+    # --- 4. identities between kernels ---------------------------------
+    def identities():
+        windows, params, core, halo, nl, lbits = inputs["level_sweep"][0]
+        _require(halo == 0 and core == windows.shape[1],
+                 f"tuned sweep is not single-strip: core {core} halo {halo}")
+        _require(mser_cuda.SweepParams.from_config(scfg, d_idx) == params,
+                 "K3's captured parameters differ from the sweep config's")
+        k3 = mser_cuda.level_sweep_windows(windows, params, core, halo, nl, lbits)
+        k7 = mser_cuda.fused_level_sweep_full(windows, scfg, d_idx, nl)
+        fold = torch.zeros_like(k3)
+        for t in range(nl):
+            fold = torch.maximum(fold, k7[:, t].to(torch.int32) * (1 << lbits) + t)
+        fold_ok = torch.equal(fold, k3)
+        k4 = prop_cuda.flood_bbox(planes, cand, win_h, win_w, passes, big)
+        k6 = prop_cuda.propagate_scan(seed_map, mask, big, passes)
+        bbox_ok = torch.equal(prop_cuda.bbox_area(k6 == 0, big), k4)
+        print(f"[identity] K7 fold == K3 on {tuple(windows.shape)} windows, {nl} levels: "
+              f"{fold_ok}; bbox(K6 == 0) == K4 on {tuple(seed_map.shape)}: {bbox_ok}")
+        _require(fold_ok and bbox_ok, "an identity between kernels failed")
+
+    _, counts = _run_path(rt, "identities (K6, K7 as oracles)", identities)
+    for name in ("propagate_scan", "level_sweep_full"):
+        rows[name]["launches"] = counts[name]
+        _require(counts[name] > 0, f"{name} never launched")
+
+    # --- 5. slice 1 through DetectionPipeline -----------------------------
+    def run_slice(label, mcfg_, batch, timed):
+        """One warm-up batch, then ``timed`` timed batches of ``batch`` host
+        frames; prints frames/s, stage ms and proposals per frame."""
+        pipe = det.DetectionPipeline(cfg=PipelineConfig(mser=mcfg_, batch_size=batch),
+                                     templates=templates, device=dev)
+        host = frames[:batch]
+        pipe.detect_frames(host, names[:batch])  # warm-up batch
+        torch.cuda.synchronize()
+
+        def timed_run():
+            timer = CudaStageTimer()
+            pipe.timer = timer
+            batch_s = []
+            for _ in range(timed):
+                t0 = time.perf_counter()
+                dets = pipe.detect_frames(host, names[:batch])
+                batch_s.append(time.perf_counter() - t0)
+            return dets, batch_s, timer.per_batch_ms(timed)
+
+        (dets, batch_s, stage_ms), counts = _run_path(rt, label, timed_run)
+        props, pvalid = mser.mser_regions(enhance_contrast(frames_dev[:batch]), mcfg_)
+        per_frame = pvalid.sum(-1).cpu().numpy()
+        fps = batch / statistics.median(batch_s)
+        print(f"[{label}] batch {batch} of 1360x800: {fps:.2f} frames/s "
+              f"(batch s {', '.join(f'{s:.4f}' for s in batch_s)}); stage ms per batch "
+              + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items())
+              + f"; proposals/frame min {per_frame.min()} mean {per_frame.mean():.2f}; "
+              f"detections {len(dets)}")
+        _require(not (per_frame < 1).any(),
+                 f"{label}: frames without proposals: {np.nonzero(per_frame < 1)[0]}")
+        _require(all(np.isfinite(d.score) and 1 <= d.class_id <= 6 for d in dets),
+                 f"{label}: malformed detection records")
+        return props, pvalid, dets, counts
+
+    props, pvalid, dets, counts = run_slice("slice", mcfg, 32, 3)
+    for name in ("tile_histograms", "clahe_apply", "level_sweep", "flood_bbox"):
+        rows[name]["launches"] = counts[name]
+        _require(counts[name] > 0, f"slice 1: {name} never launched")
+
+    # --- 6. slice 2: the XLA sweep paths ---------------------------------
+    pprops, ppvalid, _, counts = run_slice("slice2 pixel_area", pcfg, 32, 3)
+    for name in ("tile_histograms", "clahe_apply", "flood_bbox"):
+        _require(counts[name] > 0, f"slice 2: {name} never launched")
+    _require(counts["level_sweep"] == 0, "slice 2 launched the fused sweep K3")
+    rprops, rpvalid, _, counts = run_slice("slice2 recall", rcfg, 8, 1)
+    rows["propagate_rolls"]["launches"] = counts["propagate_rolls"]
+    _require(counts["propagate_rolls"] > 0 and counts["level_sweep"] == 0,
+             "recall config: K5 never launched on the sweep, or K3 did")
+    _, _, _, counts = run_slice("slice2 roll refine", fcfg, 32, 1)
+    rows["propagate_rolls_refine"]["launches"] = counts["propagate_rolls_refine"]
+    _require(counts["propagate_rolls_refine"] > 0 and counts["flood_bbox"] == 0,
+             "roll refine: K5 never launched on the refine, or K4 did")
+
+    # --- 7. slices vs plain on the CPU -----------------------------------
+    for label, cfg_, n, (p_dev, v_dev) in [("slice", mcfg, 2, (props, pvalid)),
+                                           ("slice2 pixel_area", pcfg, 2, (pprops, ppvalid)),
+                                           ("slice2 recall", rcfg, 1, (rprops, rpvalid))]:
         t0 = time.perf_counter()
-        dets = pipe.detect_frames(frames, names)
-        batch_s.append(time.perf_counter() - t0)
-    counts = rt.launch_counts()
-    stage_ms = timer.per_batch_ms(3)
-    for row in table:
-        row["launches"] = counts[row["name"]]
+        p_cpu, v_cpu = mser.mser_regions(enhance_contrast(torch.from_numpy(frames[:n])), cfg_)
+        same = torch.equal(p_dev[:n].cpu(), p_cpu) and torch.equal(v_dev[:n].cpu(), v_cpu)
+        print(f"[{label} vs plain] {n} frame(s) on the CPU in "
+              f"{time.perf_counter() - t0:.1f} s: proposals identical {same} "
+              f"({int(v_cpu.sum())} valid)")
+        _require(same, f"{label}: proposals on the card differ from the CPU plain path")
 
-    props, pvalid = mser.mser_regions(enhance_contrast(frames_dev), mcfg)
-    per_frame = pvalid.sum(-1).cpu().numpy()
-    fps = len(frames) / statistics.median(batch_s)
-    print(f"[slice] batch 32 of 1360x800: {fps:.2f} frames/s "
-          f"(batch s {', '.join(f'{s:.4f}' for s in batch_s)}); stage ms per batch "
-          + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items())
-          + f"; proposals/frame min {per_frame.min()} mean {per_frame.mean():.2f}; "
-          f"detections {len(dets)}; launches {counts}")
-    if any(v <= 0 for v in counts.values()):
-        raise AssertionError(f"a kernel of the path never launched: {counts}")
-    if (per_frame < 1).any():
-        raise AssertionError(f"frames without proposals: {np.nonzero(per_frame < 1)[0]}")
-    if not all(np.isfinite(d.score) and 1 <= d.class_id <= 6 for d in dets):
-        raise AssertionError("malformed detection records")
-
-    # --- 5. slice vs plain on 2 frames -----------------------------------
-    cpu = torch.device("cpu")
-    props_c, pvalid_c = mser.mser_regions(enhance_contrast(torch.from_numpy(frames[:2])), mcfg)
-    if not (torch.equal(props[:2].cpu(), props_c) and torch.equal(pvalid[:2].cpu(), pvalid_c)):
-        raise AssertionError("proposals on the card differ from the CPU plain slice")
-    cpu_dets = det.DetectionPipeline(cfg=cfg, templates=templates,
-                                     device=cpu).detect_frames(frames[:2], names[:2])
+    cpu_dets = det.DetectionPipeline(cfg=PipelineConfig(mser=mcfg), templates=templates,
+                                     device="cpu").detect_frames(frames[:2], names[:2])
     gpu_dets = [d for d in dets if d.filename in names[:2]]
 
     def iou(a, b):
@@ -242,13 +378,10 @@ def main() -> int:
     ok = len(cpu_dets) == len(gpu_dets) and all(
         a.filename == b.filename and a.class_id == b.class_id and iou(a, b) >= 0.99
         for a, b in zip(gpu_dets, cpu_dets))
-    print(f"[slice-vs-plain] 2 frames: proposals identical "
-          f"({int(pvalid_c.sum())} valid); detections card {len(gpu_dets)} "
+    print(f"[slice vs plain detections] 2 frames: card {len(gpu_dets)} "
           f"cpu {len(cpu_dets)} match {ok}")
-    if not ok:
-        raise AssertionError(f"detections differ: card {gpu_dets} cpu {cpu_dets}")
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    _require(ok, f"detections differ: card {gpu_dets} cpu {cpu_dets}")
+    _require("jax" not in sys.modules, "the port imported jax")
 
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -3,7 +3,8 @@
 test directory.
 
 Same grammar and output files as ``main_detection.py`` for the MSER
-detector, plus ``--device`` (default ``cuda``; ``cpu`` runs the kernels'
+detector (``--pixel_area_stability`` and every ``--downscale`` included),
+plus ``--device`` (default ``cuda``; ``cpu`` runs the kernels'
 plain PyTorch versions):
 
     python main_detection_torch.py --detector MSER_7_200_2000_1 \
@@ -99,30 +100,34 @@ def main(argv=None) -> int:
     parser.add_argument("--cnn_params", default="artifacts/cnn_detector/params.npz",
                         help="weights for --detector CNN (not ported)")
     parser.add_argument("--pixel_area_stability", action="store_true",
-                        help="XLA pixel-area sweep (not ported)")
+                        help="use OpenCV's exact pixel-count stability "
+                             "semantics (the XLA level sweep with per-level "
+                             "component-area counts) instead of the fused "
+                             "sweep's bbox-area substitute; slower")
     args = parser.parse_args(argv)
 
     if args.detector.upper().startswith("CNN"):
-        return _not_ported("The CNN detector", "slice 2")
+        return _not_ported("The CNN detector", "slice 3")
     if args.n_devices:
-        return _not_ported("Multi-device sharding (--n_devices)", "slice 5")
-    if args.pixel_area_stability:
-        return _not_ported("The XLA pixel-area sweep (--pixel_area_stability)",
-                           "slice 5")
+        return _not_ported("Multi-device sharding (--n_devices)", "slice 7")
     if args.trace_dir:
-        return _not_ported("Profiler traces (--trace_dir)", "slice 5")
+        return _not_ported("Profiler traces (--trace_dir)", "slice 7")
 
     try:
         mser = MSERConfig.from_string(args.detector)
     except ConfigError as e:
         print(f"Invalid detector spec: {e}\n{USAGE_HINT}")
         return 2
-    if args.downscale > 1:
-        # fused-kernel tuned operating point, as in main_detection.py
+    # config selection copied from main_detection.py
+    if args.downscale > 1 and not args.pixel_area_stability:
+        # fused-kernel tuned operating point
         mser = dataclasses.replace(mser, downscale=args.downscale, ccl_iters=2,
                                    level_step=9, ccl_jumps=0)
     if args.max_regions:
         mser = dataclasses.replace(mser, max_regions=args.max_regions)
+    if args.pixel_area_stability:
+        # the XLA sweep keeps its own tuned params (iters 8, auto level step)
+        mser = dataclasses.replace(mser, downscale=args.downscale, fused_sweep=False)
     cfg = PipelineConfig(mser=mser, batch_size=args.batch_size)
     train_path = args.train_path.replace("\\", "/")
     test_path = args.test_path.replace("\\", "/")

@@ -16,6 +16,11 @@
 // warps per block) and the 16 KB window read; 4096 windows fill the card
 // about 30 blocks deep.  Output is [N,5] int32 (ymin, ymax, xmin, xmax,
 // area); an empty component gives (big, -1, big, -1, 0) like the reference.
+//
+// K6 below replaces pallas_prop.py: propagate_scan_pallas (_scan_kernel),
+// K4's flood without the reduction: one block per [<=128, <=128] plane
+// resolves int32 key runs in shared memory (66 KB of keys, dynamic) and
+// writes the keys back.  Bound like K4 by the sequential run walks.
 #include "tsd_common.cuh"
 
 namespace {
@@ -121,7 +126,75 @@ __global__ void flood_bbox_kernel(const uint8_t* __restrict__ planes,
     if (threadIdx.x < 5) out[n * 5 + threadIdx.x] = red[threadIdx.x];
 }
 
+// K6 (propagate_scan): the same H,V,...,H run resolves on int32 keys, each
+// run taking the minimum key of its pixels, and the resolved keys written
+// out instead of reduced.  Equal to the reference's Hillis-Steele doubling
+// when the plane's border rows and columns are masked off (its documented
+// precondition): runs then never wrap.
+constexpr int kKeyStride = 129;  // words: odd, so row and column walks are conflict-free
+
+__device__ void min_runs(const uint8_t* m, int32_t* k, int n_lines, int len,
+                         int m_line, int m_step, int k_line, int k_step) {
+    const int line = threadIdx.x;
+    if (line >= n_lines) return;
+    const uint8_t* ml = m + line * m_line;
+    int32_t* kl = k + line * k_line;
+    int i = 0;
+    while (i < len) {
+        if (!ml[i * m_step]) {
+            ++i;
+            continue;
+        }
+        const int start = i;
+        int mn = kl[i * k_step];
+        while (i < len && ml[i * m_step]) mn = min(mn, kl[(i++) * k_step]);
+        for (int j = start; j < i; ++j) kl[j * k_step] = mn;
+    }
+}
+
+__global__ void propagate_scan_kernel(const int32_t* __restrict__ keys,
+                                      const uint8_t* __restrict__ mask,
+                                      int32_t* __restrict__ out, int h, int w,
+                                      int passes, int big) {
+    extern __shared__ int32_t ks[];
+    uint8_t* m = reinterpret_cast<uint8_t*>(ks + kWin * kKeyStride);
+    const long long base = (long long)blockIdx.x * h * w;
+    for (int i = threadIdx.x; i < h * w; i += blockDim.x) {
+        const int r = i / w, c = i - r * w;
+        const bool mk = mask[base + i] != 0;
+        m[r * kStride + c] = mk;
+        ks[r * kKeyStride + c] = mk ? keys[base + i] : big;
+    }
+    __syncthreads();
+    for (int k = 0; k <= passes; ++k) {
+        min_runs(m, ks, h, w, kStride, 1, kKeyStride, 1);  // rows
+        __syncthreads();
+        if (k == passes) break;
+        min_runs(m, ks, w, h, 1, kStride, 1, kKeyStride);  // columns
+        __syncthreads();
+    }
+    for (int i = threadIdx.x; i < h * w; i += blockDim.x) {
+        const int r = i / w, c = i - r * w;
+        out[base + i] = ks[r * kKeyStride + c];
+    }
+}
+
+constexpr int kScanSmem = kWin * kKeyStride * 4 + kWin * kStride;
+
 }  // namespace
+
+// keys, out: i32 [n, h, w]; mask: u8 [n, h, w]; h, w <= 128
+TSD_API int tsd_propagate_scan(const void* keys, const void* mask, void* out, int n,
+                               int h, int w, int passes, int big, void* stream) {
+    if (h > kWin || w > kWin) return (int)cudaErrorInvalidValue;
+    if (n == 0) return (int)cudaGetLastError();
+    cudaError_t e = cudaFuncSetAttribute(
+        propagate_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kScanSmem);
+    if (e != cudaSuccess) return (int)e;
+    propagate_scan_kernel<<<n, kWin, kScanSmem, (cudaStream_t)stream>>>(
+        (const int32_t*)keys, (const uint8_t*)mask, (int32_t*)out, h, w, passes, big);
+    return (int)cudaGetLastError();
+}
 
 // planes: u8 [np, h, w]; cand: i32 [n, 6]; out: i32 [n, 5]
 TSD_API int tsd_flood_bbox(const void* planes, const void* cand, void* out, int n,

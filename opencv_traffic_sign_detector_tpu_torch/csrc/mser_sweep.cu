@@ -27,6 +27,13 @@
 //   division is IEEE f32 (never build with --use_fast_math).
 // * Output comes only from the core rows: max over levels of
 //   (qv << lbits) | t.
+//
+// K7 (tsd_level_sweep_full) replaces mser_pallas.py: fused_level_sweep_full
+// (_full_kernel), the same body over one strip per plane (no halo, the
+// plane's real width) writing each level's byte qv, cast through int32 to
+// u8, for every row into [P, L, H, W] instead of folding the running max.
+// It is the reference's oracle that pairs K3 with the XLA sweep; it adds
+// one byte per pixel per level of writes to K3's traffic.
 #include <cuda_bf16.h>
 
 #include "tsd_common.cuh"
@@ -75,7 +82,7 @@ __global__ void sweep_init_kernel(const uint8_t* __restrict__ win, Planes s,
             // area ring and last-emit start at 0, the variation ring at inf
             rings[(long long)k * g.total + p] = __float2bfloat16_rn(0.0f);
         }
-        if (row >= g.halo && row < g.halo + g.core) {
+        if (out != nullptr && row >= g.halo && row < g.halo + g.core) {
             out[(p / hw) * (long long)g.core * g.w + (long long)(row - g.halo) * g.w + col] = 0;
         }
     } else {
@@ -137,9 +144,10 @@ __global__ void sweep_emit_kernel(const uint8_t* __restrict__ win, Planes s,
                                   __nv_bfloat16* __restrict__ aring,
                                   __nv_bfloat16* __restrict__ vring,
                                   __nv_bfloat16* __restrict__ lastemit,
-                                  int32_t* __restrict__ out, Geometry g,
-                                  int level, int t, int lbits, Slots sl,
-                                  Thresholds th) {
+                                  int32_t* __restrict__ out,
+                                  uint8_t* __restrict__ full, Geometry g,
+                                  int level, int t, int num_levels, int lbits,
+                                  Slots sl, Thresholds th) {
     const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (p >= g.total) return;
     const int hw = g.r * g.w;
@@ -178,7 +186,11 @@ __global__ void sweep_emit_kernel(const uint8_t* __restrict__ win, Planes s,
     aring[(long long)sl.write_a * g.total + p] = __float2bfloat16_rn(a_cur);
     vring[(long long)sl.v_new * g.total + p] = __float2bfloat16_rn(v_new);
 
-    if (row >= g.halo && row < g.halo + g.core) {
+    if (full != nullptr) {
+        // K7: every row's byte of this level, qv cast through int32
+        full[((p / hw) * num_levels + t) * (long long)hw + local] =
+            (uint8_t)(int)(cand ? qv : 0.0f);
+    } else if (row >= g.halo && row < g.halo + g.core) {
         const int packed = (int)(cand ? qv : 0.0f) * (1 << lbits) + t;
         int32_t* o = out + (p / hw) * (long long)g.core * g.w +
                      (long long)(row - g.halo) * g.w + col;
@@ -191,17 +203,12 @@ __global__ void fill_inf_kernel(__nv_bfloat16* __restrict__ x, long long n) {
     if (p < n) x[p] = __float2bfloat16_rn(__int_as_float(0x7f800000));
 }
 
-}  // namespace
-
-// win: u8 [n, r, w]; out: i32 [n, core, w]; state: i32 [2, 5, n, r, w]
-// (ping-pong planes keys, ymin, xmin, ymax, xmax); rings: bf16
-// [d + 1 + 2 + 1, n, r, w] (area ring, variation ring, last-emit).
-TSD_API int tsd_level_sweep(const void* win, void* out, void* state, void* rings,
-                            int n, int r, int w, int core, int halo,
-                            int num_levels, int step, int d, int num_passes,
-                            int lbits, float min_area, float max_area,
-                            float max_variation, float min_diversity,
-                            void* stream) {
+// The host loop over levels.  Exactly one of `out` (K3: level-collapsed
+// core rows) and `full` (K7: every level's byte map) is non-null.
+int run_sweep(const void* win, int32_t* o, uint8_t* full, void* state, void* rings,
+              int n, int r, int w, int core, int halo, int num_levels, int step,
+              int d, int num_passes, int lbits, float min_area, float max_area,
+              float max_variation, float min_diversity, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     Geometry g{n, r, w, core, halo, (long long)n * r * w};
     const long long total = g.total;
@@ -217,7 +224,6 @@ TSD_API int tsd_level_sweep(const void* win, void* out, void* state, void* rings
     Thresholds th{min_area, max_area, max_variation, min_diversity};
     const int blocks = tsd_blocks(total, kThreads);
     const uint8_t* w8 = (const uint8_t*)win;
-    int32_t* o = (int32_t*)out;
 
     for (int t = 0; t < num_levels; ++t) {
         const int level = t * step;
@@ -242,8 +248,36 @@ TSD_API int tsd_level_sweep(const void* win, void* out, void* state, void* rings
         sl.v_c = 1 - sl.v_new;
         sl.write_a = t % nring;
         sweep_emit_kernel<<<blocks, kThreads, 0, st>>>(w8, cur, aring, vring,
-                                                       lastemit, o, g, level, t,
-                                                       lbits, sl, th);
+                                                       lastemit, o, full, g, level,
+                                                       t, num_levels, lbits, sl, th);
     }
     return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// win: u8 [n, r, w]; out: i32 [n, core, w]; state: i32 [2, 5, n, r, w]
+// (ping-pong planes keys, ymin, xmin, ymax, xmax); rings: bf16
+// [d + 1 + 2 + 1, n, r, w] (area ring, variation ring, last-emit).
+TSD_API int tsd_level_sweep(const void* win, void* out, void* state, void* rings,
+                            int n, int r, int w, int core, int halo,
+                            int num_levels, int step, int d, int num_passes,
+                            int lbits, float min_area, float max_area,
+                            float max_variation, float min_diversity,
+                            void* stream) {
+    return run_sweep(win, (int32_t*)out, nullptr, state, rings, n, r, w, core, halo,
+                     num_levels, step, d, num_passes, lbits, min_area, max_area,
+                     max_variation, min_diversity, stream);
+}
+
+// K7: one strip per plane, no halo.  win: u8 [n, r, w]; full: u8
+// [n, num_levels, r, w]; state and rings as above.
+TSD_API int tsd_level_sweep_full(const void* win, void* full, void* state, void* rings,
+                                 int n, int r, int w, int num_levels, int step, int d,
+                                 int num_passes, float min_area, float max_area,
+                                 float max_variation, float min_diversity,
+                                 void* stream) {
+    return run_sweep(win, nullptr, (uint8_t*)full, state, rings, n, r, w, r, 0,
+                     num_levels, step, d, num_passes, 0, min_area, max_area,
+                     max_variation, min_diversity, stream);
 }

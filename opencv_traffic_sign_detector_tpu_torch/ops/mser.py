@@ -1,17 +1,24 @@
-"""MSER region proposals, fused-sweep branch, batched over frames.
+"""MSER region proposals, batched over frames.
 
 Counterpart of ``opencv_traffic_sign_detector_tpu/ops/mser.py:
-mser_regions`` on its fused branch: optional 2x2-mean downscale (area
-thresholds / 4), the 255-bordered polarity stack, the fused level sweep
-(kernel K3), the pooled top-k over the level-collapsed map, and the
-native-resolution seed flood refine (kernel K4) with the exact pixel-area
-window.  Frames are a batch dimension throughout; there is no loop over
-frames.
+mser_regions``: optional 2x2-mean downscale (area thresholds / 4), the
+255-bordered polarity stack, then one of two sweeps:
 
-The XLA sweep (pixel-area stability, ``fused_sweep=False``), the low-res
-refine (``sweep_res_pipeline``), the extent-only and scan-pass sweep
-variants and the roll-based refine flood (``refine_scan_passes=0``) are not
-ported yet (ROADMAP queue 1, slice 5); configs that ask for them raise
+* the fused sweep (kernel K3) with the pooled top-k over its
+  level-collapsed map, when ``cfg.fused_sweep``, ``cfg.ccl_jumps == 0`` and
+  the frame has a strip plan;
+* otherwise the XLA level sweep (:func:`_level_sweep`: pixel-count
+  stability, propagation by :func:`.ccl.propagate_min_keys` with kernel K5)
+  with an exact top-k over every level's byte map;
+
+and the native-resolution refine: the seed flood (kernel K4) when
+``refine_scan_passes > 0``, else the roll flood (kernel K5).  The exact
+pixel-area window is applied after the refine on the fused branch only, as
+in the reference.  Frames are a batch dimension throughout; the XLA sweep
+loops over levels, not frames.
+
+The low-res refine (``sweep_res_pipeline``) and the extent-only and
+scan-pass sweep variants are not ported; configs that ask for them raise
 ``NotImplementedError``.
 """
 
@@ -24,28 +31,29 @@ import torch
 
 from opencv_traffic_sign_detector_tpu.config import MSERConfig
 
+from .ccl import propagate_min_keys
 from .mser_cuda import fused_level_sweep, packing_bits, plan_halo, sweep_plan
-from .prop_cuda import flood_bbox
+from .prop_cuda import bbox_area, candidate_windows, flood_bbox
 
 _WIN = 128
+# Roll-flood radius of the refine: two rounds of 48 passes, as the reference's
+_REFINE_ROLLS = 48
+# The XLA sweep's top-k key: (byte << 40) | (2^40 - 1 - flat index)
+_IDX_BITS = 40
 
 
 def check_supported(cfg: MSERConfig) -> None:
-    """Raise NotImplementedError for MSER options outside this port slice."""
+    """Raise NotImplementedError for MSER options outside the port."""
     unported = {
-        "fused_sweep=False (XLA pixel-area sweep)": not cfg.fused_sweep,
-        "ccl_jumps > 0 (XLA sweep)": cfg.ccl_jumps != 0,
         "sweep_res_pipeline": cfg.sweep_res_pipeline,
         "sweep_extent_only": cfg.sweep_extent_only,
         "scan_passes > 0": cfg.scan_passes > 0,
-        "refine_scan_passes=0 (roll flood, kernel K5)": cfg.refine_scan_passes <= 0,
     }
     missing = [name for name, hit in unported.items() if hit]
     if missing:
         raise NotImplementedError(
             f"MSER option(s) {', '.join(missing)} are not ported to the "
-            "PyTorch/CUDA package yet (ROADMAP.md queue 1, slice 5: off-path "
-            "modes)")
+            "PyTorch/CUDA package (ROADMAP.md queue 1, do-not-port list)")
 
 
 def stage_scope(timer, name: str):
@@ -101,31 +109,148 @@ def pooled_topk_packed(cmap: torch.Tensor, cfg: MSERConfig, num_levels: int,
     return seeds, level_vals.long(), pol_idx, valid
 
 
+def _level_sweep(im2: torch.Tensor, cfg: MSERConfig, d_idx: int, num_levels: int):
+    """The XLA level sweep with pixel-count stability.
+
+    im2: [B, 2, H, W] uint8 padded polarity stacks.  Yields, for scan step
+    t, the byte map sb uint8 [B, 2, H, W]: 0 = not a candidate, else the
+    quantized stability (higher = more stable) at each component's anchor
+    pixel, for level ``t*step - (d_idx+1)*step``.  Counterpart of the
+    reference's ``_level_sweep`` (its ``[L, 2, H*W]`` output, one level at a
+    time).
+    """
+    b, p, h, w = im2.shape
+    hw = h * w
+    big = 256 * hw  # 2.8e8 at native 802x1362: int32 keys suffice
+    dev = im2.device
+    s = cfg.level_step if cfg.level_step > 0 else cfg.delta
+    im = im2.to(torch.int32)
+    idx = torch.arange(hw, dtype=torch.int32, device=dev).reshape(h, w)
+    keys0 = im * hw + idx
+    plane_off = (torch.arange(b * p, device=dev) * hw).reshape(b, p, 1, 1)
+
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+
+    # comparisons and products with config floats round them to f32 first,
+    # as JAX's weak typing does
+    max_var, min_div = f32(cfg.max_variation), f32(cfg.min_diversity)
+    one, inf, c253, c254 = f32(1.0), f32(float("inf")), f32(253.0), f32(254.0)
+    keys = torch.full_like(keys0, big)
+    # rings, oldest first: a_ring = A[t-d-1] .. A[t-1], v_ring = V[t-d-2], V[t-d-1]
+    a_ring = [torch.zeros_like(keys0) for _ in range(d_idx + 1)]
+    v_ring = [torch.full(im.shape, float("inf"), dtype=torch.float32, device=dev)] * 2
+    last_emit = torch.zeros(im.shape, dtype=torch.float32, device=dev)
+
+    for t in range(num_levels):
+        mask = im <= t * s
+        keys_in = torch.where(mask, torch.minimum(keys, keys0), big)
+        keys = propagate_min_keys(keys_in, mask, big, num_rolls=cfg.ccl_iters,
+                                  num_jumps=cfg.ccl_jumps, edges_safe=True)
+        # area counts at anchor pixels.  Background pixels add 0 to their
+        # own slot: the reference's shared dump slot would serialise most
+        # of the atomic adds on one address per plane (5.8x slower on an
+        # H100, PERF.md)
+        slot = torch.where(mask, keys % hw, idx) + plane_off
+        counts = torch.zeros(b * p * hw, dtype=torch.int32, device=dev)
+        counts.index_add_(0, slot.reshape(-1), mask.reshape(-1).to(torch.int32))
+        a_cur = counts.reshape(b, p, h, w).clamp(max=65535)  # the reference's uint16
+
+        # V[t-d] on the seed chain.  The divisor is a tensor, so this is a
+        # true division under jit too (no reciprocal rewrite).
+        a_td, a_t = a_ring[1].to(torch.float32), a_cur.to(torch.float32)
+        v_new = torch.where((a_td > 0) & (a_t > 0),
+                            (a_t - a_td) / torch.maximum(a_td, one), inf)
+        # candidates for level t-d-1
+        v_c, area_c = v_ring[1], a_ring[0]
+        cand = ((area_c >= cfg.min_area) & (area_c <= cfg.max_area) & (v_c < max_var)
+                & (v_c <= v_ring[0]) & (v_c <= v_new))
+        area_f = area_c.to(torch.float32)
+        diverse = (last_emit <= 0) | ((area_f - last_emit)
+                                      >= min_div * torch.maximum(area_f, one))
+        cand = cand & diverse
+        last_emit = torch.where(cand, area_f, last_emit)
+        qv = torch.clamp(c254 - torch.floor(v_c * c253), 1.0, 254.0)
+        yield torch.where(cand, qv, 0.0).to(torch.uint8)
+
+        a_ring = a_ring[1:] + [a_cur]
+        v_ring = [v_ring[1], v_new]
+
+
+def _sweep_topk(im2: torch.Tensor, cfg: MSERConfig, d_idx: int, num_levels: int,
+                timer=None):
+    """Top ``max_regions`` of each frame's [L, 2, H*W] byte map, as
+    ``lax.top_k`` over the flat map gives them (ties: lower index first).
+
+    Each level's top-k is taken as the level is emitted and merged into the
+    running top-k; under the total order of the packed key (byte, inverted
+    flat index) every element of the global top-k is in its own level's
+    top-k, so this is exact without materialising the map.
+    -> (seeds_yx [B, N, 2], level_vals [B, N], pol_idx [B, N], valid [B, N]).
+    """
+    b, p, h, w = im2.shape
+    hw, per_level = h * w, p * h * w
+    n = cfg.max_regions
+    low = (1 << _IDX_BITS) - 1
+    inv_idx = low - torch.arange(per_level, dtype=torch.int64, device=im2.device)
+    best = None
+    levels = _level_sweep(im2, cfg, d_idx, num_levels)
+    for t in range(num_levels):
+        with stage_scope(timer, "sweep"):
+            sb = next(levels)
+        with stage_scope(timer, "topk"):
+            packed = (sb.reshape(b, per_level).to(torch.int64) << _IDX_BITS) | (
+                inv_idx - t * per_level)
+            top = torch.topk(packed, min(n, per_level), dim=1).values
+            if best is not None:
+                top = torch.cat([best, top], dim=1)
+                top = torch.topk(top, min(n, top.shape[1]), dim=1).values
+            best = top
+    with stage_scope(timer, "topk"):
+        valid = (best >> _IDX_BITS) > 0
+        flat = low - (best & low)
+        t_idx = flat // per_level
+        rem = flat - t_idx * per_level
+        pol_idx = rem // hw
+        q = rem - pol_idx * hw
+        s = cfg.level_step if cfg.level_step > 0 else cfg.delta
+        level_vals = torch.clamp(t_idx * s - (d_idx + 1) * s, min=0)
+        seeds = torch.stack([q // w, q % w], dim=-1)
+    return seeds, level_vals, pol_idx, valid
+
+
 def sweep_candidates(gray: torch.Tensor, cfg: MSERConfig, timer=None):
-    """Run the fused level sweep on [B, H, W] frames; top-k candidates."""
+    """Level sweep on [B, H, W] frames; top-k candidates.
+
+    -> (seeds_yx [B, N, 2] padded coords, level_vals [B, N], pol_idx
+    [B, N], valid [B, N], fused): the fused sweep (K3) when the config and
+    the frame allow it, else the XLA sweep.
+    """
     s = cfg.level_step if cfg.level_step > 0 else cfg.delta
     d_idx = max(1, round(cfg.delta / s))
     num_levels = len(range(0, 256 + (d_idx + 1) * s + 1, s))
     b = gray.shape[0]
     with stage_scope(timer, "sweep"):
         im2 = pad_pol(gray)
-        _, _, h, w = im2.shape
-        if sweep_plan(h, w, cfg.topk_pool, plan_halo(cfg)) is None:
-            raise NotImplementedError(
-                f"frame {h}x{w} has no strip plan; the XLA sweep that would "
-                "take it is not ported yet (ROADMAP.md queue 1, slice 5)")
+    _, _, h, w = im2.shape
+    fused = (cfg.fused_sweep and cfg.ccl_jumps == 0
+             and sweep_plan(h, w, cfg.topk_pool, plan_halo(cfg)) is not None)
+    if not fused:
+        return (*_sweep_topk(im2, cfg, d_idx, num_levels, timer), False)
+    with stage_scope(timer, "sweep"):
         cmap = fused_level_sweep(im2.reshape(b * 2, h, w), cfg, d_idx, num_levels)
     with stage_scope(timer, "topk"):
         out = pooled_topk_packed(cmap.reshape((b, 2) + cmap.shape[1:]), cfg,
                                  num_levels, d_idx)
-    return out
+    return (*out, True)
 
 
 def _refine_boxes(im2: torch.Tensor, seeds_yx: torch.Tensor, levels: torch.Tensor,
                   polarity: torch.Tensor, passes: int, seed_slack: int = 0,
                   win: int = _WIN):
     """Per candidate: flood its seed's component in a window centred on the
-    seed at its level; bbox + pixel area.
+    seed at its level; bbox + pixel area.  ``passes > 0``: that many seed
+    flood scan passes (K4); else the roll flood (K5).
 
     im2: [B, 2, H, W] uint8 padded polarity stacks; seeds_yx [B, N, 2],
     levels / polarity [B, N].  -> (boxes_xywh [B, N, 4], areas [B, N]).
@@ -155,9 +280,17 @@ def _refine_boxes(im2: torch.Tensor, seeds_yx: torch.Tensor, levels: torch.Tenso
         sy = py + off // k
         sx = px + off % k
     cand = torch.stack([plane, y0, x0, sy, sx, levels], dim=-1)
-    out = flood_bbox(planes, cand.reshape(b * n, 6).to(torch.int32).contiguous(),
-                     win_h, win_w, passes, big).reshape(b, n, 5).long()
-    ymin, ymax, xmin, xmax, area = out.unbind(-1)
+    cand = cand.reshape(b * n, 6).to(torch.int32).contiguous()
+    if passes > 0:
+        out = flood_bbox(planes, cand, win_h, win_w, passes, big)
+    else:  # roll flood of radius 2 * _REFINE_ROLLS over materialised windows
+        mask, seed = candidate_windows(planes, cand, win_h, win_w)
+        seed_map = torch.where(seed, 0, big).to(torch.int32)
+        reach = propagate_min_keys(seed_map, mask, big, num_rolls=_REFINE_ROLLS,
+                                   num_jumps=0, edges_safe=True,
+                                   site="propagate_rolls_refine")
+        out = bbox_area(reach == 0, big)
+    ymin, ymax, xmin, xmax, area = out.reshape(b, n, 5).long().unbind(-1)
     boxes = torch.stack([x0 + xmin, y0 + ymin, xmax - xmin + 1, ymax - ymin + 1], dim=-1)
     return boxes, area
 
@@ -180,17 +313,19 @@ def mser_regions(gray: torch.Tensor, cfg: MSERConfig, timer=None):
         sub_cfg = dataclasses.replace(
             cfg, min_area=max(cfg.min_area // (ds * ds), 1),
             max_area=max(cfg.max_area // (ds * ds), 1), downscale=1)
-        seeds_s, level_vals, pol_idx, valid = sweep_candidates(small, sub_cfg, timer)
+        seeds_s, level_vals, pol_idx, valid, fused = sweep_candidates(small, sub_cfg, timer)
         seeds = (seeds_s - 1) * ds + ds // 2 + 1  # block centre, native pad
         slack = ds
     else:
-        seeds, level_vals, pol_idx, valid = sweep_candidates(gray, cfg, timer)
+        seeds, level_vals, pol_idx, valid, fused = sweep_candidates(gray, cfg, timer)
         slack = 0
     with stage_scope(timer, "refine"):
         boxes, areas = _refine_boxes(pad_pol(gray), seeds, level_vals, pol_idx,
                                      cfg.refine_scan_passes, seed_slack=slack)
-        # the sweep filters on bbox area; enforce the exact pixel-area window
-        valid = valid & (areas >= cfg.min_area) & (areas <= cfg.max_area)
+        if fused:
+            # the fused sweep filters on bbox area; enforce the exact
+            # pixel-area window (the XLA sweep already counted pixels)
+            valid = valid & (areas >= cfg.min_area) & (areas <= cfg.max_area)
         boxes[..., 0] -= 1
         boxes[..., 1] -= 1
         boxes = torch.where(valid[..., None], boxes, 0).to(torch.int32)

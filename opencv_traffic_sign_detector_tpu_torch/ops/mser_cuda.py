@@ -1,16 +1,18 @@
-"""K3: the fused MSER level sweep with in-kernel level collapse.
+"""K3 and K7: the fused MSER level sweep.
 
 Counterpart of ``opencv_traffic_sign_detector_tpu/ops/mser_pallas.py``:
-``fused_level_sweep`` pads a polarity stack into row-strip windows
+``fused_level_sweep`` (K3) pads a polarity stack into row-strip windows
 (``sweep_plan``/``plan_halo``), runs the bbox-area stability sweep over all
 levels on every window, and returns per pixel the max over levels of
 ``(stability byte << lbits) | level index``.  The strips of one polarity are
 stacked as extra windows along the batch dimension, so one launch covers
-frames x polarities x strips.
+frames x polarities x strips.  ``fused_level_sweep_full`` (K7) runs the same
+sweep body over each whole plane as one strip and returns every level's
+stability byte map, the reference's oracle between K3 and the XLA sweep.
 
-``level_sweep_windows`` launches the CUDA kernel (``csrc/mser_sweep.cu``) for
-CUDA tensors and takes ``level_sweep_windows_plain`` for CPU tensors; the
-two are exact against each other.
+``level_sweep_windows`` and ``fused_level_sweep_full`` launch the CUDA
+kernels (``csrc/mser_sweep.cu``) for CUDA tensors and take their ``*_plain``
+versions for CPU tensors; the two are exact against each other.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 from opencv_traffic_sign_detector_tpu.config import MSERConfig
 
 from ..runtime import build as rt
+from .prop_cuda import nb4
 
 # The reference's per-strip VMEM pixel budget.  It fixes where the
 # reference cuts a frame into strips (and so which candidates it emits);
@@ -109,16 +112,9 @@ class SweepParams:
         )
 
 
-def _nb(x: torch.Tensor, op) -> torch.Tensor:
-    """4-neighbour min/max with wraparound (pltpu.roll semantics)."""
-    return op(op(torch.roll(x, 1, 1), torch.roll(x, -1, 1)),
-              op(torch.roll(x, 1, 2), torch.roll(x, -1, 2)))
-
-
-def level_sweep_windows_plain(windows: torch.Tensor, p: SweepParams, core: int,
-                              halo: int, num_levels: int,
-                              lbits: int) -> torch.Tensor:
-    """[N, R, W] uint8 windows -> [N, core, W] int32 level-collapsed map."""
+def _sweep_levels_plain(windows: torch.Tensor, p: SweepParams, num_levels: int):
+    """Yield, for each level t, the candidate byte map ``where(cand, qv, 0)``
+    (f32 [N, R, W]) of the sweep body over [N, R, W] uint8 windows."""
     n, r, w = windows.shape
     dev = windows.device
     i32, f32, bf16 = torch.int32, torch.float32, torch.bfloat16
@@ -137,7 +133,6 @@ def level_sweep_windows_plain(windows: torch.Tensor, p: SweepParams, core: int,
     aring = torch.zeros((nring, n, r, w), dtype=bf16, device=dev)
     vring = torch.full((2, n, r, w), float("inf"), dtype=bf16, device=dev)
     lastemit = torch.zeros((n, r, w), dtype=bf16, device=dev)
-    out = torch.zeros((n, core, w), dtype=i32, device=dev)
 
     def c(v):
         return torch.tensor(v, dtype=f32, device=dev)
@@ -155,12 +150,12 @@ def level_sweep_windows_plain(windows: torch.Tensor, p: SweepParams, core: int,
         xmin = torch.where(mask, mn(xmin, cols), bigc)
         xmax = torch.where(mask, mx(xmax, cols), -1)
         for _ in range(p.num_passes):  # Jacobi: every pass reads the last one
-            knew = torch.where(mask, mn(keys, _nb(keys, mn)), big)
+            knew = torch.where(mask, mn(keys, nb4(keys, mn)), big)
             live = mask & (knew >= 0)
-            ymin = torch.where(live, mn(ymin, _nb(ymin, mn)), bigc)
-            ymax = torch.where(live, mx(ymax, _nb(ymax, mx)), -1)
-            xmin = torch.where(live, mn(xmin, _nb(xmin, mn)), bigc)
-            xmax = torch.where(live, mx(xmax, _nb(xmax, mx)), -1)
+            ymin = torch.where(live, mn(ymin, nb4(ymin, mn)), bigc)
+            ymax = torch.where(live, mx(ymax, nb4(ymax, mx)), -1)
+            xmin = torch.where(live, mn(xmin, nb4(xmin, mn)), bigc)
+            xmax = torch.where(live, mx(xmax, nb4(xmax, mx)), -1)
             keys = knew
 
         anchor = mask & (keys == keys0)
@@ -187,9 +182,17 @@ def level_sweep_windows_plain(windows: torch.Tensor, p: SweepParams, core: int,
         qv = torch.clamp(c(254.0) - torch.floor(v_c * c(253.0)), 1.0, 254.0)
         aring[t % nring] = a_cur.to(bf16)
         vring[s_v_new] = v_new.to(bf16)
+        yield torch.where(cand, qv, zero)
 
-        packed = torch.where(cand, qv, zero)[:, halo:halo + core].to(i32) * (1 << lbits) + t
-        out = mx(out, packed)
+
+def level_sweep_windows_plain(windows: torch.Tensor, p: SweepParams, core: int,
+                              halo: int, num_levels: int,
+                              lbits: int) -> torch.Tensor:
+    """[N, R, W] uint8 windows -> [N, core, W] int32 level-collapsed map."""
+    n, _, w = windows.shape
+    out = torch.zeros((n, core, w), dtype=torch.int32, device=windows.device)
+    for t, qv in enumerate(_sweep_levels_plain(windows, p, num_levels)):
+        out = torch.maximum(out, qv[:, halo:halo + core].to(torch.int32) * (1 << lbits) + t)
     return out
 
 
@@ -245,3 +248,46 @@ def fused_level_sweep(im2: torch.Tensor, cfg: MSERConfig, d_idx: int,
     out = level_sweep_windows(windows.contiguous(), SweepParams.from_config(cfg, d_idx),
                               core, halo, num_levels, lbits)
     return out.reshape(p, n_strips * core, wp)
+
+
+def _full_params(im2: torch.Tensor, cfg: MSERConfig, d_idx: int) -> SweepParams:
+    rt.check_tensor(im2, "im2", torch.uint8, 3)
+    if cfg.sweep_extent_only or cfg.scan_passes > 0:
+        raise NotImplementedError(
+            "sweep_extent_only and scan_passes > 0 are not ported to the "
+            "PyTorch/CUDA package (ROADMAP.md, do-not-port list)")
+    return SweepParams.from_config(cfg, d_idx)
+
+
+def fused_level_sweep_full_plain(im2: torch.Tensor, cfg: MSERConfig, d_idx: int,
+                                 num_levels: int) -> torch.Tensor:
+    """[P, H, W] uint8 -> stability bytes uint8 [P, L, H, W]."""
+    p = _full_params(im2, cfg, d_idx)
+    return torch.stack([qv.to(torch.int32).to(torch.uint8)
+                        for qv in _sweep_levels_plain(im2, p, num_levels)], dim=1)
+
+
+def fused_level_sweep_full(im2: torch.Tensor, cfg: MSERConfig, d_idx: int,
+                           num_levels: int) -> torch.Tensor:
+    """K7: [P, H, W] uint8 -> stability bytes uint8 [P, L, H, W].
+
+    Replaces ``mser_pallas.py: fused_level_sweep_full``: one strip per
+    plane, no halo, the plane's own width (no pool padding), and each
+    level's byte ``qv`` (0 where no candidate) for every row.
+    """
+    p = _full_params(im2, cfg, d_idx)
+    if rt.uses_plain(im2):
+        return fused_level_sweep_full_plain(im2, cfg, d_idx, num_levels)
+    n, r, w = im2.shape
+    dev = im2.device
+    full = torch.empty((n, num_levels, r, w), dtype=torch.uint8, device=dev)
+    state = torch.empty((2, 5, n, r, w), dtype=torch.int32, device=dev)
+    rings = torch.empty((p.d + 1 + 3, n, r, w), dtype=torch.bfloat16, device=dev)
+    rc = rt.library().tsd_level_sweep_full(
+        im2.data_ptr(), full.data_ptr(), state.data_ptr(), rings.data_ptr(),
+        n, r, w, num_levels, p.step, p.d, p.num_passes,
+        p.min_area, p.max_area, p.max_variation, p.min_diversity,
+        rt.stream_ptr(dev))
+    rt.check(rc, "level_sweep_full")
+    rt.count_launch("level_sweep_full")
+    return full

@@ -1,17 +1,23 @@
-"""K4: per-candidate seed flood with bbox and pixel-area reduction.
+"""K4, K5 and K6: masked min propagation of int32 keys.
 
-Counterpart of ``opencv_traffic_sign_detector_tpu/ops/pallas_prop.py:
-flood_bbox_pallas``.  Where the reference takes materialised [N, 128, 128]
-seed maps and masks, both versions here read each candidate's window
-straight from the padded native intensity planes, given per candidate its
-plane, window origin, seed and level (a ``[N, 6]`` int32 table).  The mask
-is ``pixel <= level`` inside the window's inner ring and the seed map is
-``{0 at the seed, big elsewhere}``; the flood resolves mask runs along rows
-and columns (H, V, ..., H) and reduces the seed component to
-``(ymin, ymax, xmin, xmax, area)``.
+* K4 ``flood_bbox``: per-candidate seed flood with bbox and pixel-area
+  reduction, counterpart of ``opencv_traffic_sign_detector_tpu/ops/
+  pallas_prop.py: flood_bbox_pallas``.  Where the reference takes
+  materialised [N, 128, 128] seed maps and masks, both versions here read
+  each candidate's window straight from the padded native intensity planes,
+  given per candidate its plane, window origin, seed and level (a ``[N, 6]``
+  int32 table).  The mask is ``pixel <= level`` inside the window's inner
+  ring and the seed map is ``{0 at the seed, big elsewhere}``; the flood
+  resolves mask runs along rows and columns (H, V, ..., H) and reduces the
+  seed component to ``(ymin, ymax, xmin, xmax, area)``.
+* K5 ``propagate_rolls``: K synchronous masked 4-neighbour min passes with
+  wraparound, counterpart of ``pallas_prop.py: propagate_rolls_pallas``.
+* K6 ``propagate_scan``: K4's flood on given keys without the reduction,
+  counterpart of ``pallas_prop.py: propagate_scan_pallas``.
 
-``flood_bbox`` launches the CUDA kernel (``csrc/flood.cu``) for CUDA tensors
-and takes ``flood_bbox_plain`` for CPU tensors; the two are exact.
+Each wrapper launches its CUDA kernel (``csrc/flood.cu``,
+``csrc/prop_rolls.cu``) for CUDA tensors and takes its ``*_plain`` version
+for CPU tensors; the two are exact.
 """
 
 from __future__ import annotations
@@ -21,6 +27,13 @@ import torch
 from ..runtime import build as rt
 
 MAX_WIN = 128
+
+
+def nb4(x: torch.Tensor, op) -> torch.Tensor:
+    """4-neighbour min/max over the last two dims with wraparound
+    (``pltpu.roll`` / ``jnp.roll`` semantics)."""
+    return op(op(torch.roll(x, 1, -2), torch.roll(x, -1, -2)),
+              op(torch.roll(x, 1, -1), torch.roll(x, -1, -1)))
 
 
 def _axis_resolve(k: torch.Tensor, m: torch.Tensor, big: int, dim: int) -> torch.Tensor:
@@ -44,8 +57,10 @@ def _axis_resolve(k: torch.Tensor, m: torch.Tensor, big: int, dim: int) -> torch
     return torch.where(m, out, big)
 
 
-def _windows(planes: torch.Tensor, cand: torch.Tensor, win_h: int, win_w: int):
-    """Gather each candidate's [win_h, win_w] window and mask."""
+def candidate_windows(planes: torch.Tensor, cand: torch.Tensor, win_h: int, win_w: int):
+    """Each candidate's window mask and seed indicator, both bool
+    [N, win_h, win_w], from the ``[N, 6]`` table (plane and origin clamped
+    into the planes, as the reference's dynamic_slice clamps its start)."""
     plane, y0, x0, sy, sx, level = cand.long().unbind(-1)
     p, h, w = planes.shape
     plane = plane.clamp(0, p - 1)
@@ -61,23 +76,26 @@ def _windows(planes: torch.Tensor, cand: torch.Tensor, win_h: int, win_w: int):
     return mask, seed
 
 
-def flood_bbox_plain(planes: torch.Tensor, cand: torch.Tensor, win_h: int,
-                     win_w: int, passes: int, big: int) -> torch.Tensor:
-    """-> [N, 5] int32 (ymin, ymax, xmin, xmax, area) of each seed component."""
-    mask, seed = _windows(planes, cand, win_h, win_w)
-    k = torch.where(mask & seed, 0, big).to(torch.int32)
-    for _ in range(passes):
-        k = _axis_resolve(k, mask, big, 2)
-        k = _axis_resolve(k, mask, big, 1)
-    sel = _axis_resolve(k, mask, big, 2) == 0
-    rows = torch.arange(win_h, device=planes.device, dtype=torch.int32)[None, :, None]
-    cols = torch.arange(win_w, device=planes.device, dtype=torch.int32)[None, None, :]
+def bbox_area(sel: torch.Tensor, big: int) -> torch.Tensor:
+    """bool [N, H, W] -> [N, 5] int32 (ymin, ymax, xmin, xmax, area) of the
+    selected pixels; an empty selection gives (big, -1, big, -1, 0)."""
+    _, h, w = sel.shape
+    rows = torch.arange(h, device=sel.device, dtype=torch.int32)[None, :, None]
+    cols = torch.arange(w, device=sel.device, dtype=torch.int32)[None, None, :]
     ymin = torch.where(sel, rows, big).amin((1, 2))
     ymax = torch.where(sel, rows, -1).amax((1, 2))
     xmin = torch.where(sel, cols, big).amin((1, 2))
     xmax = torch.where(sel, cols, -1).amax((1, 2))
     area = sel.sum((1, 2), dtype=torch.int32)
     return torch.stack([ymin, ymax, xmin, xmax, area], dim=-1).to(torch.int32)
+
+
+def flood_bbox_plain(planes: torch.Tensor, cand: torch.Tensor, win_h: int,
+                     win_w: int, passes: int, big: int) -> torch.Tensor:
+    """-> [N, 5] int32 (ymin, ymax, xmin, xmax, area) of each seed component."""
+    mask, seed = candidate_windows(planes, cand, win_h, win_w)
+    k = torch.where(mask & seed, 0, big).to(torch.int32)
+    return bbox_area(propagate_scan_plain(k, mask, big, passes) == 0, big)
 
 
 def flood_bbox(planes: torch.Tensor, cand: torch.Tensor, win_h: int, win_w: int,
@@ -106,4 +124,83 @@ def flood_bbox(planes: torch.Tensor, cand: torch.Tensor, win_h: int, win_w: int,
         win_w, passes, big, rt.stream_ptr(planes.device))
     rt.check(rc, "flood_bbox")
     rt.count_launch("flood_bbox")
+    return out
+
+
+def _check_keys_mask(keys: torch.Tensor, mask: torch.Tensor) -> None:
+    rt.check_tensor(keys, "keys", torch.int32, 3)
+    rt.check_tensor(mask, "mask", torch.bool, 3)
+    if keys.shape != mask.shape:
+        raise ValueError(f"keys {tuple(keys.shape)} and mask {tuple(mask.shape)} differ")
+
+
+def propagate_rolls_plain(keys: torch.Tensor, mask: torch.Tensor, big: int,
+                          passes: int) -> torch.Tensor:
+    """``k = mask ? keys : big``, then ``passes`` times
+    ``k = mask ? min(k, 4-neighbour min of k) : big`` (wrapping)."""
+    k = torch.where(mask, keys, big)
+    for _ in range(passes):
+        k = torch.where(mask, torch.minimum(k, nb4(k, torch.minimum)), big)
+    return k
+
+
+def propagate_rolls(keys: torch.Tensor, mask: torch.Tensor, big: int, passes: int,
+                    site: str = "propagate_rolls") -> torch.Tensor:
+    """K5: keys int32 [P, H, W], mask bool [P, H, W] -> propagated keys.
+
+    Replaces ``pallas_prop.py: propagate_rolls_pallas`` at any plane size
+    (the reference's VMEM cap does not apply).  ``site`` names the launch
+    counter: the sweep and the refine count apart.
+    """
+    _check_keys_mask(keys, mask)
+    if rt.uses_plain(keys, mask):
+        return propagate_rolls_plain(keys, mask, big, passes)
+    p, h, w = keys.shape
+    lib = rt.library()
+    out = torch.empty_like(keys)
+    # a plane that fits one block's shared memory runs all passes resident;
+    # larger planes ping-pong through a second buffer in device memory
+    scratch = None if lib.tsd_propagate_rolls_resident(h, w) else torch.empty_like(keys)
+    rc = lib.tsd_propagate_rolls(
+        keys.data_ptr(), mask.data_ptr(), out.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), p, h, w, passes, big,
+        rt.stream_ptr(keys.device))
+    rt.check(rc, "propagate_rolls")
+    rt.count_launch(site)
+    return out
+
+
+def propagate_scan_plain(keys: torch.Tensor, mask: torch.Tensor, big: int,
+                         passes: int) -> torch.Tensor:
+    """``passes`` row-then-column segmented run-min resolves and a last row
+    resolve of ``mask ? keys : big``."""
+    k = torch.where(mask, keys, big)
+    for _ in range(passes):
+        k = _axis_resolve(k, mask, big, 2)
+        k = _axis_resolve(k, mask, big, 1)
+    return _axis_resolve(k, mask, big, 2)
+
+
+def propagate_scan(keys: torch.Tensor, mask: torch.Tensor, big: int,
+                   passes: int) -> torch.Tensor:
+    """K6: keys int32 [P, H, W], mask bool [P, H, W] (H, W <= 128) ->
+    component-min keys by run scans.
+
+    Replaces ``pallas_prop.py: propagate_scan_pallas``.  Precondition, as
+    the reference's: the border rows and columns of ``mask`` are False.
+    The kernel resolves each run as one segment while the plain version and
+    the reference scan with wrapping rolls; the two agree only under it.
+    """
+    _check_keys_mask(keys, mask)
+    p, h, w = keys.shape
+    if not (h <= MAX_WIN and w <= MAX_WIN):
+        raise ValueError(f"planes {h}x{w} exceed the {MAX_WIN}-px kernel limit")
+    if rt.uses_plain(keys, mask):
+        return propagate_scan_plain(keys, mask, big, passes)
+    out = torch.empty_like(keys)
+    rc = rt.library().tsd_propagate_scan(
+        keys.data_ptr(), mask.data_ptr(), out.data_ptr(), p, h, w, passes, big,
+        rt.stream_ptr(keys.device))
+    rt.check(rc, "propagate_scan")
+    rt.count_launch("propagate_scan")
     return out

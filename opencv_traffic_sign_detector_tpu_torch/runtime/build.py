@@ -1,7 +1,8 @@
 """Build, load and call the port's hand-written CUDA kernels.
 
-The sources under ``csrc/`` are compiled at first use with ``nvcc`` into one
-shared library with a plain C interface, ``build/torch_kernels/<hash>/
+The sources under ``csrc/`` are compiled at first use with ``nvcc``, one
+process per source, all started together, and linked into one shared
+library with a plain C interface, ``build/torch_kernels/<hash>/
 libtsd_kernels.so`` at the repository root, keyed by a hash of the sources
 and flags, and bound with :mod:`ctypes`.  No PyTorch headers are involved,
 so a build takes seconds.  Every pointer and the stream are passed as
@@ -33,17 +34,26 @@ LIB_NAME = "libtsd_kernels.so"
 # on separately rounded products and sums (no contraction into FMA).
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
+    "-Xcompiler", "-fPIC", "-fmad=false",
 )
 
-KERNELS = ("tile_histograms", "clahe_apply", "level_sweep", "flood_bbox")
+# Launch counters, one per kernel wrapper.  K5 counts its two call sites
+# apart: the XLA level sweep (propagate_rolls) and the roll-flood refine
+# (propagate_rolls_refine).
+KERNELS = ("tile_histograms", "clahe_apply", "level_sweep", "flood_bbox",
+           "propagate_rolls", "propagate_rolls_refine", "propagate_scan",
+           "level_sweep_full")
 
 _V, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "tsd_tile_histograms": [_V, _V, _I, _I, _I, _I, _V],
     "tsd_clahe_apply": [_V] * 9 + [_I, _I, _I, _I, _V],
     "tsd_level_sweep": [_V] * 4 + [_I] * 10 + [_F] * 4 + [_V],
+    "tsd_level_sweep_full": [_V] * 4 + [_I] * 7 + [_F] * 4 + [_V],
     "tsd_flood_bbox": [_V, _V, _V] + [_I] * 8 + [_V],
+    "tsd_propagate_scan": [_V, _V, _V] + [_I] * 5 + [_V],
+    "tsd_propagate_rolls": [_V] * 4 + [_I] * 5 + [_V],
+    "tsd_propagate_rolls_resident": [_I, _I],
 }
 
 _launches = dict.fromkeys(KERNELS, 0)
@@ -96,18 +106,27 @@ def build(verbose: bool = False) -> Path:
         return lib_path
     nvcc = find_nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *(str(p) for p in sources() if p.suffix == ".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise KernelBuildError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr)
-    os.replace(tmp, lib_path)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp_dir:
+        flags = [*NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else [])]
+        objs, procs = [], []
+        for src in (p for p in sources() if p.suffix == ".cu"):
+            objs.append(os.path.join(tmp_dir, src.stem + ".o"))
+            procs.append((src.name, subprocess.Popen(
+                [nvcc, *flags, "-c", "-o", objs[-1], str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        tmp_lib = os.path.join(tmp_dir, LIB_NAME)
+        steps = [(name, proc.communicate()[0], proc.returncode) for name, proc in procs]
+        if all(rc == 0 for _, _, rc in steps):
+            link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp_lib, *objs],
+                                  capture_output=True, text=True)
+            steps.append(("link", link.stdout + link.stderr, link.returncode))
+        failed = [(name, out, rc) for name, out, rc in steps if rc != 0]
+        if failed:
+            raise KernelBuildError("nvcc failed:\n" + "\n".join(
+                f"[{name}] exit {rc}\n{out}" for name, out, rc in failed))
+        if verbose:
+            print("\n".join(f"[{name}]\n{out}" for name, out, _ in steps))
+        os.replace(tmp_lib, lib_path)
     return lib_path
 
 

@@ -126,9 +126,26 @@ def test_cli_writes_same_results_as_reference(interpret, cli_dirs):
     assert ref.strip(), "no detections to compare; pick another seed"
 
 
+@pytest.mark.parametrize("flags", [["--pixel_area_stability"], ["--downscale", "1"]],
+                         ids=["pixel_area_stability", "downscale1"])
+def test_cli_xla_sweep_modes_write_same_results(interpret, cli_dirs, flags):
+    """Both modes keep ccl_jumps=1 (the XLA sweep without K5 in the
+    reference), so the reference runs under the interpreter."""
+    train, test, root = cli_dirs
+    common = ["--train_path", train, "--test_path", test, "--batch_size", "2",
+              "--no-images", *flags]
+    ref_out, port_out = str(root / "ref_xla.txt"), str(root / "port_xla.txt")
+    assert main_detection.main(common + ["--out", ref_out]) == 0
+    assert main_detection_torch.main(common + ["--out", port_out, "--device", "cpu"]) == 0
+    with open(ref_out) as a, open(port_out) as b:
+        ref, port = a.read(), b.read()
+    assert ref == port
+    assert ref.strip(), "no detections to compare; pick another seed"
+
+
 @pytest.mark.parametrize("argv", [
     ["--detector", "CNN"], ["--detector", "CNN_0.4"], ["--n_devices", "2"],
-    ["--pixel_area_stability"], ["--trace_dir", "t"], ["--detector", "MSER_7_200"],
+    ["--trace_dir", "t"], ["--detector", "MSER_7_200"],
 ])
 def test_cli_rejects_unported_modes(argv, capsys):
     assert main_detection_torch.main(argv + ["--device", "cpu"]) == 2
@@ -137,6 +154,6 @@ def test_cli_rejects_unported_modes(argv, capsys):
 
 
 def test_pipeline_rejects_unported_config(templates):
-    cfg = dataclasses.replace(CFG, mser=dataclasses.replace(MSER, fused_sweep=False))
+    cfg = dataclasses.replace(CFG, mser=dataclasses.replace(MSER, sweep_res_pipeline=True))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tdet.DetectionPipeline(cfg=cfg, templates=templates, device="cpu")

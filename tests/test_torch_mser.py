@@ -168,8 +168,7 @@ def test_plan_helpers_copy_match(pool):
 
 
 @pytest.mark.parametrize("change", [
-    {"fused_sweep": False}, {"ccl_jumps": 1}, {"sweep_res_pipeline": True},
-    {"sweep_extent_only": True}, {"scan_passes": 1}, {"refine_scan_passes": 0},
+    {"sweep_res_pipeline": True}, {"sweep_extent_only": True}, {"scan_passes": 1},
 ])
 def test_unported_options_raise(change):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
