@@ -32,7 +32,22 @@ Phases:
    the refine);
 7. slices vs plain: the tuned path on 2 frames, the pixel-area path on 2
    frames and the recall path on 1 frame on the CPU (plain versions) must
-   give identical proposals, and the tuned path matching detections.
+   give identical proposals, and the tuned path matching detections;
+8. slice 3, the CNN detector: the same 32 frames through every route of
+   ``main_detection_torch.py --detector CNN`` (float v3 ``params.npz``:
+   bgr, patches8, yuv420 tight and yuv420p planes made with numpy,
+   ``--upscale`` 1.6 and 1.412 fused, 1.3 two-stage, 0.9 dense downscale;
+   int8 ``params_int8.npz``: bgr and 1.6; ``params_slim.npz`` and
+   ``params_v3.npz``: bgr), one warm-up and 3 timed batches each (1 for
+   the last two) from host arrays to
+   detection records; requires each route to take its branch, finite
+   outputs and well-formed records, patches8 outputs equal to bgr's and
+   yuv420p BGR patches equal to the patchified tight conversion;
+9. CNN card vs CPU: each route on 1 frame (2 for float bgr) through the
+   port's CPU path must give matching detections; the int8 stem
+   activations agree within +-1 on a stated share, and the card's yuv BGR
+   equals the CPU's.  The CNN path runs none of K1-K7 (its convs and
+   products are PyTorch's), so its launch counts are 0.
 
 Then one JSON line with the kernel table, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
@@ -139,6 +154,143 @@ def _run_path(rt, label, fn):
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
+
+
+def _cnn_phases(rt, dev, frames: "np.ndarray", names: list[str]) -> None:
+    """Phases 8-9: the CNN detector's routes on the card, then each against
+    the port's CPU path."""
+    import numpy as np
+
+    from opencv_traffic_sign_detector_tpu_torch.data.synthetic import bgr_to_yuv420
+    from opencv_traffic_sign_detector_tpu_torch.models import cnn_detector as cd
+    from opencv_traffic_sign_detector_tpu_torch.models import cnn_quant as cq
+    from opencv_traffic_sign_detector_tpu_torch.ops import upscale as ups
+    from opencv_traffic_sign_detector_tpu_torch.ops.fused_upscale import find_plan
+    from opencv_traffic_sign_detector_tpu_torch.ops import yuv as tyuv
+
+    ck = "artifacts/cnn_detector/"
+    b, h, w, _ = frames.shape
+    patches = frames.reshape(b, h // 8, 8, w // 8, 24).transpose(0, 1, 3, 2, 4)
+    inputs = {"bgr": frames, "patches8": np.ascontiguousarray(patches.reshape(
+        b, h // 8, w // 8, 192)), "yuv420": bgr_to_yuv420(frames)}
+    inputs["yuv420p"] = tyuv.patchify_yuv_planes(*inputs["yuv420"])
+    # label, checkpoint, --upscale, input, route function, what the route
+    # must show (the fused plan's t/a, or the resize pass), timed batches
+    routes = [
+        ("float bgr", "params.npz", 1.0, "bgr", "_detect", None, 3),
+        ("float patches8", "params.npz", 1.0, "patches8", "_detect", None, 3),
+        ("float yuv420", "params.npz", 1.0, "yuv420", "_detect", None, 3),
+        ("float yuv420p", "params.npz", 1.0, "yuv420p", "_detect_yuv_patches", None, 3),
+        ("float up1.6", "params.npz", 1.6, "bgr", "_detect_fused_upscaled", (8, 5), 3),
+        ("float up1.412", "params.npz", 1.412, "bgr", "_detect_fused_upscaled", (24, 17), 3),
+        ("float up1.3", "params.npz", 1.3, "bgr", "_detect_upscaled", "_upscale_axis", 3),
+        ("float up0.9", "params.npz", 0.9, "bgr", "_detect_upscaled", "_dense_axis", 3),
+        ("int8 bgr", "params_int8.npz", 1.0, "bgr", "_detect", None, 3),
+        ("int8 up1.6", "params_int8.npz", 1.6, "bgr", "_detect_fused_upscaled", (8, 5), 3),
+        ("slim bgr", "params_slim.npz", 1.0, "bgr", "_detect", None, 1),
+        ("v3 params_v3 bgr", "params_v3.npz", 1.0, "bgr", "_detect", None, 1),
+    ]
+    route_fns = ("_detect", "_detect_upscaled", "_detect_fused_upscaled", "_detect_yuv_patches")
+
+    def run(det, x, n=None):
+        if isinstance(x, tuple):
+            out = det.dispatch_yuv(*(p[:n] for p in x))
+        else:
+            out = det.dispatch(x[:n])
+        return out, det.collect(out, names[:len(out[0])], (h, w))
+
+    # --- 8. every route on the card --------------------------------------
+    card, outs = {}, {}
+    for label, ckpt, upscale, fmt, fn, shows, timed in routes:
+        det = cq.load_detector(ck + ckpt, upscale=upscale, device=dev)
+        run(det, inputs[fmt])  # warm-up batch
+        torch.cuda.synchronize()
+
+        def timed_run():
+            batch_s = []
+            for _ in range(timed):
+                t0 = time.perf_counter()
+                out, dets = run(det, inputs[fmt])
+                batch_s.append(time.perf_counter() - t0)
+            return out, dets, batch_s
+
+        calls = defaultdict(list)
+        with contextlib.ExitStack() as stack:
+            for mod, attr in [*((cd, f) for f in route_fns), (cd, "yuv420_to_bgr"),
+                              (ups, "_upscale_axis"), (ups, "_dense_axis")]:
+                stack.enter_context(_recording(calls, mod, attr, lambda a, kw, k=attr: k))
+            (out, dets, batch_s), _ = _run_path(rt, f"slice3 {label}", timed_run)
+        took = [f for f in route_fns if calls[f]]
+        _require(fn in took and not set(took) - {fn, "_detect"},
+                 f"{label}: took {took}, expected {fn}")
+        _require(bool(calls["yuv420_to_bgr"]) == (fmt == "yuv420"),
+                 f"{label}: yuv420_to_bgr calls {len(calls['yuv420_to_bgr'])}")
+        if isinstance(shows, tuple):
+            plan = calls[fn][-1][0][-1]
+            _require((plan.t, plan.a) == shows, f"{label}: plan {plan}")
+            shows = f"plan {plan.t}/{plan.a}, h_pad {plan.h_pad}, sb {plan.sb}"
+        elif shows:
+            passes = [k for k in ("_upscale_axis", "_dense_axis") if calls[k]]
+            _require(passes == [shows], f"{label}: resize passes {passes}")
+        del calls
+        finite = all(torch.isfinite(t).all().item() for t in (out[0], out[2]))
+        _require(finite and tuple(out[0].shape) == (b, det.cfg.max_detections, 4),
+                 f"{label}: non-finite or misshapen outputs {tuple(out[0].shape)}")
+        _require(all(1 <= d.class_id <= 6 and np.isfinite(d.score) and 0 <= d.x1 < d.x2 <= w - 1
+                     and 0 <= d.y1 < d.y2 <= h - 1 for d in dets),
+                 f"{label}: malformed detection records")
+        fps = b / statistics.median(batch_s)
+        print(f"[slice3 {label}] batch {b} of {w}x{h}: {fps:.2f} frames/s (batch s "
+              f"{', '.join(f'{s:.4f}' for s in batch_s)}); route {fn}"
+              f"{f' ({shows})' if shows else ''}; detections {len(dets)}")
+        card[label] = dets
+        if label in ("float bgr", "float patches8"):
+            outs[label] = out
+        del det, out
+    same = all(torch.equal(a, c) for a, c in zip(outs["float bgr"], outs["float patches8"]))
+    planes = [torch.from_numpy(p).to(dev) for p in inputs["yuv420"]]
+    planes_p = [torch.from_numpy(p).to(dev) for p in inputs["yuv420p"]]
+    yuv_same = torch.equal(tyuv.yuv420_patches_to_bgr_patches8(*planes_p),
+                           cd.patchify(tyuv.yuv420_to_bgr(*planes)))
+    print(f"[slice3 identities] patches8 outputs == bgr outputs: {same}; yuv420p BGR "
+          f"patches == patchified tight yuv420_to_bgr on {tuple(planes[0].shape)}: {yuv_same}")
+    _require(same and yuv_same, "an identity between the CNN routes failed")
+    del outs
+
+    # --- 9. each route against the port's CPU path -----------------------
+    for label, ckpt, upscale, fmt, *_ in routes:
+        n = 2 if label == "float bgr" else 1
+        t0 = time.perf_counter()
+        det = cq.load_detector(ck + ckpt, upscale=upscale, device="cpu")
+        _, cpu = run(det, inputs[fmt], n)
+        want = [d for d in card[label] if d.filename in names[:n]]
+        bad = cd.unmatched_detections(want, cpu, 0.05, det.cfg.score_threshold)
+        print(f"[slice3 {label} vs cpu] {n} frame(s) in {time.perf_counter() - t0:.1f} s: "
+              f"card {len(want)} cpu {len(cpu)} detections, unmatched {len(bad)} "
+              "(bound: class, 1 px, score 0.05)")
+        _require(not bad, f"{label}: card and CPU detections differ: {bad}")
+    q_card, _ = cq.load_quant_params(ck + "params_int8.npz", dev)
+    q_cpu, _ = cq.load_quant_params(ck + "params_int8.npz", "cpu")
+    one = torch.from_numpy(frames[:1])
+    plan = find_plan(h, w, 1.6)
+    for label, stem, bound in [
+            ("int8 stem", lambda q, x: cq.requant(cq.stem_int8_acc(q, x), q["q0_mult"],
+                                                 q["q0_bias"], q["a0_inv"]), 0.001),
+            ("int8 fused 1.6 stem", lambda q, x: cq.fused_stem_int8(q, x, plan), 0.02)]:
+        diff = (stem(q_card, one.to(dev)).cpu().to(torch.int16)
+                - stem(q_cpu, one).to(torch.int16)).abs()
+        share = (diff > 0).float().mean().item()
+        print(f"[slice3 {label} vs cpu] activations {tuple(diff.shape)}: max |diff| "
+              f"{diff.max().item()}, share differing {share:.6f} (bound: +-1 on <= {bound})")
+        _require(diff.max().item() <= 1 and share <= bound, f"{label}: card vs CPU")
+    yuv_card = tyuv.yuv420_to_bgr(*(p[:1] for p in planes)).cpu()
+    yuv_cpu = tyuv.yuv420_to_bgr(*(torch.from_numpy(p[:1]) for p in inputs["yuv420"]))
+    yp_card = tyuv.yuv420_patches_to_bgr_patches8(*(p[:1] for p in planes_p)).cpu()
+    yp_cpu = tyuv.yuv420_patches_to_bgr_patches8(
+        *(torch.from_numpy(p[:1]) for p in inputs["yuv420p"]))
+    ok = torch.equal(yuv_card, yuv_cpu) and torch.equal(yp_card, yp_cpu)
+    print(f"[slice3 yuv vs cpu] tight and patchified BGR bit-identical: {ok}")
+    _require(ok, "the card's yuv BGR differs from the CPU's")
 
 
 def main() -> int:
@@ -381,6 +533,11 @@ def main() -> int:
     print(f"[slice vs plain detections] 2 frames: card {len(gpu_dets)} "
           f"cpu {len(cpu_dets)} match {ok}")
     _require(ok, f"detections differ: card {gpu_dets} cpu {cpu_dets}")
+
+    # --- 8-9. slice 3: the CNN detector ----------------------------------
+    del props, pvalid, pprops, ppvalid, rprops, rpvalid, frames_dev
+    torch.cuda.empty_cache()
+    _cnn_phases(rt, dev, frames, names)
     _require("jax" not in sys.modules, "the port imported jax")
 
     print(json.dumps({"kernels": table}))

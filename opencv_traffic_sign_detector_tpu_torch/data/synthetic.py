@@ -87,6 +87,28 @@ def make_frames(n: int, h: int = 800, w: int = 1360, seed: int = 0,
     return frames
 
 
+def bgr_to_yuv420(frames: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """[n, h, w, 3] BGR uint8 -> JFIF 4:2:0 planes (y [n, h, w], cb/cr
+    [n, ceil(h/2), ceil(w/2)]): BT.601 full-range YCbCr, chroma averaged
+    over 2x2 blocks (edge-replicated for odd sizes), as a JPEG encoder
+    would hand them to the decoder."""
+    f = frames.astype(np.float32)
+    b, g, r = f[..., 0], f[..., 1], f[..., 2]
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    cb = 128.0 - 0.168736 * r - 0.331264 * g + 0.5 * b
+    cr = 128.0 + 0.5 * r - 0.418688 * g - 0.081312 * b
+    h, w = frames.shape[1:3]
+
+    def pool(c):
+        c = np.pad(c, ((0, 0), (0, h % 2), (0, w % 2)), mode="edge")
+        return c.reshape(len(c), c.shape[1] // 2, 2, c.shape[2] // 2, 2).mean(axis=(2, 4))
+
+    def u8(c):
+        return np.clip(np.round(c), 0, 255).astype(np.uint8)
+
+    return u8(y), u8(pool(cb)), u8(pool(cr))
+
+
 def make_sign_crop(supertype: int, size: int = 40, seed: int = 0) -> np.ndarray:
     """One [size+8, size+8, 3] BGR crop of super-type 1..6 on a grey margin."""
     rng = np.random.default_rng(seed)

@@ -1,0 +1,713 @@
+"""Convolutional center-point sign detector (the ``--detector CNN`` family).
+
+Counterpart of ``opencv_traffic_sign_detector_tpu/models/cnn_detector.py``:
+an anchor-free detector whose heads give, per grid cell, six class logits
+(``hm``), a box size (``size``) and a sub-cell centre offset (``off``);
+peaks of the 3x3 max-pool equality test are the detections.  Every arch of
+the reference is here (``v3``, the shipped one, and ``slim``, ``base``,
+``v2wide``, ``v2s16``, ``v2s16wide``); a checkpoint names its own arch.
+
+The reference runs flax modules in NHWC; so do the public functions here.
+Convs run on the NCHW views of NHWC tensors, which are channels-last, so
+the permutes copy nothing.  What the reference's numbers depend on, and
+this module keeps:
+
+* flax's "SAME" padding: a stride-2 3x3 conv on an even size pads (0, 1),
+  not (1, 1) as ``padding=1`` would;
+* the bf16 rounding points: a conv rounds its result to bf16 and then adds
+  the bias in bf16; the stem rounds after ``* 1/255``, after ``- 0.5`` and
+  after its product, with bf16 constants;
+* flax ``GroupNorm``: statistics in f32 as ``E[x^2] - E[x]^2`` clipped at
+  0, epsilon 1e-6;
+* decode's flat order is channel-minor (NHWC) and its top-k breaks ties
+  toward the lower flat index (a stable sort, as ``lax.top_k``).
+
+Parameters load from, and save to, the reference's npz checkpoints: keys
+are ``jax.tree_util.keystr`` paths (``['Conv_1']['kernel']``), kernels HWIO,
+converted to OIHW on load.
+"""
+
+from __future__ import annotations
+
+import os
+from collections.abc import Iterator, Mapping
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from opencv_traffic_sign_detector_tpu.data.gt import GroundTruthBox
+from opencv_traffic_sign_detector_tpu.data.images import list_frame_files
+from opencv_traffic_sign_detector_tpu.data.prefetch import batched_frames
+
+from ..ops.fused_upscale import FusedUpscalePlan, find_plan, fused_upscale_stem
+from ..ops.upscale import upscale_bilinear_u8
+from ..ops.yuv import patchify_yuv_planes, yuv420_patches_to_bgr_patches8, yuv420_to_bgr
+from .detector import full_f32_matmuls
+
+STRIDE = 8
+NUM_CLASSES = 6
+_ARCH_STRIDE = {"v2s16": 16, "v2s16wide": 16, "v3": 16}
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_PATCH = 8
+_STEM_K = _PATCH * _PATCH * 3   # 192
+
+
+@dataclass(frozen=True)
+class CNNDetectorConfig:
+    """Architecture + decode hyper-parameters (the reference's fields and
+    defaults; loaders take ``arch`` and ``score_threshold`` from the
+    checkpoint's own tags)."""
+
+    stem_features: int = 64
+    mid_features: int = 96
+    deep_features: int = 128
+    head_features: int = 96
+    arch: str = "slim"
+    max_detections: int = 32
+    score_threshold: float = 0.50
+    dtype: str = "bfloat16"
+
+    def compute_dtype(self) -> torch.dtype:
+        return _DTYPES[self.dtype]
+
+    @property
+    def stride(self) -> int:
+        """Output grid stride of the decode heads for this architecture."""
+        return _ARCH_STRIDE.get(self.arch, STRIDE)
+
+
+def _const(value: float, like: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A scalar rounded to ``dtype`` first, as ``jnp.asarray(value, dtype)``
+    (a Python float would enter a bf16 product unrounded)."""
+    return torch.tensor(value, dtype=dtype, device=like.device)
+
+
+def patchify(x: torch.Tensor, p: int = _PATCH) -> torch.Tensor:
+    """[B, H, W, 3] -> [B, H/p, W/p, p*p*3] with k = ky*p*3 + kx*3 + c (the
+    flattened HWIO stem kernel order)."""
+    b, h, w, c = x.shape
+    return (x.reshape(b, h // p, p, w // p, p * c).permute(0, 1, 3, 2, 4)
+            .reshape(b, h // p, w // p, p * p * c))
+
+
+def _space_to_depth(x: torch.Tensor, r: int) -> torch.Tensor:
+    b, h, w, c = x.shape
+    return (x.reshape(b, h // r, r, w // r, r, c).permute(0, 1, 3, 2, 4, 5)
+            .reshape(b, h // r, w // r, r * r * c))
+
+
+def same_pads(size: int, k: int, stride: int) -> tuple[int, int]:
+    """flax/XLA "SAME" padding (lo, hi) of one spatial axis."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv_same(x: torch.Tensor, weight: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """NHWC ``x`` * OIHW ``weight`` with "SAME" padding, in the inputs' dtype."""
+    k = weight.shape[-1]
+    (top, bottom), (left, right) = (same_pads(x.shape[1], k, stride),
+                                    same_pads(x.shape[2], k, stride))
+    xc = x.permute(0, 3, 1, 2)
+    if top == bottom and left == right:
+        y = F.conv2d(xc, weight, stride=stride, padding=(top, left))
+    else:
+        y = F.conv2d(F.pad(xc, (left, right, top, bottom)), weight, stride=stride)
+    return y.permute(0, 2, 3, 1)
+
+
+# ---------------------------------------------------------------------------
+# Layers with the reference's flax parameter layout
+# ---------------------------------------------------------------------------
+
+
+class _FlaxLeaf(nn.Module):
+    """A layer whose parameters load from and save to the flax layout."""
+
+    def flax_shapes(self) -> dict[str, tuple[int, ...]]:
+        return {name: tuple(self.to_flax(name).shape) for name in self._flax_names}
+
+    def to_flax(self, name: str) -> np.ndarray:
+        return getattr(self, name).detach().cpu().numpy()
+
+    def load_flax(self, name: str, arr: np.ndarray) -> None:
+        with torch.no_grad():
+            getattr(self, name).copy_(torch.from_numpy(np.array(arr, np.float32)))
+
+
+class Conv(_FlaxLeaf):
+    """flax ``nn.Conv`` (3x3 or 1x1, "SAME") in ``dtype``: the conv's result
+    is rounded to ``dtype``, then the bias is added in ``dtype``."""
+
+    def __init__(self, cin: int, cout: int, k: int = 3, stride: int = 1,
+                 bias: bool = True, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.stride, self.dtype = stride, dtype
+        self.weight = nn.Parameter(torch.zeros(cout, cin, k, k), requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(cout), requires_grad=False) if bias else None
+        self._flax_names = ("kernel", "bias") if bias else ("kernel",)
+
+    def to_flax(self, name):
+        if name == "kernel":
+            return self.weight.detach().permute(2, 3, 1, 0).cpu().numpy()
+        return super().to_flax(name)
+
+    def load_flax(self, name, arr):
+        if name == "kernel":
+            arr = np.ascontiguousarray(np.asarray(arr).transpose(3, 2, 0, 1))
+            name = "weight"
+        super().load_flax(name, arr)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        y = conv_same(x.to(dt), self.weight.to(dt), self.stride)
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
+class GroupNorm(_FlaxLeaf):
+    """flax ``nn.GroupNorm(num_groups=8, dtype=float32)`` on NHWC input:
+    f32 statistics ``var = max(E[x^2] - E[x]^2, 0)``, epsilon 1e-6."""
+
+    def __init__(self, features: int, groups: int = 8, eps: float = 1e-6):
+        super().__init__()
+        self.groups, self.eps = groups, eps
+        self.scale = nn.Parameter(torch.ones(features), requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(features), requires_grad=False)
+        self._flax_names = ("bias", "scale")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, h, w, c = x.shape
+        xg = x.to(torch.float32).reshape(b, h, w, self.groups, c // self.groups)
+        mean = xg.mean(dim=(1, 2, 4), keepdim=True)
+        var = torch.clamp((xg * xg).mean(dim=(1, 2, 4), keepdim=True) - mean * mean, min=0)
+        mul = torch.rsqrt(var + self.eps) * self.scale.reshape(self.groups, -1)
+        return ((xg - mean) * mul + self.bias.reshape(self.groups, -1)).reshape(b, h, w, c)
+
+
+class ConvBlock(nn.Module):
+    """The reference's ``_ConvBlock``: conv (no bias) -> GroupNorm -> relu;
+    f32 out."""
+
+    def __init__(self, cin: int, cout: int, stride: int = 1, dtype=torch.bfloat16):
+        super().__init__()
+        self.Conv_0 = Conv(cin, cout, stride=stride, bias=False, dtype=dtype)
+        self.GroupNorm_0 = GroupNorm(cout)
+
+    def forward(self, x):
+        return torch.relu(self.GroupNorm_0(self.Conv_0(x)))
+
+
+class PatchifyStem(_FlaxLeaf):
+    """The v3 8x8-stride-8 stem as patchify + one K=192 product.
+
+    Takes frames uint8 [B, H, W, 3] (patchified here) or patches uint8
+    [B, H/8, W/8, 192] (the ``patches8`` layout).  The kernel is kept as
+    the [192, F] matrix of the flax [8, 8, 3, F] kernel."""
+
+    def __init__(self, features: int = 64, dtype=torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.kernel = nn.Parameter(torch.zeros(_STEM_K, features), requires_grad=False)
+        self.bias = nn.Parameter(torch.zeros(features), requires_grad=False)
+        self._flax_names = ("bias", "kernel")
+
+    def kernel_hwio(self) -> torch.Tensor:
+        return self.kernel.reshape(_PATCH, _PATCH, 3, -1)
+
+    def to_flax(self, name):
+        if name == "kernel":
+            return self.kernel_hwio().detach().cpu().numpy()
+        return super().to_flax(name)
+
+    def load_flax(self, name, arr):
+        if name == "kernel":
+            arr = np.asarray(arr).reshape(_STEM_K, -1)
+        super().load_flax(name, arr)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        if x.shape[-1] != _STEM_K:
+            x = patchify(x)
+        x = x.to(dt) * _const(1 / 255.0, x, dt) - _const(0.5, x, dt)
+        out = torch.matmul(x, self.kernel.to(dt))
+        return torch.relu(out + self.bias.to(dt))
+
+
+# ---------------------------------------------------------------------------
+# The network
+# ---------------------------------------------------------------------------
+
+
+def _add_v3_trunk_heads(m: nn.Module, dt: torch.dtype) -> None:
+    m.Conv_1 = Conv(64, 128, stride=2, dtype=dt)
+    m.Conv_2 = Conv(128, 128, dtype=dt)
+    m.Conv_3 = Conv(128, 128, dtype=dt)
+    m.Conv_4 = Conv(128, NUM_CLASSES, dtype=dt)
+    m.Conv_5 = Conv(128, 2, dtype=dt)
+    m.Conv_6 = Conv(128, 2, dtype=dt)
+
+
+def _v3_trunk_heads(m: nn.Module, stem: torch.Tensor) -> dict[str, torch.Tensor]:
+    x = torch.relu(m.Conv_1(stem))
+    x = torch.relu(m.Conv_2(x))
+    fin = torch.relu(m.Conv_3(x))
+    return {"hm": m.Conv_4(fin).float(), "size": m.Conv_5(fin).float(),
+            "off": m.Conv_6(fin).float()}
+
+
+def _upsample2(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour 2x of NHWC (``jax.image.resize(..., "nearest")``)."""
+    return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+
+
+class SignCenterNet(nn.Module):
+    """Anchor-free center detector over the six GTSDB super-types.
+
+    Input uint8 BGR frames [B, H, W, 3] (H, W multiples of 16), or for v3
+    ``patches8`` [B, H/8, W/8, 192].  Output dict of f32 NHWC maps on the
+    ``cfg.stride`` grid: ``hm`` [.., 6] logits, ``size`` [.., 2] (w, h) in
+    grid units, ``off`` [.., 2] sub-cell offsets.  Children carry the flax
+    module names, so the checkpoint keys map onto them one to one."""
+
+    def __init__(self, cfg: CNNDetectorConfig | None = None):
+        super().__init__()
+        self.cfg = cfg = cfg or CNNDetectorConfig()
+        dt = cfg.compute_dtype()
+        blocks: list[tuple[int, int, int]]     # (cin, cout, stride) per _ConvBlock
+        if cfg.arch == "v3":
+            self.Conv_0 = PatchifyStem(64, dt)
+            _add_v3_trunk_heads(self, dt)
+            return
+        if cfg.arch in ("v2s16", "v2s16wide"):
+            w = 256 if cfg.arch == "v2s16wide" else 192
+            blocks = [(48, w // 2, 2), (w // 2, w, 2), (w, w, 1), (w, w, 1), (w, w, 1)]
+            heads, head_in, head_dt = 0, w, dt
+        elif cfg.arch == "v2wide":
+            blocks = [(48, 128, 2), (128, 256, 2), (256, 256, 1), (256, 256, 1), (128, 128, 1)]
+            self.Conv_0 = Conv(256, 128, k=1, dtype=dt)
+            heads, head_in, head_dt = 1, 128, dt
+        elif cfg.arch in ("slim", "base"):
+            s, mid, deep, head = (cfg.stem_features, cfg.mid_features, cfg.deep_features,
+                                  cfg.head_features)
+            if cfg.arch == "slim":
+                blocks = [(48, s, 2), (s, mid, 1), (mid, mid, 2), (mid, deep, 1),
+                          (deep, deep, 1), (mid, head, 1), (head, head, 1)]
+                self.Conv_0 = Conv(deep, mid, k=1, dtype=dt)
+                heads, head_dt = 1, dt
+            else:
+                blocks = [(48, s, 1), (s, s, 2), (s, mid, 1), (mid, mid, 2), (mid, deep, 1),
+                          (deep, deep, 1), (mid + deep, head, 1), (head, head, 1)]
+                heads, head_dt = 0, torch.float32
+            head_in = head
+        else:
+            raise ValueError(f"unknown CNN detector arch {cfg.arch!r}")
+        for i, (cin, cout, stride) in enumerate(blocks):
+            setattr(self, f"_ConvBlock_{i}", ConvBlock(cin, cout, stride, dt))
+        for j, cout in enumerate((NUM_CLASSES, 2, 2)):
+            setattr(self, f"Conv_{heads + j}", Conv(head_in, cout, dtype=head_dt))
+        self._heads = heads
+
+    def _block(self, i: int) -> ConvBlock:
+        return getattr(self, f"_ConvBlock_{i}")
+
+    @property
+    def device(self) -> torch.device:
+        return self.Conv_0.bias.device
+
+    def forward(self, frames_u8: torch.Tensor) -> dict[str, torch.Tensor]:
+        cfg = self.cfg
+        if cfg.arch == "v3":
+            return _v3_trunk_heads(self, self.Conv_0(frames_u8))
+        dt = cfg.compute_dtype()
+        x = frames_u8.to(dt) * _const(1 / 255.0, frames_u8, dt) - _const(0.5, frames_u8, dt)
+        x = _space_to_depth(x, 4)                            # [B, H/4, W/4, 48]
+        blk = self._block
+        if cfg.arch in ("v2s16", "v2s16wide"):
+            for i in range(5):
+                x = blk(i)(x)
+            fin = x
+        elif cfg.arch == "v2wide":
+            s8 = blk(0)(x)
+            x = blk(3)(blk(2)(blk(1)(s8)))
+            fin = blk(4)(s8 + _upsample2(self.Conv_0(x)))
+        else:
+            slim = cfg.arch == "slim"
+            if slim:
+                x = blk(0)(x)
+                first = 1
+            else:
+                x = blk(1)(blk(0)(x))
+                first = 2
+            s8 = blk(first)(x)
+            x = blk(first + 3)(blk(first + 2)(blk(first + 1)(s8)))
+            if slim:
+                fused = s8 + _upsample2(self.Conv_0(x))
+            else:
+                fused = torch.cat([s8, _upsample2(x)], dim=-1)
+            fin = blk(first + 5)(blk(first + 4)(fused))
+        h = self._heads
+        return {name: getattr(self, f"Conv_{h + j}")(fin).float()
+                for j, name in enumerate(("hm", "size", "off"))}
+
+    def fused_upscaled(self, frames_u8: torch.Tensor,
+                       plan: FusedUpscalePlan) -> dict[str, torch.Tensor]:
+        """v3 head maps at the upscaled resolution through the folded
+        upscale+patchify+stem (``ops/fused_upscale.py``), then the trunk."""
+        stem = fused_upscale_stem(frames_u8, self.Conv_0.kernel_hwio(), self.Conv_0.bias,
+                                  plan, self.cfg.compute_dtype())
+        return _v3_trunk_heads(self, stem)
+
+
+class V3TrunkHeads(nn.Module):
+    """The v3 chain from stem activations on (Conv_1..Conv_6), parameter
+    compatible with ``SignCenterNet``'s v3 branch minus ``Conv_0``."""
+
+    def __init__(self, cfg: CNNDetectorConfig | None = None):
+        super().__init__()
+        self.cfg = cfg or CNNDetectorConfig(arch="v3")
+        _add_v3_trunk_heads(self, self.cfg.compute_dtype())
+
+    def forward(self, stem_out: torch.Tensor) -> dict[str, torch.Tensor]:
+        return _v3_trunk_heads(self, stem_out)
+
+
+# ---------------------------------------------------------------------------
+# Parameter persistence (the reference's npz format)
+# ---------------------------------------------------------------------------
+
+
+def flax_entries(module: nn.Module, prefix: str = "") -> Iterator[tuple[str, _FlaxLeaf, str]]:
+    """(keystr, layer, flax name) for every parameter, keyed as
+    ``jax.tree_util.keystr`` keys the reference's parameter tree."""
+    for child_name, child in module.named_children():
+        path = f"{prefix}['{child_name}']"
+        if isinstance(child, _FlaxLeaf):
+            for name in child._flax_names:
+                yield f"{path}['{name}']", child, name
+        else:
+            yield from flax_entries(child, path)
+
+
+def load_flat_params(model: nn.Module, flat: Mapping[str, np.ndarray],
+                     source: str = "params") -> nn.Module:
+    """Fill ``model`` from a flat keystr -> array dict (an npz, or the
+    reference's ``tree_flatten_with_path`` of its params), checking every
+    key and shape with the reference's messages.  Returns ``model``."""
+    for key, layer, name in flax_entries(model):
+        if key not in flat:
+            raise ValueError(f"checkpoint {source} is missing parameter {key}")
+        arr = flat[key]
+        want = layer.flax_shapes()[name]
+        if tuple(arr.shape) != want:
+            raise ValueError(
+                f"checkpoint {source} parameter {key} has shape {tuple(arr.shape)}, "
+                f"model expects {want}")
+        layer.load_flax(name, arr)
+    return model
+
+
+def params_from_flat(cfg: CNNDetectorConfig, flat: Mapping[str, np.ndarray],
+                     device="cpu") -> SignCenterNet:
+    """The reference's flat parameter dict -> a ``SignCenterNet`` on ``device``."""
+    return load_flat_params(SignCenterNet(cfg), flat).to(device)
+
+
+def flat_params(model: nn.Module) -> dict[str, np.ndarray]:
+    """``model``'s parameters in the reference's flat keystr layout."""
+    return {key: layer.to_flax(name) for key, layer, name in flax_entries(model)}
+
+
+def save_params(path: str, model: nn.Module, arch: str | None = None,
+                score_threshold: float | None = None) -> None:
+    arrays = flat_params(model)
+    if arch is not None:
+        arrays["__arch__"] = np.asarray(arch)
+    if score_threshold is not None:
+        arrays["__threshold__"] = np.asarray(score_threshold, np.float32)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez(path, **arrays)
+
+
+def saved_meta(path: str) -> dict:
+    """Read the metadata tags stored in a checkpoint (may be empty)."""
+    meta: dict = {}
+    with np.load(path) as data:
+        if "__arch__" in data.files:
+            meta["arch"] = str(data["__arch__"])
+        if "__threshold__" in data.files:
+            meta["score_threshold"] = float(data["__threshold__"])
+    return meta
+
+
+def load_params(path: str, model: nn.Module) -> nn.Module:
+    with np.load(path) as data:
+        return load_flat_params(model, data, path)
+
+
+# ---------------------------------------------------------------------------
+# Decode and the detection routes
+# ---------------------------------------------------------------------------
+
+
+def decode_detections(outputs: dict, k: int, score_threshold: float, stride: int = STRIDE):
+    """Head maps -> top-k boxes per frame: (boxes [B,k,4] f32 xyxy pixels,
+    cls [B,k] int32 1..6, scores [B,k] f32, valid [B,k] bool).  A cell is a
+    peak iff it is the maximum of its 3x3 neighbourhood in its class map."""
+    prob = torch.sigmoid(outputs["hm"])                      # [B, Hc, Wc, C]
+    b, hc, wc, c = prob.shape
+    pooled = F.max_pool2d(prob.permute(0, 3, 1, 2), 3, stride=1, padding=1).permute(0, 2, 3, 1)
+    peaks = torch.where(prob >= pooled, prob, 0.0).reshape(b, hc * wc * c)
+    scores, idx = torch.sort(peaks, dim=-1, descending=True, stable=True)
+    scores, idx = scores[:, :k], idx[:, :k]
+    cls = (idx % c).to(torch.int32)
+    cell = idx // c
+    cy = (cell // wc).to(torch.float32)
+    cx = (cell % wc).to(torch.float32)
+
+    def gather(m):                                           # [B, Hc, Wc, 2]
+        return torch.gather(m.reshape(b, hc * wc, 2), 1, cell[:, :, None].expand(b, k, 2))
+
+    wh = torch.clamp(gather(outputs["size"]), min=0.0)
+    off = torch.clamp(gather(outputs["off"]), 0.0, 1.0)
+    pcx = (cx + off[..., 0]) * stride
+    pcy = (cy + off[..., 1]) * stride
+    pw = wh[..., 0] * stride
+    ph = wh[..., 1] * stride
+    boxes = torch.stack([pcx - pw / 2, pcy - ph / 2, pcx + pw / 2, pcy + ph / 2], dim=-1)
+    thr = torch.tensor(score_threshold, dtype=torch.float32, device=scores.device)
+    valid = (scores >= thr) & (pw > 2) & (ph > 2)
+    return boxes, cls + 1, scores, valid
+
+
+def rescale_boxes(boxes: torch.Tensor, sx: float, sy: float) -> torch.Tensor:
+    """Map decoded xyxy boxes from the upscaled grid back to native pixels."""
+    return boxes / torch.tensor([sx, sy, sx, sy], dtype=torch.float32, device=boxes.device)
+
+
+def upscaled_hw(h: int, w: int, scale: float, stride: int = 16) -> tuple[int, int]:
+    """Target dims for upscaled inference: scale, rounded to the stride."""
+    th = max(stride, int(round(h * scale / stride)) * stride)
+    tw = max(stride, int(round(w * scale / stride)) * stride)
+    return th, tw
+
+
+def _detect(net, x, k, thresh, stride):
+    """Native route: frames [B,H,W,3] or patches8 -> detections."""
+    return decode_detections(net(x), k, thresh, stride)
+
+
+def _detect_upscaled(net, frames, k, thresh, stride, th, tw):
+    """Two-stage route: bilinear uint8 frames at (th, tw), the forward, and
+    boxes mapped back by (tw/w, th/h)."""
+    h, w = frames.shape[1:3]
+    boxes, cls, scores, valid = _detect(net, upscale_bilinear_u8(frames, th, tw), k, thresh,
+                                        stride)
+    return rescale_boxes(boxes, tw / w, th / h), cls, scores, valid
+
+
+def _detect_fused_upscaled(net, frames, k, thresh, stride, plan):
+    """Fused route: the folded upscale+stem on native pixels, the trunk,
+    boxes mapped back by t/a on both axes."""
+    boxes, cls, scores, valid = decode_detections(net.fused_upscaled(frames, plan), k,
+                                                  thresh, stride)
+    sx, sy = plan.rescale_factors()
+    return rescale_boxes(boxes, sx, sy), cls, scores, valid
+
+
+def _detect_yuv_patches(net, y_p, cb_p, cr_p, k, thresh, stride):
+    """Patchified 4:2:0 planes -> BGR patches8 in patch space -> forward."""
+    return _detect(net, yuv420_patches_to_bgr_patches8(y_p, cb_p, cr_p), k, thresh, stride)
+
+
+def unmatched_detections(ref: list[GroundTruthBox], got: list[GroundTruthBox],
+                         score_tol: float, threshold: float,
+                         box_tol: int = 1) -> list[GroundTruthBox]:
+    """Detections of either list without a counterpart in the other: same
+    file and class, every corner within ``box_tol`` px, score within
+    ``score_tol``.  Detections whose score lies within ``score_tol`` of
+    ``threshold`` may be missing from the other side and are not counted.
+    The agreement test between two implementations that round bf16 at
+    other places."""
+    def has_match(d, pool):
+        return any(e.filename == d.filename and e.class_id == d.class_id
+                   and abs(e.score - d.score) <= score_tol
+                   and max(abs(e.x1 - d.x1), abs(e.y1 - d.y1), abs(e.x2 - d.x2),
+                           abs(e.y2 - d.y2)) <= box_tol
+                   for e in pool)
+
+    return [d for a, b in ((ref, got), (got, ref)) for d in a
+            if abs(d.score - threshold) > score_tol and not has_match(d, b)]
+
+
+class _HostCopy:
+    """A dispatched batch's outputs being copied to pinned host memory; an
+    event marks the copy's end (on the CPU the outputs are kept as they
+    are)."""
+
+    def __init__(self, outputs):
+        self.done = None
+        if outputs[0].device.type != "cuda":
+            self.host = outputs
+            return
+        self.host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                          for t in outputs)
+        for h, t in zip(self.host, outputs):
+            h.copy_(t, non_blocking=True)
+        self.done = torch.cuda.Event()
+        self.done.record()
+
+    def numpy(self) -> list[np.ndarray]:
+        if self.done is not None:
+            self.done.synchronize()
+        return [t.numpy() for t in self.host]
+
+
+class CNNDetector:
+    """Batched full-frame detector over saved weights, with the reference's
+    dispatch/collect contract: ``dispatch`` enqueues a batch on the device
+    and returns its outputs, ``collect`` turns them into records."""
+
+    def __init__(self, net, cfg: CNNDetectorConfig | None = None, upscale: float = 1.0):
+        self.cfg = cfg or net.cfg
+        self.net = net
+        self.upscale = float(upscale)
+
+    @property
+    def device(self) -> torch.device:
+        return self.net.device
+
+    def _fused_plan(self, h: int, w: int) -> FusedUpscalePlan | None:
+        """Fused upscale+stem plan for this operating point, or None."""
+        if self.upscale == 1.0 or self.cfg.arch != "v3":
+            return None
+        return find_plan(h, w, self.upscale)
+
+    @classmethod
+    def load(cls, path: str, cfg: CNNDetectorConfig | None = None, device="cuda"):
+        if cfg is None:
+            cfg = CNNDetectorConfig(**saved_meta(path))
+        return cls(load_params(path, SignCenterNet(cfg)).to(device), cfg)
+
+    def save(self, path: str) -> None:
+        save_params(path, self.net, arch=self.cfg.arch,
+                    score_threshold=self.cfg.score_threshold)
+
+    def _upload(self, a) -> torch.Tensor:
+        t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type == "cuda" and t.device.type == "cpu":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def _detect_frames(self, x: torch.Tensor):
+        """Route a device batch of frames (or native patches8)."""
+        cfg, k, thr = self.cfg, self.cfg.max_detections, self.cfg.score_threshold
+        if self.upscale != 1.0:
+            if x.shape[-1] != 3:
+                raise ValueError(
+                    "upscaled inference needs [B,H,W,3] frames; the "
+                    "patches8 layout is pre-patchified at native "
+                    "resolution (use --input_format bgr or yuv420)")
+            plan = self._fused_plan(x.shape[1], x.shape[2])
+            if plan is not None:
+                return _detect_fused_upscaled(self.net, x, k, thr, cfg.stride, plan)
+            th, tw = upscaled_hw(x.shape[1], x.shape[2], self.upscale, cfg.stride)
+            return _detect_upscaled(self.net, x, k, thr, cfg.stride, th, tw)
+        return _detect(self.net, x, k, thr, cfg.stride)
+
+    @torch.inference_mode()
+    def dispatch(self, frames):
+        """frames uint8 [B,H,W,3] BGR with H,W multiples of 16, or (v3,
+        native resolution) patches8 [B,H/8,W/8,192]; numpy or tensor."""
+        full_f32_matmuls()
+        return self._detect_frames(self._upload(frames))
+
+    @torch.inference_mode()
+    def dispatch_yuv(self, y, cb, cr):
+        """Raw 4:2:0 planes, converted on the device.  Two layouts, keyed on
+        ndim: tight planes y [B,H,W], cb/cr [B,H/2,W/2]; or patchified planes
+        (v3 at native resolution) y [B,H/8,W/8,64], cb/cr [B,H/8,W/8,16]."""
+        full_f32_matmuls()
+        y, cb, cr = (self._upload(p) for p in (y, cb, cr))
+        if y.dim() == 4 and self.upscale == 1.0 and self.cfg.arch == "v3":
+            return _detect_yuv_patches(self.net, y, cb, cr, self.cfg.max_detections,
+                                       self.cfg.score_threshold, self.cfg.stride)
+        if y.dim() == 4:
+            raise ValueError(
+                "patchified yuv planes need the v3 arch at native "
+                "resolution (use tight planes for --upscale or other "
+                "arches)")
+        return self._detect_frames(yuv420_to_bgr(y, cb, cr))
+
+    def collect(self, handles, filenames: list[str],
+                orig_hw: tuple[int, int] | None = None) -> list[GroundTruthBox]:
+        if not isinstance(handles, _HostCopy):
+            handles = _HostCopy(handles)
+        boxes, cls, scores, valid = handles.numpy()
+        dets: list[GroundTruthBox] = []
+        for i, name in enumerate(filenames):
+            for j in range(boxes.shape[1]):
+                if not valid[i, j]:
+                    continue
+                x1, y1, x2, y2 = boxes[i, j]
+                if orig_hw is not None:
+                    h, w = orig_hw
+                    x1, x2 = np.clip([x1, x2], 0, w - 1)
+                    y1, y2 = np.clip([y1, y2], 0, h - 1)
+                if x2 - x1 < 2 or y2 - y1 < 2:
+                    continue
+                dets.append(GroundTruthBox(
+                    filename=name,
+                    x1=int(round(float(x1))), y1=int(round(float(y1))),
+                    x2=int(round(float(x2))), y2=int(round(float(y2))),
+                    class_id=int(cls[i, j]),
+                    score=float(scores[i, j])))
+        return dets
+
+    def run_directory(self, directory: str, batch_size: int = 32, progress: bool = False,
+                      input_format: str = "bgr") -> list[GroundTruthBox]:
+        """Detect over a dataset directory: frames are decoded ahead on a
+        background thread and one batch stays in flight (its outputs copy
+        to the host while the next batch is decoded and dispatched).
+
+        ``yuv420`` ships raw 4:2:0 planes (1.5 bytes/px) and converts on
+        the device; on v3 at native resolution it becomes ``yuv420p``, the
+        same planes patchified on the host.  ``patches8`` decodes into the
+        stem's layout."""
+        if input_format == "yuv420" and self.cfg.arch == "v3" and self.upscale == 1.0:
+            input_format = "yuv420p"
+        files = list_frame_files(directory)
+        dets: list[GroundTruthBox] = []
+        pending = None
+        done = 0
+        orig_hw = None
+        # yuv420p: tight planes from the loader, patchified by this package
+        load_format = "yuv420" if input_format == "yuv420p" else input_format
+        for frames, names in batched_frames(directory, files, batch_size, device_put=False,
+                                            input_format=load_format):
+            if isinstance(frames, tuple):
+                h, w = frames[0].shape[1:3]
+                if input_format == "yuv420p" and h % 8 == 0 and w % 8 == 0:
+                    frames = patchify_yuv_planes(*frames)
+                if orig_hw is None:
+                    scale = 8 if frames[0].ndim == 4 else 1
+                    orig_hw = (int(frames[0].shape[1]) * scale, int(frames[0].shape[2]) * scale)
+                out = _HostCopy(self.dispatch_yuv(*frames))
+            else:
+                if orig_hw is None:
+                    scale = 8 if frames.shape[-1] == 192 else 1
+                    orig_hw = (int(frames.shape[1]) * scale, int(frames.shape[2]) * scale)
+                out = _HostCopy(self.dispatch(frames))
+            if pending is not None:
+                dets.extend(d for d in self.collect(*pending) if d.filename != "__pad__")
+                done = min(done + batch_size, len(files))
+                if progress:
+                    print(f"  processed {done}/{len(files)} frames")
+            pending = (out, names, orig_hw)
+        if pending is not None:
+            dets.extend(d for d in self.collect(*pending) if d.filename != "__pad__")
+            if progress:
+                print(f"  processed {len(files)}/{len(files)} frames")
+        return dets

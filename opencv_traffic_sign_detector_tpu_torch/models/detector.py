@@ -37,10 +37,13 @@ from .mean_masks import MeanMaskTemplates, mask_correlation_classify, templates_
 
 
 def full_f32_matmuls() -> None:
-    """Keep f32 matrix products (crop resize, histogram correlation) in full
-    f32 on the card, as the reference computes them: no TF32."""
+    """Keep f32 matrix products and convolutions (crop resize, histogram
+    correlation, the CNN's f32 paths and its exact yuv conv) in full f32 on
+    the card, as the reference computes them: no TF32; and let bf16
+    products reduce in f32 only."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def detect_batch(frames: torch.Tensor, red_templates: torch.Tensor,

@@ -144,8 +144,8 @@ def test_cli_xla_sweep_modes_write_same_results(interpret, cli_dirs, flags):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--detector", "CNN"], ["--detector", "CNN_0.4"], ["--n_devices", "2"],
-    ["--trace_dir", "t"], ["--detector", "MSER_7_200"],
+    ["--detector", "CNN", "--n_devices", "2"], ["--detector", "CNN_0.4", "--trace_dir", "t"],
+    ["--n_devices", "2"], ["--trace_dir", "t"], ["--detector", "MSER_7_200"],
 ])
 def test_cli_rejects_unported_modes(argv, capsys):
     assert main_detection_torch.main(argv + ["--device", "cpu"]) == 2

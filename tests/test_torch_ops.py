@@ -212,10 +212,25 @@ def test_templates_load_and_train_match(tmp_path):
 
 # --- guards and wrappers -----------------------------------------------------
 
-def test_port_imports_no_jax():
-    code = ("import sys; import opencv_traffic_sign_detector_tpu_torch.models.detector; "
-            "import main_detection_torch; assert 'jax' not in sys.modules, "
-            "sorted(m for m in sys.modules if m.startswith('jax'))")
+def test_port_imports_no_jax(tmp_path):
+    """Importing the port, its CNN modules and the CLI, and running the
+    CLI's CNN branch on a one-frame directory on the CPU (``--upscale 1.6``,
+    and yuv420 ingest, which becomes yuv420p), imports no jax."""
+    frames = str(tmp_path / "frames")
+    cli = (f"['--detector', 'CNN_0.3', '--test_path', {frames!r}, '--device', 'cpu', "
+           f"'--no-images', '--out', {str(tmp_path / 'r.txt')!r}")
+    code = (
+        "import sys; import opencv_traffic_sign_detector_tpu_torch.models.detector; "
+        "import opencv_traffic_sign_detector_tpu_torch.models.cnn_quant; "
+        "import opencv_traffic_sign_detector_tpu_torch.ops.fused_upscale; "
+        "import opencv_traffic_sign_detector_tpu_torch.ops.yuv; "
+        "import main_detection_torch; "
+        "from opencv_traffic_sign_detector_tpu_torch.data.synthetic import write_test_dir; "
+        f"write_test_dir({frames!r}, 1, 64, 64); "
+        f"assert main_detection_torch.main({cli}, '--upscale', '1.6']) == 0; "
+        f"assert main_detection_torch.main({cli}, '--input_format', 'yuv420']) == 0; "
+        "assert 'jax' not in sys.modules, "
+        "sorted(m for m in sys.modules if m.startswith('jax'))")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 
 
