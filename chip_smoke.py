@@ -15,11 +15,19 @@ Phases:
    config at batch 8 and on the roll-flood refine of the tuned config with
    ``refine_scan_passes=0`` at batch 32), runs the kernel and its plain
    PyTorch version on those same CUDA tensors, requires exact equality, and
-   times both with CUDA events (median of 10 after warm-up);
+   times both with CUDA events (median of 10 after warm-up), with K1's
+   library yardstick (``torch.bincount``), and computes each kernel's bound
+   from its inputs (:func:`_bound`); K3's line also prints the recorded
+   time of its old per-pass design (:data:`K3_OLD_MS`);
 4. identities: K7's per-level maps folded into ``max((qv << lbits) | t)``
    equal K3's output on the tuned single-strip windows, and the bbox and
    area of ``K6(seed map, mask) == 0`` equal K4's output, both exactly
-   (the launches of K6 and K7 are counted here: they are oracles);
+   (the launches of K6 and K7 are counted here: they are oracles); then K3
+   at four more shapes cut from the tuned windows against its plain
+   version and K7 folded: a width that is not a multiple of the tile
+   width, a window smaller than one tile, a small ``max_area`` (dead
+   marks) and a strip halo (plain only: K7 has no strips), and its refusal
+   of windows too wide for its int16 bbox planes;
 5. slice 1: runs ``DetectionPipeline`` (batch 32, MSER_7_200_2000_1 at the
    tuned ``--downscale 2`` point) for one warm-up and 3 timed batches from
    host frames to detection records, with per-stage CUDA-event times, and
@@ -49,8 +57,11 @@ Phases:
    equals the CPU's.  The CNN path runs none of K1-K7 (its convs and
    products are PyTorch's), so its launch counts are 0.
 
-Then one JSON line with the kernel table, and as the last line
-``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero.
+Then one JSON line with the kernel table (each kernel's launches on its
+path's run, max abs error, ms, plain ms, bound ms and what bounds it, and
+the library call's ms or null), and as the last line ``{"ok": true,
+"device": {...}}``.  Any failure raises and exits non-zero; so does an
+import of JAX or of the reference package.
 """
 
 from __future__ import annotations
@@ -68,7 +79,114 @@ from collections import defaultdict
 import torch
 
 
-def _device_phase() -> str:
+# Published peaks of one NVIDIA H100 SXM at 700 W (NVIDIA's data sheet):
+# 3.35 TB/s of HBM, and 67 TFLOP/s of f32 outside the tensor cores, which
+# counts a fused multiply-add as two: 33.5 T lane operations a second, the
+# most an SM starts (128 lanes a cycle).  Integer compares, min/max,
+# selects and logic run on the integer pipe, 64 lanes an SM a cycle against
+# the f32 pipe's 128 (NVIDIA's Hopper architecture white paper): half that.
+HBM_BYTES_S = 3.35e12
+LANE_OPS_S = 33.5e12
+INT_OPS_S = LANE_OPS_S / 2
+# Operations per element of each kernel's plain formulation, one compare,
+# and/or, min/max, select, add, multiply, division or conversion each, as
+# (integer pipe, f32 pipe).  The sweep (K3, K7), per mask pixel and level
+# (a pixel outside the level's mask keeps its sentinels and, the mask
+# growing with the level, has no ring value to move): the warm start (mask
+# 5, key 2, min/max 5, selects 5), each Jacobi pass (4 min and a select per
+# plane, liveness 2) and the emit (anchor 2, bbox area 8, dead mark 4,
+# variation 7, candidate 9, diversity 7, last-emit 1, byte 5, packing 4,
+# max 1, bf16 conversions 8), whose f32 products, sums, division, floor
+# and conversions (20 of its 56) take the f32 pipe.
+SWEEP_OPS = {"init": (17, 0), "pass": (27, 0), "emit": (36, 20)}
+# K1 one count a pixel; K2 four lookups, their conversions and the
+# bilinear blend, round and clamp (f32); K4-K6 per resolve of a run scan:
+# two directed scans (2 each), their min and a select; K4 adds the mask,
+# the seed and the bbox and area reduction.
+K2_OPS, SCAN_OPS = 24, 6
+# K3 on its old per-pass design (an init, each pass and an emit a launch,
+# state in device memory) at the tuned path's shapes, [64,408,684] windows
+# and 31 levels: NVIDIA H100 80GB HBM3, 700.00 W (PERF.md section 6).
+K3_OLD_MS = 46.198
+
+
+def _mask_pixel_levels(x: torch.Tensor, step: int, num_levels: int) -> int:
+    """Sum over the sweep's levels of the pixels in the level's mask:
+    value <= level * step, off a window's first and last rows."""
+    below = torch.bincount(x[:, 1:-1].reshape(-1).long(), minlength=256).cumsum(0)
+    return sum(int(below[min(t * step, 255)]) for t in range(num_levels))
+
+
+def _bound(name: str, args: tuple, out: torch.Tensor) -> tuple[float, str, int, int]:
+    """(least time in ms, "bytes" or "operations", bytes, operations) of one
+    call: each input byte read once, each output byte written once, and the
+    operations its inputs need, the integer ones no faster than the integer
+    pipe and all no faster than an SM starts them, over the published peaks."""
+    from opencv_traffic_sign_detector_tpu_torch.ops.mser_cuda import SweepParams
+
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    nbytes = sum(t.numel() * t.element_size() for t in tensors)
+    nbytes += out.numel() * out.element_size()
+    x = tensors[0]
+    f32_ops = 0
+    if name == "tile_histograms":
+        int_ops = x.numel()
+    elif name == "clahe_apply":
+        int_ops, f32_ops = 0, K2_OPS * x.numel()
+    elif name in ("level_sweep", "level_sweep_full"):
+        if name == "level_sweep":
+            _, params, _, _, nl, _ = args
+        else:
+            _, cfg, d_idx, nl = args
+            params = SweepParams.from_config(cfg, d_idx)
+        px = _mask_pixel_levels(x, params.step, nl)
+        (i0, f0), (i1, f1), (i2, f2) = (SWEEP_OPS[k] for k in ("init", "pass", "emit"))
+        int_ops = px * (i0 + params.num_passes * i1 + i2)
+        f32_ops = px * (f0 + params.num_passes * f1 + f2)
+    elif name == "flood_bbox":
+        planes, cand, win_h, win_w, passes, _ = args
+        px = cand.shape[0] * win_h * win_w
+        nbytes += min(px, planes.numel()) - planes.numel()  # the windows, not the planes
+        int_ops = px * (3 + SCAN_OPS * (2 * passes + 1) + 10)
+    elif name.startswith("propagate_rolls"):
+        int_ops = x.numel() * (1 + 5 * args[3])
+    elif name == "propagate_scan":
+        int_ops = x.numel() * (1 + SCAN_OPS * (2 * args[3] + 1))
+    else:
+        raise KeyError(name)
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = max(int_ops / INT_OPS_S, (int_ops + f32_ops) / LANE_OPS_S) * 1e3
+    return (max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes,
+            int_ops + f32_ops)
+
+
+# Kernels without a PyTorch call that computes the same function
+NO_LIBRARY = {
+    "clahe_apply": "no call applies four per-tile LUTs and blends them bilinearly",
+    "level_sweep": "no call runs the level sweep's warm starts, truncated Jacobi "
+                   "passes and ring emits",
+    "flood_bbox": "no call floods a seed's component and reduces its bbox",
+    "propagate_rolls": "no call iterates a masked 4-neighbour min (max_pool2d "
+                       "takes square windows)",
+    "propagate_rolls_refine": "as at the sweep site",
+    "propagate_scan": "no call runs segmented run-min scans",
+    "level_sweep_full": "as K3",
+}
+
+
+def _k1_library(x: torch.Tensor, tiles: int = 8):
+    """``torch.bincount`` over a precomputed (frame, tile, value) index: the
+    same histograms as K1 in one library call."""
+    b, h, w = x.shape
+    tile_y = torch.arange(h, device=x.device) // (h // tiles)
+    tile_x = torch.arange(w, device=x.device) // (w // tiles)
+    tile = (tile_y[:, None] * tiles + tile_x[None, :])[None]
+    frame = torch.arange(b, device=x.device)[:, None, None]
+    idx = ((frame * tiles * tiles + tile) * 256 + x.long()).reshape(-1)
+    return lambda: torch.bincount(idx, minlength=b * tiles * tiles * 256)
+
+
+def _device_phase() -> tuple[str, str]:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs "
               "one CUDA card", file=sys.stderr)
@@ -80,7 +198,7 @@ def _device_phase() -> str:
     print(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
           f"count {torch.cuda.device_count()} name {name}")
     print(f"[device] nvidia-smi: {smi.splitlines()[0]}")
-    return name
+    return name, smi.splitlines()[0]
 
 
 class CudaStageTimer:
@@ -154,6 +272,53 @@ def _run_path(rt, label, fn):
 def _require(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
+
+
+def _k3_shapes(mc, captured: tuple, cfg, d_idx: int, smi: str) -> None:
+    """Phase 4, K3 beyond the main path's shapes: windows cut from the tuned
+    path's, each against the plain version and (without a strip halo) K7
+    folded, which runs the old per-pass design."""
+    windows, params, _, _, nl, lbits = captured
+    span = mc.SWEEP_SPAN
+    side = mc.TILE_REGION - 2 * span
+    small = dataclasses.replace(cfg, min_area=5, max_area=30)
+    cases = [  # label, windows, config, strip halo, what the tile plan must show
+        ("ragged width", windows[:4, :, :101], cfg, 0, lambda r, w, th, tw: w % tw != 0),
+        ("smaller than a tile", windows[:4, 150:150 + side // 2, 300:300 + side // 3], cfg, 0,
+         lambda r, w, th, tw: r < side and w < side),
+        ("dead marks (max_area 30)", windows[:4], small, 0, None),
+        ("strip halo 8", windows[:4], cfg, 8, None),
+    ]
+    for label, win, c, halo, shows in cases:
+        win = win.contiguous()
+        r, w = win.shape[1:]
+        p = mc.SweepParams.from_config(c, d_idx)
+        th, tw = mc.sweep_tiles(r, w)
+        _require(shows is None or shows(r, w, th, tw), f"K3 {label}: tile {th}x{tw} on {r}x{w}")
+        core = r - 2 * halo
+        got = mc.level_sweep_windows(win, p, core, halo, nl, lbits)
+        same = torch.equal(got, mc.level_sweep_windows_plain(win, p, core, halo, nl, lbits))
+        fold_ok = "n/a (strips)"
+        if halo == 0:
+            k7 = mc.fused_level_sweep_full(win, c, d_idx, nl)
+            fold = torch.zeros_like(got)
+            for t in range(nl):
+                fold = torch.maximum(fold, k7[:, t].to(torch.int32) * (1 << lbits) + t)
+            fold_ok = torch.equal(fold, got)
+            same = same and fold_ok
+        cands = int((got >> lbits > 0).sum())
+        print(f"[kernel K3 {label}] windows {tuple(win.shape)}, span {span}, tile {th}x{tw}, "
+              f"max_area {p.max_area:g}: equals plain and K7 folded: {same} "
+              f"(K7 fold {fold_ok}); candidate pixels {cands}")
+        _require(same, f"K3 {label}: differs from its plain version or K7")
+    wide = torch.zeros((1, 4, 1 << 15), dtype=torch.uint8, device=windows.device)
+    try:
+        mc.level_sweep_windows(wide, params, 4, 0, nl, lbits)
+        refused = False
+    except ValueError:
+        refused = True
+    print(f"[kernel K3 int16] windows {tuple(wide.shape)} refused: {refused}")
+    _require(refused, "K3 took windows wider than its int16 bbox planes")
 
 
 def _cnn_phases(rt, dev, frames: "np.ndarray", names: list[str]) -> None:
@@ -300,7 +465,7 @@ def main() -> int:
                     help="print nvcc's per-kernel register/shared-memory report")
     args = ap.parse_args()
 
-    kind = _device_phase()
+    kind, smi = _device_phase()
 
     import numpy as np
 
@@ -412,17 +577,31 @@ def main() -> int:
         _require(got.shape == want.shape and got.dtype == want.dtype,
                  f"{name}: {got.shape}/{got.dtype} vs plain {want.shape}/{want.dtype}")
         err = (got.to(torch.int64) - want.to(torch.int64)).abs().max().item()
+        bound_ms, bound_by, nbytes, ops = _bound(name, a, got)
+        library_ms = None
+        if name == "tile_histograms":
+            lib = _k1_library(*a)
+            _require(torch.equal(lib().to(torch.int32).reshape(got.shape), got),
+                     "K1: torch.bincount differs")
+            library_ms = _time_ms(lib)
         del got, want
         shapes = [tuple(x.shape) for x in a if isinstance(x, torch.Tensor)]
         ms = _time_ms(lambda: kern(*a, **kw))
         plain_ms = _time_ms(lambda: plain(*a, **kw))
+        library = (f"library {library_ms:.3f} ms (torch.bincount)" if library_ms is not None
+                   else f"library none ({NO_LIBRARY[name]})")
         print(f"[kernel] {name}: inputs {shapes} -> exact required, max_abs_err {err}; "
-              f"kernel {ms:.3f} ms plain {plain_ms:.3f} ms")
+              f"kernel {ms:.3f} ms"
+              + (f" (old per-pass design {K3_OLD_MS:.3f} ms, recorded)"
+                 if name == "level_sweep" else "")
+              + f" plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms by {bound_by} "
+              f"({nbytes} bytes, {ops} operations); {library}; {smi}")
         _require(err == 0, f"{name}: kernel differs from its plain version")
         table.append({"name": name, "route": "cuda",
                       "source": f"opencv_traffic_sign_detector_tpu_torch/{src}",
                       "replaces": replaces, "launches": 0,
-                      "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms})
+                      "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
     rows = {row["name"]: row for row in table}
 
     # --- 4. identities between kernels ---------------------------------
@@ -449,6 +628,7 @@ def main() -> int:
     for name in ("propagate_scan", "level_sweep_full"):
         rows[name]["launches"] = counts[name]
         _require(counts[name] > 0, f"{name} never launched")
+    _k3_shapes(mser_cuda, inputs["level_sweep"][0], scfg, d_idx, smi)
 
     # --- 5. slice 1 through DetectionPipeline -----------------------------
     def run_slice(label, mcfg_, batch, timed):
@@ -539,7 +719,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     _cnn_phases(rt, dev, frames, names)
     _require("jax" not in sys.modules, "the port imported jax")
+    ref = sorted(m for m in sys.modules if m.split(".")[0] == "opencv_traffic_sign_detector_tpu")
+    _require(not ref, f"the port imported the reference package: {ref}")
 
+    for row in table:
+        print(f"[table] {row['name']}: {row['launches']} launches on its path's run; "
+              f"{row['ms']:.3f} ms against a bound of {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}); {smi}")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

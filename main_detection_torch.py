@@ -28,30 +28,30 @@ import shutil
 import sys
 import time
 
-from opencv_traffic_sign_detector_tpu.config import (
+from opencv_traffic_sign_detector_tpu_torch.config import (
     ConfigError,
     MSERConfig,
     PipelineConfig,
 )
-from opencv_traffic_sign_detector_tpu.data.gt import boxes_by_file
-from opencv_traffic_sign_detector_tpu.data.images import (
+from opencv_traffic_sign_detector_tpu_torch.data.gt import boxes_by_file
+from opencv_traffic_sign_detector_tpu_torch.data.images import (
     list_frame_files,
     load_image_bgr,
 )
-from opencv_traffic_sign_detector_tpu.eval.ap import score_detection_files
-from opencv_traffic_sign_detector_tpu.eval.stats import (
+from opencv_traffic_sign_detector_tpu_torch.eval.ap import score_detection_files
+from opencv_traffic_sign_detector_tpu_torch.eval.stats import (
     compute_detection_statistics,
     format_stats_report,
 )
-from opencv_traffic_sign_detector_tpu.utils.annotate import (
+from opencv_traffic_sign_detector_tpu_torch.models.detector import DetectionPipeline
+from opencv_traffic_sign_detector_tpu_torch.models.mean_masks import train_mean_masks
+from opencv_traffic_sign_detector_tpu_torch.utils.annotate import (
     draw_boxes_bgr,
     save_image_bgr,
 )
-from opencv_traffic_sign_detector_tpu.utils.profiling import StageProfiler
-from opencv_traffic_sign_detector_tpu.utils.serialization import write_results_file
-from opencv_traffic_sign_detector_tpu.utils.stages import StageError, stage
-from opencv_traffic_sign_detector_tpu_torch.models.detector import DetectionPipeline
-from opencv_traffic_sign_detector_tpu_torch.models.mean_masks import train_mean_masks
+from opencv_traffic_sign_detector_tpu_torch.utils.profiling import StageProfiler
+from opencv_traffic_sign_detector_tpu_torch.utils.serialization import write_results_file
+from opencv_traffic_sign_detector_tpu_torch.utils.stages import StageError, stage
 
 USAGE_HINT = """\
 Detector spec: MSER_<delta>_<minArea>_<maxArea>_<maxVariation>

@@ -1,30 +1,73 @@
-// K3: the fused MSER level sweep with in-kernel level collapse.
+// K3: the fused MSER level sweep with in-kernel level collapse, in
+// shared-memory tiles.
 //
 // Replaces opencv_traffic_sign_detector_tpu/ops/mser_pallas.py:
 // fused_level_sweep (_collapsed_kernel + _sweep_body).  On the TPU the
 // whole sweep state of one strip window stays in VMEM across all levels.
-// One window here is ~0.28 M pixels with ~30 bytes of state per pixel
-// (8 MB), far beyond one SM's 227 KB of shared memory, so this first form
-// keeps the state planes in device memory and runs every window of the
-// batch (frame x polarity x strip) in one grid per launch.  Per level it
-// launches an init/warm-start step, 2*ccl_iters Jacobi passes, and one emit
-// step.  Bound: device-memory bandwidth; each pass reads and writes the
-// five int32 planes (about 40 bytes per pixel with the 4-neighbour reads
-// mostly served by L1/L2).  Fusing passes into shared-memory tiles with
-// halos is the work of a later change.
+// Here one window is ~0.28 M pixels with ~30 bytes of state per pixel
+// (8 MB), far beyond one SM's 227 KB of shared memory, so the state lives
+// in device memory between launches.
+//
+// What bounds it: the first form (kept below as the old design, for K7)
+// launched an init, 2*ccl_iters Jacobi passes and an emit per level,
+// each a full read and write of five int32 planes, about 250 bytes a pixel
+// a level of device-memory traffic: it ran at the memory's rate on its own
+// state.  The sweep's real work is 181 operations a mask pixel a level (17
+// for the warm start, 27 a pass, 56 for the emit), 161 of them compares,
+// min/max, selects and logic on the integer pipe, which runs at half the
+// f32 rate (chip_smoke.py: SWEEP_OPS, _bound); pixels outside a level's
+// mask need none.  Its compulsory traffic is the windows in and one int32
+// a core pixel out.
+//
+// This design moves far fewer state bytes and keeps the passes on chip:
+// * One launch runs a span of `span` Jacobi passes (the wrapper's 6, 1.5
+//   levels of the tuned config) with the warm starts and emits inside it.
+//   Each block holds a region of at most 64 x 64 pixels: a tile plus a
+//   halo of `span` pixels on every side.  After pass k only pixels at
+//   least k from the region's edge are exact, so the core is exact at the
+//   end of the span, and it is all the block writes back.
+// * Thread (c, g) of the 1024 owns column c, rows [4g, 4g + 4) of the
+//   region, in registers for the whole span.  Each pass publishes every
+//   pixel to one of two shared-memory exchange buffers (used in turn: one
+//   barrier a pass) and reads its left and right neighbours there; its
+//   vertical neighbours come from its own registers but at the ends of its
+//   run.  The block fills an SM with 32 warps at 64 registers a thread,
+//   which hide more latency than 16 warps with runs of 8 rows (PERF.md).
+// * The bbox planes are int16 pairs, (ymin, xmin) and (ymax, xmax), one
+//   int32 each, merged with the packed min/max instructions (__vmins2,
+//   __vmaxs2); the sentinels 1<<28 and -1 become INT16_MAX and -1, which
+//   order the same against real rows and columns (< 32767).  An anchor's
+//   bbox is always real, so the f32 area never sees a sentinel.  State is
+//   12 bytes a pixel, double-buffered in device memory between launches.
+// * The rings live in scratch laid out by the tile plan: per block, slot
+//   and thread one 8-byte record of its 4 pixels.  The emit reads a
+//   thread's five slots as five vector loads in flight together (the
+//   first form waited on a round trip per pixel) and writes a record back
+//   only where a value changed.  The output max is read and written only
+//   on a candidate and at the last level.
+// It still runs at several times its operations bound (PERF.md): with one
+// block an SM, nothing overlaps a block's barriers in the passes or its
+// round trips to device memory at load, emit and write-back.
 //
 // Semantics carried over exactly from the reference:
-// * Jacobi passes: every pass reads the previous pass's planes (ping-pong
-//   buffers).  An in-place update would propagate further and change the
-//   candidates; the truncation at 2*ccl_iters passes is load-bearing.
+// * Jacobi passes: every pass reads the previous pass's planes.  An
+//   in-place update would propagate further and change the candidates; the
+//   truncation at 2*ccl_iters passes is load-bearing.
 // * The reference exits the pass loop early when a full pass changes
 //   nothing.  That only fires at a fixed point, where further passes change
 //   nothing either, so running all passes gives the identical state.
 // * Within a pass, a pixel's bbox channels use live = mask & (new key >= 0).
 // * Neighbour reads wrap modulo the window, as pltpu.roll does; the
-//   window's first and last rows are masked off.
+//   window's first and last rows are masked off.  A tile loads its halo
+//   through the same wraparound (a tile on the left edge loads columns from
+//   the right edge; a window narrower than a tile appears in it more than
+//   once), so the loaded region is an unrolled cover of the torus.
+// * Windows are padded with 255 and the levels reach 270: padding joins
+//   the mask at the top levels, like any pixel.
+// * The emit's dead mark (keys = -1 on an anchor whose bbox area exceeds
+//   max_area) is carried across levels in the state.
 // * Rings are bf16, stored with round-to-nearest-even; the variation's
-//   division is IEEE f32 (never build with --use_fast_math).
+//   division is IEEE f32 (never build with --use_fast_math; -fmad=false).
 // * Output comes only from the core rows: max over levels of
 //   (qv << lbits) | t.
 //
@@ -32,8 +75,9 @@
 // (_full_kernel), the same body over one strip per plane (no halo, the
 // plane's real width) writing each level's byte qv, cast through int32 to
 // u8, for every row into [P, L, H, W] instead of folding the running max.
-// It is the reference's oracle that pairs K3 with the XLA sweep; it adds
-// one byte per pixel per level of writes to K3's traffic.
+// It is the reference's oracle that pairs K3 with the XLA sweep, and it
+// runs on the old design: one launch per init, pass and emit step over
+// int32 planes in device memory.
 #include <cuda_bf16.h>
 
 #include "tsd_common.cuh"
@@ -53,7 +97,6 @@ struct Planes {
 
 struct Geometry {
     int n, r, w;      // windows, rows per window, columns
-    int core, halo;   // emitted rows [halo, halo + core)
     long long total;  // n * r * w
 };
 
@@ -64,8 +107,7 @@ __device__ __forceinline__ bool in_mask(const uint8_t* win, long long p, int row
 
 // Warm start of level t: fold the level's mask into the carried state.
 __global__ void sweep_init_kernel(const uint8_t* __restrict__ win, Planes s,
-                                  __nv_bfloat16* __restrict__ rings,
-                                  int32_t* __restrict__ out, Geometry g,
+                                  __nv_bfloat16* __restrict__ rings, Geometry g,
                                   int level, int first, int n_ring_planes) {
     const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (p >= g.total) return;
@@ -81,9 +123,6 @@ __global__ void sweep_init_kernel(const uint8_t* __restrict__ win, Planes s,
         for (int k = 0; k < n_ring_planes; ++k) {
             // area ring and last-emit start at 0, the variation ring at inf
             rings[(long long)k * g.total + p] = __float2bfloat16_rn(0.0f);
-        }
-        if (out != nullptr && row >= g.halo && row < g.halo + g.core) {
-            out[(p / hw) * (long long)g.core * g.w + (long long)(row - g.halo) * g.w + col] = 0;
         }
     } else {
         keys = s.keys[p];
@@ -139,20 +178,19 @@ struct Slots {
     int old_a, td_a, write_a, v_new, v_c;
 };
 
-// Bbox-area stability, dead mark, candidate test and level collapse.
+// Bbox-area stability, dead mark, candidate test and the level's byte map.
 __global__ void sweep_emit_kernel(const uint8_t* __restrict__ win, Planes s,
                                   __nv_bfloat16* __restrict__ aring,
                                   __nv_bfloat16* __restrict__ vring,
                                   __nv_bfloat16* __restrict__ lastemit,
-                                  int32_t* __restrict__ out,
                                   uint8_t* __restrict__ full, Geometry g,
-                                  int level, int t, int num_levels, int lbits,
-                                  Slots sl, Thresholds th) {
+                                  int level, int t, int num_levels, Slots sl,
+                                  Thresholds th) {
     const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
     if (p >= g.total) return;
     const int hw = g.r * g.w;
     const int local = (int)(p % hw);
-    const int row = local / g.w, col = local - row * g.w;
+    const int row = local / g.w;
     const bool m = in_mask(win, p, row, g.r, level);
     const int keys = s.keys[p];
     const int keys0 = (int)win[p] * hw + local;
@@ -186,16 +224,9 @@ __global__ void sweep_emit_kernel(const uint8_t* __restrict__ win, Planes s,
     aring[(long long)sl.write_a * g.total + p] = __float2bfloat16_rn(a_cur);
     vring[(long long)sl.v_new * g.total + p] = __float2bfloat16_rn(v_new);
 
-    if (full != nullptr) {
-        // K7: every row's byte of this level, qv cast through int32
-        full[((p / hw) * num_levels + t) * (long long)hw + local] =
-            (uint8_t)(int)(cand ? qv : 0.0f);
-    } else if (row >= g.halo && row < g.halo + g.core) {
-        const int packed = (int)(cand ? qv : 0.0f) * (1 << lbits) + t;
-        int32_t* o = out + (p / hw) * (long long)g.core * g.w +
-                     (long long)(row - g.halo) * g.w + col;
-        *o = max(*o, packed);
-    }
+    // every row's byte of this level, qv cast through int32
+    full[((p / hw) * num_levels + t) * (long long)hw + local] =
+        (uint8_t)(int)(cand ? qv : 0.0f);
 }
 
 __global__ void fill_inf_kernel(__nv_bfloat16* __restrict__ x, long long n) {
@@ -203,14 +234,12 @@ __global__ void fill_inf_kernel(__nv_bfloat16* __restrict__ x, long long n) {
     if (p < n) x[p] = __float2bfloat16_rn(__int_as_float(0x7f800000));
 }
 
-// The host loop over levels.  Exactly one of `out` (K3: level-collapsed
-// core rows) and `full` (K7: every level's byte map) is non-null.
-int run_sweep(const void* win, int32_t* o, uint8_t* full, void* state, void* rings,
-              int n, int r, int w, int core, int halo, int num_levels, int step,
-              int d, int num_passes, int lbits, float min_area, float max_area,
-              float max_variation, float min_diversity, void* stream) {
+// K7's host loop over levels.
+int run_sweep(const void* win, uint8_t* full, void* state, void* rings, int n, int r,
+              int w, int num_levels, int step, int d, int num_passes, float min_area,
+              float max_area, float max_variation, float min_diversity, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
-    Geometry g{n, r, w, core, halo, (long long)n * r * w};
+    Geometry g{n, r, w, (long long)n * r * w};
     const long long total = g.total;
     int32_t* planes = (int32_t*)state;
     Planes cur{planes, planes + total, planes + 2 * total, planes + 3 * total,
@@ -228,8 +257,8 @@ int run_sweep(const void* win, int32_t* o, uint8_t* full, void* state, void* rin
     for (int t = 0; t < num_levels; ++t) {
         const int level = t * step;
         // zero every ring plane, then set the variation ring to inf
-        sweep_init_kernel<<<blocks, kThreads, 0, st>>>(w8, cur, aring, o, g, level,
-                                                       t == 0, t == 0 ? nring + 3 : 0);
+        sweep_init_kernel<<<blocks, kThreads, 0, st>>>(w8, cur, aring, g, level, t == 0,
+                                                       t == 0 ? nring + 3 : 0);
         if (t == 0) {
             fill_inf_kernel<<<tsd_blocks(2 * total, kThreads), kThreads, 0, st>>>(
                 vring, 2 * total);
@@ -248,36 +277,365 @@ int run_sweep(const void* win, int32_t* o, uint8_t* full, void* state, void* rin
         sl.v_c = 1 - sl.v_new;
         sl.write_a = t % nring;
         sweep_emit_kernel<<<blocks, kThreads, 0, st>>>(w8, cur, aring, vring,
-                                                       lastemit, o, full, g, level,
-                                                       t, num_levels, lbits, sl, th);
+                                                       lastemit, full, g, level, t,
+                                                       num_levels, sl, th);
+    }
+    return (int)cudaGetLastError();
+}
+
+
+// --- K3: shared-memory tiles -------------------------------------------------
+
+constexpr int kRegion = 64;                              // region rows and columns
+constexpr int kRows = 4;                                 // rows a thread owns
+constexpr int kTileThreads = kRegion * kRegion / kRows;  // one column of kRows each
+constexpr int kRegionPx = kRegion * kRegion;
+constexpr int kTileSmem = 2 * 3 * kRegionPx * 4;         // two exchange buffers
+constexpr int kLoInit = 0x7FFF7FFF;                      // (ymin, xmin) = INT16_MAX
+constexpr int kHiInit = -1;                              // (ymax, xmax) = -1
+
+struct TileGeom {
+    int n, r, w;           // windows, rows per window, columns
+    int core, halo;        // the strip's emitted rows [halo, halo + core)
+    int th, tw, h;         // tile core rows and columns, tile halo (= span)
+    int tiles_x;           // tiles per window row
+};
+
+__device__ __forceinline__ int wrap(int x, int m) {
+    x %= m;
+    return x < 0 ? x + m : x;
+}
+
+__device__ __forceinline__ int min5(int a, int b, int c, int d, int e) {
+    return min(min(a, b), min(min(c, d), e));
+}
+
+__device__ __forceinline__ int vmin5(int a, int b, int c, int d, int e) {
+    const unsigned m = __vmins2(__vmins2((unsigned)a, (unsigned)b),
+                                __vmins2((unsigned)c, (unsigned)d));
+    return (int)__vmins2(m, (unsigned)e);
+}
+
+__device__ __forceinline__ int vmax5(int a, int b, int c, int d, int e) {
+    const unsigned m = __vmaxs2(__vmaxs2((unsigned)a, (unsigned)b),
+                                __vmaxs2((unsigned)c, (unsigned)d));
+    return (int)__vmaxs2(m, (unsigned)e);
+}
+
+// A thread's value of one ring slot for its kRows pixels: one 8-byte
+// record, read and written as a vector.
+union RingRec {
+    uint2 v;
+    __nv_bfloat16 h[kRows];
+};
+
+__device__ __forceinline__ bool same_bits(__nv_bfloat16 a, __nv_bfloat16 b) {
+    return __bfloat16_as_ushort(a) == __bfloat16_as_ushort(b);
+}
+
+// One span of the sweep: passes [t0 * num_passes + p0, ... + npass) of the
+// level sequence, with the warm starts and emits that fall inside it.
+// Grid: (tiles of one window, windows).  A block holds a region of
+// (th + 2h) x (tw + 2h) <= 64 x 64 pixels; thread (c, g) owns column c,
+// rows [4g, 4g + 4), in registers across the whole span.  Each pass
+// publishes every pixel to a shared-memory exchange buffer (two, used in
+// turn: one barrier a pass), then reads its left and right neighbours
+// there; vertical neighbours come from its own registers but at the ends
+// of its column run.
+//
+// s_in / s_out: int32 [3, n, r, w] (keys, (ymin, xmin), (ymax, xmax)).
+// rings: the sweep's scratch in the tile plan's own layout, bf16
+// [n * tiles, d + 4 slots, kTileThreads, kRows]: slots 0..d the area ring,
+// d + 1 and d + 2 the variation ring, d + 3 the last emitted area.  A
+// thread reads and writes its pixels' slot as one 8-byte record, so the
+// emit's ring reads of all its pixels are in flight together.
+__global__ void __launch_bounds__(kTileThreads, 1)
+sweep_tile_kernel(const uint8_t* __restrict__ win, const int32_t* __restrict__ s_in,
+                  int32_t* __restrict__ s_out, uint2* __restrict__ rings,
+                  int32_t* __restrict__ out, TileGeom g, int t0, int p0, int npass,
+                  int num_levels, int step, int d, int num_passes, int lbits,
+                  Thresholds th) {
+    extern __shared__ int32_t smem[];  // [2 buffers][keys, lo, hi][64][64]
+
+    const int rh = g.th + 2 * g.h, rw = g.tw + 2 * g.h;
+    const int hw = g.r * g.w;
+    const int big = 256 * hw;
+    const long long total = (long long)g.n * hw;
+    const long long base = (long long)blockIdx.y * hw;
+    const long long obase = (long long)blockIdx.y * g.core * g.w - (long long)g.halo * g.w;
+    const int tile_y = blockIdx.x / g.tiles_x, tile_x = blockIdx.x - tile_y * g.tiles_x;
+    const int row0 = tile_y * g.th - g.h, col0 = tile_x * g.tw - g.h;
+    const int c = threadIdx.x % kRegion, r0 = threadIdx.x / kRegion * kRows;
+    const bool first = t0 == 0 && p0 == 0;
+    const int nring = d + 1;
+    // this thread's record of ring slot k: rec[k * kTileThreads]
+    uint2* rec = rings + ((long long)blockIdx.y * gridDim.x + blockIdx.x) * (nring + 3) *
+                             kTileThreads + threadIdx.x;
+
+    // The region is an unrolled cover of the window's torus: its pixel
+    // (i, j) is window pixel (wrap(row0 + i), wrap(col0 + j)).
+    const int gc = wrap(col0 + c, g.w);
+    const int gr0 = wrap(row0 + r0, g.r);
+    const bool col_core = c >= g.h && c < g.h + g.tw && col0 + c < g.w;
+    const bool col_inner = c > 0 && c < rw - 1;
+    int K[kRows], LO[kRows], HI[kRows];
+    unsigned V[kRows / 4] = {};  // window bytes, four to a word
+    unsigned used = 0, inner = 0, core = 0, emits = 0;
+    {
+        int gr = gr0;
+#pragma unroll
+        for (int k = 0; k < kRows; ++k) {
+            const int i = r0 + k;
+            K[k] = big;
+            LO[k] = kLoInit;
+            HI[k] = kHiInit;
+            if (i < rh && c < rw) {  // a thread past the region idles, but
+                used |= 1u << k;     // reaches every barrier
+                const long long p = base + gr * g.w + gc;
+                V[k / 4] |= (unsigned)win[p] << (8 * (k % 4));
+                if (!first) {
+                    K[k] = s_in[p];
+                    LO[k] = s_in[total + p];
+                    HI[k] = s_in[2 * total + p];
+                }
+                if (col_inner && i > 0 && i < rh - 1) inner |= 1u << k;
+                const int ur = row0 + i;  // unwrapped
+                if (col_core && i >= g.h && i < g.h + g.th && ur < g.r) {
+                    core |= 1u << k;
+                    if (ur >= g.halo && ur < g.halo + g.core) emits |= 1u << k;
+                }
+            }
+            gr = gr + 1 == g.r ? 0 : gr + 1;
+        }
+    }
+
+    int t = t0, p = p0, left = npass, buf = 0;
+    while (true) {
+        const int level = t * step;
+        unsigned mask = 0;
+        {
+            int gr = gr0;
+#pragma unroll
+            for (int k = 0; k < kRows; ++k) {
+                const int v = (V[k / 4] >> (8 * (k % 4))) & 0xff;
+                const bool m = (used >> k & 1u) && v <= level && gr > 0 && gr < g.r - 1;
+                mask |= (unsigned)m << k;
+                if (p == 0) {  // warm start: fold the level's mask into the state
+                    const int rc = (gr << 16) | gc;
+                    K[k] = m ? min(K[k], v * hw + gr * g.w + gc) : big;
+                    LO[k] = m ? (int)__vmins2((unsigned)LO[k], (unsigned)rc) : kLoInit;
+                    HI[k] = m ? (int)__vmaxs2((unsigned)HI[k], (unsigned)rc) : kHiInit;
+                }
+                gr = gr + 1 == g.r ? 0 : gr + 1;
+            }
+        }
+        // Jacobi passes.  A pixel outside the mask holds the sentinels from
+        // its warm start and keeps them, so only mask pixels are computed.
+        const unsigned active = inner & mask;
+        for (; p < num_passes && left > 0; ++p, --left, buf ^= 1) {
+            int32_t* xk = smem + buf * 3 * kRegionPx;
+            int32_t* xlo = xk + kRegionPx;
+            int32_t* xhi = xlo + kRegionPx;
+#pragma unroll
+            for (int k = 0; k < kRows; ++k) {
+                if (used >> k & 1u) {
+                    const int q = (r0 + k) * kRegion + c;
+                    xk[q] = K[k];
+                    xlo[q] = LO[k];
+                    xhi[q] = HI[k];
+                }
+            }
+            __syncthreads();
+            if (active) {
+                const int q0 = r0 * kRegion + c;
+                int pk = 0, plo = 0, phi = 0;  // the old values of the row above
+                if (active & 1u) {
+                    pk = xk[q0 - kRegion];
+                    plo = xlo[q0 - kRegion];
+                    phi = xhi[q0 - kRegion];
+                }
+#pragma unroll
+                for (int k = 0; k < kRows; ++k) {
+                    const int ck = K[k], clo = LO[k], chi = HI[k];
+                    if (active >> k & 1u) {
+                        const int q = q0 + k * kRegion;
+                        const int dk = k + 1 < kRows ? K[(k + 1) % kRows] : xk[q + kRegion];
+                        const int nk = min5(ck, pk, dk, xk[q - 1], xk[q + 1]);
+                        K[k] = nk;
+                        if (nk >= 0) {  // live
+                            const int dlo = k + 1 < kRows ? LO[(k + 1) % kRows] : xlo[q + kRegion];
+                            const int dhi = k + 1 < kRows ? HI[(k + 1) % kRows] : xhi[q + kRegion];
+                            LO[k] = vmin5(clo, plo, dlo, xlo[q - 1], xlo[q + 1]);
+                            HI[k] = vmax5(chi, phi, dhi, xhi[q - 1], xhi[q + 1]);
+                        } else {
+                            LO[k] = kLoInit;
+                            HI[k] = kHiInit;
+                        }
+                    }
+                    pk = ck;
+                    plo = clo;
+                    phi = chi;
+                }
+            }
+        }
+        if (p < num_passes) break;  // the span ends inside level t
+
+        // emit: bbox-area stability, dead mark, candidate test, collapse
+        const int old_a = t % nring;  // also the slot this level writes
+        const int td_a = (t + nring - d % nring) % nring;
+        const int v_new_s = (t + 2 * nring - d) % 2;
+        const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
+        const __nv_bfloat16 inf = __float2bfloat16_rn(__int_as_float(0x7f800000));
+        // level 0 reads the initial rings: areas and last-emit 0, variations inf
+        RingRec area, a_td, v_c, v_prev, last;
+        if (emits && t) {  // five vector loads, all in flight together
+            area.v = rec[old_a * kTileThreads];
+            a_td.v = rec[td_a * kTileThreads];
+            v_c.v = rec[(nring + 1 - v_new_s) * kTileThreads];
+            v_prev.v = rec[(nring + v_new_s) * kTileThreads];
+            last.v = rec[(nring + 2) * kTileThreads];
+        } else {
+#pragma unroll
+            for (int k = 0; k < kRows; ++k) {
+                area.h[k] = a_td.h[k] = last.h[k] = zero;
+                v_c.h[k] = v_prev.h[k] = inf;
+            }
+        }
+        bool a_changed = false, v_changed = false, l_changed = false;
+        int gr = gr0;
+#pragma unroll
+        for (int k = 0; k < kRows; ++k) {
+            float a_cur = 0.0f;
+            const int v = (V[k / 4] >> (8 * (k % 4))) & 0xff;
+            if ((mask >> k & 1u) && K[k] == v * hw + gr * g.w + gc) {  // anchor
+                const float bb = __fmul_rn((float)((HI[k] >> 16) - (LO[k] >> 16) + 1),
+                                           (float)((int)(short)HI[k] - (int)(short)LO[k] + 1));
+                a_cur = fminf(bb, 65535.0f);
+                if (a_cur > th.max_area) K[k] = -1;  // dead mark, after the area
+            }
+            if (emits >> k & 1u) {
+                const float area_c = __bfloat162float(area.h[k]);
+                const float atd = __bfloat162float(a_td.h[k]);
+                const float vc = __bfloat162float(v_c.h[k]);
+                const float v_new = (atd > 0.0f && a_cur > 0.0f)
+                                        ? __fdiv_rn(__fsub_rn(a_cur, atd), fmaxf(atd, 1.0f))
+                                        : __int_as_float(0x7f800000);
+                bool cand = area_c >= th.min_area && area_c <= th.max_area &&
+                            vc < th.max_variation && vc <= __bfloat162float(v_prev.h[k]) &&
+                            vc <= v_new;
+                const float lst = __bfloat162float(last.h[k]);
+                cand = cand && (lst <= 0.0f ||
+                                __fsub_rn(area_c, lst) >=
+                                    __fmul_rn(th.min_diversity, fmaxf(area_c, 1.0f)));
+                float qv = __fsub_rn(254.0f, floorf(__fmul_rn(vc, 253.0f)));
+                qv = fminf(fmaxf(qv, 1.0f), 254.0f);
+                const int packed = (int)(cand ? qv : 0.0f) * (1 << lbits) + t;
+                const __nv_bfloat16 a_newb = __float2bfloat16_rn(a_cur);
+                const __nv_bfloat16 v_newb = __float2bfloat16_rn(v_new);
+                const __nv_bfloat16 l_newb = __float2bfloat16_rn(cand ? area_c : lst);
+                a_changed |= !same_bits(a_newb, area.h[k]);
+                v_changed |= !same_bits(v_newb, v_prev.h[k]);
+                l_changed |= !same_bits(l_newb, last.h[k]);
+                area.h[k] = a_newb;    // slot old_a is the slot written
+                v_prev.h[k] = v_newb;  // and so is slot v_new_s
+                last.h[k] = l_newb;
+                int32_t* o = out + obase + gr * g.w + gc;
+                // a level without a candidate adds t, which the last level's t bounds
+                if (t == 0) {
+                    *o = packed;
+                } else if (cand || t == num_levels - 1) {
+                    *o = max(*o, packed);
+                }
+            }
+            gr = gr + 1 == g.r ? 0 : gr + 1;
+        }
+        if (emits) {
+            if (t == 0) {  // the first level writes every slot: no fill launch
+                for (int k = 0; k < nring; ++k) {
+                    rec[k * kTileThreads] = k == old_a ? area.v : make_uint2(0, 0);
+                }
+                rec[(nring + v_new_s) * kTileThreads] = v_prev.v;
+                rec[(nring + 1 - v_new_s) * kTileThreads] = v_c.v;  // all inf
+                rec[(nring + 2) * kTileThreads] = last.v;
+            } else {
+                if (a_changed) rec[old_a * kTileThreads] = area.v;
+                if (v_changed) rec[(nring + v_new_s) * kTileThreads] = v_prev.v;
+                if (l_changed) rec[(nring + 2) * kTileThreads] = last.v;
+            }
+        }
+        ++t;
+        p = 0;
+        if (t == num_levels || left == 0) break;
+    }
+
+    // write back the core
+    int gr = gr0;
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+        if (core >> k & 1u) {
+            const long long px = base + gr * g.w + gc;
+            s_out[px] = K[k];
+            s_out[total + px] = LO[k];
+            s_out[2 * total + px] = HI[k];
+        }
+        gr = gr + 1 == g.r ? 0 : gr + 1;
+    }
+}
+
+int run_tiles(const void* win, int32_t* out, void* state, void* rings, int n, int r,
+              int w, int core, int halo, int th_rows, int tw, int span, int num_levels,
+              int step, int d, int num_passes, int lbits, Thresholds th, void* stream) {
+    if (span < 1 || num_passes < 1 || th_rows < 1 || tw < 1 ||
+        th_rows + 2 * span > kRegion || tw + 2 * span > kRegion || r >= 32767 ||
+        w >= 32767) {
+        return (int)cudaErrorInvalidValue;
+    }
+    cudaError_t e = cudaFuncSetAttribute(
+        sweep_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTileSmem);
+    if (e != cudaSuccess) return (int)e;
+    cudaStream_t st = (cudaStream_t)stream;
+    const TileGeom g{n, r, w, core, halo, th_rows, tw, span, (w + tw - 1) / tw};
+    const dim3 grid(g.tiles_x * ((r + th_rows - 1) / th_rows), n);
+    const long long total = (long long)n * r * w;
+    int32_t* buf[2] = {(int32_t*)state, (int32_t*)state + 3 * total};
+    const long long passes = (long long)num_levels * num_passes;
+    int cur = 0;
+    for (long long s0 = 0; s0 < passes; s0 += span, cur ^= 1) {
+        const int npass = (int)(passes - s0 < span ? passes - s0 : span);
+        sweep_tile_kernel<<<grid, kTileThreads, kTileSmem, st>>>(
+            (const uint8_t*)win, buf[cur], buf[1 - cur], (uint2*)rings, out, g,
+            (int)(s0 / num_passes), (int)(s0 % num_passes), npass, num_levels, step, d,
+            num_passes, lbits, th);
     }
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// win: u8 [n, r, w]; out: i32 [n, core, w]; state: i32 [2, 5, n, r, w]
-// (ping-pong planes keys, ymin, xmin, ymax, xmax); rings: bf16
-// [d + 1 + 2 + 1, n, r, w] (area ring, variation ring, last-emit).
+// K3.  win: u8 [n, r, w]; out: i32 [n, core, w]; state: i32 [2, 3, n, r, w]
+// (two buffers of keys, (ymin, xmin), (ymax, xmax)); rings: bf16
+// [n * tiles, d + 4, 1024, 4] (see sweep_tile_kernel).  Tiles of th x tw
+// core pixels, `span` passes per launch.
 TSD_API int tsd_level_sweep(const void* win, void* out, void* state, void* rings,
-                            int n, int r, int w, int core, int halo,
-                            int num_levels, int step, int d, int num_passes,
+                            int n, int r, int w, int core, int halo, int th, int tw,
+                            int span, int num_levels, int step, int d, int num_passes,
                             int lbits, float min_area, float max_area,
-                            float max_variation, float min_diversity,
-                            void* stream) {
-    return run_sweep(win, (int32_t*)out, nullptr, state, rings, n, r, w, core, halo,
-                     num_levels, step, d, num_passes, lbits, min_area, max_area,
-                     max_variation, min_diversity, stream);
+                            float max_variation, float min_diversity, void* stream) {
+    return run_tiles(win, (int32_t*)out, state, rings, n, r, w, core, halo, th, tw, span,
+                     num_levels, step, d, num_passes, lbits,
+                     Thresholds{min_area, max_area, max_variation, min_diversity},
+                     stream);
 }
 
 // K7: one strip per plane, no halo.  win: u8 [n, r, w]; full: u8
-// [n, num_levels, r, w]; state and rings as above.
+// [n, num_levels, r, w]; state: i32 [2, 5, n, r, w] (ping-pong planes keys,
+// ymin, xmin, ymax, xmax); rings: bf16 [d + 1 + 2 + 1, n, r, w].
 TSD_API int tsd_level_sweep_full(const void* win, void* full, void* state, void* rings,
                                  int n, int r, int w, int num_levels, int step, int d,
                                  int num_passes, float min_area, float max_area,
                                  float max_variation, float min_diversity,
                                  void* stream) {
-    return run_sweep(win, nullptr, (uint8_t*)full, state, rings, n, r, w, r, 0,
-                     num_levels, step, d, num_passes, 0, min_area, max_area,
-                     max_variation, min_diversity, stream);
+    return run_sweep(win, (uint8_t*)full, state, rings, n, r, w, num_levels, step, d,
+                     num_passes, min_area, max_area, max_variation, min_diversity,
+                     stream);
 }

@@ -14,7 +14,7 @@ import os
 
 import numpy as np
 
-from opencv_traffic_sign_detector_tpu.constants import SUPERTYPE_CLASS_DIRS
+from ..constants import SUPERTYPE_CLASS_DIRS
 
 RED = (30, 30, 200)
 BLUE = (190, 80, 20)

@@ -38,10 +38,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from opencv_traffic_sign_detector_tpu.data.gt import GroundTruthBox
-from opencv_traffic_sign_detector_tpu.data.images import list_frame_files
-from opencv_traffic_sign_detector_tpu.data.prefetch import batched_frames
-
+from ..data.gt import GroundTruthBox
+from ..data.images import list_frame_files
+from ..data.prefetch import batched_frames
 from ..ops.fused_upscale import FusedUpscalePlan, find_plan, fused_upscale_stem
 from ..ops.upscale import upscale_bilinear_u8
 from ..ops.yuv import patchify_yuv_planes, yuv420_patches_to_bgr_patches8, yuv420_to_bgr
@@ -410,7 +409,7 @@ def load_flat_params(model: nn.Module, flat: Mapping[str, np.ndarray],
 
 
 def params_from_flat(cfg: CNNDetectorConfig, flat: Mapping[str, np.ndarray],
-                     device="cpu") -> SignCenterNet:
+                     device="cuda") -> SignCenterNet:
     """The reference's flat parameter dict -> a ``SignCenterNet`` on ``device``."""
     return load_flat_params(SignCenterNet(cfg), flat).to(device)
 
@@ -685,7 +684,7 @@ class CNNDetector:
         orig_hw = None
         # yuv420p: tight planes from the loader, patchified by this package
         load_format = "yuv420" if input_format == "yuv420p" else input_format
-        for frames, names in batched_frames(directory, files, batch_size, device_put=False,
+        for frames, names in batched_frames(directory, files, batch_size,
                                             input_format=load_format):
             if isinstance(frames, tuple):
                 h, w = frames[0].shape[1:3]

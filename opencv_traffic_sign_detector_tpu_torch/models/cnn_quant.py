@@ -179,7 +179,7 @@ def save_quant_params(path: str, q: dict, arch: str = "v3",
     np.savez(path, **arrays)
 
 
-def load_quant_params(path: str, device="cpu") -> tuple[dict, dict]:
+def load_quant_params(path: str, device="cuda") -> tuple[dict, dict]:
     """-> (q arrays as tensors on ``device``, meta dict with arch /
     score_threshold)."""
     meta: dict = {}

@@ -17,17 +17,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from opencv_traffic_sign_detector_tpu.config import PipelineConfig
-from opencv_traffic_sign_detector_tpu.constants import (
+from ..config import PipelineConfig
+from ..constants import (
     DEDUP_COORD_TOL,
     DEDUP_HIST_TOL,
     DETECT_CROP,
     DETECT_GROW,
 )
-from opencv_traffic_sign_detector_tpu.data.gt import GroundTruthBox
-from opencv_traffic_sign_detector_tpu.data.images import list_frame_files
-from opencv_traffic_sign_detector_tpu.data.prefetch import batched_frames
-
+from ..data.gt import GroundTruthBox
+from ..data.images import list_frame_files
+from ..data.prefetch import batched_frames
 from ..ops.dedup import dedup_by_coords, dedup_by_histogram
 from ..ops.geometry import filter_and_grow_boxes
 from ..ops.mser import check_supported, mser_regions, stage_scope
@@ -163,7 +162,7 @@ class DetectionPipeline:
         detections: list[GroundTruthBox] = []
         done = 0
         pending = None
-        for frames, names in batched_frames(directory, files, bsz, device_put=False):
+        for frames, names in batched_frames(directory, files, bsz):
             handle = self.dispatch(frames)
             if pending is not None:
                 detections.extend(d for d in self.collect(*pending) if d.filename != "__pad__")

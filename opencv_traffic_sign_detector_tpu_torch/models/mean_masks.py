@@ -14,13 +14,12 @@ import os
 import numpy as np
 import torch
 
-from opencv_traffic_sign_detector_tpu.constants import (
+from ..constants import (
     DETECT_CROP,
     MASK_CORR_TOL,
     SUPERTYPE_CLASS_DIRS,
 )
-from opencv_traffic_sign_detector_tpu.data.images import load_image_bgr
-
+from ..data.images import load_image_bgr
 from ..ops.color import color_mask
 from ..ops.resize import crop_and_resize
 
@@ -80,7 +79,7 @@ def _blend_fold(crops: np.ndarray) -> np.ndarray:
     return acc.astype(np.uint8)
 
 
-def train_mean_masks(train_dir: str, device="cpu") -> MeanMaskTemplates:
+def train_mean_masks(train_dir: str, device="cuda") -> MeanMaskTemplates:
     """Train the six mean-mask templates from train_jpg/<class>/ crops."""
     reds, blues = [], []
     for class_dirs in SUPERTYPE_CLASS_DIRS:

@@ -13,7 +13,7 @@ import functools
 import numpy as np
 import torch
 
-from opencv_traffic_sign_detector_tpu.constants import (
+from ..constants import (
     BLUE_BAND,
     RED_HIGH_BAND,
     RED_LOW_BAND,

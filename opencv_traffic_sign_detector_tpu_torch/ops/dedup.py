@@ -10,8 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from opencv_traffic_sign_detector_tpu.constants import DEDUP_MERGE_BAND
-
+from ..constants import DEDUP_MERGE_BAND
 from .geometry import pairwise_coord_similarity
 from .histogram import hist_correlation
 

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from opencv_traffic_sign_detector_tpu.constants import ASPECT_MAX, ASPECT_MIN
+from ..constants import ASPECT_MAX, ASPECT_MIN
 
 
 def _f32(x: float, like: torch.Tensor) -> torch.Tensor:

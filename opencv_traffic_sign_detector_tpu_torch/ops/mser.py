@@ -29,8 +29,7 @@ from contextlib import nullcontext
 
 import torch
 
-from opencv_traffic_sign_detector_tpu.config import MSERConfig
-
+from ..config import MSERConfig
 from .ccl import propagate_min_keys
 from .mser_cuda import fused_level_sweep, packing_bits, plan_halo, sweep_plan
 from .prop_cuda import bbox_area, candidate_windows, flood_bbox

@@ -12,7 +12,10 @@ stability byte map, the reference's oracle between K3 and the XLA sweep.
 
 ``level_sweep_windows`` and ``fused_level_sweep_full`` launch the CUDA
 kernels (``csrc/mser_sweep.cu``) for CUDA tensors and take their ``*_plain``
-versions for CPU tensors; the two are exact against each other.
+versions for CPU tensors; the two are exact against each other.  K3 runs in
+shared-memory tiles, one launch per span of Jacobi passes
+(:data:`SWEEP_SPAN`, :func:`sweep_tiles`); K7 keeps the sweep state in
+device memory, one launch per warm start, pass and emit.
 """
 
 from __future__ import annotations
@@ -21,8 +24,7 @@ import dataclasses
 
 import torch
 
-from opencv_traffic_sign_detector_tpu.config import MSERConfig
-
+from ..config import MSERConfig
 from ..runtime import build as rt
 from .prop_cuda import nb4
 
@@ -112,6 +114,31 @@ class SweepParams:
         )
 
 
+# Rows and columns of the region one block of K3 holds: its tile core plus
+# a halo of `span` pixels on every side (csrc/mser_sweep.cu: kRegion).
+TILE_REGION = 64
+# Jacobi passes one K3 launch runs: its tile halo.  1.5 levels of the tuned
+# config (4 passes a level); the fastest of 4, 6, 8 and 12 at the tuned
+# path's shapes on an H100 (PERF.md section 6).
+SWEEP_SPAN = 6
+# Threads of one K3 block and rows each owns (csrc/mser_sweep.cu:
+# kTileThreads, kRows): the ring scratch holds one record of TILE_ROWS bf16
+# per thread and slot.
+TILE_THREADS, TILE_ROWS = 1024, 4
+
+
+def sweep_tiles(r: int, w: int) -> tuple[int, int]:
+    """K3's tile core (rows, columns) for [*, r, w] windows: at most
+    ``TILE_REGION - 2 * SWEEP_SPAN`` each, and as even as the window allows,
+    so that few ghost rows and columns lie past its edge."""
+    side = TILE_REGION - 2 * SWEEP_SPAN
+
+    def even(n: int) -> int:
+        return -(-n // -(-n // side))
+
+    return even(r), even(w)
+
+
 def _sweep_levels_plain(windows: torch.Tensor, p: SweepParams, num_levels: int):
     """Yield, for each level t, the candidate byte map ``where(cand, qv, 0)``
     (f32 [N, R, W]) of the sweep body over [N, R, W] uint8 windows."""
@@ -196,26 +223,39 @@ def level_sweep_windows_plain(windows: torch.Tensor, p: SweepParams, core: int,
     return out
 
 
+def _check_windows(windows: torch.Tensor, core: int, halo: int) -> None:
+    rt.check_tensor(windows, "windows", torch.uint8, 3)
+    r = windows.shape[1]
+    if not (0 <= halo and core > 0 and core + 2 * halo == r):
+        raise ValueError(f"windows of {r} rows do not hold core {core} + 2*halo {halo}")
+
+
 def level_sweep_windows(windows: torch.Tensor, p: SweepParams, core: int,
                         halo: int, num_levels: int, lbits: int) -> torch.Tensor:
     """K3 over stacked strip windows: [N, R, W] uint8 -> [N, core, W] int32.
 
     Replaces ``mser_pallas.py: fused_level_sweep`` (``_collapsed_kernel``).
+    The kernel holds rows and columns as int16, so it refuses windows of
+    32767 rows or columns; the plain version takes any size.
     """
-    rt.check_tensor(windows, "windows", torch.uint8, 3)
-    n, r, w = windows.shape
-    if not (0 <= halo and core > 0 and core + 2 * halo == r):
-        raise ValueError(f"windows of {r} rows do not hold core {core} + 2*halo {halo}")
+    _check_windows(windows, core, halo)
     if rt.uses_plain(windows):
         return level_sweep_windows_plain(windows, p, core, halo, num_levels, lbits)
+    n, r, w = windows.shape
+    if max(r, w) >= 1 << 15:
+        raise ValueError(f"windows of {r}x{w} exceed the kernel's int16 bbox planes")
+    th, tw = sweep_tiles(r, w)
     dev = windows.device
     out = torch.empty((n, core, w), dtype=torch.int32, device=dev)
-    state = torch.empty((2, 5, n, r, w), dtype=torch.int32, device=dev)
-    rings = torch.empty((p.d + 1 + 3, n, r, w), dtype=torch.bfloat16, device=dev)
+    state = torch.empty((2, 3, n, r, w), dtype=torch.int32, device=dev)
+    # ring scratch in the tile plan's layout: a record per thread and slot
+    tiles = -(-r // th) * -(-w // tw)
+    rings = torch.empty((n * tiles, p.d + 1 + 3, TILE_THREADS, TILE_ROWS),
+                        dtype=torch.bfloat16, device=dev)
     rc = rt.library().tsd_level_sweep(
         windows.data_ptr(), out.data_ptr(), state.data_ptr(), rings.data_ptr(),
-        n, r, w, core, halo, num_levels, p.step, p.d, p.num_passes, lbits,
-        p.min_area, p.max_area, p.max_variation, p.min_diversity,
+        n, r, w, core, halo, th, tw, SWEEP_SPAN, num_levels, p.step, p.d, p.num_passes,
+        lbits, p.min_area, p.max_area, p.max_variation, p.min_diversity,
         rt.stream_ptr(dev))
     rt.check(rc, "level_sweep")
     rt.count_launch("level_sweep")

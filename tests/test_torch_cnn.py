@@ -49,7 +49,8 @@ def test_signcenternet_f32_matches_reference(arch):
     frames = np.random.default_rng(0).integers(0, 256, (2, 64, 96, 3), dtype=np.uint8)
     want = jcd.SignCenterNet(jcfg).apply({"params": params}, jnp.asarray(frames))
     flat = _flat(params)
-    net = tcd.params_from_flat(tcd.CNNDetectorConfig(arch=arch, dtype="float32"), flat)
+    net = tcd.params_from_flat(tcd.CNNDetectorConfig(arch=arch, dtype="float32"), flat,
+                               device="cpu")
     assert set(tcd.flat_params(net)) == set(flat)
     with torch.inference_mode():
         got = net(torch.from_numpy(frames))
@@ -63,7 +64,7 @@ def test_v3_trunk_heads_split_equals_network():
     cfg = tcd.CNNDetectorConfig(arch="v3")
     with np.load(os.path.join(CKPT, "params.npz")) as data:
         flat = dict(data)
-    net = tcd.params_from_flat(cfg, flat)
+    net = tcd.params_from_flat(cfg, flat, device="cpu")
     trunk = tcd.load_flat_params(tcd.V3TrunkHeads(cfg), flat)
     frames = torch.from_numpy(make_frames(1, 64, 64, seed=7))
     with torch.inference_mode():

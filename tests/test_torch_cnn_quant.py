@@ -47,7 +47,7 @@ def _assert_requant_close(got: torch.Tensor, want) -> None:
 
 def test_int8_layers_bit_exact():
     jq, _ = jcq.load_quant_params(INT8)
-    tq, _ = tcq.load_quant_params(INT8)
+    tq, _ = tcq.load_quant_params(INT8, "cpu")
     frames = make_frames(2, 96, 160, seed=51)
     # stem
     x = jcq._patchify(jnp.asarray(frames))

@@ -22,6 +22,7 @@ import opencv_traffic_sign_detector_tpu.models.detector as jdet
 import opencv_traffic_sign_detector_tpu.models.mean_masks as jmm
 import opencv_traffic_sign_detector_tpu.ops.mser as jmser
 import opencv_traffic_sign_detector_tpu.ops.preprocess as jpre
+import opencv_traffic_sign_detector_tpu_torch.config as tcfg
 import opencv_traffic_sign_detector_tpu_torch.models.detector as tdet
 import opencv_traffic_sign_detector_tpu_torch.models.mean_masks as tmm
 import opencv_traffic_sign_detector_tpu_torch.ops.mser as tmser
@@ -43,6 +44,9 @@ MSER = MSERConfig(delta=7, min_area=200, max_area=2000, max_variation=1.0,
                   downscale=2, max_regions=128, ccl_iters=2, ccl_jumps=0,
                   level_step=9, refine_scan_passes=2)
 CFG = PipelineConfig(mser=MSER, batch_size=2)
+# the same configs from the port's own config module, for the port's calls
+T_MSER = tcfg.MSERConfig(**dataclasses.asdict(MSER))
+T_CFG = tcfg.PipelineConfig(mser=T_MSER, batch_size=2)
 
 
 @pytest.fixture
@@ -69,7 +73,7 @@ def _iou_xyxy(a, b):
 def test_detect_batch_matches_reference(interpret, templates):
     frames = make_frames(2, 256, 256, seed=21)
     gray = np.array(jpre.enhance_contrast(jnp.asarray(frames)))
-    tb, tv = tmser.mser_regions(torch.from_numpy(gray), MSER)
+    tb, tv = tmser.mser_regions(torch.from_numpy(gray), T_MSER)
     for i in range(2):
         jb, jv = jmser.mser_regions(jnp.asarray(gray[i]), MSER)
         np.testing.assert_array_equal(tv[i].numpy(), np.asarray(jv))
@@ -78,7 +82,7 @@ def test_detect_batch_matches_reference(interpret, templates):
     want = [np.asarray(x) for x in jdet.detect_batch(
         jnp.asarray(frames), jnp.asarray(templates.red), jnp.asarray(templates.blue), CFG)]
     red, blue = tmm.templates_to_torch(templates, "cpu")
-    got = [x.numpy() for x in tdet.detect_batch(torch.from_numpy(frames), red, blue, CFG)]
+    got = [x.numpy() for x in tdet.detect_batch(torch.from_numpy(frames), red, blue, T_CFG)]
     assert [g.shape for g in got] == [w.shape for w in want]
     assert want[3].sum() > 0, "the reference detected nothing; pick another seed"
     np.testing.assert_array_equal(got[3].sum(1), want[3].sum(1))
@@ -94,7 +98,7 @@ def test_pipeline_run_directory_pads_and_unpads(tmp_path, templates):
     d = str(tmp_path / "frames")
     names = write_test_dir(d, 3, 160, 160, seed=22)
     rt.reset_launch_counts()
-    pipe = tdet.DetectionPipeline(cfg=CFG, templates=tmm.MeanMaskTemplates(
+    pipe = tdet.DetectionPipeline(cfg=T_CFG, templates=tmm.MeanMaskTemplates(
         templates.red, templates.blue), device="cpu")
     dets = pipe.run_directory(d)
     assert {x.filename for x in dets} <= set(names)
@@ -154,6 +158,6 @@ def test_cli_rejects_unported_modes(argv, capsys):
 
 
 def test_pipeline_rejects_unported_config(templates):
-    cfg = dataclasses.replace(CFG, mser=dataclasses.replace(MSER, sweep_res_pipeline=True))
+    cfg = dataclasses.replace(T_CFG, mser=dataclasses.replace(T_MSER, sweep_res_pipeline=True))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tdet.DetectionPipeline(cfg=cfg, templates=templates, device="cpu")

@@ -20,6 +20,7 @@ import opencv_traffic_sign_detector_tpu.ops.mser as jmser
 import opencv_traffic_sign_detector_tpu.ops.mser_pallas as jmp
 import opencv_traffic_sign_detector_tpu.ops.pallas_prop as jprop
 import opencv_traffic_sign_detector_tpu.ops.preprocess as jpre
+import opencv_traffic_sign_detector_tpu_torch.config as tcfg
 import opencv_traffic_sign_detector_tpu_torch.ops.mser as tmser
 import opencv_traffic_sign_detector_tpu_torch.ops.mser_cuda as tmc
 import opencv_traffic_sign_detector_tpu_torch.ops.prop_cuda as tprop
@@ -33,6 +34,12 @@ torch.set_num_threads(1)
 TUNED = MSERConfig(delta=7, min_area=200, max_area=2000, max_variation=1.0,
                    downscale=2, max_regions=128, ccl_iters=2, ccl_jumps=0,
                    level_step=9, refine_scan_passes=2)
+
+
+def _port(cfg):
+    """A reference MSER config rebuilt from the port's own config module:
+    each package's functions take their own package's config."""
+    return tcfg.MSERConfig(**dataclasses.asdict(cfg))
 
 
 @pytest.fixture(scope="module")
@@ -76,7 +83,7 @@ def test_k3_plain_matches_fused_sweep_interpret(gray, name):
     cfg = SWEEP_CFGS[name]
     im2, d_idx, nl = _sweep_inputs(gray, cfg)
     want = np.asarray(jmp.fused_level_sweep(jnp.asarray(im2), cfg, d_idx, nl, interpret=True))
-    got = tmc.fused_level_sweep(torch.from_numpy(im2), cfg, d_idx, nl).numpy()
+    got = tmc.fused_level_sweep(torch.from_numpy(im2), _port(cfg), d_idx, nl).numpy()
     np.testing.assert_array_equal(got, want)
     _, lbits = tmc.packing_bits(cfg.topk_pool, nl)
     assert (got >> lbits).max() > 0  # some candidates emitted
@@ -89,7 +96,7 @@ def test_k3_two_strip_plan_matches(gray, monkeypatch):
         monkeypatch.setattr(mod, "_VMEM_PX", 132 * 120)
         monkeypatch.setattr(mod, "_HALO_MIN", 24)
         monkeypatch.setattr(mod, "_HALO_MAX", 24)
-    plan = tmc.sweep_plan(130, 130, cfg.topk_pool, tmc.plan_halo(cfg))
+    plan = tmc.sweep_plan(130, 130, cfg.topk_pool, tmc.plan_halo(_port(cfg)))
     assert plan == jmp.sweep_plan(130, 130, cfg.topk_pool, jmp.plan_halo(cfg))
     assert plan[0] == 2, plan
     jmp.fused_level_sweep.clear_cache()
@@ -98,7 +105,7 @@ def test_k3_two_strip_plan_matches(gray, monkeypatch):
                                                 interpret=True))
     finally:
         jmp.fused_level_sweep.clear_cache()
-    got = tmc.fused_level_sweep(torch.from_numpy(im2), cfg, d_idx, nl).numpy()
+    got = tmc.fused_level_sweep(torch.from_numpy(im2), _port(cfg), d_idx, nl).numpy()
     assert got.shape == want.shape == (2, 2 * plan[1], 132)
     np.testing.assert_array_equal(got, want)
 
@@ -135,7 +142,7 @@ def test_mser_regions_matches_interpret(gray, interpret, downscale):
     cfg = dataclasses.replace(TUNED, downscale=downscale)
     h, w = 256 // downscale + 2, 256 // downscale + 2
     assert jmp.fused_sweep_ok(h, w, dataclasses.replace(cfg, downscale=1))
-    boxes, valid = tmser.mser_regions(torch.from_numpy(gray), cfg)
+    boxes, valid = tmser.mser_regions(torch.from_numpy(gray), _port(cfg))
     assert boxes.shape == (2, 128, 4) and boxes.dtype == torch.int32
     for i in range(2):
         jb, jv = jmser.mser_regions(jnp.asarray(gray[i]), cfg)
@@ -148,18 +155,30 @@ def test_pooled_topk_prefers_lower_index_on_ties():
     cmap = torch.zeros((1, 2, 8, 8), dtype=torch.int32)
     cmap[0, 0, 5, 5] = cmap[0, 1, 1, 1] = cmap[0, 0, 2, 6] = (7 << 5) | 3
     cfg = dataclasses.replace(TUNED, max_regions=4)
-    seeds, _, pol, valid = tmser.pooled_topk_packed(cmap, cfg, 31, 1)
+    seeds, _, pol, valid = tmser.pooled_topk_packed(cmap, _port(cfg), 31, 1)
     assert valid.tolist() == [[True, True, True, False]]
     assert seeds[0, :3].tolist() == [[2, 6], [5, 5], [1, 1]]
     assert pol[0, :3].tolist() == [0, 0, 1]
+
+
+@pytest.mark.parametrize("r, w", [(408, 684), (816, 1360), (24, 20), (408, 101),
+                                  (1, 1), (52, 52), (53, 105)])
+def test_k3_tiles_fit_the_region(r, w):
+    """K3's tile plan: a core plus its halo fits the 64-pixel region, with
+    as few tiles as that allows and the fewest ghost rows and columns."""
+    th, tw = tmc.sweep_tiles(r, w)
+    side = tmc.TILE_REGION - 2 * tmc.SWEEP_SPAN
+    assert 0 < th <= side and 0 < tw <= side
+    assert -(-r // th) == -(-r // side) and -(-w // tw) == -(-w // side)
+    assert -(-r // th) * th - r < -(-r // th) and -(-w // tw) * tw - w < -(-w // tw)
 
 
 @pytest.mark.parametrize("pool", [1, 2, 4])
 def test_plan_helpers_copy_match(pool):
     for max_area, scale in ((500, 2.0), (2000, 2.0), (20000, 1.0)):
         cfg = MSERConfig(max_area=max_area, min_area=10, bbox_area_cap_scale=scale)
-        assert tmc.plan_halo(cfg) == jmp.plan_halo(cfg)
-        halo = tmc.plan_halo(cfg)
+        assert tmc.plan_halo(_port(cfg)) == jmp.plan_halo(cfg)
+        halo = tmc.plan_halo(_port(cfg))
         for h in (10, 130, 402, 802, 1082, 4000):
             for w in (34, 130, 682, 1362, 1922, 600_000):
                 assert tmc.sweep_plan(h, w, pool, halo) == jmp.sweep_plan(h, w, pool, halo)
@@ -173,4 +192,4 @@ def test_plan_helpers_copy_match(pool):
 def test_unported_options_raise(change):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmser.mser_regions(torch.zeros((1, 64, 64), dtype=torch.uint8),
-                           dataclasses.replace(TUNED, **change))
+                           _port(dataclasses.replace(TUNED, **change)))

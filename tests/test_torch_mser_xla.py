@@ -33,6 +33,7 @@ import opencv_traffic_sign_detector_tpu.ops.mser as jmser
 import opencv_traffic_sign_detector_tpu.ops.mser_pallas as jmp
 import opencv_traffic_sign_detector_tpu.ops.pallas_prop as jprop
 import opencv_traffic_sign_detector_tpu.ops.preprocess as jpre
+import opencv_traffic_sign_detector_tpu_torch.config as tcfg
 import opencv_traffic_sign_detector_tpu_torch.ops.mser as tmser
 import opencv_traffic_sign_detector_tpu_torch.ops.mser_cuda as tmc
 from opencv_traffic_sign_detector_tpu.config import MSERConfig
@@ -43,6 +44,12 @@ from opencv_traffic_sign_detector_tpu_torch.data.synthetic import make_frames
 torch.set_num_threads(1)
 
 H, W = 80, 112
+
+
+def _port(cfg):
+    """A reference MSER config rebuilt from the port's own config module:
+    each package's functions take their own package's config."""
+    return tcfg.MSERConfig(**dataclasses.asdict(cfg))
 
 
 @pytest.fixture(scope="module")
@@ -98,14 +105,15 @@ def test_level_sweep_matches(gray, no_interpret, name):
     levels = list(range(0, nl * s, s))
     want = np.stack([np.asarray(jmser._level_sweep(jnp.asarray(x.astype(np.int32)), levels,
                                                    cfg, d_idx)) for x in im2])
-    got = np.stack([sb.numpy() for sb in tmser._level_sweep(torch.from_numpy(im2), cfg,
+    got = np.stack([sb.numpy() for sb in tmser._level_sweep(torch.from_numpy(im2),
+                                                            _port(cfg),
                                                             d_idx, nl)], axis=1)
     np.testing.assert_array_equal(got.reshape(want.shape), want)
     assert (want > 0).sum() >= 10
 
 
 def _compare_regions(gray, cfg):
-    boxes, valid = tmser.mser_regions(torch.from_numpy(gray), cfg)
+    boxes, valid = tmser.mser_regions(torch.from_numpy(gray), _port(cfg))
     assert boxes.shape == (2, cfg.max_regions, 4) and boxes.dtype == torch.int32
     for i in range(2):
         jb, jv = jmser.mser_regions(jnp.asarray(gray[i]), cfg)
@@ -131,7 +139,7 @@ def test_jump_config_takes_xla_sweep_with_fused_flag(gray, interpret):
     packages to the XLA sweep."""
     cfg = dataclasses.replace(PIXEL_AREA, fused_sweep=True, min_area=60)
     assert not jmp.fused_sweep_ok(H + 2, W + 2, cfg)
-    *_, fused = tmser.sweep_candidates(torch.from_numpy(gray), cfg)
+    *_, fused = tmser.sweep_candidates(torch.from_numpy(gray), _port(cfg))
     assert fused is False
     _compare_regions(gray, cfg)
 
@@ -171,8 +179,8 @@ def test_frame_without_strip_plan_takes_xla_sweep(gray, no_interpret, monkeypatc
     monkeypatch.setattr(tmc, "_VMEM_PX", 1000)
     cfg = dataclasses.replace(RECALL, fused_sweep=True, downscale=1, min_area=50,
                               refine_scan_passes=0)
-    assert tmc.sweep_plan(H + 2, W + 2, cfg.topk_pool, tmc.plan_halo(cfg)) is None
-    *_, fused = tmser.sweep_candidates(torch.from_numpy(gray), cfg)
+    assert tmc.sweep_plan(H + 2, W + 2, cfg.topk_pool, tmc.plan_halo(_port(cfg))) is None
+    *_, fused = tmser.sweep_candidates(torch.from_numpy(gray), _port(cfg))
     assert fused is False
     _compare_regions(gray, cfg)
 
@@ -185,7 +193,7 @@ def test_sweep_topk_prefers_lower_index_on_ties(monkeypatch):
     maps[0][0, 1, 0, 3] = 90
     monkeypatch.setattr(tmser, "_level_sweep", lambda *a: iter(maps))
     cfg = MSERConfig(delta=3, level_step=3, max_regions=5)
-    seeds, levels, pol, valid = tmser._sweep_topk(torch.zeros((1, 2, 4, 4)), cfg, 1, 3)
+    seeds, levels, pol, valid = tmser._sweep_topk(torch.zeros((1, 2, 4, 4)), _port(cfg), 1, 3)
     assert valid.tolist() == [[True, True, True, True, False]]
     assert seeds[0, :4].tolist() == [[3, 0], [2, 2], [1, 1], [0, 3]]
     assert pol[0, :4].tolist() == [0, 1, 0, 1]
@@ -210,7 +218,7 @@ def test_k7_plain_matches_full_sweep_interpret(gray, name):
     im2 = _pol_stack(gray[0])
     want = np.asarray(jmp.fused_level_sweep_full(jnp.asarray(im2), cfg, d_idx, nl,
                                                  interpret=True))
-    got = tmc.fused_level_sweep_full(torch.from_numpy(im2), cfg, d_idx, nl)
+    got = tmc.fused_level_sweep_full(torch.from_numpy(im2), _port(cfg), d_idx, nl)
     assert got.dtype == torch.uint8 and got.shape == (2, nl, H + 2, W + 2)
     np.testing.assert_array_equal(got.numpy(), want)
     assert (want > 0).sum() >= 5
@@ -223,23 +231,26 @@ def test_k3_equals_fold_of_k7(gray, name):
     cfg = K7_CFGS[name]
     _, d_idx, nl = _schedule(cfg)
     im2 = torch.from_numpy(_pol_stack(gray[1]))
-    n_strips, core, halo = tmc.sweep_plan(H + 2, W + 2, cfg.topk_pool, tmc.plan_halo(cfg))
+    n_strips, core, halo = tmc.sweep_plan(H + 2, W + 2, cfg.topk_pool,
+                                          tmc.plan_halo(_port(cfg)))
     assert (n_strips, halo) == (1, 0)
     _, lbits = tmc.packing_bits(cfg.topk_pool, nl)
     wp = -(-(W + 2) // max(1, cfg.topk_pool)) * max(1, cfg.topk_pool)
     windows = torch.full((2, core, wp), 255, dtype=torch.uint8)
     windows[:, :H + 2, :W + 2] = im2
-    k3 = tmc.level_sweep_windows(windows, tmc.SweepParams.from_config(cfg, d_idx),
+    k3 = tmc.level_sweep_windows(windows, tmc.SweepParams.from_config(_port(cfg), d_idx),
                                  core, 0, nl, lbits)
-    k7 = tmc.fused_level_sweep_full(windows, cfg, d_idx, nl).to(torch.int32)
+    k7 = tmc.fused_level_sweep_full(windows, _port(cfg), d_idx, nl).to(torch.int32)
     fold = (k7 * (1 << lbits) + torch.arange(nl).view(1, nl, 1, 1)).amax(1)
     np.testing.assert_array_equal(fold.numpy(), k3.numpy())
-    np.testing.assert_array_equal(k3.numpy(), tmc.fused_level_sweep(im2, cfg, d_idx, nl).numpy())
+    np.testing.assert_array_equal(
+        k3.numpy(), tmc.fused_level_sweep(im2, _port(cfg), d_idx, nl).numpy())
 
 
 def test_k7_rejects_unported_variants():
     im2 = torch.zeros((2, 16, 16), dtype=torch.uint8)
     for change in ({"scan_passes": 1}, {"sweep_extent_only": True}):
         with pytest.raises(NotImplementedError):
-            tmc.fused_level_sweep_full(im2, dataclasses.replace(K7_CFGS["tuned"], **change),
+            tmc.fused_level_sweep_full(
+                im2, _port(dataclasses.replace(K7_CFGS["tuned"], **change)),
                                        1, 31)

@@ -204,7 +204,7 @@ def test_templates_load_and_train_match(tmp_path):
     np.testing.assert_array_equal(blue.numpy(), tt.blue)
 
     train = write_train_dir(str(tmp_path / "train"), seed=3)
-    want, got = jmm.train_mean_masks(train), tmm.train_mean_masks(train)
+    want, got = jmm.train_mean_masks(train), tmm.train_mean_masks(train, "cpu")
     np.testing.assert_array_equal(got.red, want.red)
     np.testing.assert_array_equal(got.blue, want.blue)
     assert want.red.sum() > 0 and want.blue.sum() > 0
@@ -215,7 +215,8 @@ def test_templates_load_and_train_match(tmp_path):
 def test_port_imports_no_jax(tmp_path):
     """Importing the port, its CNN modules and the CLI, and running the
     CLI's CNN branch on a one-frame directory on the CPU (``--upscale 1.6``,
-    and yuv420 ingest, which becomes yuv420p), imports no jax."""
+    and yuv420 ingest, which becomes yuv420p), imports neither jax nor any
+    module of the reference package."""
     frames = str(tmp_path / "frames")
     cli = (f"['--detector', 'CNN_0.3', '--test_path', {frames!r}, '--device', 'cpu', "
            f"'--no-images', '--out', {str(tmp_path / 'r.txt')!r}")
@@ -230,7 +231,9 @@ def test_port_imports_no_jax(tmp_path):
         f"assert main_detection_torch.main({cli}, '--upscale', '1.6']) == 0; "
         f"assert main_detection_torch.main({cli}, '--input_format', 'yuv420']) == 0; "
         "assert 'jax' not in sys.modules, "
-        "sorted(m for m in sys.modules if m.startswith('jax'))")
+        "sorted(m for m in sys.modules if m.startswith('jax')); "
+        "ref = [m for m in sys.modules if m.split('.')[0] == "
+        "'opencv_traffic_sign_detector_tpu']; assert not ref, ref")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 
 
@@ -273,3 +276,14 @@ def test_wrappers_reject_bad_input(case):
     }
     with pytest.raises((TypeError, ValueError)):
         calls[case]()
+
+
+def test_k3_int16_limit_binds_only_the_kernel():
+    """K3's kernel holds rows and columns as int16 and refuses windows of
+    32767 columns or more; a CPU tensor of that width takes the plain
+    version, which has no such limit."""
+    x = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (1, 4, 1 << 15),
+                                                           dtype=np.uint8))
+    params = mser_cuda.SweepParams(9, 1, 4, 1.0, 1000.0, 1.0, 0.2)
+    got = mser_cuda.level_sweep_windows(x, params, 4, 0, 3, 2)
+    assert torch.equal(got, mser_cuda.level_sweep_windows_plain(x, params, 4, 0, 3, 2))
