@@ -15,10 +15,13 @@ Phases:
    config at batch 8 and on the roll-flood refine of the tuned config with
    ``refine_scan_passes=0`` at batch 32), runs the kernel and its plain
    PyTorch version on those same CUDA tensors, requires exact equality, and
-   times both with CUDA events (median of 10 after warm-up), with K1's
-   library yardstick (``torch.bincount``), and computes each kernel's bound
-   from its inputs (:func:`_bound`); K3's line also prints the recorded
-   time of its old per-pass design (:data:`K3_OLD_MS`);
+   times both with CUDA events (median of 10 after warm-up, :func:`_time_ms`),
+   with K1's library yardstick (``torch.bincount``), and computes each
+   kernel's bound from its inputs (:func:`_bound`); the kernel is also
+   timed as calls queued behind a spin of the card (:func:`_queued_ms`),
+   which leaves a short kernel's launch overhead out; the lines of K3, K4
+   and K2 also print the recorded times of their earlier designs
+   (:data:`OLD_DESIGN`);
 4. identities: K7's per-level maps folded into ``max((qv << lbits) | t)``
    equal K3's output on the tuned single-strip windows, and the bbox and
    area of ``K6(seed map, mask) == 0`` equal K4's output, both exactly
@@ -27,11 +30,14 @@ Phases:
    version and K7 folded: a width that is not a multiple of the tile
    width, a window smaller than one tile, a small ``max_area`` (dead
    marks) and a strip halo (plain only: K7 has no strips), and its refusal
-   of windows too wide for its int16 bbox planes;
+   of windows too wide for its int16 bbox planes; K4 at more shapes
+   against its plain version and K6 (:func:`_k4_shapes`); K2 at odd tile
+   heights, unaligned rows and a reflect-padded frame (:func:`_k2_shapes`);
 5. slice 1: runs ``DetectionPipeline`` (batch 32, MSER_7_200_2000_1 at the
    tuned ``--downscale 2`` point) for one warm-up and 3 timed batches from
    host frames to detection records, with per-stage CUDA-event times, and
-   requires K1-K4 to have launched and every frame to have proposals;
+   requires K1-K4 to have launched, every frame to have proposals and K2's
+   plan tables not to have been built (uploaded) in the timed batches;
 6. slice 2: the same for the ``--pixel_area_stability`` config (XLA sweep,
    pixel-count stability), requiring K1, K2 and K4 to launch, K3 not to
    launch and every frame to have proposals; then one batch of 8 of the
@@ -58,8 +64,8 @@ Phases:
    products are PyTorch's), so its launch counts are 0.
 
 Then one JSON line with the kernel table (each kernel's launches on its
-path's run, max abs error, ms, plain ms, bound ms and what bounds it, and
-the library call's ms or null), and as the last line ``{"ok": true,
+path's run, max abs error, ms, plain ms, bound ms and what bounds it, the
+library call's ms or null, and the queued ms), and as the last line ``{"ok": true,
 "device": {...}}``.  Any failure raises and exits non-zero; so does an
 import of JAX or of the reference package.
 """
@@ -99,15 +105,28 @@ INT_OPS_S = LANE_OPS_S / 2
 # max 1, bf16 conversions 8), whose f32 products, sums, division, floor
 # and conversions (20 of its 56) take the f32 pipe.
 SWEEP_OPS = {"init": (17, 0), "pass": (27, 0), "emit": (36, 20)}
-# K1 one count a pixel; K2 four lookups, their conversions and the
-# bilinear blend, round and clamp (f32); K4-K6 per resolve of a run scan:
-# two directed scans (2 each), their min and a select; K4 adds the mask,
-# the seed and the bbox and area reduction.
-K2_OPS, SCAN_OPS = 24, 6
-# K3 on its old per-pass design (an init, each pass and an emit a launch,
-# state in device memory) at the tuned path's shapes, [64,408,684] windows
-# and 31 levels: NVIDIA H100 80GB HBM3, 700.00 W (PERF.md section 6).
+# K1 one count a pixel; K2 four lookups, their conversions, the bilinear
+# blend (6 products, 3 sums; the row and column weights are per row and per
+# column, not per pixel), round and two clamps; K6 per resolve of a run
+# scan: two directed scans (2 each), their min and a select.
+K2_OPS, SCAN_OPS = 20, 6
+# K4 on bits (csrc/flood.cu): a compare a pixel for the mask, then per
+# 32-pixel word its ballot, each row resolve (two carry fills of 5, three
+# reversals, a union), each column resolve (an and and an or down and up)
+# and the reduction (popcount, sum, column OR).
+FLOOD_OPS = {"mask": 1, "pack": 1, "row": 14, "col": 4, "reduce": 3}
+# Earlier designs at the tuned path's shapes, one call between events, as
+# recorded on NVIDIA H100 80GB HBM3, 700.00 W (PERF.md section 6): K3 per
+# pass (an init, each pass and an emit a launch, state in device memory;
+# [64,408,684] windows, 31 levels); K4 with a thread walking each row or
+# column run by run (4096 windows of 128x128) and K2 with the frame's whole
+# LUT set a block and per-pixel coordinate loads ([32,800,1360]).
 K3_OLD_MS = 46.198
+K4_OLD_MS = 1.356
+K2_OLD_MS = 0.443
+OLD_DESIGN = {"level_sweep": ("old per-pass design", K3_OLD_MS),
+              "flood_bbox": ("old run-walk design", K4_OLD_MS),
+              "clahe_apply": ("old whole-LUT design", K2_OLD_MS)}
 
 
 def _mask_pixel_levels(x: torch.Tensor, step: int, num_levels: int) -> int:
@@ -117,12 +136,27 @@ def _mask_pixel_levels(x: torch.Tensor, step: int, num_levels: int) -> int:
     return sum(int(below[min(t * step, 255)]) for t in range(num_levels))
 
 
+def _window_union(shape, cand: torch.Tensor, wh: int, ww: int) -> int:
+    """Pixels of planes of ``shape`` under at least one candidate's window,
+    origins clamped as K4 clamps them: +-1 at the windows' corners, summed
+    down and across."""
+    p, h, w = shape
+    plane = cand[:, 0].long().clamp(0, p - 1)
+    y0, x0 = cand[:, 1].long().clamp(0, h - wh), cand[:, 2].long().clamp(0, w - ww)
+    corners = torch.zeros((p, h + 1, w + 1), dtype=torch.int32, device=cand.device)
+    one = torch.ones_like(y0, dtype=torch.int32)
+    for dy, dx, sign in ((0, 0, 1), (wh, 0, -1), (0, ww, -1), (wh, ww, 1)):
+        corners.index_put_((plane, y0 + dy, x0 + dx), sign * one, accumulate=True)
+    return int((corners.cumsum(1, dtype=torch.int32).cumsum(2, dtype=torch.int32) > 0).sum())
+
+
 def _bound(name: str, args: tuple, out: torch.Tensor) -> tuple[float, str, int, int]:
     """(least time in ms, "bytes" or "operations", bytes, operations) of one
     call: each input byte read once, each output byte written once, and the
     operations its inputs need, the integer ones no faster than the integer
     pipe and all no faster than an SM starts them, over the published peaks."""
     from opencv_traffic_sign_detector_tpu_torch.ops.mser_cuda import SweepParams
+    from opencv_traffic_sign_detector_tpu_torch.ops.prop_cuda import candidate_windows
 
     tensors = [a for a in args if isinstance(a, torch.Tensor)]
     nbytes = sum(t.numel() * t.element_size() for t in tensors)
@@ -144,10 +178,19 @@ def _bound(name: str, args: tuple, out: torch.Tensor) -> tuple[float, str, int, 
         int_ops = px * (i0 + params.num_passes * i1 + i2)
         f32_ops = px * (f0 + params.num_passes * f1 + f2)
     elif name == "flood_bbox":
+        # the plane bytes under the windows whose seed is on its mask, each
+        # once (the windows overlap), and any other window's seed byte:
+        # the windows, not the planes
         planes, cand, win_h, win_w, passes, _ = args
-        px = cand.shape[0] * win_h * win_w
-        nbytes += min(px, planes.numel()) - planes.numel()  # the windows, not the planes
-        int_ops = px * (3 + SCAN_OPS * (2 * passes + 1) + 10)
+        mask, seed = candidate_windows(planes, cand, win_h, win_w)
+        on = (mask & seed).flatten(1).any(1)
+        seeded = int(on.sum())
+        px = seeded * win_h * win_w
+        covered = _window_union(planes.shape, cand[on], win_h, win_w)
+        nbytes += covered + cand.shape[0] - seeded - planes.numel()
+        f = FLOOD_OPS
+        per_word = f["pack"] + (passes + 1) * f["row"] + passes * f["col"] + f["reduce"]
+        int_ops = px * f["mask"] + seeded * win_h * -(-win_w // 32) * per_word
     elif name.startswith("propagate_rolls"):
         int_ops = x.numel() * (1 + 5 * args[3])
     elif name == "propagate_scan":
@@ -238,6 +281,34 @@ def _time_ms(fn, runs: int = 10) -> float:
     return statistics.median(times)
 
 
+def _queued_ms(fn, runs: int = 10) -> float:
+    """Ms of one call of ``fn`` with the host's launch overhead left out:
+    the median of ``runs`` runs of 10 calls (1 where a call takes 2 ms or
+    more), queued behind a spin of the card that outlasts their enqueueing."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    reps = 10 if time.perf_counter() - t0 < 2e-3 else 1
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    spin = int((time.perf_counter() - t0) * 4e9) + 200_000  # cycles, > the enqueue time
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        s.record()
+        for _ in range(reps):
+            fn()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / reps)
+    return statistics.median(times)
+
+
 def _recording(calls, mod, attr, key):
     """Context: wrap ``mod.attr`` so that every call's arguments are kept
     in ``calls[key(args, kwargs)]``."""
@@ -319,6 +390,83 @@ def _k3_shapes(mc, captured: tuple, cfg, d_idx: int, smi: str) -> None:
         refused = True
     print(f"[kernel K3 int16] windows {tuple(wide.shape)} refused: {refused}")
     _require(refused, "K3 took windows wider than its int16 bbox planes")
+
+
+def _k4_candidates(planes: torch.Tensor, wh: int, ww: int, n: int, gen) -> torch.Tensor:
+    """Random [n, 6] candidates on ``planes``: origins up to 20 pixels past
+    every edge (clamped by the kernel), levels 0-59 above the seed's pixel;
+    every 16th seed on the unmasked ring, every 16th above its level, and
+    every 16th with level 255 (the whole inner window)."""
+    p, h, w = planes.shape
+
+    def r(lo, hi):
+        return torch.randint(lo, hi, (n,), generator=gen, device=planes.device)
+
+    plane, y0, x0 = r(0, p), r(-20, h - wh + 21), r(-20, w - ww + 21)
+    sy, sx = r(1, wh - 1), r(1, ww - 1)
+    pix = planes[plane, y0.clamp(0, h - wh) + sy, x0.clamp(0, w - ww) + sx].int()
+    level = pix + r(0, 60)
+    sy[0::16] = 0
+    level[1::16] = pix[1::16] - 1
+    level[2::16] = 255
+    return torch.stack([plane, y0, x0, sy, sx, level], 1).to(torch.int32).contiguous()
+
+
+def _k4_shapes(pc, planes: torch.Tensor, cand: torch.Tensor, big: int, gen) -> None:
+    """Phase 4, K4 beyond the main path's shapes, each exact against its
+    plain version and against bbox(K6 == 0): the main windows at passes 0,
+    1 and 3; 37x100 windows (neither a multiple of 32) on small planes with
+    clamped origins, empty and whole-window components; the main windows
+    with their origins pushed past each of the four plane edges."""
+    small = planes[:, 200:260, 300:450].contiguous()
+    edge = cand.clone()
+    edge[0::4, 1], edge[1::4, 1], edge[2::4, 2], edge[3::4, 2] = -50, 1 << 20, -50, 1 << 20
+    cases = [(f"main windows, passes {p}", planes, cand, 128, 128, p) for p in (0, 1, 3)]
+    k4_small = _k4_candidates(small, 37, 100, 1024, gen)
+    cases += [(f"37x100 windows, passes {p}", small, k4_small, 37, 100, p) for p in (1, 2)]
+    cases += [("origins past the four edges", planes, edge, 128, 128, 2)]
+    for label, pl, cd, wh, ww, passes in cases:
+        b = wh * ww + 1 if pl is small else big
+        got = pc.flood_bbox(pl, cd, wh, ww, passes, b)
+        same = torch.equal(got, pc.flood_bbox_plain(pl, cd, wh, ww, passes, b))
+        mask, seed = pc.candidate_windows(pl, cd, wh, ww)
+        k6 = pc.propagate_scan(torch.where(seed, 0, b).to(torch.int32), mask, b, passes)
+        k6_ok = torch.equal(pc.bbox_area(k6 == 0, b), got)
+        area = got[:, 4]
+        cross = sum(int(((got[:, 2] < e) & (got[:, 3] >= e)).sum()) for e in (32, 64, 96))
+        full = int((area == (wh - 2) * (ww - 2)).sum())
+        print(f"[kernel K4 {label}] {cd.shape[0]} windows of {wh}x{ww} on {tuple(pl.shape)}: "
+              f"equals plain {same}, bbox(K6 == 0) {k6_ok}; empty {int((area == 0).sum())}, "
+              f"whole inner window {full}, components across a 32-px word edge {cross}, "
+              f"mean area {area.float().mean().item():.1f}")
+        _require(same and k6_ok, f"K4 {label}: differs from its plain version or K6")
+        if pl is small:
+            _require(full > 0 and int((area == 0).sum()) > 0 and cross > 0,
+                     f"K4 {label}: the candidates miss a case")
+
+
+def _k2_shapes(cc, clahe_equalize, x: torch.Tensor, gen) -> None:
+    """Phase 4, K2 beyond the main path's shapes, exact against its plain
+    version on random frames and LUTs: odd tile heights (808 rows at 8
+    tiles, 804 at 4) and a width whose rows are not 16-byte aligned
+    (1352); then CLAHE of a cut of the main path's frames that needs the
+    reflect pad, against the port's CPU path."""
+    for h, w, tiles in [(808, 1352, 8), (808, 1352, 4), (804, 1352, 4)]:
+        frames = torch.randint(0, 256, (4, h, w), generator=gen, device=x.device,
+                               dtype=torch.uint8)
+        luts = torch.randint(0, 256, (4, tiles, tiles, 256), generator=gen, device=x.device,
+                             dtype=torch.uint8)
+        same = torch.equal(cc.clahe_apply(frames, luts, tiles),
+                           cc.clahe_apply_plain(frames, luts, tiles))
+        pieces = cc.apply_plan(h, w, tiles)[0]
+        print(f"[kernel K2 {h}x{w}, {tiles} tiles] tile {h // tiles}x{w // tiles}, "
+              f"{len(pieces)} row pieces: equals plain {same}")
+        _require(same, f"K2 {h}x{w} at {tiles} tiles differs from its plain version")
+    cut = x[:4, :797, :1355].contiguous()
+    same = torch.equal(clahe_equalize(cut).cpu(), clahe_equalize(cut.cpu()))
+    print(f"[kernel K2 reflect pad] clahe_equalize of {tuple(cut.shape)} (padded to 800x1360) "
+          f"equals the CPU path: {same}")
+    _require(same, "K2 on a reflect-padded frame differs from the CPU path")
 
 
 def _cnn_phases(rt, dev, frames: "np.ndarray", names: list[str]) -> None:
@@ -483,6 +631,7 @@ def main() -> int:
         mser_cuda,
         prop_cuda,
     )
+    from opencv_traffic_sign_detector_tpu_torch.ops.clahe import clahe_equalize
     from opencv_traffic_sign_detector_tpu_torch.ops.preprocess import enhance_contrast
     from opencv_traffic_sign_detector_tpu_torch.runtime import build as rt
 
@@ -587,13 +736,14 @@ def main() -> int:
         del got, want
         shapes = [tuple(x.shape) for x in a if isinstance(x, torch.Tensor)]
         ms = _time_ms(lambda: kern(*a, **kw))
+        queued_ms = _queued_ms(lambda: kern(*a, **kw))
         plain_ms = _time_ms(lambda: plain(*a, **kw))
         library = (f"library {library_ms:.3f} ms (torch.bincount)" if library_ms is not None
                    else f"library none ({NO_LIBRARY[name]})")
+        old = OLD_DESIGN.get(name)
         print(f"[kernel] {name}: inputs {shapes} -> exact required, max_abs_err {err}; "
-              f"kernel {ms:.3f} ms"
-              + (f" (old per-pass design {K3_OLD_MS:.3f} ms, recorded)"
-                 if name == "level_sweep" else "")
+              f"kernel {ms:.4f} ms (queued behind a spin {queued_ms:.4f} ms)"
+              + (f" ({old[0]} {old[1]:.3f} ms, recorded)" if old else "")
               + f" plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms by {bound_by} "
               f"({nbytes} bytes, {ops} operations); {library}; {smi}")
         _require(err == 0, f"{name}: kernel differs from its plain version")
@@ -601,7 +751,8 @@ def main() -> int:
                       "source": f"opencv_traffic_sign_detector_tpu_torch/{src}",
                       "replaces": replaces, "launches": 0,
                       "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms})
+                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+                      "queued_ms": queued_ms})
     rows = {row["name"]: row for row in table}
 
     # --- 4. identities between kernels ---------------------------------
@@ -629,6 +780,9 @@ def main() -> int:
         rows[name]["launches"] = counts[name]
         _require(counts[name] > 0, f"{name} never launched")
     _k3_shapes(mser_cuda, inputs["level_sweep"][0], scfg, d_idx, smi)
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    _k4_shapes(prop_cuda, planes, cand, big, gen)
+    _k2_shapes(clahe_cuda, clahe_equalize, inputs["tile_histograms"][0][0], gen)
 
     # --- 5. slice 1 through DetectionPipeline -----------------------------
     def run_slice(label, mcfg_, batch, timed):
@@ -650,24 +804,31 @@ def main() -> int:
                 batch_s.append(time.perf_counter() - t0)
             return dets, batch_s, timer.per_batch_ms(timed)
 
+        tables = clahe_cuda._apply_tables.cache_info().misses
         (dets, batch_s, stage_ms), counts = _run_path(rt, label, timed_run)
+        tables = clahe_cuda._apply_tables.cache_info().misses - tables
+        _require(tables == 0, f"{label}: K2's plan tables were built and uploaded {tables} "
+                 "times in the timed batches")
         props, pvalid = mser.mser_regions(enhance_contrast(frames_dev[:batch]), mcfg_)
         per_frame = pvalid.sum(-1).cpu().numpy()
         fps = batch / statistics.median(batch_s)
-        print(f"[{label}] batch {batch} of 1360x800: {fps:.2f} frames/s "
-              f"(batch s {', '.join(f'{s:.4f}' for s in batch_s)}); stage ms per batch "
+        print(f"[{label}] batch {batch} of 1360x800: {fps:.2f} frames/s, best batch "
+              f"{batch / min(batch_s):.2f} (batch s {', '.join(f'{s:.4f}' for s in batch_s)}); "
+              "stage ms per batch "
               + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items())
               + f"; proposals/frame min {per_frame.min()} mean {per_frame.mean():.2f}; "
-              f"detections {len(dets)}")
+              f"detections {len(dets)}; K2 plan uploads in the timed batches {tables}")
         _require(not (per_frame < 1).any(),
                  f"{label}: frames without proposals: {np.nonzero(per_frame < 1)[0]}")
         _require(all(np.isfinite(d.score) and 1 <= d.class_id <= 6 for d in dets),
                  f"{label}: malformed detection records")
         return props, pvalid, dets, counts
 
+    batches = defaultdict(lambda: 1)  # batches of each kernel's path's run
     props, pvalid, dets, counts = run_slice("slice", mcfg, 32, 3)
     for name in ("tile_histograms", "clahe_apply", "level_sweep", "flood_bbox"):
         rows[name]["launches"] = counts[name]
+        batches[name] = 3
         _require(counts[name] > 0, f"slice 1: {name} never launched")
 
     # --- 6. slice 2: the XLA sweep paths ---------------------------------
@@ -723,8 +884,10 @@ def main() -> int:
     _require(not ref, f"the port imported the reference package: {ref}")
 
     for row in table:
-        print(f"[table] {row['name']}: {row['launches']} launches on its path's run; "
-              f"{row['ms']:.3f} ms against a bound of {row['bound_ms']:.4f} ms "
+        n = batches[row["name"]]
+        print(f"[table] {row['name']}: {row['launches']} launches on its path's run of {n} "
+              f"batch(es), {row['launches'] / n:g} a batch; {row['ms']:.4f} ms (queued "
+              f"{row['queued_ms']:.4f}) against a bound of {row['bound_ms']:.4f} ms "
               f"({row['bound_by']}); {smi}")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -10,11 +10,18 @@ own, in the plain version's order.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from ..runtime import build as rt
 from .clahe import _interp_coords
+
+# K2's limits: its shared LUT rows (csrc/clahe.cu: kMaxTiles) and the grid's
+# frame dimension
+MAX_TILES = 8
+MAX_FRAMES = 65535
 
 
 def _check_frames(x: torch.Tensor, tiles: int) -> None:
@@ -66,6 +73,47 @@ def _coords(h: int, w: int, tiles: int, device: torch.device):
             t(tx1, torch.int32), t(tx2, torch.int32), t(xa, torch.float32))
 
 
+# Columns a K2 block covers (csrc/clahe.cu: kSegCols) and the most rows it
+# covers (kTileRows; a strip longer than that is cut into even pieces).
+SEG_COLS = 512
+PIECE_ROWS = 32
+
+
+def apply_plan(h: int, w: int, tiles: int):
+    """K2's launch plan for [*, h, w] frames.
+
+    Returns ``(pieces, ya, col_case, xa, max_cases)``: ``pieces`` int32
+    [P, 4] rows ``(r0, r1, ty1, ty2)``, runs of rows with constant tile rows
+    under ``_interp_coords``, cut into even pieces of at most
+    ``PIECE_ROWS``; the row weights ``ya``; per column the case ``k`` whose
+    tile columns ``(max(k - 1, 0), min(k, tiles - 1))`` are its
+    ``(tx1, tx2)``; the column weights ``xa``; the most cases in one column
+    segment (``SEG_COLS`` wide), which sizes a block's LUT table.
+    """
+    ty1, ty2, ya = _interp_coords(h, tiles, h // tiles)
+    cuts = np.flatnonzero((np.diff(ty1) != 0) | (np.diff(ty2) != 0)) + 1
+    bounds = np.concatenate([[0], cuts, [h]])
+    pieces = []
+    for r0, r1 in zip(bounds[:-1], bounds[1:]):
+        n = -(-(r1 - r0) // PIECE_ROWS)
+        edges = r0 + (np.arange(n + 1) * (r1 - r0)) // n
+        pieces += [(a, b, ty1[r0], ty2[r0]) for a, b in zip(edges[:-1], edges[1:])]
+    tx1, tx2, xa = _interp_coords(w, tiles, w // tiles)
+    col_case = np.where(tx1 < tx2, tx2, np.where(tx1 == 0, 0, tiles))
+    max_cases = max(int(col_case[min(c + SEG_COLS, w) - 1] - col_case[c]) + 1
+                    for c in range(0, w, SEG_COLS))
+    return (np.array(pieces, np.int32).reshape(-1, 4), ya.astype(np.float32),
+            col_case.astype(np.int32), xa.astype(np.float32), max_cases)
+
+
+@functools.lru_cache(maxsize=32)
+def _apply_tables(h: int, w: int, tiles: int, device: torch.device):
+    """:func:`apply_plan`'s tables on ``device``, uploaded once per shape and
+    device, and its case count."""
+    *tables, max_cases = apply_plan(h, w, tiles)
+    return (*(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in tables), max_cases)
+
+
 def clahe_apply_plain(x: torch.Tensor, luts: torch.Tensor,
                       tiles: int = 8) -> torch.Tensor:
     """Bilinear blend of the 4 neighbouring tile LUTs at each pixel's value."""
@@ -92,23 +140,26 @@ def clahe_apply_plain(x: torch.Tensor, luts: torch.Tensor,
 def clahe_apply(x: torch.Tensor, luts: torch.Tensor, tiles: int = 8) -> torch.Tensor:
     """K2: x [B, H, W] uint8 + LUTs [B, T, T, 256] uint8 -> [B, H, W] uint8.
 
-    Replaces ``clahe_pallas.py: clahe_apply_pallas``.
+    Replaces ``clahe_pallas.py: clahe_apply_pallas``.  The kernel takes at
+    most 8x8 tiles and 65535 frames; the plain version has no such limit.
     """
     _check_frames(x, tiles)
     rt.check_tensor(luts, "luts", torch.uint8, 4)
     if tuple(luts.shape) != (x.shape[0], tiles, tiles, 256):
         raise ValueError(f"luts: expected {(x.shape[0], tiles, tiles, 256)}, "
                          f"got {tuple(luts.shape)}")
-    if tiles > 8:
-        raise ValueError(f"at most 8x8 tiles, got {tiles}")
     if rt.uses_plain(x, luts):
         return clahe_apply_plain(x, luts, tiles)
     b, h, w = x.shape
-    coords = _coords(h, w, tiles, x.device)
+    if tiles > MAX_TILES or b > MAX_FRAMES:
+        raise ValueError(f"the kernel takes at most {MAX_TILES}x{MAX_TILES} tiles and "
+                         f"{MAX_FRAMES} frames, got {tiles} tiles and {b} frames")
+    pieces, ya, col_case, xa, max_cases = _apply_tables(h, w, tiles, x.device)
     out = torch.empty_like(x)
     rc = rt.library().tsd_clahe_apply(
-        x.data_ptr(), luts.data_ptr(), *(c.data_ptr() for c in coords),
-        out.data_ptr(), b, h, w, tiles, rt.stream_ptr(x.device))
+        x.data_ptr(), luts.data_ptr(), pieces.data_ptr(), ya.data_ptr(),
+        col_case.data_ptr(), xa.data_ptr(), out.data_ptr(), pieces.shape[0], b, h, w,
+        tiles, max_cases, rt.stream_ptr(x.device))
     rt.check(rc, "clahe_apply")
     rt.count_launch("clahe_apply")
     return out

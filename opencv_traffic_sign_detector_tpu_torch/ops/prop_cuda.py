@@ -105,18 +105,21 @@ def flood_bbox(planes: torch.Tensor, cand: torch.Tensor, win_h: int, win_w: int,
 
     Replaces ``pallas_prop.py: flood_bbox_pallas`` (lanes 0-4 of its
     output).  Plane and origin are clamped so that each window lies inside
-    the planes, as the reference's dynamic_slice clamps its start.
+    the planes, as the reference's dynamic_slice clamps its start.  The
+    kernel takes windows of at most 128x128 (four 32-bit words a row, four
+    rows a lane); the plain version takes any window that fits the planes.
     """
     rt.check_tensor(planes, "planes", torch.uint8, 3)
     rt.check_tensor(cand, "cand", torch.int32, 2)
     if cand.shape[1] != 6:
         raise ValueError(f"cand: expected [N, 6], got {tuple(cand.shape)}")
     p, h, w = planes.shape
-    if not (0 < win_h <= min(h, MAX_WIN) and 0 < win_w <= min(w, MAX_WIN)):
-        raise ValueError(f"window {win_h}x{win_w} does not fit planes {h}x{w} "
-                         f"or the {MAX_WIN}-px kernel limit")
+    if not (0 < win_h <= h and 0 < win_w <= w):
+        raise ValueError(f"window {win_h}x{win_w} does not fit planes {h}x{w}")
     if rt.uses_plain(planes, cand):
         return flood_bbox_plain(planes, cand, win_h, win_w, passes, big)
+    if win_h > MAX_WIN or win_w > MAX_WIN:
+        raise ValueError(f"window {win_h}x{win_w} exceeds the {MAX_WIN}-px kernel limit")
     n = cand.shape[0]
     out = torch.empty((n, 5), dtype=torch.int32, device=planes.device)
     rc = rt.library().tsd_flood_bbox(
@@ -183,8 +186,8 @@ def propagate_scan_plain(keys: torch.Tensor, mask: torch.Tensor, big: int,
 
 def propagate_scan(keys: torch.Tensor, mask: torch.Tensor, big: int,
                    passes: int) -> torch.Tensor:
-    """K6: keys int32 [P, H, W], mask bool [P, H, W] (H, W <= 128) ->
-    component-min keys by run scans.
+    """K6: keys int32 [P, H, W], mask bool [P, H, W] -> component-min keys by
+    run scans.  The kernel takes H, W <= 128; the plain version any size.
 
     Replaces ``pallas_prop.py: propagate_scan_pallas``.  Precondition, as
     the reference's: the border rows and columns of ``mask`` are False.
@@ -193,10 +196,10 @@ def propagate_scan(keys: torch.Tensor, mask: torch.Tensor, big: int,
     """
     _check_keys_mask(keys, mask)
     p, h, w = keys.shape
-    if not (h <= MAX_WIN and w <= MAX_WIN):
-        raise ValueError(f"planes {h}x{w} exceed the {MAX_WIN}-px kernel limit")
     if rt.uses_plain(keys, mask):
         return propagate_scan_plain(keys, mask, big, passes)
+    if not (h <= MAX_WIN and w <= MAX_WIN):
+        raise ValueError(f"planes {h}x{w} exceed the {MAX_WIN}-px kernel limit")
     out = torch.empty_like(keys)
     rc = rt.library().tsd_propagate_scan(
         keys.data_ptr(), mask.data_ptr(), out.data_ptr(), p, h, w, passes, big,

@@ -47,7 +47,7 @@ KERNELS = ("tile_histograms", "clahe_apply", "level_sweep", "flood_bbox",
 _V, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "tsd_tile_histograms": [_V, _V, _I, _I, _I, _I, _V],
-    "tsd_clahe_apply": [_V] * 9 + [_I, _I, _I, _I, _V],
+    "tsd_clahe_apply": [_V] * 7 + [_I] * 6 + [_V],
     "tsd_level_sweep": [_V] * 4 + [_I] * 13 + [_F] * 4 + [_V],
     "tsd_level_sweep_full": [_V] * 4 + [_I] * 7 + [_F] * 4 + [_V],
     "tsd_flood_bbox": [_V, _V, _V] + [_I] * 8 + [_V],

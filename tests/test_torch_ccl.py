@@ -145,9 +145,15 @@ def test_k5_roll_flood_reaches_k6_component():
 
 
 @pytest.mark.parametrize("case", ["keys_dtype", "mask_dtype", "shape", "rank", "scan_size"])
-def test_wrappers_reject_bad_input(case):
+def test_wrappers_reject_bad_input(case, monkeypatch):
     k = torch.zeros((2, 16, 16), dtype=torch.int32)
     m = torch.zeros((2, 16, 16), dtype=torch.bool)
+    if case == "scan_size":
+        # K6's kernel takes planes of at most 128x128; CPU tensors take the
+        # plain version at any size, so the refusal is shown for tensors
+        # bound for the kernel, before the library is reached
+        monkeypatch.setattr(rt, "uses_plain", lambda *tensors: False)
+        monkeypatch.setattr(rt, "library", lambda: pytest.fail("the library was reached"))
     calls = {
         "keys_dtype": lambda: tprop.propagate_rolls(k.long(), m, 9, 2),
         "mask_dtype": lambda: tprop.propagate_rolls(k, m.to(torch.uint8), 9, 2),

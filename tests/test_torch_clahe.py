@@ -118,6 +118,107 @@ def test_interp_coords_copy_matches(tiles):
             assert a.dtype == b.dtype
 
 
+K2_PLAN_SHAPES = [(tiles, th, tw) for tiles in range(1, 9)
+                  for th, tw in [(1, 3), (3, 5), (7, 2), (25, 17), (50, 33), (51, 96), (101, 169)]]
+
+
+@pytest.mark.parametrize("tiles,th,tw", K2_PLAN_SHAPES)
+def test_k2_launch_plan(tiles, th, tw):
+    """K2's row pieces cover every row once, in order, at most PIECE_ROWS
+    each, with the tile rows of ``_interp_coords`` constant inside; each
+    column's case names its (tx1, tx2); the segments cover every column."""
+    h, w = tiles * th, tiles * tw
+    pieces, ya, col_case, xa, max_cases = tcuda.apply_plan(h, w, tiles)
+    ty1, ty2, ya_want = tclahe._interp_coords(h, tiles, th)
+    assert pieces.dtype == np.int32 and pieces[0, 0] == 0 and pieces[-1, 1] == h
+    np.testing.assert_array_equal(pieces[1:, 0], pieces[:-1, 1])
+    assert ((pieces[:, 1] > pieces[:, 0]) & (pieces[:, 1] - pieces[:, 0] <= tcuda.PIECE_ROWS)).all()
+    for r0, r1, t1, t2 in pieces:
+        assert (ty1[r0:r1] == t1).all() and (ty2[r0:r1] == t2).all()
+    np.testing.assert_array_equal(ya, ya_want)
+    tx1, tx2, xa_want = tclahe._interp_coords(w, tiles, tw)
+    k = col_case.astype(int)
+    np.testing.assert_array_equal(np.maximum(k - 1, 0), tx1)
+    np.testing.assert_array_equal(np.minimum(k, tiles - 1), tx2)
+    np.testing.assert_array_equal(xa, xa_want)
+    assert (np.diff(k) >= 0).all() and k.max() <= tiles  # a segment's cases are a range
+    spans = [k[min(c + tcuda.SEG_COLS, w) - 1] - k[c] + 1 for c in range(0, w, tcuda.SEG_COLS)]
+    assert max_cases == max(spans) <= tiles + 1
+
+
+def _k2_emulated(x: np.ndarray, luts: np.ndarray, tiles: int) -> np.ndarray:
+    """csrc/clahe.cu's clahe_apply_kernel in numpy: per row piece and column
+    segment, the packed four-LUT table and the blend with its exact byte
+    conversion and rounding by adds."""
+    b, h, w = x.shape
+    pieces, ya, col_case, xa, max_cases = tcuda.apply_plan(h, w, tiles)
+    f32 = np.float32
+    out = np.empty_like(x)
+
+    def byte_float(e, i):
+        return (((e >> np.uint32(8 * i)) & np.uint32(255)) | np.uint32(0x4B000000)).view(f32) \
+            - f32(8388608.0)
+
+    for f in range(b):
+        for r0, r1, t1, t2 in pieces:
+            for c0 in range(0, w, tcuda.SEG_COLS):
+                c1 = min(c0 + tcuda.SEG_COLS, w)
+                k = np.arange(col_case[c0], col_case[c1 - 1] + 1)
+                assert len(k) <= max_cases
+                a, c = np.maximum(k - 1, 0), np.minimum(k, tiles - 1)
+                top, bot = luts[f, t1].astype(np.uint32), luts[f, t2].astype(np.uint32)
+                tab = top[a] | top[c] << 8 | bot[a] << 16 | bot[c] << 24  # [cases, 256]
+                e = tab[col_case[c0:c1][None, :] - k[0], x[f, r0:r1, c0:c1]]
+                fx = xa[c0:c1][None, :]
+                fy = ya[r0:r1, None]
+                gx, gy = f32(1) - fx, f32(1) - fy
+                tp = byte_float(e, 0) * gx + byte_float(e, 1) * fx
+                bt = byte_float(e, 2) * gx + byte_float(e, 3) * fx
+                o = tp * gy + bt * fy
+                q = (o + f32(12582912.0)).view(np.int32) - 0x4B400000
+                out[f, r0:r1, c0:c1] = np.clip(q, 0, 255)
+    return out
+
+
+@pytest.mark.parametrize("shape,tiles", [((1, 808, 1352), 8), ((2, 804, 200), 4),
+                                         ((2, 60, 1100), 6), ((1, 33, 47), 1)])
+def test_k2_kernel_arithmetic_matches_plain(shape, tiles):
+    """The kernel's launch plan and arithmetic, emulated, equal the plain
+    version bit for bit on random frames and LUTs (odd tile heights, ragged
+    segments, one tile)."""
+    rng = np.random.default_rng(sum(shape) + tiles)
+    x = rng.integers(0, 256, shape, dtype=np.uint8)
+    luts = rng.integers(0, 256, (shape[0], tiles, tiles, 256), dtype=np.uint8)
+    want = tcuda.clahe_apply_plain(torch.from_numpy(x), torch.from_numpy(luts), tiles).numpy()
+    np.testing.assert_array_equal(_k2_emulated(x, luts, tiles), want)
+
+
+def test_k2_rounding_by_add_is_rint():
+    """``rint`` by the add of 1.5 * 2^23 equals np.rint on the blend's range,
+    ties included, and 2^23 + b - 2^23 is b for every byte."""
+    f32 = np.float32
+    rng = np.random.default_rng(0)
+    o = np.concatenate([rng.uniform(-2, 258, 200000).astype(f32),
+                        np.arange(-4, 520, dtype=f32) / f32(2),  # every half
+                        np.nextafter(np.arange(0, 256, dtype=f32) + f32(0.5), f32(0))])
+    q = (o + f32(12582912.0)).view(np.int32) - 0x4B400000
+    np.testing.assert_array_equal(q, np.rint(o).astype(np.int32))
+    b = np.arange(256, dtype=np.uint32)
+    np.testing.assert_array_equal((b | np.uint32(0x4B000000)).view(f32) - f32(8388608.0),
+                                  b.astype(f32))
+
+
+def test_k2_tables_built_once_per_shape():
+    """The kernel's plan tables are made and moved to the device once per
+    (h, w, tiles, device): later calls reuse them, so no host-to-device copy
+    of coordinates sits in a batch."""
+    tcuda._apply_tables.cache_clear()
+    first = tcuda._apply_tables(80, 96, 8, torch.device("cpu"))
+    again = tcuda._apply_tables(80, 96, 8, torch.device("cpu"))
+    assert all(a is b for a, b in zip(first[:4], again[:4])) and first[4] == again[4]
+    assert tcuda._apply_tables.cache_info().misses == 1
+
+
 def test_enhance_contrast_bit_exact():
     frames = make_frames(2, 256, 256, seed=5)
     want = np.asarray(jpre.enhance_contrast(jnp.asarray(frames)))

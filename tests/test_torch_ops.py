@@ -258,10 +258,12 @@ def test_build_without_nvcc_raises_clearly(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("case", ["dtype", "rank", "tiles", "luts", "sweep_rows",
-                                  "cand_cols", "window", "device"])
+                                  "cand_cols", "window", "device", "luts_dtype",
+                                  "apply_tiles", "cand_dtype", "window_zero", "keys_mask"])
 def test_wrappers_reject_bad_input(case):
     u8 = torch.zeros((1, 64, 64), dtype=torch.uint8)
     params = mser_cuda.SweepParams(9, 1, 4, 50.0, 1000.0, 1.0, 0.2)
+    cand = torch.zeros((3, 6), dtype=torch.int32)
     calls = {
         "dtype": lambda: clahe_cuda.tile_histograms(u8.to(torch.int32)),
         "rank": lambda: clahe_cuda.tile_histograms(u8[0]),
@@ -270,12 +272,59 @@ def test_wrappers_reject_bad_input(case):
         "sweep_rows": lambda: mser_cuda.level_sweep_windows(u8, params, 40, 8, 31, 5),
         "cand_cols": lambda: prop_cuda.flood_bbox(u8, torch.zeros((3, 5), dtype=torch.int32),
                                                   32, 32, 2, 1025),
-        "window": lambda: prop_cuda.flood_bbox(u8, torch.zeros((3, 6), dtype=torch.int32),
-                                               65, 32, 2, 1025),
+        "window": lambda: prop_cuda.flood_bbox(u8, cand, 65, 32, 2, 1025),
         "device": lambda: clahe_cuda.tile_histograms(u8.to("meta")),
+        "luts_dtype": lambda: clahe_cuda.clahe_apply(u8, torch.zeros((1, 8, 8, 256),
+                                                                     dtype=torch.int32)),
+        "apply_tiles": lambda: clahe_cuda.clahe_apply(
+            torch.zeros((1, 60, 64), dtype=torch.uint8),
+            torch.zeros((1, 8, 8, 256), dtype=torch.uint8)),
+        "cand_dtype": lambda: prop_cuda.flood_bbox(u8, cand.long(), 32, 32, 2, 1025),
+        "window_zero": lambda: prop_cuda.flood_bbox(u8, cand, 32, 0, 2, 1025),
+        "keys_mask": lambda: prop_cuda.propagate_scan(
+            torch.zeros((1, 8, 8), dtype=torch.int32), torch.zeros((1, 8, 9), dtype=torch.bool),
+            65, 1),
     }
     with pytest.raises((TypeError, ValueError)):
         calls[case]()
+
+
+def _beyond_kernel_limits(case: str):
+    """A call the plain version takes and the kernel refuses, and its plain
+    result."""
+    rng = np.random.default_rng(1)
+    if case == "flood_window":  # wider than the kernel's 128-pixel rows
+        planes = torch.from_numpy(rng.integers(0, 256, (2, 200, 210), dtype=np.uint8))
+        cand = torch.tensor([[0, 10, 20, 75, 70, 120], [1, -5, 90, 40, 100, 200],
+                             [1, 60, 0, 0, 5, 255], [0, 0, 0, 149, 139, 30]], dtype=torch.int32)
+        args = (planes, cand, 150, 140, 2, 150 * 140 + 1)
+        return prop_cuda.flood_bbox, args, prop_cuda.flood_bbox_plain(*args)
+    if case == "scan_plane":  # a plane larger than the kernel's shared memory
+        mask = torch.from_numpy(rng.random((2, 130, 131)) < 0.7)
+        mask[:, [0, -1]] = False
+        mask[:, :, [0, -1]] = False
+        keys = torch.from_numpy(rng.integers(0, 1000, (2, 130, 131), dtype=np.int32))
+        args = (keys, mask, 1 << 20, 2)
+        return prop_cuda.propagate_scan, args, prop_cuda.propagate_scan_plain(*args)
+    x = torch.from_numpy(rng.integers(0, 256, (1, 64, 96), dtype=np.uint8))  # 16x16 tiles
+    luts = torch.from_numpy(rng.integers(0, 256, (1, 16, 16, 256), dtype=np.uint8))
+    return clahe_cuda.clahe_apply, (x, luts, 16), clahe_cuda.clahe_apply_plain(x, luts, 16)
+
+
+@pytest.mark.parametrize("case", ["flood_window", "scan_plane", "apply_tiles"])
+def test_kernel_limits_bind_only_the_kernel(case, monkeypatch):
+    """CPU tensors beyond a kernel's limits take the plain version; tensors
+    bound for the kernel are refused there, before the library is loaded."""
+    fn, args, want = _beyond_kernel_limits(case)
+    assert torch.equal(fn(*args), want)
+
+    def no_library():
+        raise AssertionError("the kernel library was reached")
+
+    monkeypatch.setattr(rt, "uses_plain", lambda *tensors: False)
+    monkeypatch.setattr(rt, "library", no_library)
+    with pytest.raises(ValueError, match="kernel"):
+        fn(*args)
 
 
 def test_k3_int16_limit_binds_only_the_kernel():
