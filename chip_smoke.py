@@ -10,18 +10,20 @@ Phases:
 2. build: builds the CUDA kernels from ``csrc/`` (into ``build/``, one nvcc
    per source, in parallel) and loads them;
 3. kernels: captures the inputs that the paths hand each kernel on
-   synthetic 1360x800 frames (K1-K4, K7 on the tuned main path at batch
-   32; K6 on that path's refine windows; K5 on the XLA sweep of the recall
-   config at batch 8 and on the roll-flood refine of the tuned config with
-   ``refine_scan_passes=0`` at batch 32), runs the kernel and its plain
+   synthetic 1360x800 frames (K1 with and without its LUT tail, K2-K4, K7
+   on the tuned main path at batch 32; K6 on that path's refine windows;
+   K5 on the XLA sweep of the recall config at batch 8 (48 passes a call)
+   and of the pixel-area config at batch 32 (8 passes a call), and on the
+   roll-flood refine of the tuned config with ``refine_scan_passes=0`` at
+   batch 32), runs the kernel and its plain
    PyTorch version on those same CUDA tensors, requires exact equality, and
    times both with CUDA events (median of 10 after warm-up, :func:`_time_ms`),
    with K1's library yardstick (``torch.bincount``), and computes each
    kernel's bound from its inputs (:func:`_bound`); the kernel is also
    timed as calls queued behind a spin of the card (:func:`_queued_ms`),
-   which leaves a short kernel's launch overhead out; the lines of K3, K4
-   and K2 also print the recorded times of their earlier designs
-   (:data:`OLD_DESIGN`);
+   which leaves a short kernel's launch overhead out; the lines of K1-K4
+   and of K5 on the sweep also print the recorded times of their earlier
+   designs (:data:`OLD_DESIGN`);
 4. identities: K7's per-level maps folded into ``max((qv << lbits) | t)``
    equal K3's output on the tuned single-strip windows, and the bbox and
    area of ``K6(seed map, mask) == 0`` equal K4's output, both exactly
@@ -33,11 +35,22 @@ Phases:
    of windows too wide for its int16 bbox planes; K4 at more shapes
    against its plain version and K6 (:func:`_k4_shapes`); K2 at odd tile
    heights, unaligned rows and a reflect-padded frame (:func:`_k2_shapes`);
+   K5's tiled form at planes narrower and shorter than a region, ragged
+   sizes, 0 to 2 spans + 3 passes, masks on all four edges, 1 and 130
+   planes (:func:`_k5_shapes`); K1 and its LUT tail at 1, 4 and 8 tiles,
+   narrow tiles, unaligned widths and bases, flat and two-valued frames
+   and the clip rule's corner cases (:func:`_k1_shapes`);
 5. slice 1: runs ``DetectionPipeline`` (batch 32, MSER_7_200_2000_1 at the
-   tuned ``--downscale 2`` point) for one warm-up and 3 timed batches from
-   host frames to detection records, with per-stage CUDA-event times, and
-   requires K1-K4 to have launched, every frame to have proposals and K2's
-   plan tables not to have been built (uploaded) in the timed batches;
+   tuned ``--downscale 2`` point) for one warm-up and 10 timed batches from
+   host frames to detection records, with per-stage CUDA-event times
+   (their sum is the device-side ms a batch, the yardstick between
+   versions; frames/s on the host's clock is printed as median, min and
+   max), and requires K1 with its LUT tail and K2-K4 to have launched,
+   every frame to have proposals and K2's plan tables not to have been
+   built (uploaded) in the timed batches; prints the CUDA kernels one
+   ``enhance_contrast`` call launches, and those of the histogram-to-LUT
+   steps as K1 with the plain steps and as ``tile_luts``
+   (``torch.profiler``);
 6. slice 2: the same for the ``--pixel_area_stability`` config (XLA sweep,
    pixel-count stability), requiring K1, K2 and K4 to launch, K3 not to
    launch and every frame to have proposals; then one batch of 8 of the
@@ -105,11 +118,13 @@ INT_OPS_S = LANE_OPS_S / 2
 # max 1, bf16 conversions 8), whose f32 products, sums, division, floor
 # and conversions (20 of its 56) take the f32 pipe.
 SWEEP_OPS = {"init": (17, 0), "pass": (27, 0), "emit": (36, 20)}
-# K1 one count a pixel; K2 four lookups, their conversions, the bilinear
+# K1 one count a pixel (its LUT tail adds, a bin of each tile's 256, two
+# for the clip, three for the bonus, a sum, a conversion, a product and a
+# round: LUT_OPS); K2 four lookups, their conversions, the bilinear
 # blend (6 products, 3 sums; the row and column weights are per row and per
 # column, not per pixel), round and two clamps; K6 per resolve of a run
 # scan: two directed scans (2 each), their min and a select.
-K2_OPS, SCAN_OPS = 20, 6
+K2_OPS, SCAN_OPS, LUT_OPS = 20, 6, 9
 # K4 on bits (csrc/flood.cu): a compare a pixel for the mask, then per
 # 32-pixel word its ballot, each row resolve (two carry fills of 5, three
 # reversals, a union), each column resolve (an and and an or down and up)
@@ -120,13 +135,20 @@ FLOOD_OPS = {"mask": 1, "pack": 1, "row": 14, "col": 4, "reduce": 3}
 # pass (an init, each pass and an emit a launch, state in device memory;
 # [64,408,684] windows, 31 levels); K4 with a thread walking each row or
 # column run by run (4096 windows of 128x128) and K2 with the frame's whole
-# LUT set a block and per-pixel coordinate loads ([32,800,1360]).
+# LUT set a block and per-pixel coordinate loads ([32,800,1360]); K5 on the
+# sweep streaming the key stack through device memory, a launch a pass
+# ([16,402,682], 48 passes) and K1 with a block a (frame, tile), a byte a
+# thread a step ([32,800,1360]).
 K3_OLD_MS = 46.198
 K4_OLD_MS = 1.356
 K2_OLD_MS = 0.443
+K5_OLD_MS = 1.089
+K1_OLD_MS = 0.0857
 OLD_DESIGN = {"level_sweep": ("old per-pass design", K3_OLD_MS),
               "flood_bbox": ("old run-walk design", K4_OLD_MS),
-              "clahe_apply": ("old whole-LUT design", K2_OLD_MS)}
+              "clahe_apply": ("old whole-LUT design", K2_OLD_MS),
+              "propagate_rolls": ("old streaming design, a launch a pass", K5_OLD_MS),
+              "tile_histograms": ("old block-a-tile design", K1_OLD_MS)}
 
 
 def _mask_pixel_levels(x: torch.Tensor, step: int, num_levels: int) -> int:
@@ -165,6 +187,8 @@ def _bound(name: str, args: tuple, out: torch.Tensor) -> tuple[float, str, int, 
     f32_ops = 0
     if name == "tile_histograms":
         int_ops = x.numel()
+    elif name == "tile_luts":
+        int_ops = x.numel() + LUT_OPS * out.numel()
     elif name == "clahe_apply":
         int_ops, f32_ops = 0, K2_OPS * x.numel()
     elif name in ("level_sweep", "level_sweep_full"):
@@ -205,6 +229,8 @@ def _bound(name: str, args: tuple, out: torch.Tensor) -> tuple[float, str, int, 
 
 # Kernels without a PyTorch call that computes the same function
 NO_LIBRARY = {
+    "tile_luts": "no call clips, sums and scales per-tile histograms",
+    "propagate_rolls_pixel_area": "as at the recall config's call",
     "clahe_apply": "no call applies four per-tile LUTs and blends them bilinearly",
     "level_sweep": "no call runs the level sweep's warm starts, truncated Jacobi "
                    "passes and ring emits",
@@ -469,6 +495,85 @@ def _k2_shapes(cc, clahe_equalize, x: torch.Tensor, gen) -> None:
     _require(same, "K2 on a reflect-padded frame differs from the CPU path")
 
 
+def _k5_shapes(pc, rt, gen) -> None:
+    """Phase 4, K5's tiled form beyond the sweeps' shapes, each exact
+    against its plain version: a plane narrower and a plane shorter than
+    one region (the plane repeats inside it), sizes that are no multiple of
+    a tile, 1 and 130 planes (more than the card has SMs), at 0, 1, S-1, S,
+    S+1 and 2S+3 passes, random keys on masks of density 0.1 and 0.9 that
+    touch all four edges (the wraparound then carries keys across)."""
+    dev = gen.device
+    span = pc.ROLLS_SPAN
+    big = 1 << 21
+    shapes = [("narrower than a region", (2, 300, 100)), ("shorter than a region", (2, 40, 700)),
+              ("ragged", (3, 131, 307)), ("one plane", (1, 203, 202)),
+              ("130 planes", (130, 170, 160))]
+    for label, shape in shapes:
+        _, h, w = shape
+        _require(not rt.library().tsd_propagate_rolls_resident(h, w),
+                 f"K5 {label}: a {h}x{w} plane takes the resident form")
+        results = []
+        for i, passes in enumerate((0, 1, span - 1, span, span + 1, 2 * span + 3)):
+            density = (0.1, 0.9)[i % 2]
+            keys = torch.randint(-5, 1 << 20, shape, generator=gen, device=dev,
+                                 dtype=torch.int32)
+            mask = torch.rand(shape, generator=gen, device=dev) < density
+            mask[:, 0, ::2] = mask[:, -1, ::2] = mask[:, ::2, 0] = mask[:, ::2, -1] = True
+            got = pc.propagate_rolls(keys, mask, big, passes)
+            want = pc.propagate_rolls_plain(keys, mask, big, passes)
+            moved = int((want != torch.where(mask, keys, big)).sum())
+            results.append((passes, density, torch.equal(got, want), moved))
+        core = pc.rolls_tiles(h, w, span)
+        print(f"[kernel K5 {label}] planes {shape}, span {span}, core {core[0]}x{core[1]} of a "
+              f"{pc.ROLLS_REGION_H}x{pc.ROLLS_REGION_W} region: equals plain at (passes, density, "
+              f"equal, keys moved) {results}")
+        _require(all(ok for _, _, ok, _ in results), f"K5 {label}: differs from its plain version")
+        _require(all(moved > 0 for p_, _, _, moved in results if p_ > 0),
+                 f"K5 {label}: a case moved no key")
+
+
+def _k1_shapes(cc, x: torch.Tensor, gen) -> None:
+    """Phase 4, K1 and its LUT tail beyond the main path's frames, each exact
+    against its plain version (K1 against ``torch.bincount`` too): 1, 4 and
+    8 tiles; tile widths 170, 20 and 12 (a 16-pixel word across one and
+    several tile columns); widths and a base address that are not 16-byte
+    aligned; one and several pieces a tile row; a flat and a two-valued
+    frame (every add on one or two addresses).  The LUT tail also at the
+    clip rule's corners: flat tiles (excess near the tile's area), no
+    excess (clip at the tile's area) and clip 1."""
+    dev = x.device
+
+    def rand(b, h, w):
+        return torch.randint(0, 256, (b, h, w), generator=gen, device=dev, dtype=torch.uint8)
+
+    flat = torch.full_like(x, 97)
+    two = torch.where(torch.rand(x.shape, generator=gen, device=dev) < 0.5, 31, 200).to(torch.uint8)
+    off = torch.empty(3 * 96 * 176 + 1, dtype=torch.uint8, device=dev)[1:]
+    off.copy_(rand(3, 96, 176).reshape(-1))
+    cases = [("main frames", x, 8), ("flat frame", flat, 8), ("two-valued frame", two, 8),
+             ("4 tiles", rand(4, 800, 1360), 4), ("1 tile", rand(3, 100, 170), 1),
+             ("tile width 20", rand(5, 64, 160), 8), ("tile width 12", rand(5, 48, 96), 8),
+             ("width 1352, rows unaligned", rand(3, 808, 1352), 8),
+             ("width 100, 4 tiles", rand(2, 40, 100), 4),
+             ("width 184, a block a tile row", rand(32, 16, 184), 8),
+             ("base address off by 1", off.view(3, 96, 176), 8)]
+    for label, f, tiles in cases:
+        b, h, w = f.shape
+        area = (h // tiles) * (w // tiles)
+        got = cc.tile_histograms(f, tiles)
+        same = torch.equal(got, cc.tile_histograms_plain(f, tiles))
+        lib = torch.equal(_k1_library(f, tiles)().to(torch.int32).reshape(got.shape), got)
+        clips = [max(int(2.0 * area / 256.0), 1), area, 1]
+        luts = [torch.equal(cc.tile_luts(f, c, area, tiles), cc.tile_luts_plain(f, c, area, tiles))
+                for c in clips]
+        excess = int((got - clips[0]).clamp(min=0).sum(-1).max())
+        print(f"[kernel K1 {label}] frames {tuple(f.shape)}, {tiles} tiles of {h // tiles}x"
+              f"{w // tiles}, {cc.hist_pieces(b, tiles, h // tiles)} piece(s) a tile row, base % 16 "
+              f"= {f.data_ptr() % 16}: equals plain {same}, torch.bincount {lib}; LUTs equal "
+              f"plain at clips {clips}: {luts} (largest excess {excess} of area {area})")
+        _require(same and lib and all(luts), f"K1 {label}: differs from its plain version")
+
+
 def _cnn_phases(rt, dev, frames: "np.ndarray", names: list[str]) -> None:
     """Phases 8-9: the CNN detector's routes on the card, then each against
     the port's CPU path."""
@@ -668,6 +773,9 @@ def main() -> int:
     kernels = [  # launch counter, module, kernel, plain version, source, TPU kernel
         ("tile_histograms", clahe_cuda, "tile_histograms", "tile_histograms_plain",
          "csrc/clahe.cu", "opencv_traffic_sign_detector_tpu/ops/clahe_pallas.py:66"),
+        # the reference's XLA steps between K1 and K2, no Pallas kernel
+        ("tile_luts", clahe_cuda, "tile_luts", "tile_luts_plain",
+         "csrc/clahe.cu", "opencv_traffic_sign_detector_tpu/ops/clahe.py:42"),
         ("clahe_apply", clahe_cuda, "clahe_apply", "clahe_apply_plain",
          "csrc/clahe.cu", "opencv_traffic_sign_detector_tpu/ops/clahe_pallas.py:165"),
         ("level_sweep", mser_cuda, "level_sweep_windows", "level_sweep_windows_plain",
@@ -675,6 +783,8 @@ def main() -> int:
         ("flood_bbox", prop_cuda, "flood_bbox", "flood_bbox_plain",
          "csrc/flood.cu", f"{pallas_prop}:234"),
         ("propagate_rolls", prop_cuda, "propagate_rolls", "propagate_rolls_plain",
+         "csrc/prop_rolls.cu", f"{pallas_prop}:69"),
+        ("propagate_rolls_pixel_area", prop_cuda, "propagate_rolls", "propagate_rolls_plain",
          "csrc/prop_rolls.cu", f"{pallas_prop}:69"),
         ("propagate_rolls_refine", prop_cuda, "propagate_rolls", "propagate_rolls_plain",
          "csrc/prop_rolls.cu", f"{pallas_prop}:69"),
@@ -690,7 +800,7 @@ def main() -> int:
     # namespace at import, K5 into ops/ccl.py's; K5 calls are keyed by site
     with contextlib.ExitStack() as stack:
         for target, attr, key in [
-            (clahe_cuda, "tile_histograms", by_name("tile_histograms")),
+            (clahe_cuda, "tile_luts", by_name("tile_luts")),
             (clahe_cuda, "clahe_apply", by_name("clahe_apply")),
             (mser_cuda, "level_sweep_windows", by_name("level_sweep")),
             (mser, "flood_bbox", by_name("flood_bbox")),
@@ -701,12 +811,19 @@ def main() -> int:
         det.detect_batch(frames_dev, red, blue, PipelineConfig(mser=mcfg))
         det.detect_batch(frames_dev[:8], red, blue, PipelineConfig(mser=rcfg))
         det.detect_batch(frames_dev, red, blue, PipelineConfig(mser=fcfg))
+    area_calls = defaultdict(list)  # the pixel-area sweep's K5 calls apart
+    with _recording(area_calls, ccl, "propagate_rolls", lambda a, kw: a[4]):
+        det.detect_batch(frames_dev, red, blue, PipelineConfig(mser=pcfg))
     torch.cuda.synchronize()
 
-    inputs = {k: calls[k][0] for k in ("tile_histograms", "clahe_apply", "level_sweep",
-                                       "flood_bbox")}
+    inputs = {k: calls[k][0] for k in ("tile_luts", "clahe_apply", "level_sweep", "flood_bbox")}
+    lut_x, _, _, lut_tiles = inputs["tile_luts"][0]
+    inputs["tile_histograms"] = ((lut_x, lut_tiles), {})
     sweep_rolls = calls["propagate_rolls"]  # one call per level of the recall sweep
     inputs["propagate_rolls"] = (sweep_rolls[len(sweep_rolls) // 2][0][:4], {})
+    area_rolls = area_calls["propagate_rolls"]  # two calls per level, jumps between
+    inputs["propagate_rolls_pixel_area"] = (area_rolls[len(area_rolls) // 2][0][:4], {})
+    del area_calls, area_rolls
     inputs["propagate_rolls_refine"] = (calls["propagate_rolls_refine"][0][0][:4], {})
     planes, cand, win_h, win_w, passes, big = inputs["flood_bbox"][0]
     mask, seed = prop_cuda.candidate_windows(planes, cand, win_h, win_w)
@@ -741,6 +858,12 @@ def main() -> int:
         library = (f"library {library_ms:.3f} ms (torch.bincount)" if library_ms is not None
                    else f"library none ({NO_LIBRARY[name]})")
         old = OLD_DESIGN.get(name)
+        if name in ("propagate_rolls", "propagate_rolls_pixel_area"):
+            # the tiled form: ceil(passes / span) CUDA launches a call
+            spans = prop_cuda.rolls_spans(a[3])
+            core = prop_cuda.rolls_tiles(*a[0].shape[1:], spans[0])
+            shapes.append(f"{a[3]} passes in {len(spans)} CUDA launch(es) of spans {spans}, "
+                          f"core {core[0]}x{core[1]}")
         print(f"[kernel] {name}: inputs {shapes} -> exact required, max_abs_err {err}; "
               f"kernel {ms:.4f} ms (queued behind a spin {queued_ms:.4f} ms)"
               + (f" ({old[0]} {old[1]:.3f} ms, recorded)" if old else "")
@@ -754,7 +877,6 @@ def main() -> int:
                       "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
                       "queued_ms": queued_ms})
     rows = {row["name"]: row for row in table}
-
     # --- 4. identities between kernels ---------------------------------
     def identities():
         windows, params, core, halo, nl, lbits = inputs["level_sweep"][0]
@@ -782,7 +904,9 @@ def main() -> int:
     _k3_shapes(mser_cuda, inputs["level_sweep"][0], scfg, d_idx, smi)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     _k4_shapes(prop_cuda, planes, cand, big, gen)
-    _k2_shapes(clahe_cuda, clahe_equalize, inputs["tile_histograms"][0][0], gen)
+    _k2_shapes(clahe_cuda, clahe_equalize, lut_x, gen)
+    _k5_shapes(prop_cuda, rt, gen)
+    _k1_shapes(clahe_cuda, lut_x, gen)
 
     # --- 5. slice 1 through DetectionPipeline -----------------------------
     def run_slice(label, mcfg_, batch, timed):
@@ -812,9 +936,11 @@ def main() -> int:
         props, pvalid = mser.mser_regions(enhance_contrast(frames_dev[:batch]), mcfg_)
         per_frame = pvalid.sum(-1).cpu().numpy()
         fps = batch / statistics.median(batch_s)
-        print(f"[{label}] batch {batch} of 1360x800: {fps:.2f} frames/s, best batch "
-              f"{batch / min(batch_s):.2f} (batch s {', '.join(f'{s:.4f}' for s in batch_s)}); "
-              "stage ms per batch "
+        print(f"[{label}] batch {batch} of 1360x800, {timed} timed batch(es): {fps:.2f} frames/s "
+              f"on the host's clock (median; min {batch / max(batch_s):.2f}, max "
+              f"{batch / min(batch_s):.2f}; batch s {', '.join(f'{s:.4f}' for s in batch_s)}); "
+              f"device side {sum(stage_ms.values()):.3f} ms per batch, the sum of the stages' "
+              "CUDA-event ms: "
               + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items())
               + f"; proposals/frame min {per_frame.min()} mean {per_frame.mean():.2f}; "
               f"detections {len(dets)}; K2 plan uploads in the timed batches {tables}")
@@ -825,17 +951,54 @@ def main() -> int:
         return props, pvalid, dets, counts
 
     batches = defaultdict(lambda: 1)  # batches of each kernel's path's run
-    props, pvalid, dets, counts = run_slice("slice", mcfg, 32, 3)
-    for name in ("tile_histograms", "clahe_apply", "level_sweep", "flood_bbox"):
+    props, pvalid, dets, counts = run_slice("slice", mcfg, 32, 10)
+    for name in ("tile_luts", "clahe_apply", "level_sweep", "flood_bbox"):
         rows[name]["launches"] = counts[name]
-        batches[name] = 3
+        batches[name] = 10
         _require(counts[name] > 0, f"slice 1: {name} never launched")
+    # K1's kernel runs on this path only inside tile_luts (the same launch,
+    # the tail in it): the tile_histograms wrapper itself is not called
+    _require(counts["tile_histograms"] == 0, "slice 1 called K1 without its LUT tail")
+    rows["tile_histograms"]["launches"] = counts["tile_luts"]
+    batches["tile_histograms"] = 10
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        enhance_contrast(frames_dev)
+        torch.cuda.synchronize()
+    launched = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    ours = [n for n in launched
+            if any(k in n for k in ("tile_hist_kernel", "tile_lut_kernel", "clahe_apply_kernel"))]
+    print(f"[slice preprocess] one enhance_contrast call of {tuple(frames_dev.shape)}: "
+          f"{len(launched)} CUDA kernels and copies traced by torch.profiler, "
+          f"{len(ours)} of them this package's (tile_hist_kernel, tile_lut_kernel, "
+          "clahe_apply_kernel)")
+    _require(len(ours) >= 2, f"enhance_contrast launched {ours}, not K1 with its tail and K2")
+    # the same steps as before the LUT tail: K1 alone, then the plain clip,
+    # cumsum and rounding
+    from opencv_traffic_sign_detector_tpu_torch.ops.clahe import (
+        _clip_and_redistribute,
+        _tile_luts,
+    )
+    lx, lclip, larea, ltiles = inputs["tile_luts"][0]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _tile_luts(_clip_and_redistribute(clahe_cuda.tile_histograms(lx, ltiles), lclip), larea)
+        torch.cuda.synchronize()
+    steps = sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        clahe_cuda.tile_luts(lx, lclip, larea, ltiles)
+        torch.cuda.synchronize()
+    fused = sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+    print(f"[slice preprocess] histograms to LUTs of {tuple(lx.shape)}: K1 and the plain steps "
+          f"{steps} CUDA kernels and copies, tile_luts {fused}")
+    _require(fused < steps, "tile_luts launches no fewer kernels than the plain steps")
 
     # --- 6. slice 2: the XLA sweep paths ---------------------------------
     pprops, ppvalid, _, counts = run_slice("slice2 pixel_area", pcfg, 32, 3)
-    for name in ("tile_histograms", "clahe_apply", "flood_bbox"):
+    for name in ("tile_luts", "clahe_apply", "flood_bbox", "propagate_rolls"):
         _require(counts[name] > 0, f"slice 2: {name} never launched")
     _require(counts["level_sweep"] == 0, "slice 2 launched the fused sweep K3")
+    rows["propagate_rolls_pixel_area"]["launches"] = counts["propagate_rolls"]
+    batches["propagate_rolls_pixel_area"] = 3
     rprops, rpvalid, _, counts = run_slice("slice2 recall", rcfg, 8, 1)
     rows["propagate_rolls"]["launches"] = counts["propagate_rolls"]
     _require(counts["propagate_rolls"] > 0 and counts["level_sweep"] == 0,

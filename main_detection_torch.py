@@ -192,11 +192,13 @@ def main(argv=None) -> int:
                         help="proposal capacity per frame")
     parser.add_argument("--n_devices", type=int, default=0,
                         help="shard each batch over this many devices "
-                             "(not ported: must be 0)")
+                             "(MSER: not ported, must be 0; ignored by "
+                             "the CNN detector)")
     parser.add_argument("--profile", action="store_true",
                         help="print per-stage wall-clock summary")
     parser.add_argument("--trace_dir", default=None,
-                        help="profiler trace directory (not ported)")
+                        help="profiler trace directory (MSER: not ported; "
+                             "ignored by the CNN detector)")
     parser.add_argument("--cnn_params", default="artifacts/cnn_detector/params.npz",
                         help="weights for --detector CNN (float or int8)")
     parser.add_argument("--pixel_area_stability", action="store_true",
@@ -214,12 +216,14 @@ def main(argv=None) -> int:
               "pre-patchified at native resolution (use --input_format "
               "bgr or yuv420)")
         return 2
+    if args.detector.upper().startswith("CNN"):
+        # as main_detection.py: the CNN branch returns before --n_devices and
+        # --trace_dir are read, so both are ignored there
+        return _run_cnn(args)
     if args.n_devices:
         return _not_ported("Multi-device sharding (--n_devices)", "slice 7")
     if args.trace_dir:
         return _not_ported("Profiler traces (--trace_dir)", "slice 7")
-    if args.detector.upper().startswith("CNN"):
-        return _run_cnn(args)
 
     try:
         mser = MSERConfig.from_string(args.detector)

@@ -1,12 +1,32 @@
-// CLAHE kernels K1 (tile histograms) and K2 (interpolated LUT apply).
+// CLAHE kernels K1 (tile histograms, with the per-tile LUTs as a tail) and
+// K2 (interpolated LUT apply).
 //
 // K1 replaces opencv_traffic_sign_detector_tpu/ops/clahe_pallas.py:
 // tile_histograms_pallas (_hist_kernel).  The TPU form looped over the 256
 // bins with a compare and two 0/1 selector matmuls, because scatters are
 // slow there.  On the H100 a shared-memory histogram with atomicAdd is the
-// natural form: one block per (frame, tile) reads the tile's bytes once.
-// Bound: device-memory reads of the frame (1 byte per pixel); shared-memory
-// atomic contention on flat tiles is the second cost.  Exact: integer counts.
+// natural form, and the work is one byte read a pixel: the bound is
+// device-memory bytes.  What the kernel must avoid is per-pixel overhead
+// (byte loads, a division a pixel) and atomics that serialise on one
+// address (flat tiles: road, sky).  Its design:
+// - a block takes a piece of the rows of one tile row across the frame's
+//   full width (ops/clahe_cuda.py: hist_pieces): one contiguous run of
+//   bytes, read as aligned 16-byte words whatever the width (the bytes
+//   before the first and after the last aligned word go one a thread);
+// - a word's tile column comes from one division a word; a word that
+//   crosses a tile-column boundary, or the end of a row, steps its column
+//   and tile pixel by pixel with compares only;
+// - kHistCopies private sets of the tile row's histograms a block, two
+//   warps a set, merged at the end; a 32-bit or 128-bit group of equal
+//   bytes is counted with one add;
+// - one piece a tile row: the merged counts are the histograms, stored or
+//   (tile_luts) turned into LUTs in the same block; several pieces: integer
+//   atomicAdd into an output zeroed on the same stream, exact in any order.
+// The LUT tail replaces the reference's XLA steps between its two kernels
+// (ops/clahe.py:42-73 there): OpenCV's clip rule, an inclusive integer
+// cumsum over the 256 bins and rint(float(cdf) * f32(255 / area)), one warp
+// a tile, 8 bins a lane, the sums by shuffles.  Exact: integers and one
+// correctly rounded f32 product, ties to even.
 //
 // K2 replaces clahe_pallas.py: clahe_apply_pallas (_apply_kernel).  The TPU
 // form blended whole LUT columns with matmuls and a 256-step select loop to
@@ -50,24 +70,180 @@ __device__ __forceinline__ bool aligned16(const void* p) {
     return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-__global__ void tile_hist_kernel(const uint8_t* __restrict__ x,
-                                 int32_t* __restrict__ out,
-                                 int h, int w, int tiles) {
-    __shared__ int hist[256];
-    const int tile = blockIdx.x;
-    const int b = blockIdx.y;
-    const int ty = tile / tiles, tx = tile % tiles;
-    const int th = h / tiles, tw = w / tiles;
-    hist[threadIdx.x] = 0;
+// K1's block and its private histogram sets (ops/clahe_cuda.py:
+// HIST_THREADS, HIST_COPIES).
+constexpr int kHistThreads = 512;
+constexpr int kHistCopies = 8;
+constexpr int kLutThreads = 256;
+
+// Four pixels of one tile column: one add where the bytes are equal.
+__device__ __forceinline__ void count4(int* hp, uint32_t s) {
+    if (s == __byte_perm(s, 0u, 0x0000)) {
+        atomicAdd(hp + (s & 255u), 4);
+        return;
+    }
+    atomicAdd(hp + (s & 255u), 1);
+    atomicAdd(hp + (s >> 8 & 255u), 1);
+    atomicAdd(hp + (s >> 16 & 255u), 1);
+    atomicAdd(hp + (s >> 24), 1);
+}
+
+// Sixteen pixels from column c0 of a row of w = tiles * tw columns, the
+// row's end wrapping to the next row's first column.  hist: [tiles][256].
+__device__ __forceinline__ void count16(int* hist, uint4 q, int c0, int w, int tw) {
+    int t = c0 / tw, nb = (t + 1) * tw;  // the tile column and its end
+    if (c0 + kVec <= nb) {
+        int* hp = hist + t * 256;
+        if (q.x == q.y && q.y == q.z && q.z == q.w && q.x == __byte_perm(q.x, 0u, 0x0000)) {
+            atomicAdd(hp + (q.x & 255u), kVec);
+            return;
+        }
+        count4(hp, q.x);
+        count4(hp, q.y);
+        count4(hp, q.z);
+        count4(hp, q.w);
+        return;
+    }
+    const uint32_t ws[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+        int c = c0 + k;
+        while (c >= nb) {
+            if (nb >= w) {  // the row's end
+                c0 -= w;
+                c -= w;
+                t = 0;
+                nb = tw;
+            } else {
+                ++t;
+                nb += tw;
+            }
+        }
+        atomicAdd(hist + t * 256 + (ws[k >> 2] >> (8 * (k & 3)) & 255u), 1);
+    }
+}
+
+__device__ __forceinline__ void load8(const int* p, int (&v)[8]) {
+    if (aligned16(p)) {
+        const int4 a = *reinterpret_cast<const int4*>(p), b = *reinterpret_cast<const int4*>(p + 4);
+        v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+        v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+    } else {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) v[k] = p[k];
+    }
+}
+
+// One warp, one tile: the lane's bins 8 * lane .. + 7 of the histogram at
+// `hist` -> the same entries of the LUT at `lut`.  OpenCV's clip rule (cap
+// at clip, excess / 256 to every bin, the residual one a bin at stride
+// max(256 / residual, 1)), inclusive cumsum, rint(float(cdf) * scale).
+__device__ __forceinline__ void tile_lut(const int* hist, uint8_t* lut, int lane, int clip,
+                                         float scale) {
+    int hv[8];
+    load8(hist + 8 * lane, hv);
+    int excess = 0;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) excess += max(hv[k] - clip, 0);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) excess += __shfl_xor_sync(0xffffffffu, excess, o);
+    const int batch = excess >> 8, residual = excess & 255;
+    const int step = max(256 / max(residual, 1), 1);
+    int cdf[8], run = 0;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+        const int bin = 8 * lane + k;
+        const int bonus = residual > 0 && bin % step == 0 && bin / step < residual;
+        run += min(hv[k], clip) + batch + bonus;
+        cdf[k] = run;
+    }
+    int upto = run;  // inclusive scan of the lanes' sums
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+        const int t = __shfl_up_sync(0xffffffffu, upto, o);
+        if (lane >= o) upto += t;
+    }
+    const int before = upto - run;
+    uint32_t packed[2] = {0u, 0u};
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+        const int q = __float2int_rn(__fmul_rn(__int2float_rn(cdf[k] + before), scale));
+        packed[k >> 2] |= (uint32_t)__vimin_s32_relu(q, 255) << (8 * (k & 3));
+    }
+    uint8_t* o = lut + 8 * lane;
+    if ((reinterpret_cast<uintptr_t>(o) & 7) == 0) {
+        *reinterpret_cast<uint2*>(o) = make_uint2(packed[0], packed[1]);
+    } else {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) o[k] = (uint8_t)(packed[k >> 2] >> (8 * (k & 3)));
+    }
+}
+
+// grid (frames, tile rows, pieces); dynamic shared memory kHistCopies *
+// tiles * 256 ints.  With kLuts (one piece a tile row only) the block turns
+// its tile row's histograms into LUTs and writes those instead.
+template <bool kLuts>
+__global__ void __launch_bounds__(kHistThreads)
+tile_hist_kernel(const uint8_t* __restrict__ x, int32_t* __restrict__ out,
+                 uint8_t* __restrict__ luts, int h, int w, int tiles, int pieces, int clip,
+                 float scale) {
+    extern __shared__ __align__(16) int hist[];  // [kHistCopies][tiles][256]
+    const int b = blockIdx.x, ty = blockIdx.y, piece = blockIdx.z;
+    const int th = h / tiles, tw = w / tiles, bins = tiles * 256;
+    const int r0 = ty * th + (int)((long long)piece * th / pieces);
+    const int r1 = ty * th + (int)((long long)(piece + 1) * th / pieces);
+    for (int i = threadIdx.x; i < kHistCopies * bins / 4; i += kHistThreads)
+        reinterpret_cast<int4*>(hist)[i] = make_int4(0, 0, 0, 0);
     __syncthreads();
-    const uint8_t* base = x + (size_t)b * h * w + (size_t)ty * th * w + (size_t)tx * tw;
-    const int n = th * tw;
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-        const int r = i / tw, c = i - r * tw;
-        atomicAdd(&hist[base[(size_t)r * w + c]], 1);
+    int* mine = hist + (threadIdx.x >> 5) % kHistCopies * bins;
+
+    // the piece is one run of bytes: head, aligned 16-byte words, tail
+    const uint8_t* p = x + ((size_t)b * h + r0) * w;
+    const unsigned n = (unsigned)(r1 - r0) * (unsigned)w;
+    const unsigned head = min(n, (unsigned)(-reinterpret_cast<intptr_t>(p) & 15));
+    const unsigned words = (n - head) / kVec, tail = head + kVec * words;
+    for (unsigned i = threadIdx.x; i < head + (n - tail); i += kHistThreads) {
+        const unsigned idx = i < head ? i : tail + (i - head);
+        atomicAdd(mine + idx % w / tw * 256 + p[idx], 1);
+    }
+    const uint4* pw = reinterpret_cast<const uint4*>(p + head);
+    for (unsigned i0 = threadIdx.x; i0 < words; i0 += 4 * kHistThreads) {
+        uint4 q[4];  // four loads in flight
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+            if (i0 + u * kHistThreads < words) q[u] = pw[i0 + u * kHistThreads];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+            const unsigned i = i0 + u * kHistThreads;
+            if (i < words) count16(mine, q[u], (int)((head + kVec * i) % w), w, tw);
+        }
     }
     __syncthreads();
-    out[((size_t)b * tiles * tiles + tile) * 256 + threadIdx.x] = hist[threadIdx.x];
+
+    int32_t* o = out + ((size_t)b * tiles + ty) * bins;
+    for (int i = threadIdx.x; i < bins; i += kHistThreads) {
+        int s = 0;
+#pragma unroll
+        for (int c = 0; c < kHistCopies; ++c) s += hist[c * bins + i];
+        if (kLuts) hist[i] = s;  // bin i of every set is this thread's alone
+        else if (pieces == 1) o[i] = s;
+        else if (s) atomicAdd(o + i, s);
+    }
+    if (kLuts) {
+        __syncthreads();
+        for (int tx = threadIdx.x >> 5; tx < tiles; tx += kHistThreads / 32)
+            tile_lut(hist + tx * 256, luts + (((size_t)b * tiles + ty) * tiles + tx) * 256,
+                     threadIdx.x & 31, clip, scale);
+    }
+}
+
+// hist: i32 [n, 256] -> luts: u8 [n, 256], a warp a tile.
+__global__ void __launch_bounds__(kLutThreads)
+tile_lut_kernel(const int32_t* __restrict__ hist, uint8_t* __restrict__ luts, int n, int clip,
+                float scale) {
+    const int tile = blockIdx.x * (kLutThreads / 32) + (threadIdx.x >> 5);
+    if (tile < n) tile_lut(hist + (size_t)tile * 256, luts + (size_t)tile * 256,
+                           threadIdx.x & 31, clip, scale);
 }
 
 // Byte i of e as an exact float: the bytes (e_i, 0, 0, 0x4b) are the float
@@ -194,11 +370,53 @@ clahe_apply_kernel(const uint8_t* __restrict__ x, const uint8_t* __restrict__ lu
 
 }  // namespace
 
+namespace {
+
+// Launches K1 over pieces of tile rows; with luts, one piece and the tail.
+int launch_hist(const void* x, void* out, void* luts, int b, int h, int w, int tiles,
+                int pieces, int clip, float scale, cudaStream_t st) {
+    if (tiles < 1 || tiles > kMaxTiles || h % tiles || w % tiles || pieces < 1 ||
+        pieces > 65535 || (luts != nullptr && pieces != 1) ||
+        (long long)(h / tiles) * w > 0x7fffffffLL)
+        return (int)cudaErrorInvalidValue;
+    if (b == 0 || h == 0 || w == 0) return (int)cudaGetLastError();
+    const int smem = kHistCopies * tiles * 256 * (int)sizeof(int);
+    auto kernel = luts != nullptr ? tile_hist_kernel<true> : tile_hist_kernel<false>;
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+    if (pieces > 1) {
+        e = cudaMemsetAsync(out, 0, (size_t)b * tiles * tiles * 256 * sizeof(int32_t), st);
+        if (e != cudaSuccess) return (int)e;
+    }
+    kernel<<<dim3(b, tiles, pieces), kHistThreads, smem, st>>>(
+        (const uint8_t*)x, (int32_t*)out, (uint8_t*)luts, h, w, tiles, pieces, clip, scale);
+    return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x: u8 [b, h, w]; out: i32 [b, tiles, tiles, 256].  pieces: blocks a tile
+// row (ops/clahe_cuda.py: hist_pieces); above 1 the blocks add into `out`,
+// zeroed here on the same stream.
 TSD_API int tsd_tile_histograms(const void* x, void* out, int b, int h, int w,
-                                int tiles, void* stream) {
-    dim3 grid(tiles * tiles, b);
-    tile_hist_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)x, (int32_t*)out, h, w, tiles);
+                                int tiles, int pieces, void* stream) {
+    return launch_hist(x, out, nullptr, b, h, w, tiles, pieces, 0, 0.0f, (cudaStream_t)stream);
+}
+
+// x -> luts: u8 [b, tiles, tiles, 256].  One piece a tile row: one launch,
+// the LUTs from the block's own counts, `hist` unused.  Several: the
+// histograms into hist (i32 [b, tiles, tiles, 256]), then a warp a tile.
+TSD_API int tsd_tile_luts(const void* x, void* hist, void* luts, int b, int h, int w,
+                          int tiles, int pieces, int clip, float scale, void* stream) {
+    cudaStream_t st = (cudaStream_t)stream;
+    if (pieces == 1) return launch_hist(x, nullptr, luts, b, h, w, tiles, 1, clip, scale, st);
+    if (hist == nullptr) return (int)cudaErrorInvalidValue;
+    const int rc = launch_hist(x, hist, nullptr, b, h, w, tiles, pieces, 0, 0.0f, st);
+    const long long n = (long long)b * tiles * tiles;
+    if (rc != 0 || n == 0) return rc;
+    const int per_block = kLutThreads / 32;
+    tile_lut_kernel<<<(unsigned)((n + per_block - 1) / per_block), kLutThreads, 0, st>>>(
+        (const int32_t*)hist, (uint8_t*)luts, (int)n, clip, scale);
     return (int)cudaGetLastError();
 }
 

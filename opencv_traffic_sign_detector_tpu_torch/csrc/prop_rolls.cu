@@ -9,18 +9,45 @@
 // further within a pass and change the keys whenever K is below
 // convergence, which the MSER sweep relies on (config.py ccl_iters).
 //
-// Two forms, both ping-pong:
+// Two forms:
 // * resident: when a plane's two key buffers and its mask fit one block's
 //   shared memory (the refine's 128x128 windows: 2 x 64 KB + 16 KB), one
 //   block owns one plane and runs all K passes there, as the TPU keeps the
 //   plane in VMEM; device memory is read and written once.  Bound: shared
 //   memory bandwidth (5 loads and 1 store per pixel per pass), one block
 //   per SM.
-// * streaming: larger planes (the sweep's 402x682, 1.1 MB of keys) cannot
-//   stay on chip, so each pass is one launch over all planes, reading the
-//   last pass's keys from device memory (mostly L2) into a second buffer.
-//   Bound: memory traffic, about 9 bytes per pixel per pass.  Fusing
-//   passes in shared-memory tiles with halos is later work.
+// * tiled: larger planes (the sweep's 402x682, 1.1 MB of keys) cannot stay
+//   on chip.  A launch a pass through device memory moves ~9 bytes a pixel
+//   a pass for a function whose inputs and output are 9 bytes a pixel in
+//   all: bound by bytes it need not move.  So one launch runs a span of up
+//   to S passes (ops/prop_cuda.py: ROLLS_SPAN).  A block loads a region of
+//   (kRows x its warps) x kRegionW pixels, a core tile plus a halo of S
+//   pixels on every side, read through the plane's wraparound on both axes
+//   (a tile on the left edge reads the far right; a plane smaller than the
+//   region repeats inside it), so the region is an unrolled cover of the
+//   torus.  After pass k of the span only pixels at least k from the
+//   region's border are exact; after the span the core is, and only the
+//   core is written.  Keys cross device memory once a span; spans
+//   ping-pong between `out` and `scratch` so that the last lands in `out`.
+//   - Inside a block the keys never leave registers: a warp is as wide as
+//     the region, a lane owns 4 neighbouring columns of kRows rows (one
+//     int4 a row, the mask as one bit a pixel), takes its left and right
+//     neighbours by warp shuffles and its vertical ones from its own
+//     registers; only each warp's first and last rows cross shared memory
+//     to the warps above and below, double-buffered, one barrier a pass.
+//     What is left per pixel and pass is two 3-input minima and a select.
+//   - The region's rows are loaded by the widest loads that every row's
+//     alignment allows, all started before any is used: one round of load
+//     latency a block, hidden behind the other blocks of the SM (three,
+//     by the register cap).
+//   - Early stop, exact: if the span's first pass changes no pixel off the
+//     region's border, no core pixel can change in this span (a change
+//     creeps in one pixel a pass from the border and reaches only the
+//     halo), so the block writes its core as loaded.  The sweep warm
+//     starts each level from the last one's keys, so many blocks are at
+//     rest.
+//   What bounds it now is the region's load and store, halo included: an
+//   8-pass call spends most of its time there (PERF.md).
 #include "tsd_common.cuh"
 
 namespace {
@@ -83,46 +110,223 @@ __global__ void rolls_mask_kernel(const int32_t* __restrict__ src,
     if (p < total) dst[p] = mask[p] ? src[p] : big;
 }
 
-// One pass: reads `src`, writes `dst`.  With `premask` the source is the
-// caller's unmasked keys and every read applies the mask first.
-__global__ void rolls_pass_kernel(const int32_t* __restrict__ src,
-                                  const uint8_t* __restrict__ mask,
-                                  int32_t* __restrict__ dst, int h, int w,
-                                  long long total, int big, int premask) {
-    const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (p >= total) return;
-    if (!mask[p]) {
-        dst[p] = big;
-        return;
+// The tiled form's geometry.  A warp spans the region's width, a lane
+// kLaneCols neighbouring columns; a block's kWarps warps stack kRows rows
+// each.  ops/prop_cuda.py mirrors the region as ROLLS_REGION_H and
+// ROLLS_REGION_W and computes the core from them (rolls_tiles).
+constexpr int kLaneCols = 4;
+constexpr int kRegionW = 32 * kLaneCols;
+constexpr int kRows = 8;
+constexpr int kWarps = 8;
+constexpr int kRegionH = kRows * kWarps;
+// Blocks an SM must hold: the register cap (85 a thread).  Three measured
+// fastest of 1, 2, 3, 4 and 6 (PERF.md): more blocks hide a block's loads
+// behind another's passes; six spill.
+constexpr int kTileBlocksPerSm = 3;
+
+__device__ __forceinline__ int wrap(int x, int n) {
+    x %= n;
+    return x < 0 ? x + n : x;
+}
+
+__device__ __forceinline__ bool aligned(const void* p, unsigned bytes) {
+    return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
+}
+
+__device__ __forceinline__ int min5(int a, int b, int c, int d, int e) {
+    return __vimin3_s32(__vimin3_s32(a, b, c), d, e);
+}
+
+// A lane's kRows rows of 4 keys and 4 mask bytes from plane row gr on (rows
+// wrap at h), the first `rows` of them; the others read as off the mask.
+// kAlign: pixels to which every row's first address is aligned, 4 or 2 (the
+// columns gc[0..3] are then neighbours), or 1: any columns, scalar loads.
+template <int kAlign>
+__device__ __forceinline__ void load_rows(const int32_t* __restrict__ keys,
+                                          const uint8_t* __restrict__ mask, int h, int w,
+                                          int gr, const int (&gc)[kLaneCols], int rows, int big,
+                                          int4 (&v)[kRows], unsigned (&mb)[kRows]) {
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+        v[k] = make_int4(big, big, big, big);
+        mb[k] = 0;
+        if (k < rows) {
+            const int32_t* kp = keys + (long long)gr * w;
+            const uint8_t* mp = mask + (long long)gr * w;
+            if (kAlign == 4) {
+                v[k] = *reinterpret_cast<const int4*>(kp + gc[0]);
+                mb[k] = *reinterpret_cast<const uint32_t*>(mp + gc[0]);
+            } else if (kAlign == 2) {
+                const int2 lo = *reinterpret_cast<const int2*>(kp + gc[0]);
+                const int2 hi = *reinterpret_cast<const int2*>(kp + gc[0] + 2);
+                v[k] = make_int4(lo.x, lo.y, hi.x, hi.y);
+                mb[k] = (uint32_t)*reinterpret_cast<const uint16_t*>(mp + gc[0]) |
+                        (uint32_t)*reinterpret_cast<const uint16_t*>(mp + gc[0] + 2) << 16;
+            } else {
+                v[k] = make_int4(kp[gc[0]], kp[gc[1]], kp[gc[2]], kp[gc[3]]);
+                mb[k] = (uint32_t)mp[gc[0]] | (uint32_t)mp[gc[1]] << 8 |
+                        (uint32_t)mp[gc[2]] << 16 | (uint32_t)mp[gc[3]] << 24;
+            }
+        }
+        gr = gr + 1 == h ? 0 : gr + 1;
     }
-    const int hw = h * w;
-    const long long base = p - p % hw;
-    const int local = (int)(p - base);
-    const int row = local / w, col = local - row * w;
-    const long long up = base + (row == 0 ? h - 1 : row - 1) * w + col;
-    const long long dn = base + (row == h - 1 ? 0 : row + 1) * w + col;
-    const long long lf = base + row * w + (col == 0 ? w - 1 : col - 1);
-    const long long rt = base + row * w + (col == w - 1 ? 0 : col + 1);
-    auto ld = [&](long long q) { return (premask && !mask[q]) ? big : src[q]; };
-    dst[p] = min(src[p], min(min(ld(up), ld(dn)), min(ld(lf), ld(rt))));
+}
+
+// One Jacobi pass over a lane's kRows x 4 pixels.  `xch` is this pass's
+// exchange buffer, [2][kWarps][32] int4: each warp's first and last rows.
+// A pixel on the region's border reads a neighbour that is not its own
+// (lane 0's left is its own last column, warp 0's row above is its own):
+// the border is never exact and never written.  With kTrack, returns
+// whether a pixel of `inner` (off the region's border) changed.
+template <bool kTrack>
+__device__ __forceinline__ unsigned jacobi_pass(int4 (&v)[kRows], unsigned m, unsigned inner,
+                                                int4 (*xch)[kWarps][32], int wp, int lane) {
+    xch[0][wp][lane] = v[0];
+    xch[1][wp][lane] = v[kRows - 1];
+    __syncthreads();
+    int4 prev = wp > 0 ? xch[1][wp - 1][lane] : v[0];
+    const int4 below = wp < kWarps - 1 ? xch[0][wp + 1][lane] : v[kRows - 1];
+    unsigned changed = 0;
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+        const int4 cur = v[k];
+        const int4 dn = k + 1 < kRows ? v[(k + 1) % kRows] : below;  // not yet updated
+        const int lf = __shfl_up_sync(0xffffffffu, cur.w, 1);
+        const int rt = __shfl_down_sync(0xffffffffu, cur.x, 1);
+        const unsigned mk = m >> (4 * k);
+        int4 n;
+        n.x = (mk & 1u) ? min5(cur.x, prev.x, dn.x, lf, cur.y) : cur.x;
+        n.y = (mk & 2u) ? min5(cur.y, prev.y, dn.y, cur.x, cur.z) : cur.y;
+        n.z = (mk & 4u) ? min5(cur.z, prev.z, dn.z, cur.y, cur.w) : cur.z;
+        n.w = (mk & 8u) ? min5(cur.w, prev.w, dn.w, cur.z, rt) : cur.w;
+        if (kTrack) {
+            const unsigned ik = inner >> (4 * k);
+            changed |= ((ik & 1u) && n.x != cur.x) | ((ik & 2u) && n.y != cur.y) |
+                       ((ik & 4u) && n.z != cur.z) | ((ik & 8u) && n.w != cur.w);
+        }
+        v[k] = n;
+        prev = cur;
+    }
+    return changed;
+}
+
+// One span of `npass` passes: reads `src`, writes the cores into `dst`.
+// Grid: tiles_x * tiles_y blocks a plane, planes flattened into blockIdx.x.
+// The mask is applied on load (a no-op after the first span: a pixel off
+// the mask already holds `big`).
+__global__ void __launch_bounds__(32 * kWarps, kTileBlocksPerSm)
+rolls_tile_kernel(const int32_t* __restrict__ src, const uint8_t* __restrict__ mask,
+                  int32_t* __restrict__ dst, int h, int w, int tiles_x, int tiles_y,
+                  int core_h, int core_w, int span, int npass, int big) {
+    __shared__ int4 xch[2][2][kWarps][32];  // [pass parity][first, last row]
+    static_assert(4 * kRows <= 32, "a lane's mask bits fill one word");
+
+    const int lane = threadIdx.x & 31, wp = threadIdx.x >> 5;
+    const int tiles = tiles_x * tiles_y;
+    const int plane = blockIdx.x / tiles, tile = blockIdx.x - plane * tiles;
+    const int tile_y = tile / tiles_x, tile_x = tile - tile_y * tiles_x;
+    const int row0 = tile_y * core_h - span, col0 = tile_x * core_w - span;
+    const int rh = core_h + 2 * span, rw = core_w + 2 * span;  // the region in use
+    const long long base = (long long)plane * h * w;
+    const int i0 = wp * kRows, j0 = lane * kLaneCols;
+
+    // Region pixel (i, j) is plane pixel (wrap(row0 + i), wrap(col0 + j)).
+    int gc[kLaneCols];
+#pragma unroll
+    for (int q = 0; q < kLaneCols; ++q) gc[q] = wrap(col0 + j0 + q, w);
+    const bool contiguous = gc[0] + kLaneCols - 1 == gc[kLaneCols - 1];
+    // Every row's first pixel shares the alignment (in pixels: 4, 2 or 1)
+    // of the first row's with the row length, so one branch picks the
+    // widest loads for all rows and each form starts its rows' loads back
+    // to back, before any is used.
+    const bool lane_used = j0 < rw;
+    int cls = 1;
+    if (contiguous) {
+        const long long e = base + (long long)wrap(row0 + i0, h) * w + gc[0];
+        const unsigned low = (unsigned)(reinterpret_cast<uintptr_t>(src + e) >> 2) |
+                             (unsigned)reinterpret_cast<uintptr_t>(mask + e) | (unsigned)w;
+        cls = (low & 1u) ? 1 : (low & 2u) ? 2 : 4;
+    }
+    int4 v[kRows];
+    unsigned mb[kRows];  // a row's 4 mask bytes
+    if (cls == 4) load_rows<4>(src + base, mask + base, h, w, wrap(row0 + i0, h), gc,
+                               lane_used ? rh - i0 : 0, big, v, mb);
+    else if (cls == 2) load_rows<2>(src + base, mask + base, h, w, wrap(row0 + i0, h), gc,
+                                    lane_used ? rh - i0 : 0, big, v, mb);
+    else load_rows<1>(src + base, mask + base, h, w, wrap(row0 + i0, h), gc,
+                      lane_used ? rh - i0 : 0, big, v, mb);
+    unsigned m = 0, inner = 0;
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+        const int i = i0 + k;
+        const bool row_inner = i > 0 && i < rh - 1;
+#pragma unroll
+        for (int q = 0; q < kLaneCols; ++q) {
+            m |= (unsigned)((mb[k] >> (8 * q) & 0xffu) != 0) << (4 * k + q);
+            inner |= (unsigned)(row_inner && j0 + q > 0 && j0 + q < rw - 1) << (4 * k + q);
+        }
+        v[k].x = (m >> (4 * k) & 1u) ? v[k].x : big;
+        v[k].y = (m >> (4 * k) & 2u) ? v[k].y : big;
+        v[k].z = (m >> (4 * k) & 4u) ? v[k].z : big;
+        v[k].w = (m >> (4 * k) & 8u) ? v[k].w : big;
+    }
+
+    if (npass > 0) {
+        const unsigned changed = jacobi_pass<true>(v, m, inner, xch[0], wp, lane);
+        // at rest: no core pixel changes in this span
+        const bool rest = __syncthreads_or(changed) == 0;
+        if (!rest)
+            for (int p = 1; p < npass; ++p) jacobi_pass<false>(v, m, inner, xch[p & 1], wp, lane);
+    }
+
+    // the core, where it lies in the plane
+    const int uc0 = col0 + j0;
+    const bool first_ok = j0 >= span && uc0 < w;
+    const bool last_ok = j0 + kLaneCols - 1 < span + core_w && uc0 + kLaneCols - 1 < w;
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+        const int i = i0 + k, ur = row0 + i;
+        if (i < span || i >= span + core_h || ur >= h) continue;
+        int32_t* o = dst + base + (long long)ur * w + uc0;
+        if (first_ok && last_ok) {
+            if (aligned(o, 16)) {
+                *reinterpret_cast<int4*>(o) = v[k];
+            } else if (aligned(o, 8)) {
+                *reinterpret_cast<int2*>(o) = make_int2(v[k].x, v[k].y);
+                *reinterpret_cast<int2*>(o + 2) = make_int2(v[k].z, v[k].w);
+            } else {
+                o[0] = v[k].x, o[1] = v[k].y, o[2] = v[k].z, o[3] = v[k].w;
+            }
+        } else {  // the core's or the plane's ragged edge
+            const int vals[kLaneCols] = {v[k].x, v[k].y, v[k].z, v[k].w};
+#pragma unroll
+            for (int q = 0; q < kLaneCols; ++q)
+                if (j0 + q >= span && j0 + q < span + core_w && uc0 + q < w) o[q] = vals[q];
+        }
+    }
 }
 
 }  // namespace
 
-// keys, out: i32 [p, h, w]; mask: u8 [p, h, w]; scratch: i32 [p, h, w], or
-// null when a plane fits shared memory (tsd_propagate_rolls_resident).
+// 1 when a plane fits shared memory: the call then runs the resident form
+// and needs no scratch.
 TSD_API int tsd_propagate_rolls_resident(int h, int w) {
     return resident_bytes(h, w) <= kResidentBytes;
 }
 
+// keys, out: i32 [p, h, w]; mask: u8 [p, h, w].  The tiled form (planes too
+// large for the resident one) runs ceil(passes / span) launches of at most
+// `span` passes over cores of core_h x core_w pixels (ops/prop_cuda.py:
+// rolls_tiles); scratch: i32 [p, h, w], read only when it takes more than
+// one launch.
 TSD_API int tsd_propagate_rolls(const void* keys, const void* mask, void* out,
                                 void* scratch, int p, int h, int w, int passes,
-                                int big, void* stream) {
+                                int big, int span, int core_h, int core_w, void* stream) {
     cudaStream_t st = (cudaStream_t)stream;
     const int32_t* k = (const int32_t*)keys;
     const uint8_t* m = (const uint8_t*)mask;
     int32_t* o = (int32_t*)out;
-    if (p == 0) return (int)cudaGetLastError();
+    if (p == 0 || h == 0 || w == 0) return (int)cudaGetLastError();
     if (resident_bytes(h, w) <= kResidentBytes) {
         const int smem = (int)resident_bytes(h, w);
         cudaError_t e = cudaFuncSetAttribute(
@@ -131,19 +335,27 @@ TSD_API int tsd_propagate_rolls(const void* keys, const void* mask, void* out,
         rolls_resident_kernel<<<p, dim3(32, 32), smem, st>>>(k, m, o, h, w, passes, big);
         return (int)cudaGetLastError();
     }
-    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
-    const long long total = (long long)p * h * w;
-    const int blocks = tsd_blocks(total, kThreads);
     if (passes == 0) {
-        rolls_mask_kernel<<<blocks, kThreads, 0, st>>>(k, m, o, total, big);
+        const long long total = (long long)p * h * w;
+        rolls_mask_kernel<<<tsd_blocks(total, kThreads), kThreads, 0, st>>>(k, m, o, total, big);
         return (int)cudaGetLastError();
     }
-    // pass i writes `out` when K-1-i is even, so the last pass lands there
+    if (span < 1 || core_h < 1 || core_w < kLaneCols || core_w % kLaneCols ||
+        core_h + 2 * span > kRegionH || core_w + 2 * span > kRegionW)
+        return (int)cudaErrorInvalidValue;
+    const int launches = (passes + span - 1) / span;
+    if (launches > 1 && scratch == nullptr) return (int)cudaErrorInvalidValue;
+    const int tiles_x = (w + core_w - 1) / core_w, tiles_y = (h + core_h - 1) / core_h;
+    const long long blocks = (long long)tiles_x * tiles_y * p;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    // launch i writes `out` when launches-1-i is even, so the last lands there
     int32_t* bufs[2] = {o, (int32_t*)scratch};
     const int32_t* src = k;
-    for (int i = 0; i < passes; ++i) {
-        int32_t* dst = bufs[(passes - 1 - i) % 2];
-        rolls_pass_kernel<<<blocks, kThreads, 0, st>>>(src, m, dst, h, w, total, big, i == 0);
+    for (int i = 0; i < launches; ++i) {
+        int32_t* dst = bufs[(launches - 1 - i) % 2];
+        const int npass = passes - i * span < span ? passes - i * span : span;
+        rolls_tile_kernel<<<(int)blocks, 32 * kWarps, 0, st>>>(
+            src, m, dst, h, w, tiles_x, tiles_y, core_h, core_w, span, npass, big);
         src = dst;
     }
     return (int)cudaGetLastError();

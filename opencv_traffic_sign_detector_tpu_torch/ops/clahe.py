@@ -3,8 +3,10 @@
 Counterpart of ``opencv_traffic_sign_detector_tpu/ops/clahe.py``: reflect-101
 pad to a multiple of the tile grid, per-tile 256-bin histograms (kernel K1),
 OpenCV's clip-and-redistribute rule, per-tile LUTs, bilinear LUT apply
-(kernel K2), crop.  The small steps between the kernels stay plain PyTorch,
-as they stay XLA in the reference.
+(kernel K2), crop.  For CUDA tensors the histograms, the clip rule and the
+LUTs are one launch (``clahe_cuda.tile_luts``: K1 with the LUT tail); for
+CPU tensors they are the plain PyTorch steps below, which are XLA in the
+reference.
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ def reflect101_index(size: int, before: int, after: int,
 def clahe_equalize(gray: torch.Tensor, clip_limit: float = 2.0,
                    tiles: int = 8) -> torch.Tensor:
     """CLAHE over uint8 [..., H, W]; returns uint8 of the same shape."""
-    from .clahe_cuda import clahe_apply, tile_histograms
+    from .clahe_cuda import clahe_apply, tile_luts
 
     lead = gray.shape[:-2]
     h, w = gray.shape[-2:]
@@ -68,9 +70,7 @@ def clahe_equalize(gray: torch.Tensor, clip_limit: float = 2.0,
     hp, wp = h + pad_h, w + pad_w
     tile_area = (hp // tiles) * (wp // tiles)
     clip = max(int(clip_limit * tile_area / 256.0), 1)
-    hist = _clip_and_redistribute(tile_histograms(x, tiles), clip)
-    luts = _tile_luts(hist, tile_area).contiguous()
-    out = clahe_apply(x, luts, tiles)
+    out = clahe_apply(x, tile_luts(x, clip, tile_area, tiles), tiles)
     if pad_h or pad_w:
         out = out[:, :h, :w]
     return out.reshape(lead + (h, w))

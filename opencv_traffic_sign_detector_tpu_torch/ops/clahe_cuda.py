@@ -1,11 +1,13 @@
-"""CLAHE kernels K1 (tile histograms) and K2 (interpolated LUT apply).
+"""CLAHE kernels K1 (tile histograms, and the per-tile LUTs as its tail)
+and K2 (interpolated LUT apply).
 
 Counterpart of ``opencv_traffic_sign_detector_tpu/ops/clahe_pallas.py``.
 Each wrapper takes its plain PyTorch version for CPU tensors and launches
 its CUDA kernel (``csrc/clahe.cu``) for CUDA tensors; there is no fallback
-from one to the other.  Both kernels are exact against their plain
-versions: K1 counts integers, K2 rounds every f32 product and sum on its
-own, in the plain version's order.
+from one to the other.  The kernels are exact against their plain
+versions: K1 counts integers, its LUT tail clips and sums integers and
+rounds one f32 product, K2 rounds every f32 product and sum on its own, in
+the plain version's order.
 """
 
 from __future__ import annotations
@@ -16,12 +18,17 @@ import numpy as np
 import torch
 
 from ..runtime import build as rt
-from .clahe import _interp_coords
+from .clahe import _clip_and_redistribute, _interp_coords, _tile_luts
 
-# K2's limits: its shared LUT rows (csrc/clahe.cu: kMaxTiles) and the grid's
-# frame dimension
+# The kernels' limits: the tile rows and sets a block keeps in shared memory
+# (csrc/clahe.cu: kMaxTiles) and, for K2, the grid's frame dimension
 MAX_TILES = 8
 MAX_FRAMES = 65535
+# K1's block (csrc/clahe.cu: kHistThreads), the private histogram sets it
+# keeps (kHistCopies, consecutive warps in turn), the bytes of one load
+# (kVec) and the blocks below which a tile row is cut into pieces
+HIST_THREADS, HIST_COPIES, HIST_WORD = 512, 8, 16
+HIST_MIN_BLOCKS = 256
 
 
 def _check_frames(x: torch.Tensor, tiles: int) -> None:
@@ -44,21 +51,70 @@ def tile_histograms_plain(x: torch.Tensor, tiles: int = 8) -> torch.Tensor:
     return hist.to(torch.int32).reshape(b, tiles, tiles, 256)
 
 
+def hist_pieces(b: int, tiles: int, th: int) -> int:
+    """Blocks K1 cuts a tile row of ``th`` rows into: one where the frames'
+    tile rows alone give ``HIST_MIN_BLOCKS`` blocks (about two an SM), else
+    enough row pieces to, which then add into a zeroed output."""
+    return max(1, min(th, -(-HIST_MIN_BLOCKS // max(b * tiles, 1))))
+
+
+def _check_kernel_tiles(tiles: int) -> None:
+    if tiles > MAX_TILES:
+        raise ValueError(f"the kernel takes at most {MAX_TILES}x{MAX_TILES} tiles, got {tiles}")
+
+
 def tile_histograms(x: torch.Tensor, tiles: int = 8) -> torch.Tensor:
     """K1: [B, H, W] uint8 (H, W divisible by tiles) -> [B, T, T, 256] int32.
 
-    Replaces ``clahe_pallas.py: tile_histograms_pallas``.
+    Replaces ``clahe_pallas.py: tile_histograms_pallas``.  The kernel takes
+    at most 8x8 tiles; the plain version has no such limit.
     """
     _check_frames(x, tiles)
     if rt.uses_plain(x):
         return tile_histograms_plain(x, tiles)
+    _check_kernel_tiles(tiles)
     b, h, w = x.shape
     out = torch.empty((b, tiles, tiles, 256), dtype=torch.int32, device=x.device)
     rc = rt.library().tsd_tile_histograms(
-        x.data_ptr(), out.data_ptr(), b, h, w, tiles, rt.stream_ptr(x.device))
+        x.data_ptr(), out.data_ptr(), b, h, w, tiles, hist_pieces(b, tiles, h // tiles),
+        rt.stream_ptr(x.device))
     rt.check(rc, "tile_histograms")
     rt.count_launch("tile_histograms")
     return out
+
+
+def tile_luts_plain(x: torch.Tensor, clip: int, tile_area: int,
+                    tiles: int = 8) -> torch.Tensor:
+    """[B, H, W] uint8 -> [B, T, T, 256] uint8 per-tile CLAHE LUTs."""
+    hist = _clip_and_redistribute(tile_histograms_plain(x, tiles), clip)
+    return _tile_luts(hist, tile_area).contiguous()
+
+
+def tile_luts(x: torch.Tensor, clip: int, tile_area: int, tiles: int = 8) -> torch.Tensor:
+    """K1 with the LUT tail: [B, H, W] uint8 -> [B, T, T, 256] uint8, each
+    tile's histogram clipped at ``clip`` by OpenCV's rule, summed and scaled
+    by ``f32(255 / tile_area)``, rounded half to even.
+
+    Replaces the reference's XLA steps between its two kernels
+    (``ops/clahe.py: _clip_and_redistribute`` and ``_tile_luts``).  One
+    launch where a block owns a whole tile row (:func:`hist_pieces` is 1),
+    else K1 and a second launch, a warp a tile.
+    """
+    _check_frames(x, tiles)
+    if rt.uses_plain(x):
+        return tile_luts_plain(x, clip, tile_area, tiles)
+    _check_kernel_tiles(tiles)
+    b, h, w = x.shape
+    pieces = hist_pieces(b, tiles, h // tiles)
+    luts = torch.empty((b, tiles, tiles, 256), dtype=torch.uint8, device=x.device)
+    hist = None if pieces == 1 else torch.empty(luts.shape, dtype=torch.int32, device=x.device)
+    rc = rt.library().tsd_tile_luts(
+        x.data_ptr(), None if hist is None else hist.data_ptr(), luts.data_ptr(), b, h, w,
+        tiles, pieces, int(clip), float(np.float32(255.0 / tile_area)),
+        rt.stream_ptr(x.device))
+    rt.check(rc, "tile_luts")
+    rt.count_launch("tile_luts")
+    return luts
 
 
 def _coords(h: int, w: int, tiles: int, device: torch.device):
@@ -151,9 +207,9 @@ def clahe_apply(x: torch.Tensor, luts: torch.Tensor, tiles: int = 8) -> torch.Te
     if rt.uses_plain(x, luts):
         return clahe_apply_plain(x, luts, tiles)
     b, h, w = x.shape
-    if tiles > MAX_TILES or b > MAX_FRAMES:
-        raise ValueError(f"the kernel takes at most {MAX_TILES}x{MAX_TILES} tiles and "
-                         f"{MAX_FRAMES} frames, got {tiles} tiles and {b} frames")
+    _check_kernel_tiles(tiles)
+    if b > MAX_FRAMES:
+        raise ValueError(f"the kernel takes at most {MAX_FRAMES} frames, got {b}")
     pieces, ya, col_case, xa, max_cases = _apply_tables(h, w, tiles, x.device)
     out = torch.empty_like(x)
     rc = rt.library().tsd_clahe_apply(

@@ -12,6 +12,9 @@
   seed component to ``(ymin, ymax, xmin, xmax, area)``.
 * K5 ``propagate_rolls``: K synchronous masked 4-neighbour min passes with
   wraparound, counterpart of ``pallas_prop.py: propagate_rolls_pallas``.
+  Planes that fit one block's shared memory (the refine's windows) run all
+  passes resident there; larger ones (the sweeps' planes) run spans of
+  passes over tiles with halos (:func:`rolls_tiles`, :func:`rolls_spans`).
 * K6 ``propagate_scan``: K4's flood on given keys without the reduction,
   counterpart of ``pallas_prop.py: propagate_scan_pallas``.
 
@@ -27,6 +30,16 @@ import torch
 from ..runtime import build as rt
 
 MAX_WIN = 128
+# K5's tiled form (csrc/prop_rolls.cu), for planes too large for one block's
+# shared memory: a block's region is ROLLS_REGION_H x ROLLS_REGION_W pixels
+# (kRegionH: 8 warps of 8 rows; kRegionW: a warp of lanes 4 columns wide),
+# a core tile plus a halo of the span on every side; one launch runs a span
+# of at most ROLLS_SPAN passes; a block stops early when its span's first
+# pass changes nothing off the region's border.  Span 12 measured fastest
+# of 4 to 24 at the sweeps' shapes on an H100, the early stop saves a
+# quarter (PERF.md section 6).
+ROLLS_REGION_H, ROLLS_REGION_W = 64, 128
+ROLLS_SPAN = 12
 
 
 def nb4(x: torch.Tensor, op) -> torch.Tensor:
@@ -147,13 +160,40 @@ def propagate_rolls_plain(keys: torch.Tensor, mask: torch.Tensor, big: int,
     return k
 
 
+def rolls_tiles(h: int, w: int, span: int) -> tuple[int, int]:
+    """The tiled form's core (rows, columns) for [*, h, w] planes and a halo
+    of ``span``: at most the region less two halos, the columns a multiple
+    of a lane's 4, and as even as the plane allows."""
+    side_h = ROLLS_REGION_H - 2 * span
+    side_w = (ROLLS_REGION_W - 2 * span) // 4 * 4
+    if span < 1 or side_h < 1 or side_w < 4:
+        raise ValueError(f"span {span} leaves no core in a {ROLLS_REGION_H}x"
+                         f"{ROLLS_REGION_W} region")
+    def even(n: int, side: int) -> int:
+        return -(-n // -(-n // side))
+
+    return even(h, side_h), -(-even(w, side_w) // 4) * 4
+
+
+def rolls_spans(passes: int) -> list[int]:
+    """Passes of each launch of the tiled form: spans of ``min(ROLLS_SPAN,
+    passes)``, the last one shorter where they do not divide ``passes``."""
+    if passes <= 0:
+        return []
+    span = min(ROLLS_SPAN, passes)
+    return [min(span, passes - i) for i in range(0, passes, span)]
+
+
 def propagate_rolls(keys: torch.Tensor, mask: torch.Tensor, big: int, passes: int,
                     site: str = "propagate_rolls") -> torch.Tensor:
     """K5: keys int32 [P, H, W], mask bool [P, H, W] -> propagated keys.
 
     Replaces ``pallas_prop.py: propagate_rolls_pallas`` at any plane size
     (the reference's VMEM cap does not apply).  ``site`` names the launch
-    counter: the sweep and the refine count apart.
+    counter: the sweep and the refine count apart.  A plane that fits one
+    block's shared memory runs all passes resident there in one CUDA
+    launch; a larger one takes ``len(rolls_spans(passes))`` launches
+    (``ceil(passes / ROLLS_SPAN)``; the mask alone at 0 passes) over tiles.
     """
     _check_keys_mask(keys, mask)
     if rt.uses_plain(keys, mask):
@@ -161,13 +201,17 @@ def propagate_rolls(keys: torch.Tensor, mask: torch.Tensor, big: int, passes: in
     p, h, w = keys.shape
     lib = rt.library()
     out = torch.empty_like(keys)
-    # a plane that fits one block's shared memory runs all passes resident;
-    # larger planes ping-pong through a second buffer in device memory
-    scratch = None if lib.tsd_propagate_rolls_resident(h, w) else torch.empty_like(keys)
+    span, core_h, core_w, scratch = 0, 0, 0, None
+    if p and h and w and passes and not lib.tsd_propagate_rolls_resident(h, w):
+        spans = rolls_spans(passes)
+        span = spans[0]
+        core_h, core_w = rolls_tiles(h, w, span)
+        # launches ping-pong through a second buffer in device memory
+        scratch = torch.empty_like(keys) if len(spans) > 1 else None
     rc = lib.tsd_propagate_rolls(
         keys.data_ptr(), mask.data_ptr(), out.data_ptr(),
         None if scratch is None else scratch.data_ptr(), p, h, w, passes, big,
-        rt.stream_ptr(keys.device))
+        span, core_h, core_w, rt.stream_ptr(keys.device))
     rt.check(rc, "propagate_rolls")
     rt.count_launch(site)
     return out

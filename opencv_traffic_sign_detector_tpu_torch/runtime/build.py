@@ -39,20 +39,21 @@ NVCC_FLAGS = (
 
 # Launch counters, one per kernel wrapper.  K5 counts its two call sites
 # apart: the XLA level sweep (propagate_rolls) and the roll-flood refine
-# (propagate_rolls_refine).
-KERNELS = ("tile_histograms", "clahe_apply", "level_sweep", "flood_bbox",
+# (propagate_rolls_refine).  tile_luts is K1 with the LUT tail.
+KERNELS = ("tile_histograms", "tile_luts", "clahe_apply", "level_sweep", "flood_bbox",
            "propagate_rolls", "propagate_rolls_refine", "propagate_scan",
            "level_sweep_full")
 
 _V, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "tsd_tile_histograms": [_V, _V, _I, _I, _I, _I, _V],
+    "tsd_tile_histograms": [_V, _V] + [_I] * 5 + [_V],
+    "tsd_tile_luts": [_V, _V, _V] + [_I] * 6 + [_F, _V],
     "tsd_clahe_apply": [_V] * 7 + [_I] * 6 + [_V],
     "tsd_level_sweep": [_V] * 4 + [_I] * 13 + [_F] * 4 + [_V],
     "tsd_level_sweep_full": [_V] * 4 + [_I] * 7 + [_F] * 4 + [_V],
     "tsd_flood_bbox": [_V, _V, _V] + [_I] * 8 + [_V],
     "tsd_propagate_scan": [_V, _V, _V] + [_I] * 5 + [_V],
-    "tsd_propagate_rolls": [_V] * 4 + [_I] * 5 + [_V],
+    "tsd_propagate_rolls": [_V] * 4 + [_I] * 8 + [_V],
     "tsd_propagate_rolls_resident": [_I, _I],
 }
 

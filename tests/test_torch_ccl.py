@@ -165,3 +165,157 @@ def test_wrappers_reject_bad_input(case, monkeypatch):
     }
     with pytest.raises((TypeError, ValueError)):
         calls[case]()
+
+
+def _k5_tile_span(src, mask, big, h, w, ty, tx, core, span, npass, early):
+    """One block of csrc/prop_rolls.cu's rolls_tile_kernel in numpy: the
+    region loaded through the plane's wraparound (whole lanes of 4 columns,
+    rows in use only), ``npass`` Jacobi passes with the kernel's own
+    neighbour rule on the region's border (lane 0's left is its last
+    column, the last lane's right its first; the first and last rows read
+    themselves), the early stop, and the core's pixels that lie in the
+    plane as ``(rows, cols, values)``."""
+    core_h, core_w = core
+    rh_all, rw_all = tprop.ROLLS_REGION_H, tprop.ROLLS_REGION_W
+    row0, col0 = ty * core_h - span, tx * core_w - span
+    rh, rw = core_h + 2 * span, core_w + 2 * span
+    assert rh <= rh_all and rw <= rw_all and core_w % 4 == 0
+    i, j = np.arange(rh_all), np.arange(rw_all)
+    used = (i < rh)[:, None] & (j // 4 * 4 < rw)[None, :]
+    gr, gc = (row0 + i) % h, (col0 + j) % w
+    m = mask[gr[:, None], gc[None, :]] & used
+    v = np.where(m, src[gr[:, None], gc[None, :]], big).astype(np.int32)
+    inner = ((i > 0) & (i < rh - 1))[:, None] & ((j > 0) & (j < rw - 1))[None, :] & used
+    for p in range(npass):
+        up = np.concatenate([v[:1], v[:-1]])
+        dn = np.concatenate([v[1:], v[-1:]])
+        lf = np.concatenate([v[:, 3:4], v[:, :-1]], 1)
+        rt_ = np.concatenate([v[:, 1:], v[:, -4:-3]], 1)
+        new = np.where(m, np.minimum(np.minimum(np.minimum(v, up), np.minimum(dn, lf)), rt_), v)
+        changed = ((new != v) & inner).any()
+        v = new
+        if p == 0 and early and not changed:
+            break  # at rest: no core pixel changes in this span
+    ci = i[(i >= span) & (i < span + core_h) & (row0 + i < h)]
+    cj = j[(j >= span) & (j < span + core_w) & (col0 + j < w)]
+    return row0 + ci, col0 + cj, v[np.ix_(ci, cj)]
+
+
+def _k5_tiled_model(keys, mask, big, passes, early=True):
+    """The tiled form's launches over a [P, H, W] stack: spans of
+    ``rolls_spans``, cores of ``rolls_tiles``, ping-pong between ``out`` and
+    ``scratch`` so that the last launch lands in ``out``; only cores are
+    written (the buffers start as garbage)."""
+    p, h, w = keys.shape
+    if passes == 0:
+        return np.where(mask, keys, big).astype(np.int32)
+    spans = tprop.rolls_spans(passes)
+    core = tprop.rolls_tiles(h, w, spans[0])
+    tiles_y, tiles_x = -(-h // core[0]), -(-w // core[1])
+    bufs = [np.full(keys.shape, -77, np.int32), np.full(keys.shape, -99, np.int32)]
+    src = keys
+    for n, npass in enumerate(spans):
+        dst = bufs[(len(spans) - 1 - n) % 2]
+        for q in range(p):
+            for ty in range(tiles_y):
+                for tx in range(tiles_x):
+                    rows, cols, vals = _k5_tile_span(src[q], mask[q], big, h, w, ty, tx, core,
+                                                     spans[0], npass, early)
+                    dst[q][np.ix_(rows, cols)] = vals
+        src = dst
+    return bufs[0]
+
+
+_S = tprop.ROLLS_SPAN
+K5_MODEL_CASES = [  # planes narrower / shorter than a region, ragged, several tiles
+    ((2, 90, 50), 0), ((2, 90, 50), 1), ((2, 90, 50), _S - 1), ((2, 90, 50), 2 * _S + 3),
+    ((2, 20, 300), _S), ((2, 20, 300), _S + 1), ((1, 131, 307), _S), ((1, 131, 307), 2 * _S + 3),
+    ((3, 7, 3), _S + 1), ((1, 100, 236), 1), ((1, 100, 236), _S - 1), ((1, 49, 113), 3 * _S),
+]
+
+
+@pytest.mark.parametrize("early", [True, False], ids=["early_stop", "all_passes"])
+@pytest.mark.parametrize("shape,passes", K5_MODEL_CASES)
+def test_k5_tiled_model_matches_plain(shape, passes, early):
+    """K5's tiled design written out in numpy (regions through the
+    wraparound, a span of passes on the region, only the core kept, the span
+    sequence and buffer parity, the early stop) equals the plain version
+    exactly, on random keys with masks of density 0.1 and 0.9 that touch all
+    four edges (the wraparound then carries keys across)."""
+    rng = np.random.default_rng(sum(shape) + passes)
+    for density in (0.1, 0.9):
+        keys = rng.integers(-5, 2**20, shape).astype(np.int32)
+        mask = _random_mask(rng, shape, density, border=True)
+        mask[:, 0, ::2] = mask[:, -1, ::2] = mask[:, ::2, 0] = mask[:, ::2, -1] = True
+        big = 2**21
+        want = tprop.propagate_rolls_plain(torch.from_numpy(keys), torch.from_numpy(mask), big,
+                                           passes).numpy()
+        got = _k5_tiled_model(keys, mask, big, passes, early)
+        np.testing.assert_array_equal(got, want)
+        if passes:
+            assert (want != np.where(mask, keys, big)).any()  # some keys moved
+
+
+@pytest.mark.parametrize("shape,passes", [((2, 24, 40), _S + 3), ((1, 70, 150), 2 * _S)])
+def test_k5_tiled_model_matches_kernel_interpret(shape, passes):
+    """The same model against the reference kernel body run through the
+    Pallas interpreter, exactly, on converged and unconverged planes: a
+    sparse mask is at rest after a few passes (blocks stop early), a dense
+    one is not."""
+    rng = np.random.default_rng(passes)
+    big = 2**21
+    for density in (0.15, 0.95):
+        keys = rng.integers(-5, 2**20, shape).astype(np.int32)
+        mask = _random_mask(rng, shape, density, border=True)
+        kern = functools.partial(jprop._kernel, num_rolls=passes, big=big)
+        want = pl.pallas_call(
+            kern,
+            out_shape=jax.ShapeDtypeStruct(shape, jnp.int32),
+            in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 2,
+            out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
+            interpret=True,
+        )(jnp.asarray(keys), jnp.asarray(mask).astype(jnp.int8))
+        np.testing.assert_array_equal(_k5_tiled_model(keys, mask, big, passes), np.asarray(want))
+
+
+def test_k5_early_stop_fires_and_is_exact():
+    """On keys already at their fixed point a span's first pass changes no
+    block's core and the span returns the input; with one key lowered the
+    span still equals the plain version."""
+    rng = np.random.default_rng(7)
+    shape, big = (1, 100, 236), 2**21
+    mask = _random_mask(rng, shape, 0.8, border=True)
+    keys = rng.integers(0, 2**20, shape).astype(np.int32)
+    rest = tprop.propagate_rolls_plain(torch.from_numpy(keys), torch.from_numpy(mask), big,
+                                       100 * 236).numpy()
+    np.testing.assert_array_equal(_k5_tiled_model(rest, mask, big, _S), rest)
+    core = tprop.rolls_tiles(100, 236, _S)
+    stopped = 0
+    for ty in range(-(-100 // core[0])):
+        for tx in range(-(-236 // core[1])):
+            rows, cols, vals = _k5_tile_span(rest[0], mask[0], big, 100, 236, ty, tx, core, _S, 1,
+                                             False)
+            stopped += np.array_equal(vals, rest[0][np.ix_(rows, cols)])
+    assert stopped == -(-100 // core[0]) * -(-236 // core[1])
+    poked = rest.copy()
+    y, x = np.argwhere(mask[0])[len(np.argwhere(mask[0])) // 2]
+    poked[0, y, x] = -3
+    want = tprop.propagate_rolls_plain(torch.from_numpy(poked), torch.from_numpy(mask), big,
+                                       _S).numpy()
+    np.testing.assert_array_equal(_k5_tiled_model(poked, mask, big, _S), want)
+    assert (want != poked).any()
+
+
+@pytest.mark.parametrize("h,w,span", [(402, 682, 8), (802, 1362, 8), (30, 700, 1), (7, 3, 5),
+                                      (64, 128, 8), (1000, 1000, 3)])
+def test_k5_tile_geometry(h, w, span):
+    """The cores cover the plane, fit the region with their halos, and are a
+    multiple of a lane's 4 columns wide; the spans add up to the passes."""
+    core_h, core_w = tprop.rolls_tiles(h, w, span)
+    assert core_w % 4 == 0 and core_h >= 1 and core_w >= 4
+    assert core_h + 2 * span <= tprop.ROLLS_REGION_H and core_w + 2 * span <= tprop.ROLLS_REGION_W
+    assert -(-h // core_h) * core_h >= h and -(-w // core_w) * core_w >= w
+    for passes in (0, 1, span, 5 * _S + 2):
+        spans = tprop.rolls_spans(passes)
+        assert sum(spans) == passes and len(spans) == -(-passes // _S)
+        assert all(0 < s <= _S for s in spans)

@@ -99,8 +99,9 @@ def test_k2_plain_matches_pallas_interpret(kind):
 
 def test_clip_and_luts_match():
     g = _gray("smooth", (2, 64, 64), seed=4)
+    g[1, :32] = 77  # flat tiles: the excess is nearly the tile's area
     hist = np.asarray(jclahe._tile_histograms(jnp.asarray(g), 8))
-    for clip in (1, 3, 40):
+    for clip in (1, 3, 40, 64):  # 64: the tile's area, no excess
         want = np.asarray(jclahe._clip_and_redistribute(jnp.asarray(hist), clip))
         got = tclahe._clip_and_redistribute(torch.from_numpy(hist), clip).numpy()
         np.testing.assert_array_equal(got, want)
@@ -224,3 +225,186 @@ def test_enhance_contrast_bit_exact():
     want = np.asarray(jpre.enhance_contrast(jnp.asarray(frames)))
     got = tpre.enhance_contrast(torch.from_numpy(frames)).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+def _k1_emulated(x: np.ndarray, tiles: int, pieces: int, base_mod16: int = 0) -> np.ndarray:
+    """csrc/clahe.cu's tile_hist_kernel in numpy: a block a (frame, tile row,
+    piece of its rows) reads its rows as one run of bytes (head bytes up to
+    the first 16-byte boundary of an address that is ``base_mod16`` mod 16
+    at the frame stack's start, aligned 16-byte words, tail bytes); a word's
+    tile column comes from one division, and a word across a tile-column
+    boundary or a row's end steps column and tile pixel by pixel; each
+    thread adds into its warp's set of the block's ``HIST_COPIES`` sets
+    (groups of equal bytes with one add); the sets are summed, and several
+    pieces add into a zeroed output."""
+    b, h, w = x.shape
+    th, tw = h // tiles, w // tiles
+    word, threads, copies = tcuda.HIST_WORD, tcuda.HIST_THREADS, tcuda.HIST_COPIES
+    out = np.zeros((b, tiles, tiles, 256), np.int64)
+    flat = x.reshape(-1)
+    for f in range(b):
+        for ty in range(tiles):
+            for piece in range(pieces):
+                r0, r1 = ty * th + piece * th // pieces, ty * th + (piece + 1) * th // pieces
+                start, n = (f * h + r0) * w, (r1 - r0) * w
+                p = flat[start:start + n]
+                hist = np.zeros((copies, tiles, 256), np.int64)
+                head = min(n, -(base_mod16 + start) % 16)
+                words = (n - head) // word
+                tail = head + word * words
+                for i in range(head + n - tail):  # one byte a thread
+                    idx = i if i < head else tail + (i - head)
+                    hist[(i % threads // 32) % copies, idx % w // tw, p[idx]] += 1
+                for i in range(words):
+                    mine = hist[(i % threads // 32) % copies]
+                    q = p[head + word * i: head + word * (i + 1)]
+                    c0 = (head + word * i) % w
+                    t = c0 // tw
+                    nb = (t + 1) * tw
+                    if c0 + word <= nb:  # one tile column: groups of equal bytes
+                        if (q == q[0]).all():
+                            mine[t, q[0]] += word
+                            continue
+                        for g in range(0, word, 4):
+                            if (q[g:g + 4] == q[g]).all():
+                                mine[t, q[g]] += 4
+                            else:
+                                np.add.at(mine[t], q[g:g + 4], 1)
+                        continue
+                    for k in range(word):
+                        c = c0 + k
+                        while c >= nb:
+                            if nb >= w:  # the row's end
+                                c0, c, t, nb = c0 - w, c - w, 0, tw
+                            else:
+                                t, nb = t + 1, nb + tw
+                        mine[t, q[k]] += 1
+                out[f, ty] += hist.sum(0)
+    return out.astype(np.int32)
+
+
+@pytest.mark.parametrize("shape,tiles,pieces,base", [
+    ((2, 16, 1360), 8, 1, 0),   # tile width 170: a word across one boundary
+    ((2, 24, 160), 8, 3, 0),    # tile width 20
+    ((2, 16, 96), 8, 2, 0),     # tile width 12: a word across two boundaries
+    ((1, 12, 1352), 4, 1, 0),   # rows not 16-byte aligned: words across rows' ends
+    ((2, 20, 100), 4, 5, 0),    # width 100, a row a piece
+    ((3, 9, 51), 3, 2, 5),      # odd width, a base address off 16 bytes
+    ((1, 4, 8), 1, 1, 3),       # shorter than a word: head and tail bytes only
+    ((2, 8, 12), 4, 2, 0),      # tile width 3
+])
+@pytest.mark.parametrize("kind", ["random", "flat", "two_valued"])
+def test_k1_kernel_cut_matches_plain(shape, tiles, pieces, base, kind):
+    """K1's row-wise cut, emulated (16-pixel words across tile-column
+    boundaries and rows' ends, head and tail bytes, private sets, pieces),
+    equals the plain version exactly, on random frames and on the contention
+    cases (one and two values)."""
+    rng = np.random.default_rng(sum(shape) + tiles)
+    x = {"random": rng.integers(0, 256, shape, dtype=np.uint8),
+         "flat": np.full(shape, 97, np.uint8),
+         "two_valued": rng.choice(np.array([31, 200], np.uint8), shape)}[kind]
+    want = tcuda.tile_histograms_plain(torch.from_numpy(x), tiles).numpy()
+    np.testing.assert_array_equal(_k1_emulated(x, tiles, pieces, base), want)
+
+
+def test_k1_kernel_cut_matches_pallas_interpret():
+    """The same emulation against the reference kernel in interpret mode,
+    exactly."""
+    g = _gray("smooth", (2, 64, 192), seed=6)
+    want = np.asarray(jpallas.tile_histograms_pallas(jnp.asarray(g), 8, interpret=True))
+    np.testing.assert_array_equal(_k1_emulated(g, 8, 2), want)
+
+
+@pytest.mark.parametrize("b,tiles,th,want", [(32, 8, 100, 1), (16, 8, 100, 2), (4, 4, 200, 16),
+                                             (3, 1, 100, 86), (1, 8, 2, 2), (1000, 8, 100, 1)])
+def test_k1_pieces(b, tiles, th, want):
+    """A tile row is one block's once the frames give ``HIST_MIN_BLOCKS``
+    blocks, else cut into row pieces, never more than its rows."""
+    assert tcuda.hist_pieces(b, tiles, th) == want
+    assert 1 <= want <= th and (want == 1 or b * tiles * (want - 1) < tcuda.HIST_MIN_BLOCKS)
+
+
+def _lut_tail_emulated(hist: np.ndarray, clip: int, tile_area: int) -> np.ndarray:
+    """csrc/clahe.cu's tile_lut in numpy integers: a warp a tile, 8 bins a
+    lane; the excess summed over the warp, ``excess >> 8`` to every bin and
+    the residual one a bin at stride ``max(256 // residual, 1)``; the lane's
+    running sums plus the lanes before it; one f32 product rounded half to
+    even and clamped to a byte."""
+    hv = hist.reshape(-1, 32, 8).astype(np.int32)
+    excess = np.maximum(hv - clip, 0).sum((1, 2), dtype=np.int32)[:, None, None]
+    batch, residual = excess >> 8, excess & 255
+    step = np.maximum(256 // np.maximum(residual, 1), 1)
+    bins = np.arange(256, dtype=np.int32).reshape(1, 32, 8)
+    bonus = (residual > 0) & (bins % step == 0) & (bins // step < residual)
+    val = np.minimum(hv, clip) + batch + bonus.astype(np.int32)
+    run = np.cumsum(val, axis=2, dtype=np.int32)              # within a lane
+    upto = np.cumsum(run[:, :, -1], axis=1, dtype=np.int32)   # the warp's scan
+    cdf = run + (upto - run[:, :, -1])[:, :, None]
+    scale = np.float32(255.0 / tile_area)
+    q = np.rint(cdf.astype(np.float32) * scale).astype(np.int64)
+    return np.clip(q, 0, 255).astype(np.uint8).reshape(hist.shape)
+
+
+@pytest.mark.parametrize("kind", ["smooth", "random", "flat", "two_valued"])
+def test_lut_tail_matches_both_packages(kind):
+    """The LUT tail's integer clip, scan and rounding, emulated, equal
+    ``_tile_luts(_clip_and_redistribute(hist))`` of the port and of the
+    reference exactly: at the CLAHE clip, with no excess (clip at the tile's
+    area), at clip 1, and on flat tiles (excess near the tile's area)."""
+    shape, tiles = (2, 64, 128), 8
+    area = (shape[1] // tiles) * (shape[2] // tiles)
+    rng = np.random.default_rng(8)
+    g = {"smooth": _gray("smooth", shape, seed=7), "random": _gray("random", shape, seed=7),
+         "flat": np.full(shape, 140, np.uint8),
+         "two_valued": rng.choice(np.array([31, 200], np.uint8), shape)}[kind]
+    hist = tcuda.tile_histograms_plain(torch.from_numpy(g), tiles)
+    for clip in (max(int(2.0 * area / 256.0), 1), 3, area, 1):
+        port = tclahe._tile_luts(tclahe._clip_and_redistribute(hist, clip), area).numpy()
+        ref = np.asarray(jclahe._tile_luts(
+            jclahe._clip_and_redistribute(jnp.asarray(hist.numpy()), clip), area))
+        np.testing.assert_array_equal(port, ref)
+        np.testing.assert_array_equal(_lut_tail_emulated(hist.numpy(), clip, area), port)
+        got = tcuda.tile_luts(torch.from_numpy(g), clip, area, tiles)
+        assert got.dtype == torch.uint8 and got.is_contiguous()
+        np.testing.assert_array_equal(got.numpy(), port)
+
+
+def test_lut_rounding_is_half_even_f32():
+    """A tile whose scale is exactly 0.5 (area 510) and whose cdf runs
+    through every odd count: each product is a tie, which the LUT entry, the
+    port's and the reference's ``_tile_luts`` and the kernel's emulated
+    ``__float2int_rn(__fmul_rn(...))`` all round to even, exactly; rounding
+    half up would differ at every other bin."""
+    area = 15 * 34
+    values = np.concatenate([np.arange(255), np.full(area - 255, 255)]).astype(np.uint8)
+    g = values.reshape(1, 15, 34)
+    hist = tcuda.tile_histograms_plain(torch.from_numpy(g), 1)
+    cdf = np.cumsum(hist.numpy().reshape(-1))
+    assert (cdf[:255] == np.arange(1, 256)).all() and cdf[255] == area
+    want = np.minimum(np.rint(cdf * 0.5), 255).astype(np.uint8).reshape(hist.shape)
+    half_up = np.minimum(np.floor(cdf * 0.5 + 0.5), 255).astype(np.uint8).reshape(hist.shape)
+    assert (want != half_up).sum() == 64
+    np.testing.assert_array_equal(tclahe._tile_luts(hist, area).numpy(), want)
+    np.testing.assert_array_equal(
+        np.asarray(jclahe._tile_luts(jnp.asarray(hist.numpy()), area)), want)
+    np.testing.assert_array_equal(_lut_tail_emulated(hist.numpy(), area, area), want)
+    np.testing.assert_array_equal(tcuda.tile_luts(torch.from_numpy(g), area, area, 1).numpy(), want)
+
+
+@pytest.mark.parametrize("entry", ["tile_histograms", "tile_luts", "clahe_apply"])
+def test_kernels_refuse_more_than_8_tiles(entry, monkeypatch):
+    """The kernels keep at most 8 tile rows' worth in shared memory; CPU
+    tensors take the plain versions at any tile count, so the refusal is
+    shown for tensors bound for the kernel, before the library is reached."""
+    from opencv_traffic_sign_detector_tpu_torch.runtime import build as rt
+
+    x = torch.zeros((1, 32, 32), dtype=torch.uint8)
+    assert tcuda.tile_histograms(x, 16).shape == (1, 16, 16, 256)
+    monkeypatch.setattr(rt, "uses_plain", lambda *tensors: False)
+    monkeypatch.setattr(rt, "library", lambda: pytest.fail("the library was reached"))
+    calls = {"tile_histograms": lambda: tcuda.tile_histograms(x, 16),
+             "tile_luts": lambda: tcuda.tile_luts(x, 1, 4, 16),
+             "clahe_apply": lambda: tcuda.clahe_apply(
+                 x, torch.zeros((1, 16, 16, 256), dtype=torch.uint8), 16)}
+    with pytest.raises(ValueError, match="at most 8x8 tiles"):
+        calls[entry]()

@@ -62,6 +62,29 @@ def test_cli_cnn_writes_same_results_as_reference(test_dir, ckpt, upscale, fmt):
     assert not unmatched_detections(ref, port, 0.05, thr)
 
 
+@pytest.mark.parametrize("detector,flags,thr", [
+    ("CNN", ["--n_devices", "2"], None), ("CNN_0.4", ["--trace_dir", "t"], 0.4),
+], ids=["n_devices", "trace_dir"])
+def test_cli_cnn_ignores_mser_only_flags(test_dir, detector, flags, thr):
+    """The reference's CNN branch returns before ``--n_devices`` and
+    ``--trace_dir`` are read: both CLIs ignore them, write resultado.txt on
+    one device (same bound as above) and make no trace directory."""
+    test, root = test_dir
+    params = os.path.join(CKPT, "params.npz")
+    trace = str(root / "trace")
+    flags = [trace if f == "t" else f for f in flags]
+    common = ["--detector", detector, "--cnn_params", params, "--test_path", test,
+              "--batch_size", "2", "--no-images", *flags]
+    ref_out, port_out = str(root / "ref_flags.txt"), str(root / "port_flags.txt")
+    assert main_detection.main(common + ["--out", ref_out]) == 0
+    assert main_detection_torch.main(common + ["--out", port_out, "--device", "cpu"]) == 0
+    ref, port = load_results_file(ref_out), load_results_file(port_out)
+    assert ref, "the reference detected nothing on the synthetic frames"
+    thr = saved_meta(params)["score_threshold"] if thr is None else thr
+    assert not unmatched_detections(ref, port, 0.05, thr)
+    assert not os.path.exists(trace)
+
+
 @pytest.mark.parametrize("argv", [
     ["--upscale", "0"],
     ["--upscale", "1.6", "--input_format", "patches8"],
