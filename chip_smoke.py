@@ -15,15 +15,19 @@ Phases:
    K5 on the XLA sweep of the recall config at batch 8 (48 passes a call)
    and of the pixel-area config at batch 32 (8 passes a call), and on the
    roll-flood refine of the tuned config with ``refine_scan_passes=0`` at
-   batch 32), runs the kernel and its plain
+   batch 32, 4096 windows of 128x128 held in registers, 96 passes or fewer
+   where a window's flood is at rest), runs the kernel and its plain
    PyTorch version on those same CUDA tensors, requires exact equality, and
    times both with CUDA events (median of 10 after warm-up, :func:`_time_ms`),
    with K1's library yardstick (``torch.bincount``), and computes each
    kernel's bound from its inputs (:func:`_bound`); the kernel is also
    timed as calls queued behind a spin of the card (:func:`_queued_ms`),
-   which leaves a short kernel's launch overhead out; the lines of K1-K4
-   and of K5 on the sweep also print the recorded times of their earlier
-   designs (:data:`OLD_DESIGN`);
+   which leaves a short kernel's launch overhead out; the lines of K1-K6
+   also print the recorded times of their earlier designs
+   (:data:`OLD_DESIGN`); K5's bound at the refine counts the passes each
+   window's data needs (:func:`_passes_to_rest`), and one more line times
+   that call on random keys under a dense mask, where no window comes to
+   rest and all 96 passes run;
 4. identities: K7's per-level maps folded into ``max((qv << lbits) | t)``
    equal K3's output on the tuned single-strip windows, and the bbox and
    area of ``K6(seed map, mask) == 0`` equal K4's output, both exactly
@@ -37,7 +41,13 @@ Phases:
    heights, unaligned rows and a reflect-padded frame (:func:`_k2_shapes`);
    K5's tiled form at planes narrower and shorter than a region, ragged
    sizes, 0 to 2 spans + 3 passes, masks on all four edges, 1 and 130
-   planes (:func:`_k5_shapes`); K1 and its LUT tail at 1, 4 and 8 tiles,
+   planes, its window form at 1, 133 and 300 planes of 128x128 with masks
+   on all four edges, a serpentine whose flood outlasts its passes and a
+   sparse mask that must stop early, and its resident form at planes
+   smaller than a window (:func:`_k5_shapes`); K6 on random keys of both
+   signs at 128x128, 37x100, thin and odd-width planes, passes 0 to 3, and
+   on one run along a whole row and column (:func:`_k6_shapes`); K1 and its
+   LUT tail at 1, 4 and 8 tiles,
    narrow tiles, unaligned widths and bases, flat and two-valued frames
    and the clip rule's corner cases (:func:`_k1_shapes`);
 5. slice 1: runs ``DetectionPipeline`` (batch 32, MSER_7_200_2000_1 at the
@@ -138,17 +148,25 @@ FLOOD_OPS = {"mask": 1, "pack": 1, "row": 14, "col": 4, "reduce": 3}
 # LUT set a block and per-pixel coordinate loads ([32,800,1360]); K5 on the
 # sweep streaming the key stack through device memory, a launch a pass
 # ([16,402,682], 48 passes) and K1 with a block a (frame, tile), a byte a
-# thread a step ([32,800,1360]).
+# thread a step ([32,800,1360]); K5 on the refine with a window's keys and
+# mask in one block's shared memory, all 96 passes ([4096,128,128]) and K6
+# with a thread walking each row or column run by run in shared memory
+# ([4096,128,128], 2 passes).
 K3_OLD_MS = 46.198
 K4_OLD_MS = 1.356
 K2_OLD_MS = 0.443
 K5_OLD_MS = 1.089
 K1_OLD_MS = 0.0857
+K5_REFINE_OLD_MS = 10.4507
+K6_OLD_MS = 3.6236
 OLD_DESIGN = {"level_sweep": ("old per-pass design", K3_OLD_MS),
               "flood_bbox": ("old run-walk design", K4_OLD_MS),
               "clahe_apply": ("old whole-LUT design", K2_OLD_MS),
               "propagate_rolls": ("old streaming design, a launch a pass", K5_OLD_MS),
-              "tile_histograms": ("old block-a-tile design", K1_OLD_MS)}
+              "tile_histograms": ("old block-a-tile design", K1_OLD_MS),
+              "propagate_rolls_refine": ("old shared-memory design, all passes",
+                                         K5_REFINE_OLD_MS),
+              "propagate_scan": ("old run-walk design", K6_OLD_MS)}
 
 
 def _mask_pixel_levels(x: torch.Tensor, step: int, num_levels: int) -> int:
@@ -172,11 +190,34 @@ def _window_union(shape, cand: torch.Tensor, wh: int, ww: int) -> int:
     return int((corners.cumsum(1, dtype=torch.int32).cumsum(2, dtype=torch.int32) > 0).sum())
 
 
-def _bound(name: str, args: tuple, out: torch.Tensor) -> tuple[float, str, int, int]:
+def _passes_to_rest(keys: torch.Tensor, mask: torch.Tensor, big: int,
+                    passes: int) -> torch.Tensor:
+    """Per plane, the passes of K5 that these keys need: every pass that
+    changes a key of the plane and the one that finds none changed, a fixed
+    point, at most ``passes``; from the plain version pass by pass."""
+    from opencv_traffic_sign_detector_tpu_torch.ops.prop_cuda import propagate_rolls_plain
+
+    k = torch.where(mask, keys, big)
+    need = torch.zeros(keys.shape[0], dtype=torch.int64, device=keys.device)
+    live = torch.ones_like(need, dtype=torch.bool)
+    for _ in range(passes):
+        new = propagate_rolls_plain(k, mask, big, 1)
+        need += live
+        live &= (new != k).flatten(1).any(1)
+        k = new
+        if not live.any():
+            break
+    return need
+
+
+def _bound(name: str, args: tuple, out: torch.Tensor,
+           need: torch.Tensor | None = None) -> tuple[float, str, int, int]:
     """(least time in ms, "bytes" or "operations", bytes, operations) of one
     call: each input byte read once, each output byte written once, and the
     operations its inputs need, the integer ones no faster than the integer
-    pipe and all no faster than an SM starts them, over the published peaks."""
+    pipe and all no faster than an SM starts them, over the published peaks.
+    ``need``: K5's passes per plane where the call may stop at a fixed point
+    (:func:`_passes_to_rest`); without it every plane counts all passes."""
     from opencv_traffic_sign_detector_tpu_torch.ops.mser_cuda import SweepParams
     from opencv_traffic_sign_detector_tpu_torch.ops.prop_cuda import candidate_windows
 
@@ -216,7 +257,9 @@ def _bound(name: str, args: tuple, out: torch.Tensor) -> tuple[float, str, int, 
         per_word = f["pack"] + (passes + 1) * f["row"] + passes * f["col"] + f["reduce"]
         int_ops = px * f["mask"] + seeded * win_h * -(-win_w // 32) * per_word
     elif name.startswith("propagate_rolls"):
-        int_ops = x.numel() * (1 + 5 * args[3])
+        per_plane = x[0].numel()
+        total = x.shape[0] * args[3] if need is None else int(need.sum())
+        int_ops = x.numel() + 5 * per_plane * total
     elif name == "propagate_scan":
         int_ops = x.numel() * (1 + SCAN_OPS * (2 * args[3] + 1))
     else:
@@ -371,6 +414,52 @@ def _require(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
+def _need_note(need: torch.Tensor, passes: int) -> str:
+    return (f"passes the data needs, a plane: mean {need.float().mean().item():.2f}, min "
+            f"{int(need.min())}, max {int(need.max())} of {passes}; "
+            f"{int((need <= 1).sum())} planes at rest after one")
+
+
+def _edge_mask(shape, density: float, gen) -> torch.Tensor:
+    """A random mask with every other pixel of all four edges on: the
+    wraparound then carries keys across."""
+    mask = torch.rand(shape, generator=gen, device=gen.device) < density
+    mask[:, 0, ::2] = mask[:, -1, ::2] = mask[:, ::2, 0] = mask[:, ::2, -1] = True
+    return mask
+
+
+def _distinct_keys(shape, gen) -> torch.Tensor:
+    """Random int32 keys, a permutation of 0 .. H*W-1 a plane: the flood of
+    a plane's one least key is the last to come to rest."""
+    order = torch.rand(shape, generator=gen, device=gen.device).flatten(1).argsort(1)
+    return order.to(torch.int32).reshape(shape)
+
+
+def _k5_all_passes(pc, refine_args: tuple, smi: str, gen) -> None:
+    """Phase 3, K5's window form where no early stop fires: the refine
+    call's shape and passes on distinct random keys under a mask of density
+    0.9 that wraps: a plane's least key is still on its way, up to 128
+    pixels round the torus, when the passes are up."""
+    keys0, _, big, passes = refine_args
+    keys = _distinct_keys(keys0.shape, gen)
+    mask = _edge_mask(keys0.shape, 0.9, gen)
+    got = pc.propagate_rolls(keys, mask, big, passes)
+    same = torch.equal(got, pc.propagate_rolls_plain(keys, mask, big, passes))
+    need = _passes_to_rest(keys, mask, big, passes)
+    bound_ms, bound_by, nbytes, ops = _bound("propagate_rolls_refine", (keys, mask, big, passes),
+                                             got, need)
+    del got
+    ms = _time_ms(lambda: pc.propagate_rolls(keys, mask, big, passes))
+    queued_ms = _queued_ms(lambda: pc.propagate_rolls(keys, mask, big, passes))
+    print(f"[kernel] propagate_rolls_refine, no plane at rest: inputs {tuple(keys.shape)} distinct "
+          f"random keys, mask density 0.9 on all four edges, {_need_note(need, passes)} -> "
+          f"equals plain {same}; kernel {ms:.4f} ms (queued behind a spin {queued_ms:.4f} ms); bound "
+          f"{bound_ms:.4f} ms by {bound_by} ({nbytes} bytes, {ops} operations); {smi}")
+    _require(same, "K5 window form on random keys differs from its plain version")
+    _require(int(need.min()) == passes, "K5 all-passes call: a plane came to rest")
+    _require(min(ms, queued_ms) >= bound_ms, "K5 all-passes call reads under its bound")
+
+
 def _k3_shapes(mc, captured: tuple, cfg, d_idx: int, smi: str) -> None:
     """Phase 4, K3 beyond the main path's shapes: windows cut from the tuned
     path's, each against the plain version and (without a strip halo) K7
@@ -496,40 +585,131 @@ def _k2_shapes(cc, clahe_equalize, x: torch.Tensor, gen) -> None:
 
 
 def _k5_shapes(pc, rt, gen) -> None:
-    """Phase 4, K5's tiled form beyond the sweeps' shapes, each exact
-    against its plain version: a plane narrower and a plane shorter than
-    one region (the plane repeats inside it), sizes that are no multiple of
-    a tile, 1 and 130 planes (more than the card has SMs), at 0, 1, S-1, S,
-    S+1 and 2S+3 passes, random keys on masks of density 0.1 and 0.9 that
-    touch all four edges (the wraparound then carries keys across)."""
+    """Phase 4, K5 beyond its paths' shapes, each exact against its plain
+    version on random keys under masks of density 0.1 and 0.9 that touch
+    all four edges (the wraparound then carries keys across).  The tiled
+    form: a plane narrower and a plane shorter than one region (the plane
+    repeats inside it), sizes that are no multiple of a tile, 1 and 130
+    planes (more than the card has SMs), at 0, 1, S-1, S, S+1 and 2S+3
+    passes.  The window form: 1, 133 and 300 planes of 128x128 at 0, 1, 2,
+    95 and 96 passes; a seed flood along a serpentine, which needs more
+    passes than it is given, so that a stop would show as a difference; and
+    a sparse mask at rest after a few passes, which must take less than
+    half the time of a dense one that is not.  The resident form: planes
+    smaller than a window."""
     dev = gen.device
     span = pc.ROLLS_SPAN
     big = 1 << 21
-    shapes = [("narrower than a region", (2, 300, 100)), ("shorter than a region", (2, 40, 700)),
-              ("ragged", (3, 131, 307)), ("one plane", (1, 203, 202)),
-              ("130 planes", (130, 170, 160))]
-    for label, shape in shapes:
+    resident = rt.library().tsd_propagate_rolls_resident
+    tiled = (0, 1, span - 1, span, span + 1, 2 * span + 3)
+    cases = [("tiled, narrower than a region", (2, 300, 100), tiled),
+             ("tiled, shorter than a region", (2, 40, 700), tiled),
+             ("tiled, ragged", (3, 131, 307), tiled), ("tiled, one plane", (1, 203, 202), tiled),
+             ("tiled, 130 planes", (130, 170, 160), tiled)]
+    cases += [("window", (planes, 128, 128), (0, 1, 2, 95, 96)) for planes in (1, 133, 300)]
+    cases += [("resident", shape, (0, 1, 7, 96)) for shape in ((64, 100, 128), (64, 37, 100))]
+    for label, shape, passes_list in cases:
         _, h, w = shape
-        _require(not rt.library().tsd_propagate_rolls_resident(h, w),
-                 f"K5 {label}: a {h}x{w} plane takes the resident form")
+        form = "window" if (h, w) == (128, 128) else "resident" if resident(h, w) else "tiled"
+        _require(label.startswith(form), f"K5 {label}: a {h}x{w} plane takes the {form} form")
         results = []
-        for i, passes in enumerate((0, 1, span - 1, span, span + 1, 2 * span + 3)):
+        for i, passes in enumerate(passes_list):
             density = (0.1, 0.9)[i % 2]
             keys = torch.randint(-5, 1 << 20, shape, generator=gen, device=dev,
                                  dtype=torch.int32)
-            mask = torch.rand(shape, generator=gen, device=dev) < density
-            mask[:, 0, ::2] = mask[:, -1, ::2] = mask[:, ::2, 0] = mask[:, ::2, -1] = True
+            mask = _edge_mask(shape, density, gen)
             got = pc.propagate_rolls(keys, mask, big, passes)
             want = pc.propagate_rolls_plain(keys, mask, big, passes)
             moved = int((want != torch.where(mask, keys, big)).sum())
             results.append((passes, density, torch.equal(got, want), moved))
-        core = pc.rolls_tiles(h, w, span)
-        print(f"[kernel K5 {label}] planes {shape}, span {span}, core {core[0]}x{core[1]} of a "
-              f"{pc.ROLLS_REGION_H}x{pc.ROLLS_REGION_W} region: equals plain at (passes, density, "
+        tiles = ""
+        if form == "tiled":
+            core = pc.rolls_tiles(h, w, span)
+            tiles = (f", span {span}, core {core[0]}x{core[1]} of a "
+                     f"{pc.ROLLS_REGION_H}x{pc.ROLLS_REGION_W} region")
+        print(f"[kernel K5 {label}] planes {shape}{tiles}: equals plain at (passes, density, "
               f"equal, keys moved) {results}")
         _require(all(ok for _, _, ok, _ in results), f"K5 {label}: differs from its plain version")
         _require(all(moved > 0 for p_, _, _, moved in results if p_ > 0),
                  f"K5 {label}: a case moved no key")
+
+    # a path through every other row, joined at alternating ends
+    snake = torch.zeros((128, 128), dtype=torch.bool, device=dev)
+    snake[1:-1:2, 1:-1] = True
+    for i, r in enumerate(range(2, 126, 2)):
+        snake[r, 126 if i % 2 == 0 else 1] = True
+    mask = snake.expand(133, 128, 128).contiguous()
+    keys = torch.full((133, 128, 128), big, dtype=torch.int32, device=dev)
+    keys[:, 1, 1] = 0
+    same = torch.equal(pc.propagate_rolls(keys, mask, big, 96),
+                       pc.propagate_rolls_plain(keys, mask, big, 96))
+    need = _passes_to_rest(keys, mask, big, 96)
+    print(f"[kernel K5 window form, serpentine] planes {tuple(keys.shape)}, a seed at the head of "
+          f"a path of {int(snake.sum())} pixels, 96 passes: equals plain {same}; "
+          f"{_need_note(need, 96)}")
+    _require(same and int(need.min()) == 96, "K5 window form: the serpentine flood stopped early "
+             "or differs from its plain version")
+
+    shape = (1056, 128, 128)  # 8 blocks an SM, one after the other
+    timed = {}
+    for density in (0.1, 0.9):
+        keys = _distinct_keys(shape, gen)
+        mask = _edge_mask(shape, density, gen)
+        same = torch.equal(pc.propagate_rolls(keys, mask, big, 96),
+                           pc.propagate_rolls_plain(keys, mask, big, 96))
+        need = _passes_to_rest(keys, mask, big, 96)
+        ms = _queued_ms(lambda: pc.propagate_rolls(keys, mask, big, 96))
+        timed[density] = (ms, int(need.max()), int(need.min()))
+        print(f"[kernel K5 window form, early stop] planes {shape}, density {density}, 96 passes: "
+              f"equals plain {same}; {_need_note(need, 96)}; queued {ms:.4f} ms")
+        _require(same, "K5 window form differs from its plain version")
+    _require(timed[0.1][1] < 96 and timed[0.9][2] == 96,
+             f"K5 window form: the stop cases need other passes than meant: {timed}")
+    _require(timed[0.1][0] < 0.5 * timed[0.9][0],
+             f"K5 window form: planes at rest took {timed[0.1][0]:.4f} ms, those that are not "
+             f"{timed[0.9][0]:.4f} ms: the early stop did not fire")
+
+
+def _k6_shapes(pc, gen) -> None:
+    """Phase 4, K6 beyond the refine windows' seed maps, each exact against
+    its plain version: random int32 keys of both signs (a seed map's 0 and
+    ``big`` would hide a scan that merges only equal keys) under masks of
+    density 0.1, 0.5 and 0.9 with the border off, at passes 0 to 3, on
+    planes of 128x128, 37x100, 3 rows, 3 columns and a width that is no
+    multiple of a lane's 4 columns; and a mask of one run along a whole
+    inner row and one along a whole inner column, the least key at the
+    column's foot."""
+    dev = gen.device
+    big = (1 << 30) + 5
+    for shape in ((133, 128, 128), (300, 37, 100), (64, 3, 128), (64, 128, 3), (64, 21, 67)):
+        results = []
+        for density in (0.1, 0.5, 0.9):
+            keys = torch.randint(-(1 << 30), 1 << 30, shape, generator=gen, device=dev,
+                                 dtype=torch.int32)
+            mask = torch.rand(shape, generator=gen, device=dev) < density
+            mask[:, 0] = mask[:, -1] = mask[:, :, 0] = mask[:, :, -1] = False
+            for passes in range(4):
+                got = pc.propagate_scan(keys, mask, big, passes)
+                want = pc.propagate_scan_plain(keys, mask, big, passes)
+                moved = int((want != torch.where(mask, keys, big)).sum())
+                results.append((density, passes, torch.equal(got, want), moved))
+        print(f"[kernel K6] planes {shape}, keys in +-2^30: equals plain at (density, passes, "
+              f"equal, keys moved) {results}")
+        _require(all(ok for *_, ok, _ in results), f"K6 {shape}: differs from its plain version")
+        _require(any(moved > 0 for *_, moved in results), f"K6 {shape}: no case moved a key")
+    shape = (8, 128, 128)
+    mask = torch.zeros(shape, dtype=torch.bool, device=dev)
+    mask[:, 40, 1:-1] = mask[:, 1:-1, 77] = True
+    keys = torch.randint(-(1 << 20), 1 << 20, shape, generator=gen, device=dev, dtype=torch.int32)
+    keys[:, 126, 77] = -(1 << 21)
+    results = []
+    for passes in (0, 1):
+        got = pc.propagate_scan(keys, mask, big, passes)
+        same = torch.equal(got, pc.propagate_scan_plain(keys, mask, big, passes))
+        results.append((passes, same, bool((got[mask] == -(1 << 21)).all())))
+    print(f"[kernel K6 single runs] planes {shape}, one run along row 40 and one along column 77: "
+          f"(passes, equals plain, the least key everywhere) {results}")
+    _require(results == [(0, True, False), (1, True, True)], "K6 on single runs is wrong")
 
 
 def _k1_shapes(cc, x: torch.Tensor, gen) -> None:
@@ -843,7 +1023,10 @@ def main() -> int:
         _require(got.shape == want.shape and got.dtype == want.dtype,
                  f"{name}: {got.shape}/{got.dtype} vs plain {want.shape}/{want.dtype}")
         err = (got.to(torch.int64) - want.to(torch.int64)).abs().max().item()
-        bound_ms, bound_by, nbytes, ops = _bound(name, a, got)
+        # the refine's windows stop at their fixed points: the bound counts
+        # the passes these seed floods need
+        need = _passes_to_rest(*a) if name == "propagate_rolls_refine" else None
+        bound_ms, bound_by, nbytes, ops = _bound(name, a, got, need)
         library_ms = None
         if name == "tile_histograms":
             lib = _k1_library(*a)
@@ -864,12 +1047,16 @@ def main() -> int:
             core = prop_cuda.rolls_tiles(*a[0].shape[1:], spans[0])
             shapes.append(f"{a[3]} passes in {len(spans)} CUDA launch(es) of spans {spans}, "
                           f"core {core[0]}x{core[1]}")
+        if need is not None:
+            shapes.append(_need_note(need, a[3]))
         print(f"[kernel] {name}: inputs {shapes} -> exact required, max_abs_err {err}; "
               f"kernel {ms:.4f} ms (queued behind a spin {queued_ms:.4f} ms)"
               + (f" ({old[0]} {old[1]:.3f} ms, recorded)" if old else "")
               + f" plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms by {bound_by} "
               f"({nbytes} bytes, {ops} operations); {library}; {smi}")
         _require(err == 0, f"{name}: kernel differs from its plain version")
+        _require(min(ms, queued_ms) >= bound_ms, f"{name}: {min(ms, queued_ms):.4f} ms reads "
+                 f"under its bound of {bound_ms:.4f} ms: the bound's count is at fault")
         table.append({"name": name, "route": "cuda",
                       "source": f"opencv_traffic_sign_detector_tpu_torch/{src}",
                       "replaces": replaces, "launches": 0,
@@ -877,6 +1064,8 @@ def main() -> int:
                       "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
                       "queued_ms": queued_ms})
     rows = {row["name"]: row for row in table}
+    _k5_all_passes(prop_cuda, inputs["propagate_rolls_refine"][0], smi,
+                   torch.Generator(device=dev).manual_seed(args.seed))
     # --- 4. identities between kernels ---------------------------------
     def identities():
         windows, params, core, halo, nl, lbits = inputs["level_sweep"][0]
@@ -906,6 +1095,7 @@ def main() -> int:
     _k4_shapes(prop_cuda, planes, cand, big, gen)
     _k2_shapes(clahe_cuda, clahe_equalize, lut_x, gen)
     _k5_shapes(prop_cuda, rt, gen)
+    _k6_shapes(prop_cuda, gen)
     _k1_shapes(clahe_cuda, lut_x, gen)
 
     # --- 5. slice 1 through DetectionPipeline -----------------------------

@@ -33,12 +33,20 @@
 // like the reference.
 //
 // K6 below replaces pallas_prop.py: propagate_scan_pallas (_scan_kernel),
-// the same flood on int32 keys without the reduction: one block per
-// [<=128, <=128] plane resolves key runs in shared memory (66 KB of keys,
-// dynamic), one thread walking each row or column run by run, and writes
-// the keys back.  Bound by those sequential walks (128 dependent steps a
-// thread, four warps a block), not by its 128 KB a plane of keys.
-#include "tsd_common.cuh"
+// the same flood on int32 keys without the reduction: every run takes the
+// least key of its pixels.  A block holds one [<=128, <=128] plane in its
+// registers in the layout of window_regs.cuh (16 warps of 8 rows, a lane 4
+// columns wide; a smaller plane is padded with pixels off the mask, where
+// runs end anyway).  A resolve is a segmented min scan forward and then
+// backward over the forward result, three steps each: inside a lane, across
+// lanes or warps from (least key leaving, open through), inside the lane
+// again from the key entering.  Rows scan across the 32 lanes by five
+// shuffle steps of 8 keys and one word of flags, with no barrier; columns
+// across the 16 warps through shared memory, one barrier a resolve.  It
+// shares no code with K4's bit flood: bbox(K6 == 0) == K4 is a check of
+// both.  Bound by its bytes (9 a pixel, read and written once); what it
+// pays above them is shuffles and the scans' selects.
+#include "window_regs.cuh"
 
 namespace {
 
@@ -219,59 +227,152 @@ flood_bbox_kernel(const uint8_t* __restrict__ planes, const int32_t* __restrict_
 
 // K6 (propagate_scan): the same H,V,...,H run resolves on int32 keys, each
 // run taking the minimum key of its pixels, and the resolved keys written
-// out instead of reduced.  Equal to the reference's Hillis-Steele doubling
-// when the plane's border rows and columns are masked off (its documented
-// precondition): runs then never wrap.
-constexpr int kStride = 132;     // mask row stride in bytes: 33 words, no bank conflicts
-constexpr int kKeyStride = 129;  // words: odd, so row and column walks are conflict-free
+// out instead of reduced.  Runs end at the plane's edges.  Equal to the
+// reference's Hillis-Steele doubling when the plane's border rows and
+// columns are masked off (its documented precondition): its runs then never
+// wrap.
+constexpr int kScanWarps = kWin / kRows;
+constexpr int kNoKey = 0x7fffffff;  // off the mask, or nothing entering a run
 
-__device__ void min_runs(const uint8_t* m, int32_t* k, int n_lines, int len,
-                         int m_line, int m_step, int k_line, int k_step) {
-    const int line = threadIdx.x;
-    if (line >= n_lines) return;
-    const uint8_t* ml = m + line * m_line;
-    int32_t* kl = k + line * k_line;
-    int i = 0;
-    while (i < len) {
-        if (!ml[i * m_step]) {
-            ++i;
-            continue;
+// A scan step: `val` joined by the carry where bit `on` says they connect.
+// `val` is kNoKey off the mask, so a pixel off the mask stays so.
+__device__ __forceinline__ int carry_min(bool on, int val, int carry) {
+    return min(val, on ? carry : kNoKey);
+}
+__device__ __forceinline__ int4 carry_min(unsigned on, int4 val, int4 carry) {
+    return make_int4(carry_min((on & 1u) != 0, val.x, carry.x),
+                     carry_min((on & 2u) != 0, val.y, carry.y),
+                     carry_min((on & 4u) != 0, val.z, carry.z),
+                     carry_min((on & 8u) != 0, val.w, carry.w));
+}
+
+// One direction of the row resolve over the lane's kRows rows: with kFwd
+// every mask pixel takes the least key from its run's left end to itself,
+// else from itself to the right end.  Bit 4k of `open` says that row k's 4
+// pixels of this lane are all on the mask.
+template <bool kFwd>
+__device__ __forceinline__ void scan_rows(int4 (&v)[kRows], unsigned m, unsigned open, int lane) {
+    int out[kRows];  // the key leaving the lane, nothing entering it
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+        const unsigned mk = m >> (4 * k);
+        if (kFwd) {
+            out[k] = carry_min((mk & 8u) != 0, v[k].w, carry_min((mk & 4u) != 0, v[k].z,
+                     carry_min((mk & 2u) != 0, v[k].y, v[k].x)));
+        } else {
+            out[k] = carry_min((mk & 1u) != 0, v[k].x, carry_min((mk & 2u) != 0, v[k].y,
+                     carry_min((mk & 4u) != 0, v[k].z, v[k].w)));
         }
-        const int start = i;
-        int mn = kl[i * k_step];
-        while (i < len && ml[i * m_step]) mn = min(mn, kl[(i++) * k_step]);
-        for (int j = start; j < i; ++j) kl[j * k_step] = mn;
+    }
+    // inclusive scan across lanes; a lane with no lane d away reads itself
+    unsigned t = open;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+        const unsigned pt = kFwd ? __shfl_up_sync(kFull, t, d) : __shfl_down_sync(kFull, t, d);
+#pragma unroll
+        for (int k = 0; k < kRows; ++k) {
+            const int po = kFwd ? __shfl_up_sync(kFull, out[k], d)
+                                : __shfl_down_sync(kFull, out[k], d);
+            out[k] = carry_min((t >> (4 * k) & 1u) != 0, out[k], po);
+        }
+        t &= pt;
+    }
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+        int in = kFwd ? __shfl_up_sync(kFull, out[k], 1) : __shfl_down_sync(kFull, out[k], 1);
+        if (lane == (kFwd ? 0 : 31)) in = kNoKey;  // runs end at the plane's edge
+        const unsigned mk = m >> (4 * k);
+        if (kFwd) {
+            v[k].x = carry_min((mk & 1u) != 0, v[k].x, in);
+            v[k].y = carry_min((mk & 2u) != 0, v[k].y, v[k].x);
+            v[k].z = carry_min((mk & 4u) != 0, v[k].z, v[k].y);
+            v[k].w = carry_min((mk & 8u) != 0, v[k].w, v[k].z);
+        } else {
+            v[k].w = carry_min((mk & 8u) != 0, v[k].w, in);
+            v[k].z = carry_min((mk & 4u) != 0, v[k].z, v[k].w);
+            v[k].y = carry_min((mk & 2u) != 0, v[k].y, v[k].z);
+            v[k].x = carry_min((mk & 1u) != 0, v[k].x, v[k].y);
+        }
     }
 }
 
-__global__ void propagate_scan_kernel(const int32_t* __restrict__ keys,
-                                      const uint8_t* __restrict__ mask,
-                                      int32_t* __restrict__ out, int h, int w,
-                                      int passes, int big) {
-    extern __shared__ int32_t ks[];
-    uint8_t* m = reinterpret_cast<uint8_t*>(ks + kWin * kKeyStride);
-    const long long base = (long long)blockIdx.x * h * w;
-    for (int i = threadIdx.x; i < h * w; i += blockDim.x) {
-        const int r = i / w, c = i - r * w;
-        const bool mk = mask[base + i] != 0;
-        m[r * kStride + c] = mk;
-        ks[r * kKeyStride + c] = mk ? keys[base + i] : big;
-    }
+// Row resolve: forward, then backward over the forward result, whose value
+// at a run's right end is the run's least key.
+__device__ __forceinline__ void resolve_key_rows(int4 (&v)[kRows], unsigned m, int lane) {
+    unsigned open = m & (m >> 1);
+    open &= open >> 2;
+    open &= 0x11111111u;
+    scan_rows<true>(v, m, open, lane);
+    scan_rows<false>(v, m, open, lane);
+}
+
+// What a warp tells the others of its kRows rows in a column resolve, a
+// column each: the key leaving its last row downward and its first row
+// upward (nothing entering), and whether all its rows are on the mask.
+struct ScanExchange {
+    int4 down[kScanWarps][32];
+    int4 up[kScanWarps][32];
+    unsigned open[kScanWarps][32];
+};
+
+// Column resolve.  Every warp publishes its three entries, and after the
+// barrier scans those of the warps above it for the key entering its first
+// row and those below for the key entering its last.  Then down inside the
+// lane from the first, and up over that result from the second: the key
+// entering from below is the least of the run's pixels below the warp, and
+// the downward result at the run's last row here the least of all above.
+__device__ __forceinline__ void resolve_key_cols(int4 (&v)[kRows], unsigned m, ScanExchange& x,
+                                                 int wp, int lane) {
+    const int4 none = make_int4(kNoKey, kNoKey, kNoKey, kNoKey);
+    int4 down = none, up = none;
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) down = carry_min(m >> (4 * k), v[k], down);
+#pragma unroll
+    for (int k = kRows - 1; k >= 0; --k) up = carry_min(m >> (4 * k), v[k], up);
+    unsigned open = m & (m >> 16);
+    open &= open >> 8;
+    open &= open >> 4;
+    x.down[wp][lane] = down;
+    x.up[wp][lane] = up;
+    x.open[wp][lane] = open & 0xfu;
     __syncthreads();
-    for (int k = 0; k <= passes; ++k) {
-        min_runs(m, ks, h, w, kStride, 1, kKeyStride, 1);  // rows
-        __syncthreads();
-        if (k == passes) break;
-        min_runs(m, ks, w, h, 1, kStride, 1, kKeyStride);  // columns
-        __syncthreads();
-    }
-    for (int i = threadIdx.x; i < h * w; i += blockDim.x) {
-        const int r = i / w, c = i - r * w;
-        out[base + i] = ks[r * kKeyStride + c];
-    }
+    int4 in_down = none, in_up = none;  // runs end at the plane's edge
+    for (int j = 0; j < wp; ++j) in_down = carry_min(x.open[j][lane], x.down[j][lane], in_down);
+    for (int j = kScanWarps - 1; j > wp; --j)
+        in_up = carry_min(x.open[j][lane], x.up[j][lane], in_up);
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) v[k] = in_down = carry_min(m >> (4 * k), v[k], in_down);
+#pragma unroll
+    for (int k = kRows - 1; k >= 0; --k) v[k] = in_up = carry_min(m >> (4 * k), v[k], in_up);
 }
 
-constexpr int kScanSmem = kWin * kKeyStride * 4 + kWin * kStride;
+// Two blocks an SM: one's load and store overlap the other's scans.  That
+// caps a thread at 64 registers, some 20 short, and the few spilled words
+// cost less than the overlap gains (PERF.md).
+__global__ void __launch_bounds__(32 * kScanWarps, 2)
+propagate_scan_kernel(const int32_t* __restrict__ keys, const uint8_t* __restrict__ mask,
+                      int32_t* __restrict__ out, int h, int w, int passes, int big) {
+    // column resolves alternate between two buffers: a warp may publish the
+    // next one's entries while another still reads this one's
+    __shared__ ScanExchange xch[2];
+    const int lane = threadIdx.x & 31, wp = threadIdx.x >> 5;
+    const long long base = (long long)blockIdx.x * h * w;
+    int4 v[kRows];
+    const unsigned m = load_window(keys + base, mask + base, h, w, wp, lane, kNoKey, v);
+    for (int k = 0; k < passes; ++k) {
+        resolve_key_rows(v, m, lane);
+        resolve_key_cols(v, m, xch[k & 1], wp, lane);
+    }
+    resolve_key_rows(v, m, lane);
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+        v[k].x = (m >> (4 * k) & 1u) ? v[k].x : big;
+        v[k].y = (m >> (4 * k) & 2u) ? v[k].y : big;
+        v[k].z = (m >> (4 * k) & 4u) ? v[k].z : big;
+        v[k].w = (m >> (4 * k) & 8u) ? v[k].w : big;
+    }
+    store_window(out + base, h, w, wp, lane, v);
+}
 
 }  // namespace
 
@@ -279,11 +380,8 @@ constexpr int kScanSmem = kWin * kKeyStride * 4 + kWin * kStride;
 TSD_API int tsd_propagate_scan(const void* keys, const void* mask, void* out, int n,
                                int h, int w, int passes, int big, void* stream) {
     if (h > kWin || w > kWin) return (int)cudaErrorInvalidValue;
-    if (n == 0) return (int)cudaGetLastError();
-    cudaError_t e = cudaFuncSetAttribute(
-        propagate_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kScanSmem);
-    if (e != cudaSuccess) return (int)e;
-    propagate_scan_kernel<<<n, kWin, kScanSmem, (cudaStream_t)stream>>>(
+    if (n == 0 || h == 0 || w == 0) return (int)cudaGetLastError();
+    propagate_scan_kernel<<<n, 32 * kScanWarps, 0, (cudaStream_t)stream>>>(
         (const int32_t*)keys, (const uint8_t*)mask, (int32_t*)out, h, w, passes, big);
     return (int)cudaGetLastError();
 }

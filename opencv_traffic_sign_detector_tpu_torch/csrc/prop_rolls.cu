@@ -9,13 +9,27 @@
 // further within a pass and change the keys whenever K is below
 // convergence, which the MSER sweep relies on (config.py ccl_iters).
 //
-// Two forms:
-// * resident: when a plane's two key buffers and its mask fit one block's
-//   shared memory (the refine's 128x128 windows: 2 x 64 KB + 16 KB), one
-//   block owns one plane and runs all K passes there, as the TPU keeps the
-//   plane in VMEM; device memory is read and written once.  Bound: shared
-//   memory bandwidth (5 loads and 1 store per pixel per pass), one block
-//   per SM.
+// Three forms, chosen by the planes' shape alone:
+// * window: a 128x128 plane (the refine's candidate windows) is one block's
+//   registers in the layout of window_regs.cuh, 16 warps of 8 rows, with no
+//   halo: the plane's own wraparound closes the layout, lane 0's left
+//   neighbour being lane 31's last column (a shuffle from (lane + 31) & 31)
+//   and warp 0's row above warp 15's last row (the exchange row taken modulo
+//   the warps).  Shared memory holds only the warps' first and last rows,
+//   two pass parities of them (32 KB), one barrier a pass.  That barrier
+//   also ORs whether the pass before changed a pixel: a pass that changes
+//   none is a fixed point, every later pass changes nothing, and the block
+//   leaves the loop.  This is exact for any keys and mask; a seed flood
+//   whose component is tens of pixels across is at rest long before the
+//   refine's 96 passes, one that fills its window is not.  Device memory
+//   is read once and written once, 9 bytes a pixel;
+//   what bounds the form is the integer pipe (two 3-input minima, a
+//   maximum with the mask's floor and the test for a change, a pixel a
+//   pass).
+// * resident: any other plane whose two key buffers and mask fit one
+//   block's shared memory (windows of frames smaller than 128 pixels) runs
+//   all passes there, one block a plane.  Bound: shared memory bandwidth (5
+//   loads and 1 store per pixel per pass).
 // * tiled: larger planes (the sweep's 402x682, 1.1 MB of keys) cannot stay
 //   on chip.  A launch a pass through device memory moves ~9 bytes a pixel
 //   a pass for a function whose inputs and output are 9 bytes a pixel in
@@ -29,9 +43,8 @@
 //   region's border are exact; after the span the core is, and only the
 //   core is written.  Keys cross device memory once a span; spans
 //   ping-pong between `out` and `scratch` so that the last lands in `out`.
-//   - Inside a block the keys never leave registers: a warp is as wide as
-//     the region, a lane owns 4 neighbouring columns of kRows rows (one
-//     int4 a row, the mask as one bit a pixel), takes its left and right
+//   - Inside a block the keys never leave registers (window_regs.cuh): a
+//     warp is as wide as the region, a lane takes its left and right
 //     neighbours by warp shuffles and its vertical ones from its own
 //     registers; only each warp's first and last rows cross shared memory
 //     to the warps above and below, double-buffered, one barrier a pass.
@@ -48,7 +61,8 @@
 //     rest.
 //   What bounds it now is the region's load and store, halo included: an
 //   8-pass call spends most of its time there (PERF.md).
-#include "tsd_common.cuh"
+#include <climits>
+#include "window_regs.cuh"
 
 namespace {
 
@@ -110,104 +124,140 @@ __global__ void rolls_mask_kernel(const int32_t* __restrict__ src,
     if (p < total) dst[p] = mask[p] ? src[p] : big;
 }
 
-// The tiled form's geometry.  A warp spans the region's width, a lane
-// kLaneCols neighbouring columns; a block's kWarps warps stack kRows rows
-// each.  ops/prop_cuda.py mirrors the region as ROLLS_REGION_H and
-// ROLLS_REGION_W and computes the core from them (rolls_tiles).
-constexpr int kLaneCols = 4;
-constexpr int kRegionW = 32 * kLaneCols;
-constexpr int kRows = 8;
+// The tiled form's geometry.  A warp spans the region's width; a block's
+// kWarps warps stack kRows rows each.  ops/prop_cuda.py mirrors the region
+// as ROLLS_REGION_H and ROLLS_REGION_W and computes the core from them
+// (rolls_tiles).
+constexpr int kRegionW = kStripW;
 constexpr int kWarps = 8;
 constexpr int kRegionH = kRows * kWarps;
 // Blocks an SM must hold: the register cap (85 a thread).  Three measured
 // fastest of 1, 2, 3, 4 and 6 (PERF.md): more blocks hide a block's loads
 // behind another's passes; six spill.
 constexpr int kTileBlocksPerSm = 3;
+// The window form: the warps that cover a 128x128 plane.
+constexpr int kWindow = kStripW;
+constexpr int kWindowWarps = kWindow / kRows;
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ int wrap(int x, int n) {
     x %= n;
     return x < 0 ? x + n : x;
 }
 
-__device__ __forceinline__ bool aligned(const void* p, unsigned bytes) {
-    return (reinterpret_cast<uintptr_t>(p) & (bytes - 1)) == 0;
-}
-
 __device__ __forceinline__ int min5(int a, int b, int c, int d, int e) {
     return __vimin3_s32(__vimin3_s32(a, b, c), d, e);
 }
 
-// A lane's kRows rows of 4 keys and 4 mask bytes from plane row gr on (rows
-// wrap at h), the first `rows` of them; the others read as off the mask.
-// kAlign: pixels to which every row's first address is aligned, 4 or 2 (the
-// columns gc[0..3] are then neighbours), or 1: any columns, scalar loads.
-template <int kAlign>
-__device__ __forceinline__ void load_rows(const int32_t* __restrict__ keys,
-                                          const uint8_t* __restrict__ mask, int h, int w,
-                                          int gr, const int (&gc)[kLaneCols], int rows, int big,
-                                          int4 (&v)[kRows], unsigned (&mb)[kRows]) {
-#pragma unroll
-    for (int k = 0; k < kRows; ++k) {
-        v[k] = make_int4(big, big, big, big);
-        mb[k] = 0;
-        if (k < rows) {
-            const int32_t* kp = keys + (long long)gr * w;
-            const uint8_t* mp = mask + (long long)gr * w;
-            if (kAlign == 4) {
-                v[k] = *reinterpret_cast<const int4*>(kp + gc[0]);
-                mb[k] = *reinterpret_cast<const uint32_t*>(mp + gc[0]);
-            } else if (kAlign == 2) {
-                const int2 lo = *reinterpret_cast<const int2*>(kp + gc[0]);
-                const int2 hi = *reinterpret_cast<const int2*>(kp + gc[0] + 2);
-                v[k] = make_int4(lo.x, lo.y, hi.x, hi.y);
-                mb[k] = (uint32_t)*reinterpret_cast<const uint16_t*>(mp + gc[0]) |
-                        (uint32_t)*reinterpret_cast<const uint16_t*>(mp + gc[0] + 2) << 16;
-            } else {
-                v[k] = make_int4(kp[gc[0]], kp[gc[1]], kp[gc[2]], kp[gc[3]]);
-                mb[k] = (uint32_t)mp[gc[0]] | (uint32_t)mp[gc[1]] << 8 |
-                        (uint32_t)mp[gc[2]] << 16 | (uint32_t)mp[gc[3]] << 24;
-            }
-        }
-        gr = gr + 1 == h ? 0 : gr + 1;
-    }
-}
-
-// One Jacobi pass over a lane's kRows x 4 pixels.  `xch` is this pass's
-// exchange buffer, [2][kWarps][32] int4: each warp's first and last rows.
-// A pixel on the region's border reads a neighbour that is not its own
-// (lane 0's left is its own last column, warp 0's row above is its own):
-// the border is never exact and never written.  With kTrack, returns
-// whether a pixel of `inner` (off the region's border) changed.
-template <bool kTrack>
-__device__ __forceinline__ unsigned jacobi_pass(int4 (&v)[kRows], unsigned m, unsigned inner,
-                                                int4 (*xch)[kWarps][32], int wp, int lane) {
+// A warp's first and last rows into `xch`, one pass's exchange buffer,
+// [first, last][warp][lane] int4.  The block's barrier comes between this
+// and the pass that reads the buffer; passes alternate between two buffers,
+// so that one barrier a pass is enough.
+template <int kW>
+__device__ __forceinline__ void publish_rows(const int4 (&v)[kRows], int4 (*xch)[kW][32], int wp,
+                                             int lane) {
     xch[0][wp][lane] = v[0];
     xch[1][wp][lane] = v[kRows - 1];
-    __syncthreads();
-    int4 prev = wp > 0 ? xch[1][wp - 1][lane] : v[0];
-    const int4 below = wp < kWarps - 1 ? xch[0][wp + 1][lane] : v[kRows - 1];
+}
+
+// One Jacobi pass over a lane's kRows x 4 pixels, in a block of kW warps
+// whose rows `xch` holds (publish_rows, then a barrier).
+// Without kWrap the block is a region of a larger plane: a pixel on its
+// border reads a neighbour that is not its own (lane 0's left is its own
+// last column, warp 0's row above is its own), so the border is never exact
+// and never written; the mask bits `m` select which pixels move, and with
+// kTrack the pass returns whether a pixel of `inner` changed.  The select
+// stays a conditional around min5: the compiler then moves by predicate on
+// the FMA pipe, where a select after the minimum takes the integer pipe,
+// which the minima fill (5% slower at the sweeps' calls, PERF.md).
+// With kWrap the block is a whole plane 32 * 4 columns wide and kW * kRows
+// rows high and neighbours are read modulo it: lane 0's left is lane 31's
+// last column, warp 0's row above is the last warp's last row.  The mask
+// then comes as `floor`, INT_MIN for a pixel on it and `big` off it:
+// max(min5, floor) holds a pixel off the mask at `big` with one instruction
+// where a select needs the mask bit in a predicate first, 10 instructions a
+// pixel against 6 (PERF.md); it costs 32 registers, which a block that has
+// the SM to itself can spare and the tiled form cannot.  kTrack returns
+// whether any pixel changed (nonzero), as the OR of old ^ new.
+template <int kW, bool kWrap, bool kTrack>
+__device__ __forceinline__ unsigned jacobi_pass(int4 (&v)[kRows], unsigned m, unsigned inner,
+                                                const int4* floor, int4 (*xch)[kW][32], int wp,
+                                                int lane) {
+    int4 prev, below;
+    if (kWrap) {
+        prev = xch[1][(wp + kW - 1) % kW][lane];
+        below = xch[0][(wp + 1) % kW][lane];
+    } else {
+        prev = wp > 0 ? xch[1][wp - 1][lane] : v[0];
+        below = wp < kW - 1 ? xch[0][wp + 1][lane] : v[kRows - 1];
+    }
     unsigned changed = 0;
 #pragma unroll
     for (int k = 0; k < kRows; ++k) {
         const int4 cur = v[k];
         const int4 dn = k + 1 < kRows ? v[(k + 1) % kRows] : below;  // not yet updated
-        const int lf = __shfl_up_sync(0xffffffffu, cur.w, 1);
-        const int rt = __shfl_down_sync(0xffffffffu, cur.x, 1);
-        const unsigned mk = m >> (4 * k);
+        const int lf = kWrap ? __shfl_sync(kFull, cur.w, (lane + 31) & 31)
+                             : __shfl_up_sync(kFull, cur.w, 1);
+        const int rt = kWrap ? __shfl_sync(kFull, cur.x, (lane + 1) & 31)
+                             : __shfl_down_sync(kFull, cur.x, 1);
         int4 n;
-        n.x = (mk & 1u) ? min5(cur.x, prev.x, dn.x, lf, cur.y) : cur.x;
-        n.y = (mk & 2u) ? min5(cur.y, prev.y, dn.y, cur.x, cur.z) : cur.y;
-        n.z = (mk & 4u) ? min5(cur.z, prev.z, dn.z, cur.y, cur.w) : cur.z;
-        n.w = (mk & 8u) ? min5(cur.w, prev.w, dn.w, cur.z, rt) : cur.w;
-        if (kTrack) {
-            const unsigned ik = inner >> (4 * k);
-            changed |= ((ik & 1u) && n.x != cur.x) | ((ik & 2u) && n.y != cur.y) |
-                       ((ik & 4u) && n.z != cur.z) | ((ik & 8u) && n.w != cur.w);
+        if (kWrap) {
+            n.x = max(min5(cur.x, prev.x, dn.x, lf, cur.y), floor[k].x);
+            n.y = max(min5(cur.y, prev.y, dn.y, cur.x, cur.z), floor[k].y);
+            n.z = max(min5(cur.z, prev.z, dn.z, cur.y, cur.w), floor[k].z);
+            n.w = max(min5(cur.w, prev.w, dn.w, cur.z, rt), floor[k].w);
+            if (kTrack)
+                changed |= (n.x ^ cur.x) | (n.y ^ cur.y) | (n.z ^ cur.z) | (n.w ^ cur.w);
+        } else {
+            const unsigned mk = m >> (4 * k);
+            n.x = (mk & 1u) ? min5(cur.x, prev.x, dn.x, lf, cur.y) : cur.x;
+            n.y = (mk & 2u) ? min5(cur.y, prev.y, dn.y, cur.x, cur.z) : cur.y;
+            n.z = (mk & 4u) ? min5(cur.z, prev.z, dn.z, cur.y, cur.w) : cur.z;
+            n.w = (mk & 8u) ? min5(cur.w, prev.w, dn.w, cur.z, rt) : cur.w;
+            if (kTrack) {
+                const unsigned ik = inner >> (4 * k);
+                changed |= ((ik & 1u) && n.x != cur.x) | ((ik & 2u) && n.y != cur.y) |
+                           ((ik & 4u) && n.z != cur.z) | ((ik & 8u) && n.w != cur.w);
+            }
         }
         v[k] = n;
         prev = cur;
     }
     return changed;
+}
+
+// The window form: one block a 128x128 plane, all passes in registers,
+// neighbours read modulo the plane.  The barrier of pass p also tells
+// whether pass p - 1 changed a pixel of the plane; if none did the keys are
+// at a fixed point and the block stores them.  One block an SM (95
+// registers a thread): two, at 64 registers, spill and measured slower, as
+// did testing for a change only every 2nd, 4th or 8th pass (PERF.md).
+__global__ void __launch_bounds__(32 * kWindowWarps, 1)
+rolls_window_kernel(const int32_t* __restrict__ keys, const uint8_t* __restrict__ mask,
+                    int32_t* __restrict__ out, int passes, int big) {
+    __shared__ int4 xch[2][2][kWindowWarps][32];  // [pass parity][first, last row]
+    const int lane = threadIdx.x & 31, wp = threadIdx.x >> 5;
+    const long long base = (long long)blockIdx.x * kWindow * kWindow;
+    int4 v[kRows];
+    const unsigned m = load_window(keys + base, mask + base, kWindow, kWindow, wp, lane, big, v);
+    int4 floor[kRows];
+#pragma unroll
+    for (int k = 0; k < kRows; ++k) {
+        floor[k].x = (m >> (4 * k) & 1u) ? INT_MIN : big;
+        floor[k].y = (m >> (4 * k) & 2u) ? INT_MIN : big;
+        floor[k].z = (m >> (4 * k) & 4u) ? INT_MIN : big;
+        floor[k].w = (m >> (4 * k) & 8u) ? INT_MIN : big;
+        // keeps the floors in registers: the compiler would else derive
+        // them from the mask bits again in every pass
+        asm volatile("" : "+r"(floor[k].x), "+r"(floor[k].y), "+r"(floor[k].z), "+r"(floor[k].w));
+    }
+    unsigned changed = 1;
+    for (int p = 0; p < passes; ++p) {
+        publish_rows(v, xch[p & 1], wp, lane);
+        if (!__syncthreads_or(changed)) break;
+        changed = jacobi_pass<kWindowWarps, true, true>(v, m, kFull, floor, xch[p & 1], wp, lane);
+    }
+    store_window(out + base, kWindow, kWindow, wp, lane, v);
 }
 
 // One span of `npass` passes: reads `src`, writes the cores into `dst`.
@@ -219,8 +269,6 @@ rolls_tile_kernel(const int32_t* __restrict__ src, const uint8_t* __restrict__ m
                   int32_t* __restrict__ dst, int h, int w, int tiles_x, int tiles_y,
                   int core_h, int core_w, int span, int npass, int big) {
     __shared__ int4 xch[2][2][kWarps][32];  // [pass parity][first, last row]
-    static_assert(4 * kRows <= 32, "a lane's mask bits fill one word");
-
     const int lane = threadIdx.x & 31, wp = threadIdx.x >> 5;
     const int tiles = tiles_x * tiles_y;
     const int plane = blockIdx.x / tiles, tile = blockIdx.x - plane * tiles;
@@ -255,28 +303,31 @@ rolls_tile_kernel(const int32_t* __restrict__ src, const uint8_t* __restrict__ m
                                     lane_used ? rh - i0 : 0, big, v, mb);
     else load_rows<1>(src + base, mask + base, h, w, wrap(row0 + i0, h), gc,
                       lane_used ? rh - i0 : 0, big, v, mb);
-    unsigned m = 0, inner = 0;
+    const unsigned m = mask_rows(v, mb, kFull, big);
+    unsigned inner = 0;
 #pragma unroll
     for (int k = 0; k < kRows; ++k) {
         const int i = i0 + k;
         const bool row_inner = i > 0 && i < rh - 1;
 #pragma unroll
-        for (int q = 0; q < kLaneCols; ++q) {
-            m |= (unsigned)((mb[k] >> (8 * q) & 0xffu) != 0) << (4 * k + q);
+        for (int q = 0; q < kLaneCols; ++q)
             inner |= (unsigned)(row_inner && j0 + q > 0 && j0 + q < rw - 1) << (4 * k + q);
-        }
-        v[k].x = (m >> (4 * k) & 1u) ? v[k].x : big;
-        v[k].y = (m >> (4 * k) & 2u) ? v[k].y : big;
-        v[k].z = (m >> (4 * k) & 4u) ? v[k].z : big;
-        v[k].w = (m >> (4 * k) & 8u) ? v[k].w : big;
     }
 
     if (npass > 0) {
-        const unsigned changed = jacobi_pass<true>(v, m, inner, xch[0], wp, lane);
+        publish_rows(v, xch[0], wp, lane);
+        __syncthreads();
+        const unsigned changed =
+            jacobi_pass<kWarps, false, true>(v, m, inner, nullptr, xch[0], wp, lane);
         // at rest: no core pixel changes in this span
         const bool rest = __syncthreads_or(changed) == 0;
-        if (!rest)
-            for (int p = 1; p < npass; ++p) jacobi_pass<false>(v, m, inner, xch[p & 1], wp, lane);
+        if (!rest) {
+            for (int p = 1; p < npass; ++p) {
+                publish_rows(v, xch[p & 1], wp, lane);
+                __syncthreads();
+                jacobi_pass<kWarps, false, false>(v, m, inner, nullptr, xch[p & 1], wp, lane);
+            }
+        }
     }
 
     // the core, where it lies in the plane
@@ -308,17 +359,18 @@ rolls_tile_kernel(const int32_t* __restrict__ src, const uint8_t* __restrict__ m
 
 }  // namespace
 
-// 1 when a plane fits shared memory: the call then runs the resident form
+// 1 when one block holds a whole plane, in registers (128x128) or in shared
+// memory: the call then runs the window or the resident form in one launch
 // and needs no scratch.
 TSD_API int tsd_propagate_rolls_resident(int h, int w) {
     return resident_bytes(h, w) <= kResidentBytes;
 }
 
-// keys, out: i32 [p, h, w]; mask: u8 [p, h, w].  The tiled form (planes too
-// large for the resident one) runs ceil(passes / span) launches of at most
-// `span` passes over cores of core_h x core_w pixels (ops/prop_cuda.py:
-// rolls_tiles); scratch: i32 [p, h, w], read only when it takes more than
-// one launch.
+// keys, out: i32 [p, h, w]; mask: u8 [p, h, w].  The form is chosen by h and
+// w alone: window, resident, else tiled.  The tiled form runs
+// ceil(passes / span) launches of at most `span` passes over cores of
+// core_h x core_w pixels (ops/prop_cuda.py: rolls_tiles); scratch: i32
+// [p, h, w], read only when it takes more than one launch.
 TSD_API int tsd_propagate_rolls(const void* keys, const void* mask, void* out,
                                 void* scratch, int p, int h, int w, int passes,
                                 int big, int span, int core_h, int core_w, void* stream) {
@@ -327,6 +379,10 @@ TSD_API int tsd_propagate_rolls(const void* keys, const void* mask, void* out,
     const uint8_t* m = (const uint8_t*)mask;
     int32_t* o = (int32_t*)out;
     if (p == 0 || h == 0 || w == 0) return (int)cudaGetLastError();
+    if (h == kWindow && w == kWindow) {
+        rolls_window_kernel<<<p, 32 * kWindowWarps, 0, st>>>(k, m, o, passes, big);
+        return (int)cudaGetLastError();
+    }
     if (resident_bytes(h, w) <= kResidentBytes) {
         const int smem = (int)resident_bytes(h, w);
         cudaError_t e = cudaFuncSetAttribute(

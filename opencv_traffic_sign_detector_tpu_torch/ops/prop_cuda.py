@@ -12,14 +12,20 @@
   seed component to ``(ymin, ymax, xmin, xmax, area)``.
 * K5 ``propagate_rolls``: K synchronous masked 4-neighbour min passes with
   wraparound, counterpart of ``pallas_prop.py: propagate_rolls_pallas``.
-  Planes that fit one block's shared memory (the refine's windows) run all
-  passes resident there; larger ones (the sweeps' planes) run spans of
-  passes over tiles with halos (:func:`rolls_tiles`, :func:`rolls_spans`).
+  A 128x128 plane (the refine's windows) runs all passes in one block's
+  registers and stops at a fixed point; another plane that fits one block's
+  shared memory runs them resident there; larger ones (the sweeps' planes)
+  run spans of passes over tiles with halos (:func:`rolls_tiles`,
+  :func:`rolls_spans`).
 * K6 ``propagate_scan``: K4's flood on given keys without the reduction,
-  counterpart of ``pallas_prop.py: propagate_scan_pallas``.
+  counterpart of ``pallas_prop.py: propagate_scan_pallas``: a plane of at
+  most 128x128 in one block's registers, each resolve a segmented min scan
+  inside lanes, across lanes by shuffles and across warps through shared
+  memory.
 
 Each wrapper launches its CUDA kernel (``csrc/flood.cu``,
-``csrc/prop_rolls.cu``) for CUDA tensors and takes its ``*_plain`` version
+``csrc/prop_rolls.cu``; K5's window form and K6 share the register layout of
+``csrc/window_regs.cuh``) for CUDA tensors and takes its ``*_plain`` version
 for CPU tensors; the two are exact.
 """
 
@@ -30,10 +36,10 @@ import torch
 from ..runtime import build as rt
 
 MAX_WIN = 128
-# K5's tiled form (csrc/prop_rolls.cu), for planes too large for one block's
-# shared memory: a block's region is ROLLS_REGION_H x ROLLS_REGION_W pixels
-# (kRegionH: 8 warps of 8 rows; kRegionW: a warp of lanes 4 columns wide),
-# a core tile plus a halo of the span on every side; one launch runs a span
+# K5's tiled form (csrc/prop_rolls.cu), for planes too large for one block:
+# a block's region is ROLLS_REGION_H x ROLLS_REGION_W pixels (kRegionH: 8
+# warps of 8 rows; kRegionW: a warp of lanes 4 columns wide), a core tile
+# plus a halo of the span on every side; one launch runs a span
 # of at most ROLLS_SPAN passes; a block stops early when its span's first
 # pass changes nothing off the region's border.  Span 12 measured fastest
 # of 4 to 24 at the sweeps' shapes on an H100, the early stop saves a
@@ -190,10 +196,14 @@ def propagate_rolls(keys: torch.Tensor, mask: torch.Tensor, big: int, passes: in
 
     Replaces ``pallas_prop.py: propagate_rolls_pallas`` at any plane size
     (the reference's VMEM cap does not apply).  ``site`` names the launch
-    counter: the sweep and the refine count apart.  A plane that fits one
-    block's shared memory runs all passes resident there in one CUDA
-    launch; a larger one takes ``len(rolls_spans(passes))`` launches
-    (``ceil(passes / ROLLS_SPAN)``; the mask alone at 0 passes) over tiles.
+    counter: the sweep and the refine count apart.  The kernel's form
+    follows from H and W alone.  A 128x128 plane runs in one block's
+    registers, in one CUDA launch, and leaves the loop at the first pass
+    that changes no pixel (a fixed point: exact).  Any other plane that fits
+    one block's shared memory (the refine's windows on frames smaller than
+    128 pixels) runs all passes resident there, in one launch too.  A larger
+    one takes ``len(rolls_spans(passes))`` launches (``ceil(passes /
+    ROLLS_SPAN)``; the mask alone at 0 passes) over tiles.
     """
     _check_keys_mask(keys, mask)
     if rt.uses_plain(keys, mask):
@@ -235,8 +245,8 @@ def propagate_scan(keys: torch.Tensor, mask: torch.Tensor, big: int,
 
     Replaces ``pallas_prop.py: propagate_scan_pallas``.  Precondition, as
     the reference's: the border rows and columns of ``mask`` are False.
-    The kernel resolves each run as one segment while the plain version and
-    the reference scan with wrapping rolls; the two agree only under it.
+    The kernel ends every run at the plane's edge while the plain version
+    and the reference scan with wrapping rolls; the two agree only under it.
     """
     _check_keys_mask(keys, mask)
     p, h, w = keys.shape

@@ -319,3 +319,275 @@ def test_k5_tile_geometry(h, w, span):
         spans = tprop.rolls_spans(passes)
         assert sum(spans) == passes and len(spans) == -(-passes // _S)
         assert all(0 < s <= _S for s in spans)
+
+
+# --- K5's window form and K6's scans, as csrc/window_regs.cuh lays them out ---
+# A [128, 128] plane is [warp 16][row 8][lane 32][column 4]: pixel (i, j) is
+# row i % 8 of warp i // 8, column j % 4 of lane j // 4.
+_WARPS, _ROWS, _LANES, _COLS = 16, 8, 32, 4
+_NO_KEY = np.int32(2**31 - 1)
+
+
+def _to_regs(plane, fill):
+    """[h, w] (h, w <= 128) -> [16, 8, 32, 4], padded with ``fill`` as the
+    kernels' loader pads a smaller plane with pixels off the mask."""
+    h, w = plane.shape
+    full = np.full((_WARPS * _ROWS, _LANES * _COLS), fill, plane.dtype)
+    full[:h, :w] = plane
+    return full.reshape(_WARPS, _ROWS, _LANES, _COLS).copy()
+
+
+def _from_regs(regs, h, w):
+    return regs.reshape(_WARPS * _ROWS, _LANES * _COLS)[:h, :w]
+
+
+def _k5_window_model(keys, mask, big, passes):
+    """One block of rolls_window_kernel in numpy: a 128x128 plane in the
+    register layout, each pass reading up and down from the lane's own rows
+    or the exchange rows of the warps (wp + 15) % 16 and (wp + 1) % 16, left
+    and right from its own columns or lanes (lane + 31) % 32 and (lane + 1)
+    % 32; the mask applied as a floor under the neighbours' minimum (the
+    least int32 on the mask, ``big`` off it); the barrier of pass p leaves
+    the loop when pass p - 1 changed no pixel.  -> (keys, passes run)."""
+    m = _to_regs(mask, False)
+    v = np.where(m, _to_regs(keys, 0), big).astype(np.int32)
+    floor = np.where(m, np.iinfo(np.int32).min, big).astype(np.int32)
+    wp, lane = np.arange(_WARPS), np.arange(_LANES)
+    changed, ran = True, 0
+    for _ in range(passes):
+        first, last = v[:, 0].copy(), v[:, _ROWS - 1].copy()  # publish_rows
+        if not changed:
+            break
+        prev, below = last[(wp + _WARPS - 1) % _WARPS], first[(wp + 1) % _WARPS]
+        up = np.concatenate([prev[:, None], v[:, :-1]], 1)
+        dn = np.concatenate([v[:, 1:], below[:, None]], 1)
+        lf_in = v[:, :, (lane + 31) & 31, 3]  # the shuffle of cur.w
+        rt_in = v[:, :, (lane + 1) & 31, 0]   # the shuffle of cur.x
+        lf = np.concatenate([lf_in[..., None], v[..., :-1]], -1)
+        rt_ = np.concatenate([v[..., 1:], rt_in[..., None]], -1)
+        new = np.maximum(np.minimum(np.minimum(np.minimum(v, up), np.minimum(dn, lf)), rt_), floor)
+        changed = bool((new ^ v).any())
+        v = new
+        ran += 1
+    return _from_regs(v, 128, 128), ran
+
+
+def _edge_mask(rng, shape, density):
+    mask = _random_mask(rng, shape, density, border=True)
+    mask[..., 0, ::2] = mask[..., -1, ::2] = mask[..., ::2, 0] = mask[..., ::2, -1] = True
+    return mask
+
+
+@pytest.mark.parametrize("density", [0.1, 0.9])
+@pytest.mark.parametrize("passes", [0, 1, 2, 95, 96])
+def test_k5_window_model_matches_plain(passes, density):
+    """K5's window form written out in numpy (lane and warp indexing, the
+    wrap through lane 31 and warp 15, the stop on a pass without change)
+    equals the plain version exactly, on random keys with masks that touch
+    all four edges, so that the wraparound carries keys across."""
+    rng = np.random.default_rng(passes * 10 + int(density * 10))
+    shape, big = (2, 128, 128), 2**21
+    keys = rng.integers(-5, 2**20, shape).astype(np.int32)
+    mask = _edge_mask(rng, shape, density)
+    want = tprop.propagate_rolls_plain(torch.from_numpy(keys), torch.from_numpy(mask), big,
+                                       passes).numpy()
+    for q in range(shape[0]):
+        got, ran = _k5_window_model(keys[q], mask[q], big, passes)
+        np.testing.assert_array_equal(got, want[q])
+        assert ran <= passes
+    if passes:
+        assert (want != np.where(mask, keys, big)).any()  # some keys moved
+
+
+@pytest.mark.parametrize("density,passes", [(0.15, 40), (0.95, 9)])
+def test_k5_window_model_matches_kernel_interpret(density, passes):
+    """The same model against the reference kernel body run through the
+    Pallas interpreter, exactly: a sparse mask comes to rest before its
+    passes are up (the model stops), a dense one does not."""
+    rng = np.random.default_rng(passes)
+    shape, big = (2, 128, 128), 2**21
+    keys = rng.integers(-5, 2**20, shape).astype(np.int32)
+    mask = _edge_mask(rng, shape, density)
+    kern = functools.partial(jprop._kernel, num_rolls=passes, big=big)
+    want = np.asarray(pl.pallas_call(
+        kern,
+        out_shape=jax.ShapeDtypeStruct(shape, jnp.int32),
+        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 2,
+        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
+        interpret=True,
+    )(jnp.asarray(keys), jnp.asarray(mask).astype(jnp.int8)))
+    rans = []
+    for q in range(shape[0]):
+        got, ran = _k5_window_model(keys[q], mask[q], big, passes)
+        np.testing.assert_array_equal(got, want[q])
+        rans.append(ran)
+    assert (max(rans) < passes) == (density < 0.5)
+
+
+def _serpentine(n=128):
+    """A one-pixel path through every other row of an n x n plane, joined at
+    alternating ends: a flood from its head needs its length in passes."""
+    mask = np.zeros((n, n), bool)
+    mask[1:-1:2, 1:-1] = True
+    for i, r in enumerate(range(2, n - 2, 2)):
+        mask[r, n - 2 if i % 2 == 0 else 1] = True
+    return mask
+
+
+def test_k5_window_stop_fires_only_at_rest():
+    """A seed flood along a serpentine needs more passes than the refine's
+    96: the stop must not fire and the result equals the plain version.  A
+    seed whose component is a small blob is at rest after its radius in
+    passes: the model stops at the first pass that changes nothing, one
+    more than the passes that changed a pixel, with the plain result."""
+    big = 128 * 128 + 1
+    snake = _serpentine()
+    seed = np.full((128, 128), big, np.int32)
+    seed[1, 1] = 0
+    got, ran = _k5_window_model(seed, snake, big, 96)
+    want = tprop.propagate_rolls_plain(torch.from_numpy(seed[None]), torch.from_numpy(snake[None]),
+                                       big, 96).numpy()[0]
+    np.testing.assert_array_equal(got, want)
+    assert ran == 96 and (got == 0).sum() == 97
+
+    blob = np.zeros((128, 128), bool)
+    blob[60:70, 50:75] = True
+    seed = np.full((128, 128), big, np.int32)
+    seed[64, 60] = 0
+    plain = [np.where(blob, seed, big)]
+    for _ in range(96):
+        plain.append(tprop.propagate_rolls_plain(
+            torch.from_numpy(plain[-1][None]), torch.from_numpy(blob[None]), big, 1).numpy()[0])
+    moved = sum(not np.array_equal(a, b) for a, b in zip(plain, plain[1:]))
+    got, ran = _k5_window_model(seed, blob, big, 96)
+    np.testing.assert_array_equal(got, plain[-1])
+    assert ran == moved + 1 and moved == (69 - 64) + (74 - 60) and (got == 0).sum() == 250
+    off = seed.copy()
+    off[64, 60], off[3, 3] = big, 0  # a seed off its mask: at rest after one pass
+    got, ran = _k5_window_model(off, blob, big, 96)
+    assert ran == 1 and (got == big).all()
+
+
+def _carry_min(on, val, carry):
+    """csrc/flood.cu's scan step: ``val`` joined by the carry where they
+    connect; ``val`` is the no-key sentinel off the mask."""
+    return np.minimum(val, np.where(on, carry, _NO_KEY))
+
+
+def _shfl(x, d):
+    """``__shfl_up_sync`` (d > 0) or ``__shfl_down_sync`` (d < 0) along the
+    lane axis, the last: a lane with no lane d away reads itself."""
+    lane = np.arange(_LANES)
+    src = lane - d
+    return x[..., np.where((src >= 0) & (src < _LANES), src, lane)]
+
+
+def _k6_scan_rows(v, m, fwd):
+    """One direction of the row resolve on [16, 8, 32, 4] registers: inside
+    the lane, a Kogge-Stone scan of (key leaving, open through) across the
+    32 lanes, inside the lane again from the key entering."""
+    cols = range(_COLS) if fwd else range(_COLS - 1, -1, -1)
+    out = np.full(v.shape[:-1], _NO_KEY, np.int32)
+    for q in cols:
+        out = _carry_min(m[..., q], v[..., q], out)
+    t = m.all(-1)
+    d = 1
+    while d < _LANES:
+        pt, po = _shfl(t, d if fwd else -d), _shfl(out, d if fwd else -d)
+        out = _carry_min(t, out, po)
+        t = t & pt
+        d *= 2
+    carry = _shfl(out, 1 if fwd else -1)
+    carry[..., 0 if fwd else _LANES - 1] = _NO_KEY  # runs end at the plane's edge
+    for q in cols:
+        v[..., q] = carry = _carry_min(m[..., q], v[..., q], carry)
+
+
+def _k6_resolve_cols(v, m):
+    """The column resolve: each warp's (key leaving downward, key leaving
+    upward, open through its 8 rows), a scan of the warps above and below,
+    then down inside the lane and up over that result."""
+    none = np.full(v.shape[:1] + v.shape[2:], _NO_KEY, np.int32)  # [warp, lane, col]
+    down, up = none.copy(), none.copy()
+    for k in range(_ROWS):
+        down = _carry_min(m[:, k], v[:, k], down)
+    for k in range(_ROWS - 1, -1, -1):
+        up = _carry_min(m[:, k], v[:, k], up)
+    opened = m.all(1)
+    in_down, in_up = none.copy(), none.copy()
+    for wp in range(_WARPS):
+        for j in range(wp):
+            in_down[wp] = _carry_min(opened[j], down[j], in_down[wp])
+        for j in range(_WARPS - 1, wp, -1):
+            in_up[wp] = _carry_min(opened[j], up[j], in_up[wp])
+    for k in range(_ROWS):
+        v[:, k] = in_down = _carry_min(m[:, k], v[:, k], in_down)
+    for k in range(_ROWS - 1, -1, -1):
+        v[:, k] = in_up = _carry_min(m[:, k], v[:, k], in_up)
+
+
+def _k6_scan_model(keys, mask, big, passes):
+    """One block of propagate_scan_kernel in numpy on an [h, w] plane."""
+    h, w = keys.shape
+    m = _to_regs(mask, False)
+    v = np.where(m, _to_regs(keys, 0), _NO_KEY).astype(np.int32)
+    for k in range(passes + 1):
+        _k6_scan_rows(v, m, True)
+        _k6_scan_rows(v, m, False)
+        if k < passes:
+            _k6_resolve_cols(v, m)
+    return _from_regs(np.where(m, v, big).astype(np.int32), h, w)
+
+
+K6_MODEL_SHAPES = [(128, 128), (37, 100), (3, 128), (21, 67)]
+
+
+def _k6_model_inputs(rng, shape, density):
+    keys = rng.integers(-2**30, 2**30, shape).astype(np.int32)
+    return keys, _random_mask(rng, shape, density, border=False), 2**30 + 5
+
+
+@pytest.mark.parametrize("passes", [0, 1, 2, 3])
+@pytest.mark.parametrize("shape", K6_MODEL_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_k6_scan_model_matches_plain(shape, passes):
+    """K6's two-level segmented min scans written out in numpy (inside a
+    lane, across lanes, across warps; planes smaller than 128x128 padded off
+    the mask) equal the plain version exactly, on random keys of both signs
+    under masks of density 0.1, 0.5 and 0.9 with the border off."""
+    rng = np.random.default_rng(shape[0] * 7 + passes)
+    for density in (0.1, 0.5, 0.9):
+        keys, mask, big = _k6_model_inputs(rng, shape, density)
+        want = tprop.propagate_scan_plain(torch.from_numpy(keys[None]),
+                                          torch.from_numpy(mask[None]), big, passes).numpy()[0]
+        np.testing.assert_array_equal(_k6_scan_model(keys, mask, big, passes), want)
+        assert (want != np.where(mask, keys, big)).any() or density < 0.2
+
+
+@pytest.mark.parametrize("passes", [0, 2])
+@pytest.mark.parametrize("shape", K6_MODEL_SHAPES[:3], ids=lambda s: f"{s[0]}x{s[1]}")
+def test_k6_scan_model_matches_scan_interpret(shape, passes):
+    """The same model against ``propagate_scan_pallas(interpret=True)``,
+    exactly."""
+    rng = np.random.default_rng(shape[1] + passes)
+    keys, mask, big = _k6_model_inputs(rng, shape, 0.6)
+    want = np.asarray(jprop.propagate_scan_pallas(jnp.asarray(keys[None]), jnp.asarray(mask[None]),
+                                                  big, passes, interpret=True))[0]
+    np.testing.assert_array_equal(_k6_scan_model(keys, mask, big, passes), want)
+
+
+def test_k6_scan_model_single_runs():
+    """One run spanning a whole inner row and one a whole inner column,
+    crossing: with the least key at the column's foot, the row resolve alone
+    leaves the row's ends short of it, one pass more reaches every pixel."""
+    h = w = 128
+    mask = np.zeros((h, w), bool)
+    mask[40, 1:-1] = mask[1:-1, 77] = True
+    rng = np.random.default_rng(3)
+    keys = rng.integers(-2**20, 2**20, (h, w)).astype(np.int32)
+    keys[h - 2, 77] = -2**21
+    for passes in (0, 1):
+        want = tprop.propagate_scan_plain(torch.from_numpy(keys[None]), torch.from_numpy(mask[None]),
+                                          2**30, passes).numpy()[0]
+        got = _k6_scan_model(keys, mask, 2**30, passes)
+        np.testing.assert_array_equal(got, want)
+        assert (got[mask] == -2**21).all() == (passes == 1)
