@@ -8,7 +8,8 @@ Phases:
 1. device: requires ``torch.cuda.is_available()`` (else exit 1) and prints
    the card's name and ``nvidia-smi`` name and power limit;
 2. build: builds the CUDA kernels from ``csrc/`` (into ``build/``, one nvcc
-   per source, in parallel) and loads them;
+   per source, in parallel) and loads them, and prints ptxas' registers and
+   spills of the tiled sweep's two instantiations (K3 and K7);
 3. kernels: captures the inputs that the paths hand each kernel on
    synthetic 1360x800 frames (K1 with and without its LUT tail, K2-K4, K7
    on the tuned main path at batch 32; K6 on that path's refine windows;
@@ -22,21 +23,20 @@ Phases:
    with K1's library yardstick (``torch.bincount``), and computes each
    kernel's bound from its inputs (:func:`_bound`); the kernel is also
    timed as calls queued behind a spin of the card (:func:`_queued_ms`),
-   which leaves a short kernel's launch overhead out; the lines of K1-K6
+   which leaves a short kernel's launch overhead out; the lines of K1-K7
    also print the recorded times of their earlier designs
    (:data:`OLD_DESIGN`); K5's bound at the refine counts the passes each
    window's data needs (:func:`_passes_to_rest`), and one more line times
    that call on random keys under a dense mask, where no window comes to
    rest and all 96 passes run;
 4. identities: K7's per-level maps folded into ``max((qv << lbits) | t)``
-   equal K3's output on the tuned single-strip windows, and the bbox and
-   area of ``K6(seed map, mask) == 0`` equal K4's output, both exactly
-   (the launches of K6 and K7 are counted here: they are oracles); then K3
-   at four more shapes cut from the tuned windows against its plain
-   version and K7 folded: a width that is not a multiple of the tile
-   width, a window smaller than one tile, a small ``max_area`` (dead
-   marks) and a strip halo (plain only: K7 has no strips), and its refusal
-   of windows too wide for its int16 bbox planes; K4 at more shapes
+   equal K3's output on the tuned single-strip windows (the two outputs of
+   one tiled kernel), and the bbox and area of ``K6(seed map, mask) == 0``
+   equal K4's output, both exactly (the launches of K6 and K7 are counted
+   here: they are oracles); then K3 and K7 at seven more shapes and
+   configs cut from the tuned windows, each against its plain version and
+   K7 folded against K3, and their refusal of windows too wide for their
+   int16 bbox planes (:func:`_sweep_shapes`); K4 at more shapes
    against its plain version and K6 (:func:`_k4_shapes`); K2 at odd tile
    heights, unaligned rows and a reflect-padded frame (:func:`_k2_shapes`);
    K5's tiled form at planes narrower and shorter than a region, ragged
@@ -98,7 +98,9 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import io
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -143,7 +145,8 @@ FLOOD_OPS = {"mask": 1, "pack": 1, "row": 14, "col": 4, "reduce": 3}
 # Earlier designs at the tuned path's shapes, one call between events, as
 # recorded on NVIDIA H100 80GB HBM3, 700.00 W (PERF.md section 6): K3 per
 # pass (an init, each pass and an emit a launch, state in device memory;
-# [64,408,684] windows, 31 levels); K4 with a thread walking each row or
+# [64,408,684] windows, 31 levels) and K7 on the same design ([64,402,682]
+# planes to [64,31,402,682] bytes); K4 with a thread walking each row or
 # column run by run (4096 windows of 128x128) and K2 with the frame's whole
 # LUT set a block and per-pixel coordinate loads ([32,800,1360]); K5 on the
 # sweep streaming the key stack through device memory, a launch a pass
@@ -159,7 +162,9 @@ K5_OLD_MS = 1.089
 K1_OLD_MS = 0.0857
 K5_REFINE_OLD_MS = 10.4507
 K6_OLD_MS = 3.6236
+K7_OLD_MS = 44.4576
 OLD_DESIGN = {"level_sweep": ("old per-pass design", K3_OLD_MS),
+              "level_sweep_full": ("old per-pass design", K7_OLD_MS),
               "flood_bbox": ("old run-walk design", K4_OLD_MS),
               "clahe_apply": ("old whole-LUT design", K2_OLD_MS),
               "propagate_rolls": ("old streaming design, a launch a pass", K5_OLD_MS),
@@ -460,51 +465,91 @@ def _k5_all_passes(pc, refine_args: tuple, smi: str, gen) -> None:
     _require(min(ms, queued_ms) >= bound_ms, "K5 all-passes call reads under its bound")
 
 
-def _k3_shapes(mc, captured: tuple, cfg, d_idx: int, smi: str) -> None:
-    """Phase 4, K3 beyond the main path's shapes: windows cut from the tuned
-    path's, each against the plain version and (without a strip halo) K7
-    folded, which runs the old per-pass design."""
+def _schedule(cfg) -> tuple[int, int]:
+    """(d_idx, num_levels) of a config's level sweep (ops/mser.py)."""
+    s = cfg.level_step if cfg.level_step > 0 else cfg.delta
+    d_idx = max(1, round(cfg.delta / s))
+    return d_idx, len(range(0, 256 + (d_idx + 1) * s + 1, s))
+
+
+def _sweep_shapes(mc, captured: tuple, cfg) -> None:
+    """Phase 4, K3 and K7 beyond the main path's shapes, on planes cut from
+    the tuned path's windows: K7 byte for byte against its plain version,
+    K3 against its plain version and against K7 folded (the two outputs of
+    one kernel).  A width that is no multiple of the tile width, a plane
+    smaller than one tile, a small ``max_area`` (dead marks), the
+    ``ring3_step5`` config (6 passes a level, pool 2, 55 levels),
+    ``ccl_iters`` 5 (10 passes a level: spans end inside levels), a plane of
+    3 rows, and a strip halo (K3 only: K7 has no strips); then both
+    kernels' refusal of planes too wide for their int16 bbox planes."""
+    from opencv_traffic_sign_detector_tpu_torch.config import MSERConfig
+
     windows, params, _, _, nl, lbits = captured
     span = mc.SWEEP_SPAN
     side = mc.TILE_REGION - 2 * span
-    small = dataclasses.replace(cfg, min_area=5, max_area=30)
+    ring3 = MSERConfig(delta=10, min_area=30, max_area=600, max_variation=0.8, level_step=5,
+                       ccl_iters=3, ccl_jumps=0, topk_pool=2)
     cases = [  # label, windows, config, strip halo, what the tile plan must show
         ("ragged width", windows[:4, :, :101], cfg, 0, lambda r, w, th, tw: w % tw != 0),
         ("smaller than a tile", windows[:4, 150:150 + side // 2, 300:300 + side // 3], cfg, 0,
          lambda r, w, th, tw: r < side and w < side),
-        ("dead marks (max_area 30)", windows[:4], small, 0, None),
+        ("dead marks (max_area 30)", windows[:4], dataclasses.replace(cfg, min_area=5, max_area=30),
+         0, None),
+        ("ring3_step5", windows[:4], ring3, 0, None),
+        ("ccl_iters 5", windows[:4], dataclasses.replace(cfg, ccl_iters=5), 0, None),
+        ("3 rows", windows[:4, 200:203], cfg, 0, lambda r, w, th, tw: th == 3),
         ("strip halo 8", windows[:4], cfg, 8, None),
     ]
     for label, win, c, halo, shows in cases:
         win = win.contiguous()
         r, w = win.shape[1:]
+        d_idx, levels = _schedule(c)
         p = mc.SweepParams.from_config(c, d_idx)
+        bits = mc.packing_bits(c.topk_pool, levels)[1]
         th, tw = mc.sweep_tiles(r, w)
-        _require(shows is None or shows(r, w, th, tw), f"K3 {label}: tile {th}x{tw} on {r}x{w}")
+        _require(shows is None or shows(r, w, th, tw), f"sweep {label}: tile {th}x{tw} on {r}x{w}")
         core = r - 2 * halo
-        got = mc.level_sweep_windows(win, p, core, halo, nl, lbits)
-        same = torch.equal(got, mc.level_sweep_windows_plain(win, p, core, halo, nl, lbits))
-        fold_ok = "n/a (strips)"
+        got = mc.level_sweep_windows(win, p, core, halo, levels, bits)
+        checks = {"K3 equals plain": torch.equal(
+            got, mc.level_sweep_windows_plain(win, p, core, halo, levels, bits))}
         if halo == 0:
-            k7 = mc.fused_level_sweep_full(win, c, d_idx, nl)
+            k7 = mc.fused_level_sweep_full(win, c, d_idx, levels)
+            checks["K7 equals plain"] = torch.equal(
+                k7, mc.fused_level_sweep_full_plain(win, c, d_idx, levels))
             fold = torch.zeros_like(got)
-            for t in range(nl):
-                fold = torch.maximum(fold, k7[:, t].to(torch.int32) * (1 << lbits) + t)
-            fold_ok = torch.equal(fold, got)
-            same = same and fold_ok
-        cands = int((got >> lbits > 0).sum())
-        print(f"[kernel K3 {label}] windows {tuple(win.shape)}, span {span}, tile {th}x{tw}, "
-              f"max_area {p.max_area:g}: equals plain and K7 folded: {same} "
-              f"(K7 fold {fold_ok}); candidate pixels {cands}")
-        _require(same, f"K3 {label}: differs from its plain version or K7")
+            for t in range(levels):
+                fold = torch.maximum(fold, k7[:, t].to(torch.int32) * (1 << bits) + t)
+            checks["K7 folded equals K3"] = torch.equal(fold, got)
+        print(f"[kernel K3/K7 {label}] windows {tuple(win.shape)}, {levels} levels of "
+              f"{p.num_passes} passes, span {span}, tile {th}x{tw}, max_area {p.max_area:g}: "
+              + ", ".join(f"{k} {v}" for k, v in checks.items())
+              + f"{' (K7 has no strips)' if halo else ''}; candidate pixels "
+              f"{int((got >> bits > 0).sum())}")
+        _require(all(checks.values()),
+                 f"sweep {label}: K3 or K7 differs from its plain version, or K7 folded from K3")
     wide = torch.zeros((1, 4, 1 << 15), dtype=torch.uint8, device=windows.device)
-    try:
-        mc.level_sweep_windows(wide, params, 4, 0, nl, lbits)
-        refused = False
-    except ValueError:
-        refused = True
-    print(f"[kernel K3 int16] windows {tuple(wide.shape)} refused: {refused}")
-    _require(refused, "K3 took windows wider than its int16 bbox planes")
+    refused = []
+    for name, call in (("K3", lambda: mc.level_sweep_windows(wide, params, 4, 0, nl, lbits)),
+                       ("K7", lambda: mc.fused_level_sweep_full(wide, cfg, params.d, nl))):
+        try:
+            call()
+        except ValueError:
+            refused.append(name)
+    print(f"[kernel K3/K7 int16] windows {tuple(wide.shape)} refused by {refused}")
+    _require(refused == ["K3", "K7"], "K3 or K7 took windows wider than its int16 bbox planes")
+
+
+def _ptxas_kernels(report: str, kernel: str) -> dict[str, str]:
+    """Registers and spills of each entry function whose name holds
+    ``kernel``, from nvcc's ``-Xptxas -v`` report."""
+    found, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1) if kernel in m.group(1) else None
+        elif name and ("spill" in line or "registers" in line):
+            found[name] = f"{found.get(name, '')} {line.split(':', 1)[-1].strip()}".strip()
+    return found
 
 
 def _k4_candidates(planes: torch.Tensor, wh: int, ww: int, n: int, gen) -> torch.Tensor:
@@ -925,11 +970,21 @@ def main() -> int:
 
     # --- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
-    if args.ptxas:
+    report = io.StringIO()
+    with contextlib.redirect_stdout(report):
         rt.build(verbose=True)
+    if args.ptxas:
+        print(report.getvalue())
     rt.library()
     print(f"[build] {rt.build().relative_to(rt.BUILD_ROOT.parents[1])} "
           f"built and loaded in {time.perf_counter() - t0:.2f} s")
+    # the tiled sweep's two outputs, K3 (kFull false) and K7 (kFull true)
+    sweep_kernels = _ptxas_kernels(report.getvalue(), "sweep_tile_kernel")
+    for name, props in sweep_kernels.items():
+        mode = "K7, full map" if "ILb1E" in name else "K3, collapsed"
+        print(f"[build] ptxas {name} ({mode}): {props}")
+    if len(sweep_kernels) != 2:
+        print(f"[build] ptxas: {len(sweep_kernels)} sweep_tile_kernel entries in the report")
 
     # slice 1, the main path: MSER_7_200_2000_1, tuned --downscale 2 point
     base = MSERConfig.from_string("MSER_7_200_2000_1")
@@ -1067,6 +1122,8 @@ def main() -> int:
     _k5_all_passes(prop_cuda, inputs["propagate_rolls_refine"][0], smi,
                    torch.Generator(device=dev).manual_seed(args.seed))
     # --- 4. identities between kernels ---------------------------------
+    # K3 and K7 are the two outputs of one tiled kernel: the fold checks
+    # that they agree; K7's independent check is its plain version (above)
     def identities():
         windows, params, core, halo, nl, lbits = inputs["level_sweep"][0]
         _require(halo == 0 and core == windows.shape[1],
@@ -1082,15 +1139,16 @@ def main() -> int:
         k4 = prop_cuda.flood_bbox(planes, cand, win_h, win_w, passes, big)
         k6 = prop_cuda.propagate_scan(seed_map, mask, big, passes)
         bbox_ok = torch.equal(prop_cuda.bbox_area(k6 == 0, big), k4)
-        print(f"[identity] K7 fold == K3 on {tuple(windows.shape)} windows, {nl} levels: "
-              f"{fold_ok}; bbox(K6 == 0) == K4 on {tuple(seed_map.shape)}: {bbox_ok}")
+        print(f"[identity] K7 fold == K3 (the two outputs of one tiled kernel) on "
+              f"{tuple(windows.shape)} windows, {nl} levels: {fold_ok}; bbox(K6 == 0) == K4 on "
+              f"{tuple(seed_map.shape)}: {bbox_ok}")
         _require(fold_ok and bbox_ok, "an identity between kernels failed")
 
     _, counts = _run_path(rt, "identities (K6, K7 as oracles)", identities)
     for name in ("propagate_scan", "level_sweep_full"):
         rows[name]["launches"] = counts[name]
         _require(counts[name] > 0, f"{name} never launched")
-    _k3_shapes(mser_cuda, inputs["level_sweep"][0], scfg, d_idx, smi)
+    _sweep_shapes(mser_cuda, inputs["level_sweep"][0], scfg)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     _k4_shapes(prop_cuda, planes, cand, big, gen)
     _k2_shapes(clahe_cuda, clahe_equalize, lut_x, gen)

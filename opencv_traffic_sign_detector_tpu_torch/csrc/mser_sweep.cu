@@ -1,23 +1,34 @@
-// K3: the fused MSER level sweep with in-kernel level collapse, in
-// shared-memory tiles.
+// K3 and K7: the fused MSER level sweep in shared-memory tiles, one kernel
+// with two outputs.
 //
 // Replaces opencv_traffic_sign_detector_tpu/ops/mser_pallas.py:
-// fused_level_sweep (_collapsed_kernel + _sweep_body).  On the TPU the
-// whole sweep state of one strip window stays in VMEM across all levels.
-// Here one window is ~0.28 M pixels with ~30 bytes of state per pixel
-// (8 MB), far beyond one SM's 227 KB of shared memory, so the state lives
-// in device memory between launches.
+// fused_level_sweep (K3, _collapsed_kernel) and fused_level_sweep_full (K7,
+// _full_kernel), both over _sweep_body: the bbox-area stability sweep over
+// every level of a stack of windows.  They differ only in what the emit
+// writes, so sweep_tile_kernel<kFull> runs both:
+// * K3 (tsd_level_sweep, kFull = false): row-strip windows; per core pixel
+//   the max over levels of (qv << lbits) | t, int32 [n, core, w];
+// * K7 (tsd_level_sweep_full, kFull = true): each whole plane as one strip
+//   (no halo, the plane's own width); every level's byte qv, cast through
+//   int32 to u8 and 0 where there is no candidate, for every pixel into
+//   [n, levels, r, w].  It is the reference's oracle between K3 and the XLA
+//   sweep, so "K7 folded == K3" compares the two outputs of one kernel.
 //
-// What bounds it: the first form (kept below as the old design, for K7)
-// launched an init, 2*ccl_iters Jacobi passes and an emit per level,
-// each a full read and write of five int32 planes, about 250 bytes a pixel
-// a level of device-memory traffic: it ran at the memory's rate on its own
-// state.  The sweep's real work is 181 operations a mask pixel a level (17
-// for the warm start, 27 a pass, 56 for the emit), 161 of them compares,
-// min/max, selects and logic on the integer pipe, which runs at half the
-// f32 rate (chip_smoke.py: SWEEP_OPS, _bound); pixels outside a level's
-// mask need none.  Its compulsory traffic is the windows in and one int32
-// a core pixel out.
+// On the TPU the whole sweep state of one strip window stays in VMEM across
+// all levels.  Here one window is ~0.28 M pixels with ~30 bytes of state per
+// pixel (8 MB), far beyond one SM's 227 KB of shared memory, so the state
+// lives in device memory between launches.
+//
+// What bounds it: the sweep's real work is 181 operations a mask pixel a
+// level (17 for the warm start, 27 a pass, 56 for the emit), 161 of them
+// compares, min/max, selects and logic on the integer pipe, which runs at
+// half the f32 rate (chip_smoke.py: SWEEP_OPS, _bound); pixels outside a
+// level's mask need none.  Its compulsory traffic is the windows in and the
+// output: one int32 a core pixel (K3), or a byte a pixel a level (K7: 544 MB
+// at [64, 402, 682] x 31 levels, 0.16 ms at 3.35 TB/s).  A first form
+// launched an init, 2*ccl_iters Jacobi passes and an emit per level, each a
+// full read and write of five int32 planes, about 250 bytes a pixel a level:
+// it ran at the memory's rate on its own state (PERF.md).
 //
 // This design moves far fewer state bytes and keeps the passes on chip:
 // * One launch runs a span of `span` Jacobi passes (the wrapper's 6, 1.5
@@ -43,8 +54,11 @@
 //   and thread one 8-byte record of its 4 pixels.  The emit reads a
 //   thread's five slots as five vector loads in flight together (the
 //   first form waited on a round trip per pixel) and writes a record back
-//   only where a value changed.  The output max is read and written only
-//   on a candidate and at the last level.
+//   only where a value changed.
+// * K3 reads and writes its output max only on a candidate and at the last
+//   level.  K7 writes every emit's byte: the lanes of a warp hold
+//   consecutive columns of one region row, so a store covers consecutive
+//   bytes of one output row.
 // It still runs at several times its operations bound (PERF.md): with one
 // block an SM, nothing overlaps a block's barriers in the passes or its
 // round trips to device memory at load, emit and write-back.
@@ -62,229 +76,22 @@
 //   through the same wraparound (a tile on the left edge loads columns from
 //   the right edge; a window narrower than a tile appears in it more than
 //   once), so the loaded region is an unrolled cover of the torus.
-// * Windows are padded with 255 and the levels reach 270: padding joins
-//   the mask at the top levels, like any pixel.
+// * K3's windows are padded with 255 and the levels reach 270: padding
+//   joins the mask at the top levels, like any pixel.
 // * The emit's dead mark (keys = -1 on an anchor whose bbox area exceeds
 //   max_area) is carried across levels in the state.
 // * Rings are bf16, stored with round-to-nearest-even; the variation's
 //   division is IEEE f32 (never build with --use_fast_math; -fmad=false).
-// * Output comes only from the core rows: max over levels of
-//   (qv << lbits) | t.
-//
-// K7 (tsd_level_sweep_full) replaces mser_pallas.py: fused_level_sweep_full
-// (_full_kernel), the same body over one strip per plane (no halo, the
-// plane's real width) writing each level's byte qv, cast through int32 to
-// u8, for every row into [P, L, H, W] instead of folding the running max.
-// It is the reference's oracle that pairs K3 with the XLA sweep, and it
-// runs on the old design: one launch per init, pass and emit step over
-// int32 planes in device memory.
+// * K3's output comes only from the strip's core rows: max over levels of
+//   (qv << lbits) | t.  K7's strip is the whole plane: every row emits,
+//   rows 0 and r - 1 (off the mask) as 0.
 #include <cuda_bf16.h>
+
+#include <type_traits>
 
 #include "tsd_common.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kBigC = 1 << 28;
-
-struct Planes {
-    int32_t* keys;
-    int32_t* ymin;
-    int32_t* xmin;
-    int32_t* ymax;
-    int32_t* xmax;
-};
-
-struct Geometry {
-    int n, r, w;      // windows, rows per window, columns
-    long long total;  // n * r * w
-};
-
-__device__ __forceinline__ bool in_mask(const uint8_t* win, long long p, int row,
-                                        int rows, int level) {
-    return (int)win[p] <= level && row > 0 && row < rows - 1;
-}
-
-// Warm start of level t: fold the level's mask into the carried state.
-__global__ void sweep_init_kernel(const uint8_t* __restrict__ win, Planes s,
-                                  __nv_bfloat16* __restrict__ rings, Geometry g,
-                                  int level, int first, int n_ring_planes) {
-    const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (p >= g.total) return;
-    const int hw = g.r * g.w;
-    const int local = (int)(p % hw);
-    const int row = local / g.w, col = local - row * g.w;
-    const int big = 256 * hw;
-    int keys, ymin, xmin, ymax, xmax;
-    if (first) {
-        keys = big;
-        ymin = xmin = kBigC;
-        ymax = xmax = -1;
-        for (int k = 0; k < n_ring_planes; ++k) {
-            // area ring and last-emit start at 0, the variation ring at inf
-            rings[(long long)k * g.total + p] = __float2bfloat16_rn(0.0f);
-        }
-    } else {
-        keys = s.keys[p];
-        ymin = s.ymin[p];
-        xmin = s.xmin[p];
-        ymax = s.ymax[p];
-        xmax = s.xmax[p];
-    }
-    const int v = win[p];
-    const bool m = in_mask(win, p, row, g.r, level);
-    const int keys0 = v * hw + local;
-    s.keys[p] = m ? min(keys, keys0) : big;
-    s.ymin[p] = m ? min(ymin, row) : kBigC;
-    s.ymax[p] = m ? max(ymax, row) : -1;
-    s.xmin[p] = m ? min(xmin, col) : kBigC;
-    s.xmax[p] = m ? max(xmax, col) : -1;
-}
-
-// One synchronous propagation pass: reads `a`, writes `b`.
-__global__ void sweep_pass_kernel(const uint8_t* __restrict__ win, Planes a,
-                                  Planes b, Geometry g, int level) {
-    const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (p >= g.total) return;
-    const int hw = g.r * g.w;
-    const long long base = p - (p % hw);
-    const int local = (int)(p - base);
-    const int row = local / g.w, col = local - row * g.w;
-    const int up = (row == 0 ? g.r - 1 : row - 1) * g.w + col;
-    const int dn = (row == g.r - 1 ? 0 : row + 1) * g.w + col;
-    const int lf = row * g.w + (col == 0 ? g.w - 1 : col - 1);
-    const int rt = row * g.w + (col == g.w - 1 ? 0 : col + 1);
-    const bool m = in_mask(win, p, row, g.r, level);
-    const int big = 256 * hw;
-
-#define NB_MIN(x) min(min(x[base + up], x[base + dn]), min(x[base + lf], x[base + rt]))
-#define NB_MAX(x) max(max(x[base + up], x[base + dn]), max(x[base + lf], x[base + rt]))
-    const int knew = m ? min(a.keys[p], NB_MIN(a.keys)) : big;
-    b.keys[p] = knew;
-    const bool live = m && knew >= 0;
-    b.ymin[p] = live ? min(a.ymin[p], NB_MIN(a.ymin)) : kBigC;
-    b.ymax[p] = live ? max(a.ymax[p], NB_MAX(a.ymax)) : -1;
-    b.xmin[p] = live ? min(a.xmin[p], NB_MIN(a.xmin)) : kBigC;
-    b.xmax[p] = live ? max(a.xmax[p], NB_MAX(a.xmax)) : -1;
-#undef NB_MIN
-#undef NB_MAX
-}
-
-struct Thresholds {
-    float min_area, max_area, max_variation, min_diversity;
-};
-
-struct Slots {
-    int old_a, td_a, write_a, v_new, v_c;
-};
-
-// Bbox-area stability, dead mark, candidate test and the level's byte map.
-__global__ void sweep_emit_kernel(const uint8_t* __restrict__ win, Planes s,
-                                  __nv_bfloat16* __restrict__ aring,
-                                  __nv_bfloat16* __restrict__ vring,
-                                  __nv_bfloat16* __restrict__ lastemit,
-                                  uint8_t* __restrict__ full, Geometry g,
-                                  int level, int t, int num_levels, Slots sl,
-                                  Thresholds th) {
-    const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (p >= g.total) return;
-    const int hw = g.r * g.w;
-    const int local = (int)(p % hw);
-    const int row = local / g.w;
-    const bool m = in_mask(win, p, row, g.r, level);
-    const int keys = s.keys[p];
-    const int keys0 = (int)win[p] * hw + local;
-    const bool anchor = m && keys == keys0;
-
-    // f32 before the product: sentinel extents overflow int32
-    float bb = __fmul_rn((float)(s.ymax[p] - s.ymin[p] + 1),
-                         (float)(s.xmax[p] - s.xmin[p] + 1));
-    bb = fminf(bb, 65535.0f);
-    const float a_cur = anchor ? bb : 0.0f;
-    if (anchor && bb > th.max_area) s.keys[p] = -1;  // dead mark, after the area
-
-    const float area_c = __bfloat162float(aring[(long long)sl.old_a * g.total + p]);
-    const float a_td = __bfloat162float(aring[(long long)sl.td_a * g.total + p]);
-    const float v_c = __bfloat162float(vring[(long long)sl.v_c * g.total + p]);
-    const float v_prev = __bfloat162float(vring[(long long)sl.v_new * g.total + p]);
-    const float v_new = (a_td > 0.0f && a_cur > 0.0f)
-                            ? __fdiv_rn(__fsub_rn(a_cur, a_td), fmaxf(a_td, 1.0f))
-                            : __int_as_float(0x7f800000);
-    bool cand = area_c >= th.min_area && area_c <= th.max_area &&
-                v_c < th.max_variation && v_c <= v_prev && v_c <= v_new;
-    const float last = __bfloat162float(lastemit[p]);
-    const bool diverse =
-        last <= 0.0f ||
-        __fsub_rn(area_c, last) >= __fmul_rn(th.min_diversity, fmaxf(area_c, 1.0f));
-    cand = cand && diverse;
-    lastemit[p] = __float2bfloat16_rn(cand ? area_c : last);
-    float qv = __fsub_rn(254.0f, floorf(__fmul_rn(v_c, 253.0f)));
-    qv = fminf(fmaxf(qv, 1.0f), 254.0f);
-
-    aring[(long long)sl.write_a * g.total + p] = __float2bfloat16_rn(a_cur);
-    vring[(long long)sl.v_new * g.total + p] = __float2bfloat16_rn(v_new);
-
-    // every row's byte of this level, qv cast through int32
-    full[((p / hw) * num_levels + t) * (long long)hw + local] =
-        (uint8_t)(int)(cand ? qv : 0.0f);
-}
-
-__global__ void fill_inf_kernel(__nv_bfloat16* __restrict__ x, long long n) {
-    const long long p = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (p < n) x[p] = __float2bfloat16_rn(__int_as_float(0x7f800000));
-}
-
-// K7's host loop over levels.
-int run_sweep(const void* win, uint8_t* full, void* state, void* rings, int n, int r,
-              int w, int num_levels, int step, int d, int num_passes, float min_area,
-              float max_area, float max_variation, float min_diversity, void* stream) {
-    cudaStream_t st = (cudaStream_t)stream;
-    Geometry g{n, r, w, (long long)n * r * w};
-    const long long total = g.total;
-    int32_t* planes = (int32_t*)state;
-    Planes cur{planes, planes + total, planes + 2 * total, planes + 3 * total,
-               planes + 4 * total};
-    Planes nxt{planes + 5 * total, planes + 6 * total, planes + 7 * total,
-               planes + 8 * total, planes + 9 * total};
-    const int nring = d + 1;
-    __nv_bfloat16* aring = (__nv_bfloat16*)rings;
-    __nv_bfloat16* vring = aring + (long long)nring * total;
-    __nv_bfloat16* lastemit = vring + 2 * total;
-    Thresholds th{min_area, max_area, max_variation, min_diversity};
-    const int blocks = tsd_blocks(total, kThreads);
-    const uint8_t* w8 = (const uint8_t*)win;
-
-    for (int t = 0; t < num_levels; ++t) {
-        const int level = t * step;
-        // zero every ring plane, then set the variation ring to inf
-        sweep_init_kernel<<<blocks, kThreads, 0, st>>>(w8, cur, aring, g, level, t == 0,
-                                                       t == 0 ? nring + 3 : 0);
-        if (t == 0) {
-            fill_inf_kernel<<<tsd_blocks(2 * total, kThreads), kThreads, 0, st>>>(
-                vring, 2 * total);
-        }
-        for (int k = 0; k < num_passes; ++k) {
-            sweep_pass_kernel<<<blocks, kThreads, 0, st>>>(w8, cur, nxt, g, level);
-            Planes tmp = cur;
-            cur = nxt;
-            nxt = tmp;
-        }
-        // ring slot arithmetic copied from mser_pallas.py:343-351,381-382
-        Slots sl;
-        sl.old_a = (t + nring - (d + 1) % nring) % nring;
-        sl.td_a = (t + nring - d % nring) % nring;
-        sl.v_new = (t + 2 * nring - d) % 2;
-        sl.v_c = 1 - sl.v_new;
-        sl.write_a = t % nring;
-        sweep_emit_kernel<<<blocks, kThreads, 0, st>>>(w8, cur, aring, vring,
-                                                       lastemit, full, g, level, t,
-                                                       num_levels, sl, th);
-    }
-    return (int)cudaGetLastError();
-}
-
-
-// --- K3: shared-memory tiles -------------------------------------------------
 
 constexpr int kRegion = 64;                              // region rows and columns
 constexpr int kRows = 4;                                 // rows a thread owns
@@ -293,6 +100,10 @@ constexpr int kRegionPx = kRegion * kRegion;
 constexpr int kTileSmem = 2 * 3 * kRegionPx * 4;         // two exchange buffers
 constexpr int kLoInit = 0x7FFF7FFF;                      // (ymin, xmin) = INT16_MAX
 constexpr int kHiInit = -1;                              // (ymax, xmax) = -1
+
+struct Thresholds {
+    float min_area, max_area, max_variation, min_diversity;
+};
 
 struct TileGeom {
     int n, r, w;           // windows, rows per window, columns
@@ -349,10 +160,17 @@ __device__ __forceinline__ bool same_bits(__nv_bfloat16 a, __nv_bfloat16 b) {
 // d + 1 and d + 2 the variation ring, d + 3 the last emitted area.  A
 // thread reads and writes its pixels' slot as one 8-byte record, so the
 // emit's ring reads of all its pixels are in flight together.
+//
+// out: K3 (kFull false) int32 [n, core, w], the strip's core rows; K7
+// (kFull true) u8 [n, num_levels, r, w], every level of the whole window.
+template <bool kFull>
+using SweepOut = std::conditional_t<kFull, uint8_t, int32_t>;
+
+template <bool kFull>
 __global__ void __launch_bounds__(kTileThreads, 1)
 sweep_tile_kernel(const uint8_t* __restrict__ win, const int32_t* __restrict__ s_in,
                   int32_t* __restrict__ s_out, uint2* __restrict__ rings,
-                  int32_t* __restrict__ out, TileGeom g, int t0, int p0, int npass,
+                  SweepOut<kFull>* __restrict__ out, TileGeom g, int t0, int p0, int npass,
                   int num_levels, int step, int d, int num_passes, int lbits,
                   Thresholds th) {
     extern __shared__ int32_t smem[];  // [2 buffers][keys, lo, hi][64][64]
@@ -362,7 +180,9 @@ sweep_tile_kernel(const uint8_t* __restrict__ win, const int32_t* __restrict__ s
     const int big = 256 * hw;
     const long long total = (long long)g.n * hw;
     const long long base = (long long)blockIdx.y * hw;
-    const long long obase = (long long)blockIdx.y * g.core * g.w - (long long)g.halo * g.w;
+    // the block's window in the output, less the strip halo's rows (K3)
+    const long long obase = kFull ? base * num_levels
+                                  : (long long)blockIdx.y * g.core * g.w - (long long)g.halo * g.w;
     const int tile_y = blockIdx.x / g.tiles_x, tile_x = blockIdx.x - tile_y * g.tiles_x;
     const int row0 = tile_y * g.th - g.h, col0 = tile_x * g.tw - g.h;
     const int c = threadIdx.x % kRegion, r0 = threadIdx.x / kRegion * kRows;
@@ -539,12 +359,17 @@ sweep_tile_kernel(const uint8_t* __restrict__ win, const int32_t* __restrict__ s
                 area.h[k] = a_newb;    // slot old_a is the slot written
                 v_prev.h[k] = v_newb;  // and so is slot v_new_s
                 last.h[k] = l_newb;
-                int32_t* o = out + obase + gr * g.w + gc;
-                // a level without a candidate adds t, which the last level's t bounds
-                if (t == 0) {
-                    *o = packed;
-                } else if (cand || t == num_levels - 1) {
-                    *o = max(*o, packed);
+                if constexpr (kFull) {  // this level's byte, 0 without a candidate
+                    out[obase + (long long)t * hw + gr * g.w + gc] =
+                        (uint8_t)(int)(cand ? qv : 0.0f);
+                } else {
+                    int32_t* o = out + obase + gr * g.w + gc;
+                    // a level without a candidate adds t, which the last level's t bounds
+                    if (t == 0) {
+                        *o = packed;
+                    } else if (cand || t == num_levels - 1) {
+                        *o = max(*o, packed);
+                    }
                 }
             }
             gr = gr + 1 == g.r ? 0 : gr + 1;
@@ -582,16 +407,19 @@ sweep_tile_kernel(const uint8_t* __restrict__ win, const int32_t* __restrict__ s
     }
 }
 
-int run_tiles(const void* win, int32_t* out, void* state, void* rings, int n, int r,
-              int w, int core, int halo, int th_rows, int tw, int span, int num_levels,
-              int step, int d, int num_passes, int lbits, Thresholds th, void* stream) {
+// The span loop of both outputs: ceil(levels * passes / span) launches, the
+// state ping-ponging between the two buffers.
+template <bool kFull>
+int run_tiles(const void* win, void* out, void* state, void* rings, int n, int r, int w,
+              int core, int halo, int th_rows, int tw, int span, int num_levels, int step,
+              int d, int num_passes, int lbits, Thresholds th, void* stream) {
     if (span < 1 || num_passes < 1 || th_rows < 1 || tw < 1 ||
         th_rows + 2 * span > kRegion || tw + 2 * span > kRegion || r >= 32767 ||
         w >= 32767) {
         return (int)cudaErrorInvalidValue;
     }
     cudaError_t e = cudaFuncSetAttribute(
-        sweep_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTileSmem);
+        sweep_tile_kernel<kFull>, cudaFuncAttributeMaxDynamicSharedMemorySize, kTileSmem);
     if (e != cudaSuccess) return (int)e;
     cudaStream_t st = (cudaStream_t)stream;
     const TileGeom g{n, r, w, core, halo, th_rows, tw, span, (w + tw - 1) / tw};
@@ -602,40 +430,41 @@ int run_tiles(const void* win, int32_t* out, void* state, void* rings, int n, in
     int cur = 0;
     for (long long s0 = 0; s0 < passes; s0 += span, cur ^= 1) {
         const int npass = (int)(passes - s0 < span ? passes - s0 : span);
-        sweep_tile_kernel<<<grid, kTileThreads, kTileSmem, st>>>(
-            (const uint8_t*)win, buf[cur], buf[1 - cur], (uint2*)rings, out, g,
-            (int)(s0 / num_passes), (int)(s0 % num_passes), npass, num_levels, step, d,
-            num_passes, lbits, th);
+        sweep_tile_kernel<kFull><<<grid, kTileThreads, kTileSmem, st>>>(
+            (const uint8_t*)win, buf[cur], buf[1 - cur], (uint2*)rings,
+            (SweepOut<kFull>*)out, g, (int)(s0 / num_passes), (int)(s0 % num_passes), npass,
+            num_levels, step, d, num_passes, lbits, th);
     }
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// K3.  win: u8 [n, r, w]; out: i32 [n, core, w]; state: i32 [2, 3, n, r, w]
-// (two buffers of keys, (ymin, xmin), (ymax, xmax)); rings: bf16
-// [n * tiles, d + 4, 1024, 4] (see sweep_tile_kernel).  Tiles of th x tw
-// core pixels, `span` passes per launch.
+// win: u8 [n, r, w]; state: i32 [2, 3, n, r, w] (two buffers of keys,
+// (ymin, xmin), (ymax, xmax)); rings: bf16 [n * tiles, d + 4, 1024, 4] (see
+// sweep_tile_kernel).  Tiles of th x tw core pixels, `span` passes per
+// launch.
+
+// K3: row-strip windows.  out: i32 [n, core, w].
 TSD_API int tsd_level_sweep(const void* win, void* out, void* state, void* rings,
                             int n, int r, int w, int core, int halo, int th, int tw,
                             int span, int num_levels, int step, int d, int num_passes,
                             int lbits, float min_area, float max_area,
                             float max_variation, float min_diversity, void* stream) {
-    return run_tiles(win, (int32_t*)out, state, rings, n, r, w, core, halo, th, tw, span,
-                     num_levels, step, d, num_passes, lbits,
-                     Thresholds{min_area, max_area, max_variation, min_diversity},
-                     stream);
+    return run_tiles<false>(win, out, state, rings, n, r, w, core, halo, th, tw, span,
+                            num_levels, step, d, num_passes, lbits,
+                            Thresholds{min_area, max_area, max_variation, min_diversity},
+                            stream);
 }
 
-// K7: one strip per plane, no halo.  win: u8 [n, r, w]; full: u8
-// [n, num_levels, r, w]; state: i32 [2, 5, n, r, w] (ping-pong planes keys,
-// ymin, xmin, ymax, xmax); rings: bf16 [d + 1 + 2 + 1, n, r, w].
+// K7: each plane one strip, no halo.  full: u8 [n, num_levels, r, w].
 TSD_API int tsd_level_sweep_full(const void* win, void* full, void* state, void* rings,
-                                 int n, int r, int w, int num_levels, int step, int d,
-                                 int num_passes, float min_area, float max_area,
-                                 float max_variation, float min_diversity,
-                                 void* stream) {
-    return run_sweep(win, (uint8_t*)full, state, rings, n, r, w, num_levels, step, d,
-                     num_passes, min_area, max_area, max_variation, min_diversity,
-                     stream);
+                                 int n, int r, int w, int th, int tw, int span,
+                                 int num_levels, int step, int d, int num_passes,
+                                 float min_area, float max_area, float max_variation,
+                                 float min_diversity, void* stream) {
+    return run_tiles<true>(win, full, state, rings, n, r, w, r, 0, th, tw, span, num_levels,
+                           step, d, num_passes, 0,
+                           Thresholds{min_area, max_area, max_variation, min_diversity},
+                           stream);
 }

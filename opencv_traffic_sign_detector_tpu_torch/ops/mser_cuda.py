@@ -11,11 +11,12 @@ sweep body over each whole plane as one strip and returns every level's
 stability byte map, the reference's oracle between K3 and the XLA sweep.
 
 ``level_sweep_windows`` and ``fused_level_sweep_full`` launch the CUDA
-kernels (``csrc/mser_sweep.cu``) for CUDA tensors and take their ``*_plain``
-versions for CPU tensors; the two are exact against each other.  K3 runs in
-shared-memory tiles, one launch per span of Jacobi passes
-(:data:`SWEEP_SPAN`, :func:`sweep_tiles`); K7 keeps the sweep state in
-device memory, one launch per warm start, pass and emit.
+kernel (``csrc/mser_sweep.cu``) for CUDA tensors and take their ``*_plain``
+versions for CPU tensors; the two are exact against each other.  K3 and K7
+are the two output modes of one kernel, which runs in shared-memory tiles,
+one launch per span of Jacobi passes (:data:`SWEEP_SPAN`,
+:func:`sweep_tiles`), with the same state and ring scratch
+(:func:`_tile_scratch`).
 """
 
 from __future__ import annotations
@@ -230,33 +231,42 @@ def _check_windows(windows: torch.Tensor, core: int, halo: int) -> None:
         raise ValueError(f"windows of {r} rows do not hold core {core} + 2*halo {halo}")
 
 
-def level_sweep_windows(windows: torch.Tensor, p: SweepParams, core: int,
-                        halo: int, num_levels: int, lbits: int) -> torch.Tensor:
-    """K3 over stacked strip windows: [N, R, W] uint8 -> [N, core, W] int32.
-
-    Replaces ``mser_pallas.py: fused_level_sweep`` (``_collapsed_kernel``).
-    The kernel holds rows and columns as int16, so it refuses windows of
-    32767 rows or columns; the plain version takes any size.
-    """
-    _check_windows(windows, core, halo)
-    if rt.uses_plain(windows):
-        return level_sweep_windows_plain(windows, p, core, halo, num_levels, lbits)
+def _tile_scratch(windows: torch.Tensor, p: SweepParams):
+    """(th, tw, state, rings) of the tiled kernel over [N, R, W] windows:
+    its tile core, the double-buffered state and the ring scratch in the
+    tile plan's layout (a record per thread and slot).  The kernel holds rows
+    and columns as int16, so it refuses windows of 32767 rows or columns."""
     n, r, w = windows.shape
     if max(r, w) >= 1 << 15:
         raise ValueError(f"windows of {r}x{w} exceed the kernel's int16 bbox planes")
     th, tw = sweep_tiles(r, w)
     dev = windows.device
-    out = torch.empty((n, core, w), dtype=torch.int32, device=dev)
     state = torch.empty((2, 3, n, r, w), dtype=torch.int32, device=dev)
-    # ring scratch in the tile plan's layout: a record per thread and slot
     tiles = -(-r // th) * -(-w // tw)
     rings = torch.empty((n * tiles, p.d + 1 + 3, TILE_THREADS, TILE_ROWS),
                         dtype=torch.bfloat16, device=dev)
+    return th, tw, state, rings
+
+
+def level_sweep_windows(windows: torch.Tensor, p: SweepParams, core: int,
+                        halo: int, num_levels: int, lbits: int) -> torch.Tensor:
+    """K3 over stacked strip windows: [N, R, W] uint8 -> [N, core, W] int32.
+
+    Replaces ``mser_pallas.py: fused_level_sweep`` (``_collapsed_kernel``).
+    The kernel refuses windows of 32767 rows or columns; the plain version
+    takes any size.
+    """
+    _check_windows(windows, core, halo)
+    if rt.uses_plain(windows):
+        return level_sweep_windows_plain(windows, p, core, halo, num_levels, lbits)
+    n, r, w = windows.shape
+    th, tw, state, rings = _tile_scratch(windows, p)
+    out = torch.empty((n, core, w), dtype=torch.int32, device=windows.device)
     rc = rt.library().tsd_level_sweep(
         windows.data_ptr(), out.data_ptr(), state.data_ptr(), rings.data_ptr(),
         n, r, w, core, halo, th, tw, SWEEP_SPAN, num_levels, p.step, p.d, p.num_passes,
         lbits, p.min_area, p.max_area, p.max_variation, p.min_diversity,
-        rt.stream_ptr(dev))
+        rt.stream_ptr(windows.device))
     rt.check(rc, "level_sweep")
     rt.count_launch("level_sweep")
     return out
@@ -313,21 +323,21 @@ def fused_level_sweep_full(im2: torch.Tensor, cfg: MSERConfig, d_idx: int,
 
     Replaces ``mser_pallas.py: fused_level_sweep_full``: one strip per
     plane, no halo, the plane's own width (no pool padding), and each
-    level's byte ``qv`` (0 where no candidate) for every row.
+    level's byte ``qv`` (0 where no candidate) for every row.  It is K3's
+    tiled kernel with its full-map output.  The kernel refuses planes of
+    32767 rows or columns; the plain version takes any size.
     """
     p = _full_params(im2, cfg, d_idx)
     if rt.uses_plain(im2):
         return fused_level_sweep_full_plain(im2, cfg, d_idx, num_levels)
     n, r, w = im2.shape
-    dev = im2.device
-    full = torch.empty((n, num_levels, r, w), dtype=torch.uint8, device=dev)
-    state = torch.empty((2, 5, n, r, w), dtype=torch.int32, device=dev)
-    rings = torch.empty((p.d + 1 + 3, n, r, w), dtype=torch.bfloat16, device=dev)
+    th, tw, state, rings = _tile_scratch(im2, p)
+    full = torch.empty((n, num_levels, r, w), dtype=torch.uint8, device=im2.device)
     rc = rt.library().tsd_level_sweep_full(
         im2.data_ptr(), full.data_ptr(), state.data_ptr(), rings.data_ptr(),
-        n, r, w, num_levels, p.step, p.d, p.num_passes,
+        n, r, w, th, tw, SWEEP_SPAN, num_levels, p.step, p.d, p.num_passes,
         p.min_area, p.max_area, p.max_variation, p.min_diversity,
-        rt.stream_ptr(dev))
+        rt.stream_ptr(im2.device))
     rt.check(rc, "level_sweep_full")
     rt.count_launch("level_sweep_full")
     return full
