@@ -84,7 +84,29 @@ Phases:
    port's CPU path must give matching detections; the int8 stem
    activations agree within +-1 on a stated share, and the card's yuv BGR
    equals the CPU's.  The CNN path runs none of K1-K7 (its convs and
-   products are PyTorch's), so its launch counts are 0.
+   products are PyTorch's), so its launch counts are 0;
+10. the server, MSER: ``serve_detection_torch.py --once`` drains 64 JPEG
+    frames of 1360x800 at its defaults (batch 8, ``--downscale 2``, 128
+    regions) with templates the port trains on a synthetic crop tree; K1
+    through its LUT tail, K2, K3 and K4 must launch; one well-formed JSONL
+    line a frame; prints the server's frames/s and latency report and the
+    p50/p95/p99 from the JSONL; the CPU server on 2 of the frames must
+    write the same JSONL apart from ``latency_ms`` (:func:`_serve_phases`);
+11. the server, CNN: the same with ``--detector CNN`` on bgr and yuv420
+    ingest, boxes inside the frame, against the CPU within the CNN bound;
+12. práctica 2, MSER proposals: ``run_validation`` (HOG_LDA_BAYES) on 12
+    synthetic GTSDB-style train frames of 1360x800 with a gt.txt at the
+    recognizer's defaults (``--downscale 1``, pointer jumps, 384 regions),
+    then ``RecognitionPipeline.run_directory`` over 16 test frames with
+    ``artifacts/sign_classifier_r5_cnn/``; K1 through its LUT tail, K2, K4
+    and K5 must launch, K3 must not; K4 on the path's B x 384 windows and K5
+    at its ``[2B, 802, 1362]`` sweep call are held against their plain
+    versions exactly and timed as in phase 3; one frame's proposals,
+    boxes, labels and scores (1e-4) against the CPU path
+    (:func:`_recognition_phases`);
+13. práctica 2, CNN proposals (the CLI's default source): mining,
+    validation and inference with the detector at threshold 0.10; frames/s
+    and the same comparison with the CPU path.
 
 Then one JSON line with the kernel table (each kernel's launches on its
 path's run, max abs error, ms, plain ms, bound ms and what bounds it, the
@@ -101,6 +123,7 @@ import dataclasses
 import io
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -247,7 +270,7 @@ def _bound(name: str, args: tuple, out: torch.Tensor,
         (i0, f0), (i1, f1), (i2, f2) = (SWEEP_OPS[k] for k in ("init", "pass", "emit"))
         int_ops = px * (i0 + params.num_passes * i1 + i2)
         f32_ops = px * (f0 + params.num_passes * f1 + f2)
-    elif name == "flood_bbox":
+    elif name.startswith("flood_bbox"):
         # the plane bytes under the windows whose seed is on its mask, each
         # once (the windows overlap), and any other window's seed byte:
         # the windows, not the planes
@@ -288,6 +311,8 @@ NO_LIBRARY = {
     "propagate_rolls_refine": "as at the sweep site",
     "propagate_scan": "no call runs segmented run-min scans",
     "level_sweep_full": "as K3",
+    "flood_bbox_recognition": "as at the detection path",
+    "propagate_rolls_recognition": "as at the recall config's call",
 }
 
 
@@ -301,6 +326,62 @@ def _k1_library(x: torch.Tensor, tiles: int = 8):
     frame = torch.arange(b, device=x.device)[:, None, None]
     idx = ((frame * tiles * tiles + tile) * 256 + x.long()).reshape(-1)
     return lambda: torch.bincount(idx, minlength=b * tiles * tiles * 256)
+
+
+def _measure(name: str, kern, plain, a: tuple, kw: dict, src: str, replaces: str,
+             smi: str) -> dict:
+    """Phase 3 for one kernel at one call's inputs: the kernel against its
+    plain version (exact), its single-call and queued ms, the plain ms, the
+    bound and the library call where there is one; -> its table row (0
+    launches until its path has run)."""
+    from opencv_traffic_sign_detector_tpu_torch.ops import prop_cuda
+
+    got = kern(*a, **kw)
+    want = plain(*a, **kw)
+    torch.cuda.synchronize()
+    _require(got.shape == want.shape and got.dtype == want.dtype,
+             f"{name}: {got.shape}/{got.dtype} vs plain {want.shape}/{want.dtype}")
+    err = (got.to(torch.int64) - want.to(torch.int64)).abs().max().item()
+    # the refine's windows stop at their fixed points: the bound counts
+    # the passes these seed floods need
+    need = _passes_to_rest(*a) if name == "propagate_rolls_refine" else None
+    bound_ms, bound_by, nbytes, ops = _bound(name, a, got, need)
+    library_ms = None
+    if name == "tile_histograms":
+        lib = _k1_library(*a)
+        _require(torch.equal(lib().to(torch.int32).reshape(got.shape), got),
+                 "K1: torch.bincount differs")
+        library_ms = _time_ms(lib)
+    del got, want
+    shapes = [tuple(x.shape) for x in a if isinstance(x, torch.Tensor)]
+    ms = _time_ms(lambda: kern(*a, **kw))
+    queued_ms = _queued_ms(lambda: kern(*a, **kw))
+    plain_ms = _time_ms(lambda: plain(*a, **kw))
+    library = (f"library {library_ms:.3f} ms (torch.bincount)" if library_ms is not None
+               else f"library none ({NO_LIBRARY[name]})")
+    old = OLD_DESIGN.get(name)
+    if name.startswith("propagate_rolls") and name != "propagate_rolls_refine":
+        # the tiled form: ceil(passes / span) CUDA launches a call
+        spans = prop_cuda.rolls_spans(a[3])
+        core = prop_cuda.rolls_tiles(*a[0].shape[1:], spans[0])
+        shapes.append(f"{a[3]} passes in {len(spans)} CUDA launch(es) of spans {spans}, "
+                      f"core {core[0]}x{core[1]}")
+    if need is not None:
+        shapes.append(_need_note(need, a[3]))
+    print(f"[kernel] {name}: inputs {shapes} -> exact required, max_abs_err {err}; "
+          f"kernel {ms:.4f} ms (queued behind a spin {queued_ms:.4f} ms)"
+          + (f" ({old[0]} {old[1]:.3f} ms, recorded)" if old else "")
+          + f" plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms by {bound_by} "
+          f"({nbytes} bytes, {ops} operations); {library}; {smi}")
+    _require(err == 0, f"{name}: kernel differs from its plain version")
+    _require(min(ms, queued_ms) >= bound_ms, f"{name}: {min(ms, queued_ms):.4f} ms reads "
+             f"under its bound of {bound_ms:.4f} ms: the bound's count is at fault")
+    return {"name": name, "route": "cuda",
+            "source": f"opencv_traffic_sign_detector_tpu_torch/{src}",
+            "replaces": replaces, "launches": 0,
+            "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
+            "queued_ms": queued_ms}
 
 
 def _device_phase() -> tuple[str, str]:
@@ -936,6 +1017,300 @@ def _cnn_phases(rt, dev, frames: "np.ndarray", names: list[str]) -> None:
     _require(ok, "the card's yuv BGR differs from the CPU's")
 
 
+def _record_nth(mod, attr: str, n: int, kept: dict, key: str):
+    """Context: wrap ``mod.attr`` so that the arguments of its ``n``-th call
+    (0-based; the last one when there are fewer) are kept in ``kept[key]``,
+    and no other call's."""
+    orig = getattr(mod, attr)
+    seen = [0]
+
+    def wrapped(*a, **kw):
+        if seen[0] <= n:
+            kept[key] = (a, kw)
+        seen[0] += 1
+        return orig(*a, **kw)
+
+    @contextlib.contextmanager
+    def ctx():
+        setattr(mod, attr, wrapped)
+        try:
+            yield
+        finally:
+            setattr(mod, attr, orig)
+
+    return ctx()
+
+
+def _percentiles(lat: list[float]) -> str:
+    """p50/p95/p99 with the server's own rule (serve_detection_torch.py)."""
+    import serve_detection_torch as serve
+
+    s = sorted(lat)
+    return ", ".join(f"p{p} {serve._percentile(s, p):.1f}" for p in (50, 95, 99))
+
+
+def _serve(rt, label: str, watch, out, argv: list[str]):
+    """One ``serve_detection_torch.py --once`` drain of ``watch`` with every
+    launch count set to 0 just before it; -> (JSONL records, the server's
+    report line, counts, wall s)."""
+    import serve_detection_torch as serve
+
+    if out.exists():
+        out.unlink()
+    buf = io.StringIO()
+
+    def go():
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = serve.main(["--watch_dir", str(watch), "--once", "--out", str(out), *argv])
+        return rc, time.perf_counter() - t0
+
+    (rc, wall), counts = _run_path(rt, label, go)
+    report = buf.getvalue().strip().splitlines()[-1]
+    _require(rc == 0, f"{label}: exit code {rc}: {buf.getvalue()}")
+    with open(out) as f:
+        lines = [json.loads(line) for line in f]
+    return lines, report, counts, wall
+
+
+def _jsonl_records(lines):
+    from opencv_traffic_sign_detector_tpu_torch.data.gt import GroundTruthBox
+
+    return [GroundTruthBox(filename=r["file"], x1=d["box"][0], y1=d["box"][1],
+                           x2=d["box"][2], y2=d["box"][3], class_id=d["type"],
+                           score=d["score"]) for r in lines for d in r["detections"]]
+
+
+def _serve_phases(rt, dev, frames, work, smi: str) -> dict:
+    """Phases 10-11: ``serve_detection_torch.py --once`` on 64 JPEG frames of
+    1360x800 at its defaults (batch 8): MSER at the tuned ``--downscale 2``
+    point with templates the port trained (K1 through its LUT tail, K2, K3
+    and K4 must launch), then the CNN detector on bgr and yuv420 ingest;
+    one well-formed JSONL line a frame, boxes inside the frame; frames/s
+    and latency percentiles; then each against the port's CPU server on 2
+    of the frames.  -> {path: (launch counts, batches)}."""
+    import shutil
+
+    import numpy as np
+
+    from opencv_traffic_sign_detector_tpu_torch.data.images import load_frames_batch
+    from opencv_traffic_sign_detector_tpu_torch.data.synthetic import (
+        write_frames,
+        write_train_dir,
+    )
+    from opencv_traffic_sign_detector_tpu_torch.models.cnn_detector import (
+        saved_meta,
+        unmatched_detections,
+    )
+    from opencv_traffic_sign_detector_tpu_torch.models.mean_masks import train_mean_masks
+    from opencv_traffic_sign_detector_tpu_torch.runtime import loader
+
+    t0 = time.perf_counter()
+    watch, few = work / "serve", work / "serve_cpu"
+    names = write_frames(str(watch), np.concatenate([frames, frames]))
+    few.mkdir()
+    for n in names[:2]:
+        shutil.copy(watch / n, few / n)
+    templates = work / "templates.npz"
+    train_mean_masks(write_train_dir(str(work / "train_jpg"), seed=1), dev).save(str(templates))
+    b, h, w, _ = frames.shape
+    print(f"[serve] wrote {len(names)} JPEG frames of {w}x{h} and trained the templates "
+          f"in {time.perf_counter() - t0:.1f} s")
+    decode_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        load_frames_batch(str(watch), names[:8])
+        decode_s.append(time.perf_counter() - t0)
+    print(f"[serve decode] one batch of 8 JPEGs of {w}x{h} decoded on the host in "
+          f"{statistics.median(decode_s) * 1e3:.1f} ms (median of 3; native loader "
+          f"{'built' if loader.available() else 'unavailable, PIL'})")
+    cnn = "artifacts/cnn_detector/params.npz"
+    runs = [("serve MSER", ["--templates", str(templates)]),
+            ("serve CNN bgr", ["--detector", "CNN", "--cnn_params", cnn]),
+            ("serve CNN yuv420", ["--detector", "CNN", "--cnn_params", cnn,
+                                  "--input_format", "yuv420"])]
+    paths = {}
+    for label, argv in runs:
+        lines, report, counts, wall = _serve(rt, label, watch, work / "card.jsonl", argv)
+        _require([r["file"] for r in lines] == names,
+                 f"{label}: {len(lines)} JSONL lines for {len(names)} frames")
+        dets = _jsonl_records(lines)
+        _require(all(set(r) == {"file", "latency_ms", "detections"} for r in lines)
+                 and all(set(d) == {"box", "type", "score"} for r in lines
+                         for d in r["detections"]), f"{label}: malformed JSONL")
+        _require(all(1 <= d.class_id <= 6 and np.isfinite(d.score) and 0 <= d.x1 < d.x2 <= w - 1
+                     and 0 <= d.y1 < d.y2 <= h - 1 for d in dets),
+                 f"{label}: a detection outside the frame or malformed")
+        batches = -(-len(names) // 8) + 1  # with the warm-up batch
+        paths[label] = (counts, batches)
+        print(f"[{label}] {len(names)} frames of {w}x{h} at batch 8, drained once: the "
+              f"server's report: {report}; from the JSONL: latency ms "
+              f"{_percentiles([r['latency_ms'] for r in lines])}; {len(dets)} detections; "
+              f"{wall:.2f} s with start-up and warm-up; kernel launches a batch "
+              f"{ {k: v / batches for k, v in counts.items() if v} }; {smi}")
+        if label == "serve MSER":
+            for name in ("tile_luts", "clahe_apply", "level_sweep", "flood_bbox"):
+                _require(counts[name] > 0, f"{label}: {name} never launched")
+        else:
+            _require(not any(counts.values()), f"{label} launched {counts}")
+        # --- against the port's CPU server on 2 of the frames
+        t0 = time.perf_counter()
+        cpu, _, _, _ = _serve(rt, f"{label} on the CPU", few, work / "cpu.jsonl",
+                              argv + ["--device", "cpu", "--batch", "2"])
+        card = [r for r in lines if r["file"] in names[:2]]
+        if label == "serve MSER":
+            ok = ([{k: v for k, v in r.items() if k != "latency_ms"} for r in cpu]
+                  == [{k: v for k, v in r.items() if k != "latency_ms"} for r in card])
+            bound = "JSONL identical apart from latency_ms"
+        else:
+            thr = saved_meta(cnn)["score_threshold"]
+            ok = not unmatched_detections(_jsonl_records(card), _jsonl_records(cpu), 0.05, thr)
+            bound = "bound: class, 1 px, score 0.05"
+        print(f"[{label} vs cpu] 2 frames in {time.perf_counter() - t0:.1f} s: card "
+              f"{len(_jsonl_records(card))} cpu {len(_jsonl_records(cpu))} detections, "
+              f"match {ok} ({bound})")
+        _require(ok, f"{label}: card and CPU JSONL differ: {card} {cpu}")
+    return paths
+
+
+def _recognition_phases(rt, dev, work, smi: str, seed: int) -> tuple[list[dict], dict]:
+    """Phases 12-13: práctica 2 on synthetic GTSDB-style frames of 1360x800.
+    ``run_validation`` on a train directory with MSER proposals (the
+    recognizer's default config: --downscale 1, pointer jumps, 384 regions)
+    and HOG_LDA_BAYES; then ``RecognitionPipeline.run_directory`` over a
+    test directory with ``artifacts/sign_classifier_r5_cnn/`` (K1 through
+    its LUT tail, K2, K4 and K5 must launch), K4 and K5 held against their
+    plain versions at the inputs this path gives them; then the CNN proposal
+    source (the CLI's default) for mining, validation and inference; each
+    against the port's CPU path on one frame.  -> (the two kernel rows,
+    {path: (launch counts, batches)})."""
+    import numpy as np
+
+    from opencv_traffic_sign_detector_tpu_torch.config import (
+        ClassifierConfig,
+        MSERConfig,
+        PipelineConfig,
+    )
+    from opencv_traffic_sign_detector_tpu_torch.data.images import (
+        list_frame_files,
+        load_frames_batch,
+    )
+    from opencv_traffic_sign_detector_tpu_torch.data.synthetic import write_gt_dir
+    from opencv_traffic_sign_detector_tpu_torch.models import rec_pipeline as rp
+    from opencv_traffic_sign_detector_tpu_torch.models import recognizer as rec
+    from opencv_traffic_sign_detector_tpu_torch.models.cnn_detector import CNNDetector
+    from opencv_traffic_sign_detector_tpu_torch.ops import ccl, mser, prop_cuda
+
+    t0 = time.perf_counter()
+    train, test = str(work / "rec_train"), str(work / "rec_test")
+    write_gt_dir(train, 12, 800, 1360, seed=seed + 11)
+    write_gt_dir(test, 16, 800, 1360, seed=seed + 12)
+    files = list_frame_files(test)
+    first = load_frames_batch(test, files[:8])
+    print(f"[recognition] wrote 12 train and 16 test frames of 1360x800 with gt.txt in "
+          f"{time.perf_counter() - t0:.1f} s")
+    mcfg = MSERConfig.from_string("MSER_7_200_2000_1")  # main_recognition.py's defaults
+    cfg = PipelineConfig(mser=mcfg)
+    clf = rec.SignClassifier.load("artifacts/sign_classifier_r5_cnn")
+    paths = {}
+
+    def validate(label, **kw):
+        t0 = time.perf_counter()
+        res, counts = _run_path(rt, label, lambda: rec.run_validation(
+            train, mser_cfg=mcfg, clf_cfg=ClassifierConfig.from_string("HOG_LDA_BAYES"),
+            device=dev, **kw))
+        print(f"[{label}] 12 frames: validation accuracy {res.accuracy:.4f} on "
+              f"{len(res.y_true)} held-out crops, confusion rows {res.confusion.tolist()}; "
+              f"{time.perf_counter() - t0:.2f} s")
+        return counts
+
+    def infer(label, pipe):
+        pipe.recognize_frames(first, files[:8])  # warm-up batch
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dets, counts = _run_path(rt, label, lambda: pipe.run_directory(test))
+        dt = time.perf_counter() - t0
+        batches = -(-len(files) // cfg.batch_size)
+        on_card = torch.from_numpy(first).to(dev)
+        batch_ms = _time_ms(lambda: pipe.collect(pipe.dispatch(on_card), files[:8]), runs=5)
+        _require(all(1 <= d.class_id <= 6 and np.isfinite(d.score) and 0 <= d.x1 < d.x2 <= 1360
+                     and 0 <= d.y1 < d.y2 <= 800 for d in dets), f"{label}: malformed records")
+        print(f"[{label}] {len(files)} frames of 1360x800 at batch {cfg.batch_size}: "
+              f"{len(files) / dt:.2f} frames/s on the host's clock ({dt:.3f} s, decode "
+              f"included); a batch from frames already on the card to records "
+              f"{batch_ms:.2f} ms (median of 5); {len(dets)} recognitions; kernel launches a batch "
+              f"{ {k: v / batches for k, v in counts.items() if v} }; {smi}")
+        paths[label] = (counts, batches)
+        return dets, counts
+
+    def vs_cpu(label, card_dets, pipe_cpu):
+        t0 = time.perf_counter()
+        cpu = pipe_cpu.recognize_frames(first[:1], files[:1])
+        card = [d for d in card_dets if d.filename == files[0]]
+        same = [(d.x1, d.y1, d.x2, d.y2, d.class_id) for d in cpu] == [
+            (d.x1, d.y1, d.x2, d.y2, d.class_id) for d in card]
+        err = max((abs(a.score - b.score) for a, b in zip(cpu, card)), default=0.0)
+        print(f"[{label} vs cpu] 1 frame in {time.perf_counter() - t0:.1f} s: card {len(card)} "
+              f"cpu {len(cpu)} recognitions, boxes and labels identical {same}, max score "
+              f"difference {err:.2e} (bound 1e-4)")
+        _require(same and err <= 1e-4, f"{label}: card and CPU differ: {card} {cpu}")
+
+    # --- 12. MSER proposals ------------------------------------------------
+    counts = validate("recognition validation, MSER proposals")
+    for name in ("tile_luts", "clahe_apply", "flood_bbox", "propagate_rolls"):
+        _require(counts[name] > 0, f"recognition validation: {name} never launched")
+    pipe = rp.RecognitionPipeline(cfg=cfg, classifier=clf, device=dev)
+    kept = {}
+    with _record_nth(mser, "flood_bbox", 0, kept, "flood_bbox"), \
+            _record_nth(ccl, "propagate_rolls", 40, kept, "propagate_rolls"):
+        pipe.recognize_frames(first, files[:8])
+    torch.cuda.synchronize()
+    dets, counts = infer("recognition MSER", pipe)
+    for name in ("tile_luts", "clahe_apply", "flood_bbox", "propagate_rolls"):
+        _require(counts[name] > 0, f"recognition MSER: {name} never launched")
+    _require(counts["level_sweep"] == 0, "recognition MSER launched the fused sweep K3")
+    pallas_prop = "opencv_traffic_sign_detector_tpu/ops/pallas_prop.py"
+    rows = []
+    for name, kern, plain, src, replaces, a in [
+            ("flood_bbox_recognition", prop_cuda.flood_bbox, prop_cuda.flood_bbox_plain,
+             "csrc/flood.cu", f"{pallas_prop}:234", kept["flood_bbox"][0]),
+            ("propagate_rolls_recognition", prop_cuda.propagate_rolls,
+             prop_cuda.propagate_rolls_plain, "csrc/prop_rolls.cu", f"{pallas_prop}:69",
+             kept["propagate_rolls"][0][:4])]:
+        row = _measure(name, kern, plain, a, {}, src, replaces, smi)
+        row["launches"] = counts[name.rsplit("_", 1)[0]]
+        rows.append(row)
+    del kept
+    t0 = time.perf_counter()
+    on_card = [t.cpu() for t in rec.propose_batch(torch.from_numpy(first[:1]).to(dev), mcfg)]
+    on_cpu = rec.propose_batch(torch.from_numpy(first[:1]), mcfg)
+    same = all(torch.equal(a, b) for a, b in zip(on_card, on_cpu))
+    print(f"[recognition MSER proposals vs cpu] 1 frame in {time.perf_counter() - t0:.1f} s: "
+          f"boxes, crops and valid identical {same} ({int(on_cpu[2].sum())} valid)")
+    _require(same, "recognition: MSER proposals on the card differ from the CPU path")
+    vs_cpu("recognition MSER", dets,
+           rp.RecognitionPipeline(cfg=cfg, classifier=clf, device="cpu"))
+
+    # --- 13. CNN proposals (the CLI's default source) -----------------------
+    def detector(device):
+        d = CNNDetector.load("artifacts/cnn_detector/params.npz", device=device)
+        d.cfg = dataclasses.replace(d.cfg, score_threshold=0.10)
+        return d
+
+    cnn = detector(dev)
+    t0 = time.perf_counter()
+    props = rec.extract_train_proposals_cnn(train, cnn)
+    print(f"[recognition CNN mining] {sum(len(b) for b, _ in props.values())} proposals over "
+          f"12 frames in {time.perf_counter() - t0:.2f} s")
+    validate("recognition validation, CNN proposals", proposals=props, proposal_positives=True)
+    dets, counts = infer("recognition CNN", rp.RecognitionPipeline(cfg=cfg, classifier=clf,
+                                                                   cnn=cnn))
+    _require(not any(counts.values()), f"recognition CNN launched {counts}")
+    vs_cpu("recognition CNN", dets,
+           rp.RecognitionPipeline(cfg=cfg, classifier=clf, cnn=detector("cpu")))
+    return rows, paths
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1071,53 +1446,8 @@ def main() -> int:
     table = []
     for name, mod, fn, plain_fn, src, replaces in kernels:
         a, kw = inputs[name]
-        kern, plain = getattr(mod, fn), getattr(mod, plain_fn)
-        got = kern(*a, **kw)
-        want = plain(*a, **kw)
-        torch.cuda.synchronize()
-        _require(got.shape == want.shape and got.dtype == want.dtype,
-                 f"{name}: {got.shape}/{got.dtype} vs plain {want.shape}/{want.dtype}")
-        err = (got.to(torch.int64) - want.to(torch.int64)).abs().max().item()
-        # the refine's windows stop at their fixed points: the bound counts
-        # the passes these seed floods need
-        need = _passes_to_rest(*a) if name == "propagate_rolls_refine" else None
-        bound_ms, bound_by, nbytes, ops = _bound(name, a, got, need)
-        library_ms = None
-        if name == "tile_histograms":
-            lib = _k1_library(*a)
-            _require(torch.equal(lib().to(torch.int32).reshape(got.shape), got),
-                     "K1: torch.bincount differs")
-            library_ms = _time_ms(lib)
-        del got, want
-        shapes = [tuple(x.shape) for x in a if isinstance(x, torch.Tensor)]
-        ms = _time_ms(lambda: kern(*a, **kw))
-        queued_ms = _queued_ms(lambda: kern(*a, **kw))
-        plain_ms = _time_ms(lambda: plain(*a, **kw))
-        library = (f"library {library_ms:.3f} ms (torch.bincount)" if library_ms is not None
-                   else f"library none ({NO_LIBRARY[name]})")
-        old = OLD_DESIGN.get(name)
-        if name in ("propagate_rolls", "propagate_rolls_pixel_area"):
-            # the tiled form: ceil(passes / span) CUDA launches a call
-            spans = prop_cuda.rolls_spans(a[3])
-            core = prop_cuda.rolls_tiles(*a[0].shape[1:], spans[0])
-            shapes.append(f"{a[3]} passes in {len(spans)} CUDA launch(es) of spans {spans}, "
-                          f"core {core[0]}x{core[1]}")
-        if need is not None:
-            shapes.append(_need_note(need, a[3]))
-        print(f"[kernel] {name}: inputs {shapes} -> exact required, max_abs_err {err}; "
-              f"kernel {ms:.4f} ms (queued behind a spin {queued_ms:.4f} ms)"
-              + (f" ({old[0]} {old[1]:.3f} ms, recorded)" if old else "")
-              + f" plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms by {bound_by} "
-              f"({nbytes} bytes, {ops} operations); {library}; {smi}")
-        _require(err == 0, f"{name}: kernel differs from its plain version")
-        _require(min(ms, queued_ms) >= bound_ms, f"{name}: {min(ms, queued_ms):.4f} ms reads "
-                 f"under its bound of {bound_ms:.4f} ms: the bound's count is at fault")
-        table.append({"name": name, "route": "cuda",
-                      "source": f"opencv_traffic_sign_detector_tpu_torch/{src}",
-                      "replaces": replaces, "launches": 0,
-                      "max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-                      "queued_ms": queued_ms})
+        table.append(_measure(name, getattr(mod, fn), getattr(mod, plain_fn), a, kw, src,
+                              replaces, smi))
     rows = {row["name"]: row for row in table}
     _k5_all_passes(prop_cuda, inputs["propagate_rolls_refine"][0], smi,
                    torch.Generator(device=dev).manual_seed(args.seed))
@@ -1290,6 +1620,21 @@ def main() -> int:
     del props, pvalid, pprops, ppvalid, rprops, rpvalid, frames_dev
     torch.cuda.empty_cache()
     _cnn_phases(rt, dev, frames, names)
+
+    # --- 10-13. the server and práctica 2 --------------------------------
+    work = rt.BUILD_ROOT.parent / "chip_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    paths = _serve_phases(rt, dev, frames, work, smi)
+    rec_rows, rec_paths = _recognition_phases(rt, dev, work, smi, args.seed)
+    paths.update(rec_paths)
+    for row in rec_rows:
+        table.append(row)
+        batches[row["name"]] = rec_paths["recognition MSER"][1]
+    shutil.rmtree(work, ignore_errors=True)
+    for label, (counts, n) in paths.items():
+        print(f"[launches a batch] {label}: "
+              + ", ".join(f"{k} {v / n:g}" for k, v in counts.items() if v) + f" ({n} batches)")
     _require("jax" not in sys.modules, "the port imported jax")
     ref = sorted(m for m in sys.modules if m.split(".")[0] == "opencv_traffic_sign_detector_tpu")
     _require(not ref, f"the port imported the reference package: {ref}")

@@ -6,7 +6,8 @@ Same grammar and output files as ``main_detection.py`` for the MSER
 detector (``--pixel_area_stability`` and every ``--downscale`` included)
 and the CNN family (``--detector CNN[_<thr>]`` with ``--cnn_params``,
 ``--input_format`` and ``--upscale``), plus ``--device`` (default
-``cuda``; ``cpu`` runs the kernels' plain PyTorch versions):
+``cuda``; ``cpu`` runs the kernels' plain PyTorch versions; with no card and
+no ``--device cpu`` it exits 2):
 
     python main_detection_torch.py --detector MSER_7_200_2000_1 \
         --train_path train_jpg --test_path test_alumnos_jpg
@@ -45,6 +46,7 @@ from opencv_traffic_sign_detector_tpu_torch.eval.stats import (
 )
 from opencv_traffic_sign_detector_tpu_torch.models.detector import DetectionPipeline
 from opencv_traffic_sign_detector_tpu_torch.models.mean_masks import train_mean_masks
+from opencv_traffic_sign_detector_tpu_torch.runtime.build import missing_card
 from opencv_traffic_sign_detector_tpu_torch.utils.annotate import (
     draw_boxes_bgr,
     save_image_bgr,
@@ -215,6 +217,10 @@ def main(argv=None) -> int:
         print("--upscale needs full frames; patches8/yuv420p are "
               "pre-patchified at native resolution (use --input_format "
               "bgr or yuv420)")
+        return 2
+    why = missing_card(args.device)
+    if why:
+        print(why)
         return 2
     if args.detector.upper().startswith("CNN"):
         # as main_detection.py: the CNN branch returns before --n_devices and

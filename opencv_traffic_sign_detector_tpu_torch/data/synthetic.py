@@ -4,8 +4,9 @@ Frames carry a smooth gradient, sensor-like noise and sign-like shapes of
 20-70 px: red rings, red triangles and blue discs, in BGR uint8.  The
 detection path's quality cannot be judged on them, but they give the MSER
 sweep stable regions at sign scale, so every stage does real work.  The
-writers (JPEG via PIL) build a test directory and a ``train_jpg``-style
-directory with one crop folder per super-type.
+writers (JPEG via PIL) build a test directory, a GTSDB-style directory of
+labelled frames with its ``gt.txt`` and a ``train_jpg``-style directory with
+one crop folder per super-type.
 """
 
 from __future__ import annotations
@@ -61,6 +62,18 @@ def _draw(img: np.ndarray, shape: str, cy: float, cx: float, size: int) -> None:
 SUPERTYPE_SHAPES = ("ring", "triangle", "stop", "no_entry", "yield", "disc")
 
 
+def _background(rng, yy: np.ndarray, xx: np.ndarray) -> np.ndarray:
+    """One [h, w, 3] uint8 frame of gradient, waves and sensor noise."""
+    h, w = yy.shape
+    base = np.empty((h, w, 3), np.float32)
+    gy, gx = rng.uniform(-60, 60, 2)
+    for c in range(3):
+        base[..., c] = (rng.uniform(80, 150) + gy * yy / h + gx * xx / w
+                        + 25 * np.sin(xx / rng.uniform(60, 200) + rng.uniform(0, 6)))
+    base += rng.normal(0, 6, (h, w, 3))
+    return np.clip(base, 0, 255).astype(np.uint8)
+
+
 def make_frames(n: int, h: int = 800, w: int = 1360, seed: int = 0,
                 signs_per_frame: int = 6) -> np.ndarray:
     """[n, h, w, 3] uint8 BGR frames with red rings, triangles, blue discs."""
@@ -68,13 +81,7 @@ def make_frames(n: int, h: int = 800, w: int = 1360, seed: int = 0,
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
     frames = np.empty((n, h, w, 3), np.uint8)
     for i in range(n):
-        base = np.empty((h, w, 3), np.float32)
-        gy, gx = rng.uniform(-60, 60, 2)
-        for c in range(3):
-            base[..., c] = (rng.uniform(80, 150) + gy * yy / h + gx * xx / w
-                            + 25 * np.sin(xx / rng.uniform(60, 200) + rng.uniform(0, 6)))
-        base += rng.normal(0, 6, (h, w, 3))
-        img = np.clip(base, 0, 255).astype(np.uint8)
+        img = _background(rng, yy, xx)
         for _ in range(signs_per_frame):
             size = int(rng.integers(20, min(71, min(h, w) // 2)))
             cy = rng.uniform(size, h - size)
@@ -85,6 +92,39 @@ def make_frames(n: int, h: int = 800, w: int = 1360, seed: int = 0,
             _draw(patch, shape, cy - y0, cx - x0, size)
         frames[i] = img
     return frames
+
+
+def make_labelled_frames(n: int, h: int = 800, w: int = 1360, seed: int = 0,
+                         signs_per_frame: int = 6):
+    """Frames with signs of all six super-types at known places, for a
+    GTSDB-style train or test directory.  Signs of 24-60 px sit in the cells
+    of a jittered grid, so they never overlap.  -> (frames [n, h, w, 3]
+    uint8, boxes: per frame a list of (x1, y1, x2, y2, super-type))."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    cols = max(1, int(np.ceil(np.sqrt(signs_per_frame * w / h))))
+    rows = -(-signs_per_frame // cols)
+    ch, cw = h // rows, w // cols
+    frames = np.empty((n, h, w, 3), np.uint8)
+    boxes = []
+    for i in range(n):
+        img = _background(rng, yy, xx)
+        found = []
+        for k, cell in enumerate(rng.permutation(rows * cols)[:signs_per_frame]):
+            st = (i * signs_per_frame + k) % 6 + 1
+            size = int(rng.integers(24, max(25, min(61, min(ch, cw) - 8))))
+            r = size / 2.0
+            oy, ox = (cell // cols) * ch, (cell % cols) * cw
+            cy = oy + rng.uniform(r + 2, max(r + 3, ch - r - 2))
+            cx = ox + rng.uniform(r + 2, max(r + 3, cw - r - 2))
+            y0, x0 = max(int(cy) - size, 0), max(int(cx) - size, 0)
+            patch = img[y0:y0 + 2 * size + 1, x0:x0 + 2 * size + 1]
+            _draw(patch, SUPERTYPE_SHAPES[st - 1], cy - y0, cx - x0, size)
+            found.append((int(np.floor(cx - r)), int(np.floor(cy - r)),
+                          int(np.ceil(cx + r)), int(np.ceil(cy + r)), st))
+        frames[i] = img
+        boxes.append(found)
+    return frames, boxes
 
 
 def bgr_to_yuv420(frames: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -124,14 +164,33 @@ def _save_jpeg(path: str, bgr: np.ndarray) -> None:
     Image.fromarray(np.ascontiguousarray(bgr[..., ::-1])).save(path, quality=95)
 
 
-def write_test_dir(root: str, n: int, h: int, w: int, seed: int = 0) -> list[str]:
-    """Write ``n`` synthetic frames as ``00000.jpg``... into ``root``."""
+def write_frames(root: str, frames: np.ndarray) -> list[str]:
+    """Write BGR frames as ``00000.jpg``... into ``root``; -> their names."""
     os.makedirs(root, exist_ok=True)
     names = []
-    for i, frame in enumerate(make_frames(n, h, w, seed)):
+    for i, frame in enumerate(frames):
         name = f"{i:05d}.jpg"
         _save_jpeg(os.path.join(root, name), frame)
         names.append(name)
+    return names
+
+
+def write_test_dir(root: str, n: int, h: int, w: int, seed: int = 0) -> list[str]:
+    """Write ``n`` synthetic frames as ``00000.jpg``... into ``root``."""
+    return write_frames(root, make_frames(n, h, w, seed))
+
+
+def write_gt_dir(root: str, n: int, h: int, w: int, seed: int = 0,
+                 signs_per_frame: int = 6) -> list[str]:
+    """Write ``n`` labelled frames (:func:`make_labelled_frames`) as
+    ``00000.jpg``... with a GTSDB ``gt.txt`` (``name.ppm;x1;y1;x2;y2;class``,
+    the first raw class id of each super-type) into ``root``."""
+    frames, boxes = make_labelled_frames(n, h, w, seed, signs_per_frame)
+    names = write_frames(root, frames)
+    lines = [f"{i:05d}.ppm;{x1};{y1};{x2};{y2};{int(SUPERTYPE_CLASS_DIRS[st - 1][0])}"
+             for i, found in enumerate(boxes) for x1, y1, x2, y2, st in found]
+    with open(os.path.join(root, "gt.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
     return names
 
 

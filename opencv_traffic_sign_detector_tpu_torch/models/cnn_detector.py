@@ -44,7 +44,7 @@ from ..data.prefetch import batched_frames
 from ..ops.fused_upscale import FusedUpscalePlan, find_plan, fused_upscale_stem
 from ..ops.upscale import upscale_bilinear_u8
 from ..ops.yuv import patchify_yuv_planes, yuv420_patches_to_bgr_patches8, yuv420_to_bgr
-from .detector import full_f32_matmuls
+from .detector import full_f32_matmuls, upload
 
 STRIDE = 8
 NUM_CLASSES = 6
@@ -594,12 +594,6 @@ class CNNDetector:
         save_params(path, self.net, arch=self.cfg.arch,
                     score_threshold=self.cfg.score_threshold)
 
-    def _upload(self, a) -> torch.Tensor:
-        t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type == "cuda" and t.device.type == "cpu":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
-
     def _detect_frames(self, x: torch.Tensor):
         """Route a device batch of frames (or native patches8)."""
         cfg, k, thr = self.cfg, self.cfg.max_detections, self.cfg.score_threshold
@@ -621,7 +615,7 @@ class CNNDetector:
         """frames uint8 [B,H,W,3] BGR with H,W multiples of 16, or (v3,
         native resolution) patches8 [B,H/8,W/8,192]; numpy or tensor."""
         full_f32_matmuls()
-        return self._detect_frames(self._upload(frames))
+        return self._detect_frames(upload(frames, self.device))
 
     @torch.inference_mode()
     def dispatch_yuv(self, y, cb, cr):
@@ -629,7 +623,7 @@ class CNNDetector:
         ndim: tight planes y [B,H,W], cb/cr [B,H/2,W/2]; or patchified planes
         (v3 at native resolution) y [B,H/8,W/8,64], cb/cr [B,H/8,W/8,16]."""
         full_f32_matmuls()
-        y, cb, cr = (self._upload(p) for p in (y, cb, cr))
+        y, cb, cr = (upload(p, self.device) for p in (y, cb, cr))
         if y.dim() == 4 and self.upscale == 1.0 and self.cfg.arch == "v3":
             return _detect_yuv_patches(self.net, y, cb, cr, self.cfg.max_detections,
                                        self.cfg.score_threshold, self.cfg.stride)
@@ -664,6 +658,12 @@ class CNNDetector:
                     class_id=int(cls[i, j]),
                     score=float(scores[i, j])))
         return dets
+
+    def detect_frames(self, frames, filenames: list[str],
+                      orig_hw: tuple[int, int] | None = None) -> list[GroundTruthBox]:
+        """Run one batch of frames (as :meth:`dispatch` takes them) and
+        unpack it into records, boxes clipped to ``orig_hw`` when given."""
+        return self.collect(self.dispatch(frames), filenames, orig_hw)
 
     def run_directory(self, directory: str, batch_size: int = 32, progress: bool = False,
                       input_format: str = "bgr") -> list[GroundTruthBox]:

@@ -45,6 +45,39 @@ def full_f32_matmuls() -> None:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
+def upload(frames, device) -> torch.Tensor:
+    """Host frames (numpy or tensor) -> ``device``: pinned and non-blocking
+    to a card, so the host can go on while the copy runs."""
+    t = frames if isinstance(frames, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(frames))
+    device = torch.device(device)
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def compact_first(final: torch.Tensor, d: int, *xs: torch.Tensor):
+    """The first ``d`` True slots of each row of ``final`` [B, N], in order,
+    as ``jnp.nonzero(size=d, fill_value=n)`` gives them: each of ``xs``
+    [B, N, ...] gathered there (zeros past the end) and the valid mask
+    [B, d].  -> (*gathered, valid)."""
+    b, n = final.shape
+    pos = torch.where(final, torch.arange(n, device=final.device), n)
+    idx = torch.sort(pos, dim=-1).values
+    if d > n:
+        idx = torch.cat([idx, idx.new_full((b, d - n), n)], dim=-1)
+    idx = idx[:, :d]
+    valid = torch.arange(d, device=final.device) < final.sum(-1, keepdim=True)
+
+    def take(x):
+        pad = torch.zeros((b, 1) + x.shape[2:], dtype=x.dtype, device=x.device)
+        xp = torch.cat([x, pad], dim=1)
+        gidx = idx.reshape((b, d) + (1,) * (x.dim() - 2)).expand((b, d) + x.shape[2:])
+        return torch.gather(xp, 1, gidx)
+
+    return (*(take(x) for x in xs), valid)
+
+
 def detect_batch(frames: torch.Tensor, red_templates: torch.Tensor,
                  blue_templates: torch.Tensor, cfg: PipelineConfig, timer=None):
     """[B, H, W, 3] uint8 -> per-frame padded detections.
@@ -65,25 +98,7 @@ def detect_batch(frames: torch.Tensor, red_templates: torch.Tensor,
         types, scores, accept = mask_correlation_classify(
             crops, red_templates, blue_templates, cfg.mask_corr_tol,
             fine_scores=cfg.fine_scores)
-        final = keep & accept
-
-        # first D kept slots in order (nonzero(size=D, fill_value=n))
-        b, n = final.shape
-        d = cfg.max_detections
-        pos = torch.where(final, torch.arange(n, device=final.device), n)
-        idx = torch.sort(pos, dim=-1).values
-        if d > n:
-            idx = torch.cat([idx, idx.new_full((b, d - n), n)], dim=-1)
-        idx = idx[:, :d]
-        valid = torch.arange(d, device=final.device) < final.sum(-1, keepdim=True)
-
-        def take(x):
-            pad = torch.zeros((b, 1) + x.shape[2:], dtype=x.dtype, device=x.device)
-            xp = torch.cat([x, pad], dim=1)
-            gidx = idx.reshape((b, d) + (1,) * (x.dim() - 2)).expand((b, d) + x.shape[2:])
-            return torch.gather(xp, 1, gidx)
-
-        out = take(boxes), take(types), take(scores), valid
+        out = compact_first(keep & accept, cfg.max_detections, boxes, types, scores)
     return out
 
 

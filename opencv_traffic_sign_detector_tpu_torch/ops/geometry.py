@@ -1,4 +1,4 @@
-"""Box geometry: aspect filter + grow, and pairwise corner similarity.
+"""Box geometry: aspect filter + grow, pairwise corner similarity, IoU.
 
 Counterpart of ``opencv_traffic_sign_detector_tpu/ops/geometry.py``, with
 the same f32 operation order.  Every function takes any leading batch dims.
@@ -53,3 +53,19 @@ def pairwise_coord_similarity(boxes_xyxy: torch.Tensor) -> torch.Tensor:
     d_br = torch.linalg.vector_norm(br[..., :, None, :] - br[..., None, :, :], dim=-1)
     return torch.sqrt(sigmoid_distance_similarity(d_tl)
                       * sigmoid_distance_similarity(d_br))
+
+
+def iou_matrix(a_xyxy: torch.Tensor, b_xyxy: torch.Tensor) -> torch.Tensor:
+    """[N, 4] x [M, 4] -> [N, M] f32 IoU with the inclusive +1 pixel
+    convention of the recognition trainer's intersectionOverUnion."""
+    a = torch.as_tensor(a_xyxy).to(torch.float32)
+    b = torch.as_tensor(b_xyxy).to(device=a.device, dtype=torch.float32)
+    x1 = torch.maximum(a[:, None, 0], b[None, :, 0])
+    y1 = torch.maximum(a[:, None, 1], b[None, :, 1])
+    x2 = torch.minimum(a[:, None, 2], b[None, :, 2])
+    y2 = torch.minimum(a[:, None, 3], b[None, :, 3])
+    inter = torch.clamp(x2 - x1 + 1, min=0) * torch.clamp(y2 - y1 + 1, min=0)
+    area_a = (a[:, 2] - a[:, 0] + 1) * (a[:, 3] - a[:, 1] + 1)
+    area_b = (b[:, 2] - b[:, 0] + 1) * (b[:, 3] - b[:, 1] + 1)
+    union = area_a[:, None] + area_b[None, :] - inter
+    return inter / torch.clamp(union, min=1e-9)

@@ -184,6 +184,15 @@ def uses_plain(*tensors: torch.Tensor) -> bool:
     return False
 
 
+def missing_card(device: str) -> str | None:
+    """Why ``device`` cannot be used when it names CUDA and no card is
+    visible, else None: the entry points never fall back to the CPU."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        return (f"--device {device}: torch.cuda.is_available() is false; pass "
+                "--device cpu to run the kernels' plain versions on the CPU")
+    return None
+
+
 def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
                  ndim: int) -> None:
     """Raise unless ``t`` has the dtype and rank a kernel takes and is

@@ -1,6 +1,7 @@
 """The port's copies of the reference's host modules give the reference's
 answers: config defaults and grammar, constants, gt.txt and resultado.txt
-parsing and writing, AP and detection statistics, annotation, stage
+parsing and writing, AP and detection statistics, the classification
+report and confusion matrix, annotation, stage
 banners, JPEG decoding (BGR, patches8, yuv420 tight and patchified) and
 the decode-ahead batcher.
 
@@ -23,6 +24,7 @@ import opencv_traffic_sign_detector_tpu.data.gt as jgt
 import opencv_traffic_sign_detector_tpu.data.images as jimages
 import opencv_traffic_sign_detector_tpu.data.prefetch as jprefetch
 import opencv_traffic_sign_detector_tpu.eval.ap as jap
+import opencv_traffic_sign_detector_tpu.eval.reports as jreports
 import opencv_traffic_sign_detector_tpu.eval.stats as jstats
 import opencv_traffic_sign_detector_tpu.utils.annotate as jannotate
 import opencv_traffic_sign_detector_tpu.utils.profiling as jprofiling
@@ -34,6 +36,7 @@ import opencv_traffic_sign_detector_tpu_torch.data.gt as tgt
 import opencv_traffic_sign_detector_tpu_torch.data.images as timages
 import opencv_traffic_sign_detector_tpu_torch.data.prefetch as tprefetch
 import opencv_traffic_sign_detector_tpu_torch.eval.ap as tap
+import opencv_traffic_sign_detector_tpu_torch.eval.reports as treports
 import opencv_traffic_sign_detector_tpu_torch.eval.stats as tstats
 import opencv_traffic_sign_detector_tpu_torch.utils.annotate as tannotate
 import opencv_traffic_sign_detector_tpu_torch.utils.profiling as tprofiling
@@ -106,6 +109,30 @@ def test_constants(name):
 def test_supertype_of():
     assert ([tconst.supertype_of(i) for i in range(-1, 50)]
             == [jconst.supertype_of(i) for i in range(-1, 50)])
+
+
+# --- classification reports ----------------------------------------------------
+
+@pytest.mark.parametrize("case", ["random", "missing_classes", "empty", "perfect"])
+def test_classification_reports(case):
+    rng = np.random.default_rng(3)
+    y_true = rng.integers(0, 7, 200)
+    y_pred = np.where(rng.random(200) < 0.6, y_true, rng.integers(0, 7, 200))
+    if case == "missing_classes":
+        y_true, y_pred = y_true % 3, y_pred % 4  # some labels never true or never predicted
+    elif case == "empty":
+        y_true, y_pred = y_true[:0], y_pred[:0]
+    elif case == "perfect":
+        y_pred = y_true
+    labels = list(range(7))
+    names = list(jconst.SIGN_NAMES)
+    np.testing.assert_array_equal(treports.confusion_matrix(y_true, y_pred, labels),
+                                  jreports.confusion_matrix(y_true, y_pred, labels))
+    assert (treports.classification_report(y_true, y_pred, labels, target_names=names)
+            == jreports.classification_report(y_true, y_pred, labels, target_names=names))
+    assert (treports.classification_report(y_true, y_pred, labels)
+            == jreports.classification_report(y_true, y_pred, labels))
+    assert treports.accuracy(y_true, y_pred) == jreports.accuracy(y_true, y_pred)
 
 
 # --- gt.txt / resultado.txt --------------------------------------------------

@@ -20,7 +20,8 @@ FORBIDDEN = ("jax", "opencv_traffic_sign_detector_tpu")
 
 
 def _port_files() -> list[str]:
-    files = ["main_detection_torch.py", "chip_smoke.py"]
+    files = ["main_detection_torch.py", "serve_detection_torch.py", "main_recognition_torch.py",
+             "evaluate_results_torch.py", "chip_smoke.py"]
     for root, _, names in os.walk(os.path.join(REPO, PORT)):
         files += sorted(os.path.relpath(os.path.join(root, n), REPO)
                         for n in names if n.endswith(".py"))

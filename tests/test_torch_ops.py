@@ -213,10 +213,10 @@ def test_templates_load_and_train_match(tmp_path):
 # --- guards and wrappers -----------------------------------------------------
 
 def test_port_imports_no_jax(tmp_path):
-    """Importing the port, its CNN modules and the CLI, and running the
-    CLI's CNN branch on a one-frame directory on the CPU (``--upscale 1.6``,
-    and yuv420 ingest, which becomes yuv420p), imports neither jax nor any
-    module of the reference package."""
+    """Importing the port, its CNN and recognition modules and the CLIs,
+    and running the detection CLI's CNN branch on a one-frame directory on
+    the CPU (``--upscale 1.6``, and yuv420 ingest, which becomes yuv420p),
+    imports neither jax nor any module of the reference package."""
     frames = str(tmp_path / "frames")
     cli = (f"['--detector', 'CNN_0.3', '--test_path', {frames!r}, '--device', 'cpu', "
            f"'--no-images', '--out', {str(tmp_path / 'r.txt')!r}")
@@ -225,7 +225,9 @@ def test_port_imports_no_jax(tmp_path):
         "import opencv_traffic_sign_detector_tpu_torch.models.cnn_quant; "
         "import opencv_traffic_sign_detector_tpu_torch.ops.fused_upscale; "
         "import opencv_traffic_sign_detector_tpu_torch.ops.yuv; "
-        "import main_detection_torch; "
+        "import main_detection_torch, serve_detection_torch, main_recognition_torch; "
+        "import evaluate_results_torch; "
+        "import opencv_traffic_sign_detector_tpu_torch.models.rec_pipeline; "
         "from opencv_traffic_sign_detector_tpu_torch.data.synthetic import write_test_dir; "
         f"write_test_dir({frames!r}, 1, 64, 64); "
         f"assert main_detection_torch.main({cli}, '--upscale', '1.6']) == 0; "
