@@ -106,13 +106,32 @@ Phases:
     (:func:`_recognition_phases`);
 13. práctica 2, CNN proposals (the CLI's default source): mining,
     validation and inference with the detector at threshold 0.10; frames/s
-    and the same comparison with the CPU path.
+    and the same comparison with the CPU path;
+14. training (:func:`_train_phases`): ``models/cnn_train.py: train`` of the
+    v3 BatchNorm twin at the default ``TrainConfig`` (batch 32, 320x320
+    crops, bf16 convs) but ``warmup_steps=3``, 31 steps, on 64 synthetic
+    1360x800 frames with gt uploaded once; prints steps/s and crops/s on
+    the host's clock (median, min, max of the 30 steps after the first),
+    device ms a step by CUDA events split into sample+resize, targets,
+    forward+backward and optimizer, the peak memory allocated and the loss
+    of the first and last 5 steps; requires finite losses, a lower mean of
+    the last 5 than of the first 5, and well-formed records from the folded
+    net through ``CNNDetector`` on 8 frames; the step's device busy time
+    and launches by ``torch.profiler`` and the card's idle share
+    (:func:`_train_profile`); then two f32 steps of v3 and of ``slim`` on
+    the card and on the CPU from the same weights and draws
+    (:func:`_f32_step_vs_cpu`: the CPU tests' bounds, but gradients within
+    1e-3, and the parameters after the second update printed);
+15. calibration: ``quantize_v3`` of the shipped v3 checkpoint on 8 of those
+    frames on the card and on the CPU (int8 kernels identical, the other
+    arrays within 1e-5 relative), and the card's artifact through
+    ``QuantCNNDetector`` on the card.  Neither phase runs K1-K7.
 
 Then one JSON line with the kernel table (each kernel's launches on its
 path's run, max abs error, ms, plain ms, bound ms and what bounds it, the
 library call's ms or null, and the queued ms), and as the last line ``{"ok": true,
 "device": {...}}``.  Any failure raises and exits non-zero; so does an
-import of JAX or of the reference package.
+import of JAX, flax, optax or of the reference package.
 """
 
 from __future__ import annotations
@@ -1311,6 +1330,202 @@ def _recognition_phases(rt, dev, work, smi: str, seed: int) -> tuple[list[dict],
     return rows, paths
 
 
+def _well_formed(dets, h: int, w: int) -> bool:
+    return all(1 <= d.class_id <= 6 and 0 <= d.score <= 1 and 0 <= d.x1 < d.x2 <= w - 1
+               and 0 <= d.y1 < d.y2 <= h - 1 for d in dets)
+
+
+def _f32_step_vs_cpu(ct, cd, arch: str, data: dict, dev, seed: int) -> None:
+    """Two f32 steps of ``arch`` (draws of steps 7 and 3, the optimizer's
+    counts 0 and 1) from the same weights on the card and on the CPU, on the
+    CPU's crops.  Held: the loss within 1e-5 relative; each gradient within
+    1e-3 of its largest magnitude, not the CPU tests' 1e-4: the card sums
+    the norms' fast variance ``E[x^2] - E[x]^2`` in another order, and where
+    a channel's variance is small beside its mean the f32 cancellation
+    reaches the gradients (7.3e-5 on slim's GroupNorm bias at step 7,
+    3.67e-4 on v3's BatchNorm bias at step 3, H100, PERF.md); the running
+    statistics within 1e-5; the parameters after the count-0 update (a
+    learning rate of 0) equal; the card's crops of the same draws within
+    +-1 on 0.1% of pixels, boxes within 1e-3 px, classes equal.  The
+    parameters after the count-1 update are printed, not held: Adam divides
+    each gradient by its own size, so an element whose gradient lies within
+    that rounding moves by up to the learning rate on either side."""
+    import copy
+
+    cfg = ct.TrainConfig(batch_size=8, steps=10, warmup_steps=2, lr=1e-3, seed=seed)
+    mcfg = cd.CNNDetectorConfig(arch=arch, dtype="float32")
+    make = ct.SignCenterNetV3Train if arch == "v3" else cd.SignCenterNet
+    cpu_model = cd.init_params(make(mcfg), seed)
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    cpu_step, card_step = ct.TrainStep(cpu_model, cfg), ct.TrainStep(card_model, cfg)
+    cpu_data = {k: torch.from_numpy(v) for k, v in data.items()}
+    card_data = {k: v.to(dev) for k, v in cpu_data.items()}
+    for step in (7, 3):
+        t0 = time.perf_counter()
+        count = cpu_step.count
+        draws = ct.sample_draws(ct.step_generator(seed, step, "cpu"), cfg.batch_size,
+                                len(data["frames"]), len(data["pos"]), cfg)
+        crops = ct.crops_from_draws(draws, cpu_data, cfg)
+        card_crops = ct.crops_from_draws({k: v.to(dev) for k, v in draws.items()}, card_data, cfg)
+        pix = (card_crops[0].cpu().to(torch.int16) - crops[0].to(torch.int16)).abs()
+        pix_share = (pix > 0).float().mean().item()
+        box_err = (card_crops[1].cpu() - crops[1]).abs().max().item()
+        cls_same = torch.equal(card_crops[2].cpu(), crops[2])
+        before = [p.detach().clone() for p in cpu_model.parameters()]
+        got_cpu = cpu_step.update(*crops)
+        got_card = card_step.update(*(c.to(dev) for c in crops))
+        loss_cpu = got_cpu["loss"].item()
+        loss_rel = abs(got_card["loss"].item() - loss_cpu) / abs(loss_cpu)
+        grad_rel = {name: (pc.grad.cpu() - pg.grad).abs().max().item()
+                    / max(pg.grad.abs().max().item(), 1e-30)
+                    for (name, pg), pc in zip(cpu_model.named_parameters(),
+                                              card_model.parameters())}
+        worst = max(grad_rel, key=grad_rel.get)
+        param_err = max((c.cpu() - a).abs().max().item()
+                        for a, c in zip(cpu_model.parameters(), card_model.parameters()))
+        moved = max((a - b).abs().max().item() for a, b in zip(cpu_model.parameters(), before))
+        stats_err = max([(c.cpu() - a).abs().max().item()
+                         for a, c in zip(cpu_model.buffers(), card_model.buffers())], default=0.0)
+        print(f"[train f32 card vs cpu] {arch}, step {step} (count {count}), batch "
+              f"{cfg.batch_size}: loss card {got_card['loss'].item():.6f} cpu "
+              f"{got_cpu['loss'].item():.6f} (rel {loss_rel:.3g}, bound 1e-5); grads max |diff| / "
+              f"max |grad| {grad_rel[worst]:.3g} at {worst} (bound 1e-3); parameters after the "
+              f"update max |diff| {param_err:.3g} (moved up to {moved:.3g}; held equal at count 0 "
+              f"only), running statistics max |diff| {stats_err:.3g} (bound 1e-5); crops of the "
+              f"same draws: max |pixel diff| {pix.max().item()}, share {pix_share:.6f} (bound +-1 "
+              f"on 0.001), boxes {box_err:.3g} px, classes equal {cls_same}; "
+              f"{time.perf_counter() - t0:.1f} s")
+        _require(loss_rel <= 1e-5 and grad_rel[worst] <= 1e-3 and stats_err <= 1e-5
+                 and (count > 0 or param_err == 0),
+                 f"{arch}: the card's f32 train step differs from the CPU's")
+        _require(pix.max().item() <= 1 and pix_share <= 1e-3 and box_err <= 1e-3 and cls_same,
+                 f"{arch}: the card's crops differ from the CPU's")
+
+
+def _train_profile(ct, cd, data: dict, dev, smi: str) -> None:
+    """The bf16 v3 step's device busy time and launches by ``torch.profiler``
+    (5 steps after 5 warm-up steps), beside its time on the host's clock
+    with no loss read (20 steps): the card's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step = ct.TrainStep(cd.init_params(ct.SignCenterNetV3Train(), 0).to(dev),
+                        ct.TrainConfig(warmup_steps=3, steps=31))
+    for s in range(5):
+        step(data, s)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s in range(5, 25):
+        step(data, s)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 20 * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for s in range(25, 30):
+            step(data, s)
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.device_time for e in ev) / 5 / 1e3
+    top = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)[:6]
+    print(f"[train profile] a step: {len(ev) / 5:.0f} CUDA kernels and copies, busy {busy:.3f} ms "
+          f"(torch.profiler, 5 steps) of {wall:.3f} ms on the host's clock (20 steps, no loss "
+          f"read): the card idles {1 - busy / wall:.1%}; most device time: "
+          + ", ".join(f"{e.key[:48]} {e.device_time_total / 5 / 1e3:.3f}" for e in top)
+          + f" ms; {smi}")
+
+
+def _train_phases(rt, dev, smi: str, seed: int) -> dict:
+    """Phases 14-15: training and calibration.  -> {path: (launch counts,
+    steps)}."""
+    import numpy as np
+
+    from opencv_traffic_sign_detector_tpu_torch.data.synthetic import make_labelled_frames
+    from opencv_traffic_sign_detector_tpu_torch.models import cnn_detector as cd
+    from opencv_traffic_sign_detector_tpu_torch.models import cnn_quant as cq
+    from opencv_traffic_sign_detector_tpu_torch.models import cnn_train as ct
+
+    # --- 14. training ------------------------------------------------------
+    t0 = time.perf_counter()
+    frames, found = make_labelled_frames(64, 800, 1360, seed=seed + 14)
+    data = ct.pack_dataset(frames, found)
+    h, w = frames.shape[1:3]
+    print(f"[train] synthetic train set {frames.shape} uint8 ({frames.nbytes / 1e6:.1f} MB), "
+          f"{len(data['pos'])} sign boxes, made in {time.perf_counter() - t0:.1f} s")
+    cfg = ct.TrainConfig(warmup_steps=3, steps=31, seed=seed)
+    timer = CudaStageTimer()
+    stamps, losses = [], []
+
+    def log(line: str) -> None:
+        # train() logs "step i: loss=..." after a synchronising read of the
+        # step's loss: with log_every=1 the stamps bracket whole steps
+        stamps.append(time.perf_counter())
+        losses.append(float(line.split("loss=")[1].split()[0]))
+
+    def run():
+        return ct.train(data, cd.CNNDetectorConfig(arch="v3"), cfg, log_every=1, log_fn=log,
+                        device=dev, timer=timer)
+
+    live = torch.cuda.memory_allocated(dev)        # what earlier phases still hold
+    torch.cuda.reset_peak_memory_stats(dev)
+    (net, _), counts = _run_path(rt, "training", run)
+    peak = torch.cuda.max_memory_allocated(dev)
+    step_s = np.diff(stamps)                    # steps 1..30: the first is a warm-up
+    split = {k: sum(s.elapsed_time(e) for s, e in v[1:]) / (len(v) - 1)
+             for k, v in timer.events.items()}
+    b = cfg.batch_size
+    print(f"[train] v3 twin, TrainConfig batch {b}, crop {ct.CROP}, bf16 convs, BatchNorm f32, "
+          f"warm-up {cfg.warmup_steps} of {cfg.steps} steps: {1 / np.median(step_s):.2f} steps/s, "
+          f"{b / np.median(step_s):.1f} crops/s on the host's clock (median of {len(step_s)} "
+          f"steps after one warm-up step; min {1 / step_s.max():.2f}, max {1 / step_s.min():.2f} "
+          f"steps/s; a synchronised loss read a step); device ms a step by CUDA events: "
+          f"{sum(split.values()):.3f} = " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+          + f"; peak memory allocated {peak / 2**20:.1f} MiB, {(peak - live) / 2**20:.1f} MiB "
+          f"above the {live / 2**20:.1f} MiB live before training; {smi}")
+    print(f"[train] loss, first 5 steps: {', '.join(f'{v:.4f}' for v in losses[:5])}; last 5: "
+          f"{', '.join(f'{v:.4f}' for v in losses[-5:])}")
+    _require(len(losses) == cfg.steps and np.isfinite(losses).all(), "non-finite training loss")
+    _require(np.mean(losses[-5:]) < np.mean(losses[:5]),
+             "the loss did not fall over the run's steps")
+    # a threshold under the heatmap's 0.01 prior, so that records come out
+    # of a net 31 steps old
+    det = cd.CNNDetector(net, cd.CNNDetectorConfig(arch="v3", score_threshold=0.005))
+    names = [f"{i:05d}.jpg" for i in range(8)]
+    dets = det.detect_frames(frames[:8], names, (h, w))
+    print(f"[train] the folded net through CNNDetector on 8 train frames at threshold 0.005: "
+          f"{len(dets)} detections")
+    _require(_well_formed(dets, h, w), "the trained detector's records are malformed")
+    del net, det
+    _train_profile(ct, cd, ct.upload_dataset(data, dev), dev, smi)
+    sub = {k: v[:4] for k, v in data.items() if k != "pos"}
+    sub["pos"] = data["pos"][data["pos"][:, 0] < 4]
+    for arch in ("v3", "slim"):
+        _f32_step_vs_cpu(ct, cd, arch, sub, dev, seed)
+
+    # --- 15. calibration ---------------------------------------------------
+    ck = "artifacts/cnn_detector/params.npz"
+    qcfg = cd.CNNDetectorConfig(**cd.saved_meta(ck))
+    float_net = cd.load_params(ck, cd.SignCenterNet(qcfg))
+    t0 = time.perf_counter()
+    q_card = cq.quantize_v3(float_net.to(dev), frames[:8])
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    q_cpu = cq.quantize_v3(float_net.to("cpu"), frames[:8])
+    cpu_s = time.perf_counter() - t0
+    kernels_same = all(np.array_equal(q_card[k], q_cpu[k]) for k in q_cpu if k.endswith("_kernel"))
+    rel = max(float(np.max(np.abs(q_card[k].astype(np.float64) - q_cpu[k])
+                           / np.maximum(np.abs(q_cpu[k]), 1e-30)))
+              for k in q_cpu if not k.endswith("_kernel"))
+    qdet = cq.QuantCNNDetector(
+        {k: torch.from_numpy(np.array(v)).to(dev) for k, v in q_card.items()}, qcfg)
+    qdets = qdet.detect_frames(frames[:8], names, (h, w))
+    print(f"[calibrate] quantize_v3 of {ck} on 8 synthetic {w}x{h} frames: card {card_s:.2f} s, "
+          f"cpu {cpu_s:.2f} s; int8 kernels identical {kernels_same}; other arrays max relative "
+          f"diff {rel:.3g} (bound 1e-5); the card's artifact through QuantCNNDetector on the "
+          f"card: {len(qdets)} detections")
+    _require(set(q_card) == set(q_cpu) and kernels_same and rel <= 1e-5,
+             "the card's calibration differs from the CPU's")
+    _require(_well_formed(qdets, h, w), "the quantized detector's records are malformed")
+    return {"training": (counts, cfg.steps)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1632,10 +1847,15 @@ def main() -> int:
         table.append(row)
         batches[row["name"]] = rec_paths["recognition MSER"][1]
     shutil.rmtree(work, ignore_errors=True)
+
+    # --- 14-15. training and calibration --------------------------------
+    torch.cuda.empty_cache()
+    paths.update(_train_phases(rt, dev, smi, args.seed))
     for label, (counts, n) in paths.items():
         print(f"[launches a batch] {label}: "
               + ", ".join(f"{k} {v / n:g}" for k, v in counts.items() if v) + f" ({n} batches)")
-    _require("jax" not in sys.modules, "the port imported jax")
+    for name in ("jax", "flax", "optax"):
+        _require(name not in sys.modules, f"the port imported {name}")
     ref = sorted(m for m in sys.modules if m.split(".")[0] == "opencv_traffic_sign_detector_tpu")
     _require(not ref, f"the port imported the reference package: {ref}")
 

@@ -63,7 +63,7 @@ Detector spec: MSER_<delta>_<minArea>_<maxArea>_<maxVariation>
     maxVariation   decimal in (0, 1]
 Example: MSER_5_200_3000_0.45
 Or the trained CNN family: CNN[_<scoreThreshold>]  (e.g. CNN_0.45);
-weights from --cnn_params (train with scripts/train_cnn.py)."""
+weights from --cnn_params (train with scripts/train_cnn_torch.py)."""
 
 
 def _not_ported(what: str, slice_: str) -> int:

@@ -52,6 +52,7 @@ _ARCH_STRIDE = {"v2s16": 16, "v2s16wide": 16, "v3": 16}
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _PATCH = 8
 _STEM_K = _PATCH * _PATCH * 3   # 192
+HM_BIAS_INIT = -4.59            # the hm head's initial bias: a prior of ~0.01
 
 
 @dataclass(frozen=True)
@@ -123,11 +124,24 @@ def conv_same(x: torch.Tensor, weight: torch.Tensor, stride: int = 1) -> torch.T
 # ---------------------------------------------------------------------------
 
 
+def _lecun_normal_(t: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
+    """flax's default kernel init: variance scaling 1.0 over ``fan_in``,
+    a normal truncated at two of its deviations, rescaled so that the
+    truncated draw has variance ``1 / fan_in``."""
+    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+    nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=gen)
+
+
 class _FlaxLeaf(nn.Module):
-    """A layer whose parameters load from and save to the flax layout."""
+    """A layer whose parameters load from and save to the flax layout:
+    ``_flax_names`` in the ``params`` collection, ``_flax_stats`` in
+    ``batch_stats``."""
+
+    _flax_stats: tuple[str, ...] = ()
 
     def flax_shapes(self) -> dict[str, tuple[int, ...]]:
-        return {name: tuple(self.to_flax(name).shape) for name in self._flax_names}
+        return {name: tuple(self.to_flax(name).shape)
+                for name in self._flax_names + self._flax_stats}
 
     def to_flax(self, name: str) -> np.ndarray:
         return getattr(self, name).detach().cpu().numpy()
@@ -136,18 +150,32 @@ class _FlaxLeaf(nn.Module):
         with torch.no_grad():
             getattr(self, name).copy_(torch.from_numpy(np.array(arr, np.float32)))
 
+    def init_flax(self, gen: torch.Generator) -> None:
+        """flax's default initial values (scales 1, biases 0)."""
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.zero_()
+
 
 class Conv(_FlaxLeaf):
-    """flax ``nn.Conv`` (3x3 or 1x1, "SAME") in ``dtype``: the conv's result
-    is rounded to ``dtype``, then the bias is added in ``dtype``."""
+    """flax ``nn.Conv`` ("SAME") in ``dtype``: the conv's result is rounded
+    to ``dtype``, then the bias is added in ``dtype``.  ``bias_init`` is the
+    bias's initial value (the ``hm`` head's prior, -4.59)."""
 
     def __init__(self, cin: int, cout: int, k: int = 3, stride: int = 1,
-                 bias: bool = True, dtype: torch.dtype = torch.bfloat16):
+                 bias: bool = True, dtype: torch.dtype = torch.bfloat16,
+                 bias_init: float = 0.0):
         super().__init__()
-        self.stride, self.dtype = stride, dtype
+        self.stride, self.dtype, self.bias_init = stride, dtype, bias_init
         self.weight = nn.Parameter(torch.zeros(cout, cin, k, k), requires_grad=False)
         self.bias = nn.Parameter(torch.zeros(cout), requires_grad=False) if bias else None
         self._flax_names = ("kernel", "bias") if bias else ("kernel",)
+
+    def init_flax(self, gen):
+        _lecun_normal_(self.weight, self.weight[0].numel(), gen)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.fill_(self.bias_init)
 
     def to_flax(self, name):
         if name == "kernel":
@@ -226,6 +254,11 @@ class PatchifyStem(_FlaxLeaf):
             arr = np.asarray(arr).reshape(_STEM_K, -1)
         super().load_flax(name, arr)
 
+    def init_flax(self, gen):
+        _lecun_normal_(self.kernel, _STEM_K, gen)
+        with torch.no_grad():
+            self.bias.zero_()
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         if x.shape[-1] != _STEM_K:
@@ -244,7 +277,7 @@ def _add_v3_trunk_heads(m: nn.Module, dt: torch.dtype) -> None:
     m.Conv_1 = Conv(64, 128, stride=2, dtype=dt)
     m.Conv_2 = Conv(128, 128, dtype=dt)
     m.Conv_3 = Conv(128, 128, dtype=dt)
-    m.Conv_4 = Conv(128, NUM_CLASSES, dtype=dt)
+    m.Conv_4 = Conv(128, NUM_CLASSES, dtype=dt, bias_init=HM_BIAS_INIT)
     m.Conv_5 = Conv(128, 2, dtype=dt)
     m.Conv_6 = Conv(128, 2, dtype=dt)
 
@@ -306,7 +339,8 @@ class SignCenterNet(nn.Module):
         for i, (cin, cout, stride) in enumerate(blocks):
             setattr(self, f"_ConvBlock_{i}", ConvBlock(cin, cout, stride, dt))
         for j, cout in enumerate((NUM_CLASSES, 2, 2)):
-            setattr(self, f"Conv_{heads + j}", Conv(head_in, cout, dtype=head_dt))
+            setattr(self, f"Conv_{heads + j}",
+                    Conv(head_in, cout, dtype=head_dt, bias_init=HM_BIAS_INIT if j == 0 else 0.0))
         self._heads = heads
 
     def _block(self, i: int) -> ConvBlock:
@@ -378,24 +412,28 @@ class V3TrunkHeads(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def flax_entries(module: nn.Module, prefix: str = "") -> Iterator[tuple[str, _FlaxLeaf, str]]:
-    """(keystr, layer, flax name) for every parameter, keyed as
-    ``jax.tree_util.keystr`` keys the reference's parameter tree."""
+def flax_entries(module: nn.Module, prefix: str = "", collection: str = "params"
+                 ) -> Iterator[tuple[str, _FlaxLeaf, str]]:
+    """(keystr, layer, flax name) for every array of ``collection``
+    (``params`` or ``batch_stats``), keyed as ``jax.tree_util.keystr`` keys
+    that collection of the reference's variables."""
     for child_name, child in module.named_children():
         path = f"{prefix}['{child_name}']"
         if isinstance(child, _FlaxLeaf):
-            for name in child._flax_names:
+            names = child._flax_names if collection == "params" else child._flax_stats
+            for name in names:
                 yield f"{path}['{name}']", child, name
         else:
-            yield from flax_entries(child, path)
+            yield from flax_entries(child, path, collection)
 
 
 def load_flat_params(model: nn.Module, flat: Mapping[str, np.ndarray],
-                     source: str = "params") -> nn.Module:
-    """Fill ``model`` from a flat keystr -> array dict (an npz, or the
-    reference's ``tree_flatten_with_path`` of its params), checking every
-    key and shape with the reference's messages.  Returns ``model``."""
-    for key, layer, name in flax_entries(model):
+                     source: str = "params", collection: str = "params") -> nn.Module:
+    """Fill ``model``'s ``collection`` from a flat keystr -> array dict (an
+    npz, or the reference's ``tree_flatten_with_path`` of that collection),
+    checking every key and shape with the reference's messages.  Returns
+    ``model``."""
+    for key, layer, name in flax_entries(model, collection=collection):
         if key not in flat:
             raise ValueError(f"checkpoint {source} is missing parameter {key}")
         arr = flat[key]
@@ -414,9 +452,24 @@ def params_from_flat(cfg: CNNDetectorConfig, flat: Mapping[str, np.ndarray],
     return load_flat_params(SignCenterNet(cfg), flat).to(device)
 
 
-def flat_params(model: nn.Module) -> dict[str, np.ndarray]:
-    """``model``'s parameters in the reference's flat keystr layout."""
-    return {key: layer.to_flax(name) for key, layer, name in flax_entries(model)}
+def flat_params(model: nn.Module, collection: str = "params") -> dict[str, np.ndarray]:
+    """A copy of ``model``'s ``collection`` in the reference's flat keystr
+    layout (on the CPU a tensor's numpy view would follow later updates)."""
+    return {key: np.array(layer.to_flax(name))
+            for key, layer, name in flax_entries(model, collection=collection)}
+
+
+def init_params(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Give every layer of ``model`` flax's default initial values, drawn
+    from ``seed``: truncated lecun-normal kernels, zero biases but the
+    ``hm`` head's -4.59, norm scales 1 and biases 0, running means 0 and
+    variances 1.  The values cannot be the reference's (another generator).
+    Returns ``model``."""
+    gen = torch.Generator().manual_seed(seed)
+    for layer in model.modules():
+        if isinstance(layer, _FlaxLeaf):
+            layer.init_flax(gen)
+    return model
 
 
 def save_params(path: str, model: nn.Module, arch: str | None = None,

@@ -1,9 +1,8 @@
 """Post-training int8 serving path of the v3 detector.
 
-Counterpart of ``opencv_traffic_sign_detector_tpu/models/cnn_quant.py``
-(the serving half; calibration, ``quantize_v3``, is not here).  Weights
-are per-output-channel symmetric int8, activations per-tensor uint7 kept as
-int8 in [0, 127]:
+Counterpart of ``opencv_traffic_sign_detector_tpu/models/cnn_quant.py``.
+Weights are per-output-channel symmetric int8, activations per-tensor
+uint7 kept as int8 in [0, 127]:
 
 * stem: ``acc = (x - 128) @ Wq`` on int8 patches, then
   ``relu(acc * mult + bias)`` (the ``x/255 - 0.5`` affine is folded into
@@ -19,15 +18,22 @@ kernel flattened to [9*cin, cout], times that matrix.  On the card the
 product is ``torch._int_mm`` (int8 x int8 -> int32); on the CPU an int32
 matmul.  Both are exact: |acc| <= 1152 * 127 * 127 < 2^31.  The three
 heads run as one product with N = 6+2+2 padded to 16.
+
+Calibration (:func:`quantize_v3`) runs the float chain in f32 on a few
+frames for the activation scales (``percentile(|act|, q) / 127``, q = 100
+by default) and quantizes the weights in host numpy, as the reference
+does, so the int8 weights are the reference's.
 """
 
 from __future__ import annotations
 
 import os
+from collections.abc import Mapping
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from ..ops.fused_upscale import FusedUpscalePlan, fused_upscale_stem
 from ..runtime.build import uses_plain
@@ -37,9 +43,11 @@ from .cnn_detector import (
     CNNDetector,
     CNNDetectorConfig,
     conv_same,
+    flat_params,
     patchify,
     same_pads,
 )
+from .detector import full_f32_matmuls
 
 _TRUNK = (1, 2, 3)          # Conv_1..Conv_3 (stride 2, 1, 1)
 _TRUNK_STRIDES = {1: 2, 2: 1, 3: 1}
@@ -147,6 +155,113 @@ def fused_stem_int8(q: dict, frames_u8: torch.Tensor, plan: FusedUpscalePlan) ->
     return torch.clamp(torch.round(y0.to(torch.float32) * q["a0_inv"]), 0, 127).to(torch.int8)
 
 
+# ---------------------------------------------------------------------------
+# Calibration and quantization (one-shot; weights in host numpy)
+# ---------------------------------------------------------------------------
+
+
+def _channel_scales(kernel: np.ndarray) -> np.ndarray:
+    """Per-output-channel symmetric scales (last axis = out channels)."""
+    flat = np.abs(kernel.reshape(-1, kernel.shape[-1]))
+    return np.maximum(flat.max(axis=0), 1e-12).astype(np.float32) / 127.0
+
+
+def _quant_weight(kernel: np.ndarray, scales: np.ndarray) -> np.ndarray:
+    q = np.round(kernel / scales)
+    return np.clip(q, -127, 127).astype(np.int8)
+
+
+def _v3_arrays(params) -> dict[tuple[int, str], np.ndarray]:
+    """(conv index, "kernel" | "bias") -> f32 array (kernels HWIO) of a v3
+    ``SignCenterNet`` or of its flat keystr dict."""
+    flat = params if isinstance(params, Mapping) else flat_params(params)
+    return {(i, name): np.asarray(flat[f"['Conv_{i}']['{name}']"], np.float32)
+            for i in range(7) for name in ("kernel", "bias")}
+
+
+def v3_float_activations(params, frames_u8) -> list[torch.Tensor]:
+    """Post-relu activations [y0, y1, y2, y3] of the float v3 chain in f32,
+    on the frames' device (numpy frames: the CPU), with full f32 products.
+
+    ``params``: a v3 ``SignCenterNet`` or its flat keystr dict.  ``frames_u8``
+    uint8 [B, H, W, 3] or patches8 [B, H/8, W/8, 192]."""
+    arrays = _v3_arrays(params)
+    x = frames_u8 if isinstance(frames_u8, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(frames_u8))
+    dev = x.device
+
+    def t(i, name):
+        return torch.from_numpy(arrays[(i, name)]).to(dev)
+
+    full_f32_matmuls()
+    with torch.no_grad():
+        if x.shape[-1] != _STEM_K:
+            x = patchify(x)
+        xf = x.to(torch.float32) / 255.0 - 0.5
+        y = torch.relu(torch.matmul(xf, t(0, "kernel").reshape(_STEM_K, -1)) + t(0, "bias"))
+        acts = [y]
+        for i in _TRUNK:
+            y = torch.relu(conv_same(y, t(i, "kernel").permute(3, 2, 0, 1), _TRUNK_STRIDES[i])
+                           + t(i, "bias"))
+            acts.append(y)
+    return acts
+
+
+def quantize_v3(params, calib_frames, percentile: float = 100.0,
+                float_heads: bool = False) -> dict[str, np.ndarray]:
+    """Float v3 parameters (a ``SignCenterNet`` or its flat keystr dict) ->
+    the int8 serving arrays that :func:`save_quant_params` writes.
+
+    ``calib_frames`` uint8 [N, H, W, 3], numpy or a tensor (a handful of
+    real frames, H and W multiples of 16); the float chain runs on the
+    model's device, else the frames'.  Returns ``q{i}_kernel`` int8 (stem
+    [192, F], convs HWIO), ``q{i}_mult`` and ``q{i}_bias`` f32 [F] (the
+    epilogue's per-channel multiplier and bias, the stem's input affine
+    folded in), ``a{i}_inv`` f32 (requant multipliers, stem and trunk); with
+    ``float_heads`` the heads keep ``f{i}_kernel``/``f{i}_bias`` and
+    ``a3_scale`` dequantizes the trunk output."""
+    arrays = _v3_arrays(params)
+    if isinstance(params, nn.Module):
+        calib_frames = (calib_frames if isinstance(calib_frames, torch.Tensor)
+                        else torch.from_numpy(np.ascontiguousarray(calib_frames))
+                        ).to(next(params.parameters()).device)
+    a_scale = []
+    for y in v3_float_activations(params, calib_frames):
+        hi = float(np.percentile(y.cpu().numpy(), percentile))
+        a_scale.append(max(hi, 1e-6) / 127.0)
+
+    out: dict[str, np.ndarray] = {}
+    # stem: the (x/255 - 0.5) input affine of uint8 frames re-centred to
+    # int8 by xs = x - 128, folded into the epilogue
+    k0 = arrays[(0, "kernel")].reshape(_STEM_K, -1)
+    sw0 = _channel_scales(k0)
+    out["q0_kernel"] = _quant_weight(k0, sw0)
+    out["q0_mult"] = sw0 / 255.0
+    out["q0_bias"] = arrays[(0, "bias")] + (128.0 / 255.0 - 0.5) * k0.sum(axis=0)
+    out["a0_inv"] = np.float32(1.0 / a_scale[0])
+    for i in _TRUNK:
+        k = arrays[(i, "kernel")]
+        sw = _channel_scales(k)
+        out[f"q{i}_kernel"] = _quant_weight(k, sw)
+        out[f"q{i}_mult"] = (a_scale[i - 1] * sw).astype(np.float32)
+        out[f"q{i}_bias"] = arrays[(i, "bias")]
+        out[f"a{i}_inv"] = np.float32(1.0 / a_scale[i])
+    for i in _HEADS:
+        k, b = arrays[(i, "kernel")], arrays[(i, "bias")]
+        if float_heads:
+            # the trunk output stays int8, dequantized inline per head conv
+            out[f"f{i}_kernel"] = k
+            out[f"f{i}_bias"] = b
+            continue
+        sw = _channel_scales(k)
+        out[f"q{i}_kernel"] = _quant_weight(k, sw)
+        out[f"q{i}_mult"] = (a_scale[3] * sw).astype(np.float32)
+        out[f"q{i}_bias"] = b
+    if float_heads:
+        out["a3_scale"] = np.float32(a_scale[3])
+    return out
+
+
 class QuantV3Net:
     """The int8 v3 chain with ``SignCenterNet``'s calling convention, so the
     float detector's routes run it unchanged."""
@@ -168,13 +283,16 @@ class QuantV3Net:
 
 
 def save_quant_params(path: str, q: dict, arch: str = "v3",
-                      score_threshold: float | None = None) -> None:
+                      score_threshold: float | None = None,
+                      source_sha256: str | None = None) -> None:
     arrays = {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v))
               for k, v in q.items()}
     arrays["__arch__"] = np.asarray(arch)
     arrays["__quant__"] = np.asarray("int8")
     if score_threshold is not None:
         arrays["__threshold__"] = np.asarray(score_threshold, np.float32)
+    if source_sha256 is not None:
+        arrays["__source_sha256__"] = np.asarray(source_sha256)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     np.savez(path, **arrays)
 

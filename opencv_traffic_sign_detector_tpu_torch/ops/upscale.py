@@ -84,24 +84,40 @@ def _upscale_axis(x: torch.Tensor, axis: int, out_size: int) -> torch.Tensor:
     return out.reshape(b, h, out_size, c)
 
 
-def _dense_weights(in_size: int, out_size: int, device) -> torch.Tensor:
-    """[in, out] f32 bilinear weights as ``jax.image.resize`` computes them
-    (``compute_weight_mat`` with the triangle kernel, antialias on, no
-    translation)."""
-    f32 = torch.float32
-    inv_scale = 1.0 / (out_size / in_size)
-    # jit turns the division by the constant kernel scale into a product
-    # with its f32 reciprocal
-    inv_kernel_scale = np.float32(1.0) / np.float32(max(inv_scale, 1.0))
-    sample_f = ((torch.arange(out_size, dtype=f32, device=device) + 0.5)
-                * torch.tensor(inv_scale, dtype=f32, device=device) - 0.5)
-    x = (sample_f[None, :] - torch.arange(in_size, dtype=f32, device=device)[:, None]).abs()
-    weights = torch.clamp(1 - x * torch.tensor(inv_kernel_scale, device=device), min=0)
-    total = weights.sum(dim=0, keepdim=True)
+def scale_translate_weights(in_size: int, out_size: int, inv_scale: torch.Tensor,
+                            shift: torch.Tensor, reciprocal: bool = False) -> torch.Tensor:
+    """[B, in, out] f32 linear-resampling weights of ``B`` axes, as
+    ``jax.image.scale_and_translate`` computes them (``compute_weight_mat``:
+    triangle kernel, antialias on, renormalised per output sample, zero
+    where the sample lies outside ``[-0.5, in - 0.5]``).
+
+    ``inv_scale`` [B] is ``1 / scale`` and ``shift`` [B] is ``translation *
+    inv_scale``: output pixel ``o`` samples input ``(o + 0.5) * inv_scale -
+    shift - 0.5``.  The kernel is widened by ``max(inv_scale, 1)``; with
+    ``reciprocal`` the distances are multiplied by its f32 reciprocal, as
+    jit does when the scale is a constant, else divided by it."""
+    f32, dev = torch.float32, inv_scale.device
+    kernel_scale = torch.clamp(inv_scale, min=1.0)[:, None, None]
+    sample_f = ((torch.arange(out_size, dtype=f32, device=dev) + 0.5)[None, :]
+                * inv_scale[:, None] - shift[:, None] - 0.5)                  # [B, out]
+    x = (sample_f[:, None, :] - torch.arange(in_size, dtype=f32, device=dev)[None, :, None]).abs()
+    x = x * (1 / kernel_scale) if reciprocal else x / kernel_scale
+    weights = torch.clamp(1 - x, min=0)
+    total = weights.sum(dim=1, keepdim=True)
     weights = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
                           weights / torch.where(total != 0, total, 1), 0.0)
     inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
-    return torch.where(inside[None, :], weights, 0.0)
+    return torch.where(inside[:, None, :], weights, 0.0)
+
+
+def _dense_weights(in_size: int, out_size: int, device) -> torch.Tensor:
+    """[in, out] f32 bilinear weights as ``jax.image.resize`` computes them:
+    the scale is a Python float there, so ``1 / scale`` is taken in f64, and
+    jit turns the division by the constant kernel scale into a product with
+    its f32 reciprocal."""
+    inv_scale = torch.tensor([1.0 / (out_size / in_size)], dtype=torch.float32, device=device)
+    return scale_translate_weights(in_size, out_size, inv_scale, torch.zeros_like(inv_scale),
+                                   reciprocal=True)[0]
 
 
 def _dense_axis(x: torch.Tensor, axis: int, out_size: int) -> torch.Tensor:

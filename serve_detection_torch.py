@@ -158,7 +158,7 @@ def main(argv=None) -> int:
             return 2
         if not os.path.exists(args.cnn_params):
             print(f"CNN weights {args.cnn_params!r} not found "
-                  "(train with scripts/train_cnn.py)")
+                  "(train with scripts/train_cnn_torch.py)")
             return 2
         why = missing_card(args.device)
         if why:

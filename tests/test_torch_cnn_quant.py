@@ -86,16 +86,20 @@ def test_int8_matmul_plain_is_exact():
         tcq.int8_matmul(torch.from_numpy(a).to("meta"), torch.from_numpy(b).to("meta"))
 
 
-@pytest.fixture(scope="module")
-def float_heads_q():
-    """A ``float_heads`` artifact made by the reference's own quantizer from
-    random v3 weights, with heads lifted so that something is detected."""
+@pytest.fixture(scope="module", params=["port", "reference"])
+def float_heads_q(request):
+    """A ``float_heads`` artifact made from random v3 weights, with heads
+    lifted so that something is detected, by the port's quantizer or by the
+    reference's own."""
     cfg = jcd.CNNDetectorConfig(arch="v3")
     params = dict(jcd.init_params(cfg, 3, (64, 64)))
     params["Conv_4"] = {"kernel": params["Conv_4"]["kernel"],
                         "bias": params["Conv_4"]["bias"] + 4.0}
     calib = make_frames(2, 64, 96, seed=52)
-    return jcq.quantize_v3(params, calib, float_heads=True)
+    if request.param == "reference":
+        return jcq.quantize_v3(params, calib, float_heads=True)
+    flat = {f"['{m}']['{n}']": np.asarray(v) for m, leaf in params.items() for n, v in leaf.items()}
+    return tcq.quantize_v3(flat, calib, float_heads=True)
 
 
 def test_float_heads_variant_matches_reference(float_heads_q):

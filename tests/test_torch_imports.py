@@ -1,9 +1,11 @@
-"""The port stands alone: no file of it, of its CLI or its chip smoke run
-imports JAX or the reference package.
+"""The port stands alone: no file of it, of its CLIs, of its training and
+quantization scripts or of its chip smoke run imports JAX, flax, optax or
+the reference package.
 
 An AST scan of each file (one case per file) fails on any ``import`` or
-``from ... import`` of ``jax`` or ``opencv_traffic_sign_detector_tpu`` or
-of one of their submodules, at any depth of the file.  Relative imports
+``from ... import`` of ``jax``, ``flax``, ``optax`` or
+``opencv_traffic_sign_detector_tpu`` or of one of their submodules, at any
+depth of the file.  Relative imports
 inside the port resolve to the port.  ``tests/test_torch_ops.py:
 test_port_imports_no_jax`` checks the same at run time through
 ``sys.modules``.
@@ -16,12 +18,13 @@ import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = "opencv_traffic_sign_detector_tpu_torch"
-FORBIDDEN = ("jax", "opencv_traffic_sign_detector_tpu")
+FORBIDDEN = ("jax", "flax", "optax", "opencv_traffic_sign_detector_tpu")
 
 
 def _port_files() -> list[str]:
     files = ["main_detection_torch.py", "serve_detection_torch.py", "main_recognition_torch.py",
-             "evaluate_results_torch.py", "chip_smoke.py"]
+             "evaluate_results_torch.py", "chip_smoke.py", "scripts/train_cnn_torch.py",
+             "scripts/quantize_cnn_torch.py"]
     for root, _, names in os.walk(os.path.join(REPO, PORT)):
         files += sorted(os.path.relpath(os.path.join(root, n), REPO)
                         for n in names if n.endswith(".py"))
@@ -57,6 +60,8 @@ def test_port_file_imports_neither_jax_nor_the_reference(path):
     ("import opencv_traffic_sign_detector_tpu_torch.ops", []),
     ("from .config import MSERConfig", []),
     ("import jaxlib_like", []),
+    ("import flax.linen as nn", ["flax.linen"]),
+    ("from optax import adamw", ["optax"]),
 ])
 def test_scan_finds_forbidden_imports(source, found):
     assert forbidden_imports(source) == found

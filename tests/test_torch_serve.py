@@ -104,9 +104,11 @@ def test_serve_cnn_agrees(watch_dir, tmp_path, fmt):
 ], ids=["cnn_spec", "cnn_spec3", "upscale_mser", "upscale_patches8", "yuv_mser", "mser_spec",
         "cnn_weights", "templates"])
 def test_both_servers_reject(tmp_path, argv, capsys):
+    """Both exit 2 with the same message; the port's points at its own
+    trainer."""
     common = ["--watch_dir", str(tmp_path), "--once", "--out", str(tmp_path / "o.jsonl")]
     assert serve_detection.main(common + argv) == 2
-    ref = capsys.readouterr().out
+    ref = capsys.readouterr().out.replace("scripts/train_cnn.py", "scripts/train_cnn_torch.py")
     assert serve_detection_torch.main(common + argv + ["--device", "cpu"]) == 2
     assert capsys.readouterr().out == ref
 
