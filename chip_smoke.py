@@ -125,7 +125,28 @@ Phases:
 15. calibration: ``quantize_v3`` of the shipped v3 checkpoint on 8 of those
     frames on the card and on the CPU (int8 kernels identical, the other
     arrays within 1e-5 relative), and the card's artifact through
-    ``QuantCNNDetector`` on the card.  Neither phase runs K1-K7.
+    ``QuantCNNDetector`` on the card.  Neither phase runs K1-K7;
+16. scale-out (:func:`_scale_out_phases`): (a) ``DetectionPipeline(mesh=
+    data_mesh())`` (every visible card) on the tuned slice at batch 32, a
+    warm-up and 3 timed batches, records equal to the unsharded pipeline's,
+    K1 with its LUT tail, K2, K3 and K4 launched, device-side ms and
+    frames/s; (b) ``distributed_train_step`` over 2 shards on the card on
+    the dry run's planted frames against 2 CPU shards (class counts equal,
+    statistics within 1e-5, each fit within 1e-5 of solving the CPU's
+    statistics, :func:`_lda_backward_error`); (c) ``sharded_recognize_fn`` with (b)'s heads against the
+    unsharded ``recognize_batch`` (boxes, labels, valid equal); (d) the
+    SPMD CNN step on the tiny config for 2 steps (finite losses, moving
+    parameters), its first step at f32 against the CPU mesh on the same
+    crops of labelled frames (loss 1e-5, gradients 1e-3 of their largest,
+    parameters equal after the count-0 update; on the noise frames
+    printed); (e) sharded v3 inference with the head-bias
+    surgery (a detection a frame, scores within 1e-5 and raw maps within
+    5e-3 of the unsharded run); (f) ``distributed_statistics`` of (a)'s
+    detections against the frames' drawn signs equal to the host engine;
+    (g) (b) and (f) again through a one-rank NCCL process group (a
+    ``FileStore`` under ``build/``), so the all-reduce runs on the card;
+    (h) one MSER batch under ``profiler_trace``, whose trace must name the
+    tiled sweep kernel.
 
 Then one JSON line with the kernel table (each kernel's launches on its
 path's run, max abs error, ms, plain ms, bound ms and what bounds it, the
@@ -1526,6 +1547,356 @@ def _train_phases(rt, dev, smi: str, seed: int) -> dict:
     return {"training": (counts, cfg.steps)}
 
 
+def _planted(n: int, seed: int):
+    """The dry run's planted frames and GT (``__graft_entry__.py:
+    dryrun_multichip``), rebuilt here: a dark 24x24 square a 96x96 frame."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    frames = rng.integers(90, 140, (n, 96, 96, 3), np.uint8)
+    gt_boxes = np.zeros((n, 2, 4), np.int32)
+    gt_types = np.zeros((n, 2), np.int32)
+    for i in range(n):
+        x, y = 20 + (i % 3) * 10, 30
+        frames[i, y:y + 24, x:x + 24] = 25
+        gt_boxes[i, 0] = (x, y, x + 24, y + 24)
+        gt_types[i, 0] = 1 + (i % 6)
+    return frames, gt_boxes, gt_types
+
+
+def _red_sign_frames(n: int):
+    """The dry run's detection frames: a red 24x24 sign at (30, 30) of a
+    96x96 frame of gray 160, and its template, the sign's own red mask
+    through the pipeline's crop geometry."""
+    import numpy as np
+
+    from opencv_traffic_sign_detector_tpu_torch.constants import DETECT_CROP, DETECT_GROW
+    from opencv_traffic_sign_detector_tpu_torch.ops.color import color_mask
+    from opencv_traffic_sign_detector_tpu_torch.ops.geometry import filter_and_grow_boxes
+    from opencv_traffic_sign_detector_tpu_torch.ops.resize import crop_and_resize
+
+    frames = np.full((n, 96, 96, 3), 160, np.uint8)
+    frames[:, 30:54, 30:54] = (40, 40, 230)
+    box, keep = filter_and_grow_boxes(torch.tensor([[[30, 30, 24, 24]]]), torch.tensor([[True]]),
+                                      DETECT_GROW)
+    _require(bool(keep[0, 0]), "the planted sign fails the aspect filter")
+    crop = crop_and_resize(torch.from_numpy(frames[:1]), box, DETECT_CROP)[0, 0]
+    red = (color_mask(crop, "r") > 0).to(torch.float32).reshape(1, -1).repeat(6, 1)
+    return frames, red
+
+
+def _max_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over the largest |want|."""
+    want = want.detach().cpu().double()
+    return ((got.detach().cpu().double() - want).abs().max()
+            / max(want.abs().max().item(), 1e-30)).item()
+
+
+def _lda_backward_error(coef, intercept, stats) -> tuple[float, float]:
+    """How far a fit (coef, intercept) is from solving the LDA system of
+    ``stats`` (counts, sums, second moments), in f64 on the CPU: the
+    normwise backward error of ``cov @ coef.T = means.T`` and the
+    intercept's largest difference to ``-means . coef / 2 + log prior``,
+    over its largest.  The dry run's 324-dim covariance of a few dozen
+    proposals is near singular, so two fits of equal statistics differ by
+    tens of percent a coefficient; both stay within ~1e-6 of solving them."""
+    counts, sums, sq = (t.detach().cpu().double() for t in stats)
+    coef, intercept = coef.detach().cpu().double(), intercept.detach().cpu().double()
+    n, (c, d) = counts.sum(), sums.shape
+    means = sums / counts.clamp(min=1.0)[:, None]
+    cov = ((sq.sum(0) - torch.einsum("c,cd,ce->de", counts, means, means))
+           / (n - c).clamp(min=1.0) + 1e-6 * torch.eye(d, dtype=torch.float64))
+    eta = (torch.linalg.norm(cov @ coef.T - means.T)
+           / (torch.linalg.norm(cov) * torch.linalg.norm(coef) + torch.linalg.norm(means)))
+    want = -0.5 * (means * coef).sum(1) + torch.log(counts.clamp(min=1e-6) / n.clamp(min=1.0))
+    return eta.item(), ((intercept - want).abs().max() / want.abs().max()).item()
+
+
+def _scale_out_phases(rt, dev, smi: str, frames, signs, templates, mcfg, seed: int) -> dict:
+    """Phase 16: scale-out on the card.  -> {path: (launch counts, batches)}."""
+    import copy
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from opencv_traffic_sign_detector_tpu_torch.config import MSERConfig, PipelineConfig
+    from opencv_traffic_sign_detector_tpu_torch.data.gt import GroundTruthBox
+    from opencv_traffic_sign_detector_tpu_torch.data.synthetic import make_labelled_frames
+    from opencv_traffic_sign_detector_tpu_torch.eval.device_stats import distributed_statistics
+    from opencv_traffic_sign_detector_tpu_torch.eval.stats import compute_detection_statistics
+    from opencv_traffic_sign_detector_tpu_torch.models import cnn_detector as cd
+    from opencv_traffic_sign_detector_tpu_torch.models import cnn_train as ct
+    from opencv_traffic_sign_detector_tpu_torch.models import detector as det
+    from opencv_traffic_sign_detector_tpu_torch.models.rec_pipeline import recognize_batch
+    from opencv_traffic_sign_detector_tpu_torch.parallel import cnn as pcnn
+    from opencv_traffic_sign_detector_tpu_torch.parallel import mesh as pm
+    from opencv_traffic_sign_detector_tpu_torch.parallel import train as ptrain
+    from opencv_traffic_sign_detector_tpu_torch.utils.profiling import profiler_trace
+
+    t_phase = time.perf_counter()
+    cards = pm.data_mesh()                     # every visible card
+    two = pm.data_mesh(devices=[cards.devices[i % cards.size] for i in range(2)])
+    cpu2 = pm.data_mesh(2, device="cpu")
+    print(f"[scale-out] meshes: {cards.size} card shard(s) {[str(d) for d in cards.devices]}; "
+          f"2 shards {[str(d) for d in two.devices]}; 2 CPU shards")
+
+    # --- 16a. the tuned slice over the cards' mesh --------------------------
+    batch = 32
+    names = [f"{i:05d}.jpg" for i in range(batch)]
+    pcfg = PipelineConfig(mser=mcfg, batch_size=batch)
+    want = det.DetectionPipeline(cfg=pcfg, templates=templates, device=dev).detect_frames(
+        frames[:batch], names)
+    pipe = det.DetectionPipeline(cfg=pcfg, templates=templates, mesh=cards)
+    pipe.detect_frames(frames[:batch], names)  # warm-up batch
+    torch.cuda.synchronize()
+
+    def timed():
+        timer = CudaStageTimer()
+        pipe.timer = timer
+        batch_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            dets = pipe.detect_frames(frames[:batch], names)
+            batch_s.append(time.perf_counter() - t0)
+        return dets, batch_s, timer.per_batch_ms(3)
+
+    (dets, batch_s, stage_ms), counts = _run_path(rt, "scale-out detection", timed)
+    pipe.timer = None
+    print(f"[scale-out detection] DetectionPipeline(mesh=data_mesh()) over {cards.size} card "
+          f"shard(s), batch {batch} of {frames.shape[2]}x{frames.shape[1]}, tuned "
+          f"MSER_7_200_2000_1: device side "
+          f"{sum(stage_ms.values()):.3f} ms a batch summed over its shards (CUDA events on "
+          "each shard's card, mean of 3 after a warm-up; "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items())
+          + f"), {batch / statistics.median(batch_s):.2f} frames/s on the host's clock (median; "
+          f"min {batch / max(batch_s):.2f}, max {batch / min(batch_s):.2f}); {len(dets)} "
+          f"detections, records equal to the unsharded pipeline's {dets == want}; {smi}")
+    _require(dets == want, "sharded detection records differ from the unsharded pipeline's")
+    for name in ("tile_luts", "clahe_apply", "level_sweep", "flood_bbox"):
+        _require(counts[name] > 0, f"scale-out detection: {name} never launched")
+    paths = {"scale-out detection": (counts, 3)}
+
+    # --- 16b. the SPMD LDA train step --------------------------------------
+    dry = MSERConfig(min_area=60, max_area=1200, max_variation=1.0, max_regions=32)
+    planted = _planted(8, seed + 16)
+    det.full_f32_matmuls()
+
+    def train_step(m):
+        return ptrain.distributed_train_step(m, dry)(*(pm.shard_batch(m, a) for a in planted))
+
+    (coef, intercept, class_counts), counts = _run_path(rt, "scale-out train step",
+                                                        lambda: train_step(two))
+    ccoef, cint, ccounts = train_step(cpu2)
+
+    def statistics_on(device):
+        f, lab, w = ptrain._propose_and_label(*(torch.from_numpy(a).to(device) for a in planted),
+                                              dry, 1.15, 32)
+        d = f.shape[-1]
+        return f.reshape(-1, d), ptrain._class_statistics(f.reshape(-1, d), lab.reshape(-1),
+                                                          w.reshape(-1))
+
+    _, st_cpu = statistics_on("cpu")
+    _, st_card = statistics_on(dev)
+    stat_err = max(_max_rel(a, b) for a, b in zip(st_card[1:], st_cpu[1:]))
+    fits = {"card": _lda_backward_error(coef, intercept, st_cpu),
+            "cpu": _lda_backward_error(ccoef, cint, st_cpu)}
+    print(f"[scale-out train step] distributed_train_step over 2 shards on the card, 8 planted "
+          f"96x96 frames: class counts {class_counts.cpu().int().tolist()} (2 CPU shards "
+          f"{ccounts.int().tolist()}), coef finite {bool(torch.isfinite(coef).all())}; feature "
+          f"sums and second moments card vs CPU max |diff| / max {stat_err:.3g} (bound 1e-5); "
+          "each fit against the CPU's statistics, normwise backward error and intercept error: "
+          + ", ".join(f"{k} {e:.3g}, {i:.3g}" for k, (e, i) in fits.items()) + " (bounds 1e-5)")
+    _require(torch.equal(class_counts.cpu(), ccounts) and class_counts.sum() > 0
+             and bool(torch.isfinite(coef).all()) and bool(torch.isfinite(intercept).all())
+             and torch.equal(st_card[0].cpu(), st_cpu[0]) and stat_err <= 1e-5
+             and all(e <= 1e-5 and i <= 1e-5 for e, i in fits.values()),
+             "the card's SPMD train step differs from the CPU mesh's")
+    paths["scale-out train step"] = (counts, 1)
+
+    # --- 16c. sharded recognition with (b)'s heads -------------------------
+    det_frames, red = _red_sign_frames(8)
+    heads = (torch.stack([torch.stack([coef[0], coef[k]]) for k in range(1, 7)]),
+             torch.stack([torch.stack([intercept[0], intercept[k]]) for k in range(1, 7)]))
+    rcfg = PipelineConfig(mser=dry, max_detections=16, batch_size=8)
+    got = pm.unshard(pm.sharded_recognize_fn(two, rcfg, "HOG", "LDABAYES")(
+        pm.shard_batch(two, det_frames), heads))
+    single = recognize_batch(torch.from_numpy(det_frames).to(dev), heads, rcfg, "HOG", "LDABAYES")
+    same = all(torch.equal(got[k], single[k]) for k in (0, 1, 3))
+    print(f"[scale-out recognition] sharded_recognize_fn over 2 shards, 8 red-sign frames, the "
+          f"heads of (b): {int(got[3].sum())} labelled detections; boxes, labels and valid equal "
+          f"to the unsharded recognize_batch {same}; scores max |diff| "
+          f"{(got[2] - single[2]).abs().max().item():.3g}")
+    _require(same and bool(torch.isfinite(got[2]).all()),
+             "sharded recognition differs from the unsharded recognize_batch")
+
+    # --- 16d. the SPMD CNN step ---------------------------------------------
+    tiny = cd.CNNDetectorConfig(stem_features=16, mid_features=24, deep_features=32,
+                                head_features=24)
+    hw = ct.SLICE + 32
+    rng = np.random.default_rng(seed + 16)
+    cnn_frames = rng.integers(0, 255, (2, hw, hw, 3)).astype(np.uint8)
+    cnn_boxes = np.zeros((2, ct.MAX_GT, 4), np.float32)
+    cnn_cls = np.zeros((2, ct.MAX_GT), np.int32)
+    for i in range(2):
+        cnn_boxes[i, 0] = (200, 200, 260, 260)
+        cnn_cls[i, 0] = 1 + i
+    data = pcnn.shard_cnn_dataset({"frames": cnn_frames, "boxes": cnn_boxes, "cls": cnn_cls}, 2)
+    tcfg = ct.TrainConfig(batch_size=1, steps=2, warmup_steps=1, pos_fraction=1.0, seed=seed)
+    model = cd.init_params(cd.SignCenterNet(tiny), seed).to(two.devices[0])
+    before = [p.detach().clone() for p in model.parameters()]
+    step = pcnn.make_spmd_cnn_train_step(two, tiny, tcfg)
+    opt = ct.make_optimizer(model.parameters(), tcfg)
+    sharded = pcnn.put_sharded_cnn_dataset(two, data)
+    losses = [step(model, opt, sharded, s)["loss"].item() for s in range(tcfg.steps)]
+    moved = max((p - b).abs().max().item() for p, b in zip(model.parameters(), before))
+
+    f32 = dataclasses.replace(tiny, dtype="float32")
+
+    def first_step_vs_cpu(step_data):
+        """The f32 SPMD step at count 0 over 2 shards on the card and 2 CPU
+        shards, from the same weights, on the CPU's crops of step 0: (loss
+        relative difference, worst gradient over its largest and its
+        parameter, parameters equal after the update)."""
+        cpu_model = cd.init_params(cd.SignCenterNet(f32), seed)
+        card_model = copy.deepcopy(cpu_model).to(two.devices[0])
+        cpu_data = pcnn.put_sharded_cnn_dataset(cpu2, step_data)
+        crops = [ct.crops_from_draws(ct.sample_draws(ct.shard_generator(seed, 0, i, "cpu"), 1,
+                                                     d["frames"].shape[0], d["pos"].shape[0],
+                                                     tcfg), d, tcfg)
+                 for i, d in enumerate(cpu_data)]
+        got_cpu = pcnn.make_spmd_cnn_train_step(cpu2, f32, tcfg).update(
+            cpu_model, ct.make_optimizer(cpu_model.parameters(), tcfg), crops)
+        got_card = pcnn.make_spmd_cnn_train_step(two, f32, tcfg).update(
+            card_model, ct.make_optimizer(card_model.parameters(), tcfg),
+            [tuple(c.to(d) for c in cr) for d, cr in zip(two.devices, crops)])
+        loss_rel = (abs(got_card["loss"].item() - got_cpu["loss"].item())
+                    / abs(got_cpu["loss"].item()))
+        grad_rel = {name: _max_rel(c.grad, a.grad) for (name, a), c in
+                    zip(cpu_model.named_parameters(), card_model.parameters())}
+        worst = max(grad_rel, key=grad_rel.get)
+        same = all(torch.equal(c.cpu(), a)
+                   for a, c in zip(cpu_model.parameters(), card_model.parameters()))
+        return loss_rel, grad_rel[worst], worst, same
+
+    lab_frames, lab_found = make_labelled_frames(2, 480, 640, seed=seed + 16)
+    checks = {"labelled": first_step_vs_cpu(
+                  pcnn.shard_cnn_dataset(ct.pack_dataset(lab_frames, lab_found), 2)),
+              "noise": first_step_vs_cpu(data)}
+    print(f"[scale-out cnn step] the SPMD step over 2 shards, tiny slim at bf16, "
+          f"{tcfg.steps} steps on the dry run's noise frames: losses "
+          f"{', '.join(f'{v:.4f}' for v in losses)}, parameters moved up to {moved:.3g}; the "
+          "first step at f32 over 2 shards, card against 2 CPU shards on the CPU's crops: "
+          + "; ".join(f"{k} frames: loss rel {lr:.3g}, grads max |diff| / max {g:.3g} at {w}, "
+                      f"parameters equal after the count-0 update {same}"
+                      for k, (lr, g, w, same) in checks.items())
+          + " (held on the labelled frames: loss 1e-5, grads 1e-3, phase 14's bounds; on "
+          "noise the norms' f32 fast variance cancels further, printed only)")
+    _require(bool(np.isfinite(losses).all()) and moved > 0, "the SPMD CNN step did not train")
+    loss_rel, grad_rel, _, param_same = checks["labelled"]
+    _require(loss_rel <= 1e-5 and grad_rel <= 1e-3 and param_same,
+             "the card's SPMD CNN step differs from the CPU mesh's")
+
+    # --- 16e. sharded v3 inference ------------------------------------------
+    v3cfg = cd.CNNDetectorConfig(arch="v3", max_detections=8, score_threshold=0.5)
+    flat = cd.flat_params(cd.init_params(cd.SignCenterNet(v3cfg), seed))
+    flat["['Conv_4']['bias']"] = flat["['Conv_4']['bias']"] + 8.0      # hm: fire
+    flat["['Conv_5']['kernel']"] = flat["['Conv_5']['kernel']"] * 0.0  # size: 16 px
+    flat["['Conv_5']['bias']"] = flat["['Conv_5']['bias']"] + 1.0
+    net = cd.load_flat_params(cd.SignCenterNet(v3cfg), flat)
+    replicas = {d: copy.deepcopy(net).to(d) for d in set(two.devices)}
+    inf_frames = rng.integers(0, 255, (8, 64, 64, 3)).astype(np.uint8)
+    with torch.inference_mode():
+        maps1 = replicas[dev](torch.from_numpy(inf_frames).to(dev))
+        single = cd.decode_detections(maps1, v3cfg.max_detections, v3cfg.score_threshold,
+                                      v3cfg.stride)
+        shard_maps, shard_dets = [], []
+        for d, x in zip(two.devices, pm.shard_batch(two, inf_frames)):
+            with pm.device_scope(d):
+                m = replicas[d](x)
+                shard_maps.append(tuple(m[k] for k in ("hm", "size", "off")))
+                shard_dets.append(cd.decode_detections(m, v3cfg.max_detections,
+                                                       v3cfg.score_threshold, v3cfg.stride))
+        maps2, dets2 = pm.unshard(shard_maps), pm.unshard(shard_dets)
+    per_frame = dets2[3].sum(dim=1)
+    score_err = (dets2[2] - single[2]).abs().max().item()
+    map_err = max((a - maps1[k]).abs().max().item() for a, k in zip(maps2, ("hm", "size", "off")))
+    print(f"[scale-out cnn inference] v3 with the head-bias surgery over 2 shards, 8 frames of "
+          f"64x64: valid detections a frame {per_frame.tolist()}; scores max |diff| to the "
+          f"unsharded run {score_err:.3g} (bound 1e-5); raw maps max |diff| {map_err:.3g} (bound "
+          f"5e-3); valid equal {torch.equal(dets2[3], single[3])}")
+    _require(bool((per_frame >= 1).all()) and score_err <= 1e-5 and map_err <= 5e-3
+             and torch.equal(dets2[3], single[3]),
+             "sharded CNN inference differs from the unsharded run")
+
+    # --- 16f. device statistics of (a)'s detections -------------------------
+    d_cap = max(1, max(sum(d.filename == n for d in dets) for n in names))
+    arrays = [np.zeros((batch, d_cap, 4), np.int32), np.zeros((batch, d_cap), np.int32),
+              np.zeros((batch, d_cap), bool), np.zeros((batch, 6, 4), np.int32),
+              np.zeros((batch, 6), np.int32)]
+    gt = []
+    for k, n in enumerate(names):
+        for j, rec in enumerate(r for r in dets if r.filename == n):
+            arrays[0][k, j] = (rec.x1, rec.y1, rec.x2, rec.y2)
+            arrays[1][k, j], arrays[2][k, j] = rec.class_id, True
+        for j, (x1, y1, x2, y2, st) in enumerate(signs[k]):
+            arrays[3][k, j], arrays[4][k, j] = (x1, y1, x2, y2), st
+            gt.append(GroundTruthBox(filename=n, x1=x1, y1=y1, x2=x2, y2=y2, class_id=st))
+    host = compute_detection_statistics(dets, gt, unmapped_as_type6=False)
+    want_counts = [[getattr(host.per_type[t], f) for t in host.per_type]
+                   for f in ("correct", "incorrect", "non_detected")]
+
+    def device_counts(m):
+        return [c.cpu().tolist() for c in distributed_statistics(m)(
+            *(pm.shard_batch(m, a) for a in arrays))]
+
+    stats_cards, stats_two = device_counts(cards), device_counts(two)
+    print(f"[scale-out statistics] distributed_statistics of (a)'s {len(dets)} detections "
+          f"against the frames' {len(gt)} drawn signs: correct/incorrect/missed by type "
+          f"{stats_cards} on the cards' mesh, {stats_two} over 2 shards; host engine "
+          f"{want_counts}")
+    _require(stats_cards == want_counts and stats_two == want_counts,
+             "device statistics differ from the host engine's")
+
+    # --- 16g. the reduction through a one-rank NCCL group ------------------
+    store_path = rt.BUILD_ROOT.parent / "chip_smoke_nccl_store"
+    store_path.unlink(missing_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store_path), 1), rank=0,
+                            world_size=1)
+    try:
+        grouped = pm.data_mesh()
+        _require(grouped.group is not None and dist.get_backend(grouped.group) == "nccl",
+                 "the cards' mesh did not take the NCCL group")
+        psum_ok = pm.psum(grouped, [torch.arange(4.0, device=d) for d in grouped.devices]
+                          ).tolist() == [float(grouped.shards * i) for i in range(4)]
+        stats_nccl = device_counts(grouped)
+        gcoef, gint, gcounts = train_step(grouped)
+        g_fit = _lda_backward_error(gcoef, gint, st_cpu)
+        print(f"[scale-out nccl] one-rank NCCL group ({dist.get_backend(grouped.group)}, "
+              f"FileStore under build/): psum {psum_ok}; statistics {stats_nccl}; train step "
+              f"class counts {gcounts.cpu().int().tolist()}, its fit against the CPU's "
+              f"statistics {g_fit[0]:.3g}, {g_fit[1]:.3g} (bounds 1e-5)")
+        _require(psum_ok and stats_nccl == want_counts and torch.equal(gcounts.cpu(), ccounts)
+                 and max(g_fit) <= 1e-5, "the NCCL reduction differs")
+    finally:
+        dist.destroy_process_group()
+        store_path.unlink(missing_ok=True)
+
+    # --- 16h. one MSER batch under profiler_trace ---------------------------
+    trace_dir = rt.BUILD_ROOT.parent / "chip_smoke_trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    with profiler_trace(str(trace_dir)):
+        pipe.detect_frames(frames[:batch], names)
+        torch.cuda.synchronize()
+    traces = sorted(trace_dir.glob("*.pt.trace.json"))
+    named = bool(traces) and "sweep_tile_kernel" in traces[0].read_text()
+    print(f"[scale-out trace] profiler_trace of one MSER batch: {[t.name for t in traces]}, "
+          f"{sum(t.stat().st_size for t in traces)} bytes, names the tiled sweep kernel {named}")
+    _require(len(traces) == 1 and named, "the profiler trace is missing or misses the sweep")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    print(f"[scale-out] phase 16 in {time.perf_counter() - t_phase:.1f} s; {smi}")
+    return paths
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1538,7 +1909,7 @@ def main() -> int:
     import numpy as np
 
     from opencv_traffic_sign_detector_tpu_torch.config import MSERConfig, PipelineConfig
-    from opencv_traffic_sign_detector_tpu_torch.data.synthetic import make_frames
+    from opencv_traffic_sign_detector_tpu_torch.data.synthetic import make_frames_with_boxes
     from opencv_traffic_sign_detector_tpu_torch.models import detector as det
     from opencv_traffic_sign_detector_tpu_torch.models.mean_masks import (
         MeanMaskTemplates,
@@ -1587,7 +1958,7 @@ def main() -> int:
                                level_step=3, max_regions=1024, fused_sweep=False)
     # the tuned config with the roll-flood refine (--refine_scan 0)
     fcfg = dataclasses.replace(mcfg, refine_scan_passes=0)
-    frames = make_frames(32, 800, 1360, seed=args.seed)
+    frames, signs = make_frames_with_boxes(32, 800, 1360, seed=args.seed)
     names = [f"{i:05d}.jpg" for i in range(len(frames))]
     templates = MeanMaskTemplates.load("artifacts/mean_masks.npz")
     red, blue = templates_to_torch(templates, dev)
@@ -1851,6 +2222,10 @@ def main() -> int:
     # --- 14-15. training and calibration --------------------------------
     torch.cuda.empty_cache()
     paths.update(_train_phases(rt, dev, smi, args.seed))
+
+    # --- 16. scale-out ------------------------------------------------------
+    torch.cuda.empty_cache()
+    paths.update(_scale_out_phases(rt, dev, smi, frames, signs, templates, mcfg, args.seed))
     for label, (counts, n) in paths.items():
         print(f"[launches a batch] {label}: "
               + ", ".join(f"{k} {v / n:g}" for k, v in counts.items() if v) + f" ({n} batches)")

@@ -3,8 +3,9 @@
 test directory.
 
 Same grammar and output files as ``main_detection.py`` for the MSER
-detector (``--pixel_area_stability`` and every ``--downscale`` included)
-and the CNN family (``--detector CNN[_<thr>]`` with ``--cnn_params``,
+detector (``--pixel_area_stability``, every ``--downscale``, ``--n_devices``
+sharding over cards or CPU shards and ``--trace_dir`` profiler traces
+included) and the CNN family (``--detector CNN[_<thr>]`` with ``--cnn_params``,
 ``--input_format`` and ``--upscale``), plus ``--device`` (default
 ``cuda``; ``cpu`` runs the kernels' plain PyTorch versions; with no card and
 no ``--device cpu`` it exits 2):
@@ -51,7 +52,10 @@ from opencv_traffic_sign_detector_tpu_torch.utils.annotate import (
     draw_boxes_bgr,
     save_image_bgr,
 )
-from opencv_traffic_sign_detector_tpu_torch.utils.profiling import StageProfiler
+from opencv_traffic_sign_detector_tpu_torch.utils.profiling import (
+    StageProfiler,
+    profiler_trace,
+)
 from opencv_traffic_sign_detector_tpu_torch.utils.serialization import write_results_file
 from opencv_traffic_sign_detector_tpu_torch.utils.stages import StageError, stage
 
@@ -64,12 +68,6 @@ Detector spec: MSER_<delta>_<minArea>_<maxArea>_<maxVariation>
 Example: MSER_5_200_3000_0.45
 Or the trained CNN family: CNN[_<scoreThreshold>]  (e.g. CNN_0.45);
 weights from --cnn_params (train with scripts/train_cnn_torch.py)."""
-
-
-def _not_ported(what: str, slice_: str) -> int:
-    print(f"{what} is not ported to the PyTorch/CUDA package yet "
-          f"(ROADMAP.md queue 1, {slice_}); use main_detection.py")
-    return 2
 
 
 def _run_cnn(args) -> int:
@@ -193,14 +191,14 @@ def main(argv=None) -> int:
     parser.add_argument("--max_regions", type=int, default=128,
                         help="proposal capacity per frame")
     parser.add_argument("--n_devices", type=int, default=0,
-                        help="shard each batch over this many devices "
-                             "(MSER: not ported, must be 0; ignored by "
-                             "the CNN detector)")
+                        help="shard each batch over this many devices of "
+                             "--device (0 = single device; ignored by the "
+                             "CNN detector)")
     parser.add_argument("--profile", action="store_true",
                         help="print per-stage wall-clock summary")
     parser.add_argument("--trace_dir", default=None,
-                        help="profiler trace directory (MSER: not ported; "
-                             "ignored by the CNN detector)")
+                        help="capture a torch.profiler trace to this "
+                             "directory (ignored by the CNN detector)")
     parser.add_argument("--cnn_params", default="artifacts/cnn_detector/params.npz",
                         help="weights for --detector CNN (float or int8)")
     parser.add_argument("--pixel_area_stability", action="store_true",
@@ -226,16 +224,21 @@ def main(argv=None) -> int:
         # as main_detection.py: the CNN branch returns before --n_devices and
         # --trace_dir are read, so both are ignored there
         return _run_cnn(args)
-    if args.n_devices:
-        return _not_ported("Multi-device sharding (--n_devices)", "slice 7")
-    if args.trace_dir:
-        return _not_ported("Profiler traces (--trace_dir)", "slice 7")
 
     try:
         mser = MSERConfig.from_string(args.detector)
     except ConfigError as e:
         print(f"Invalid detector spec: {e}\n{USAGE_HINT}")
         return 2
+    mesh = None
+    if args.n_devices:
+        from opencv_traffic_sign_detector_tpu_torch.parallel.mesh import data_mesh
+
+        try:
+            mesh = data_mesh(args.n_devices, device=args.device)
+        except ValueError as e:
+            print(e)
+            return 2
     # config selection copied from main_detection.py
     if args.downscale > 1 and not args.pixel_area_stability:
         # fused-kernel tuned operating point
@@ -262,10 +265,13 @@ def main(argv=None) -> int:
               f"(delta={mser.delta} area=[{mser.min_area},{mser.max_area}] "
               f"maxVar={mser.max_variation}) ...")
         with stage("detect over test directory"):
-            pipe = DetectionPipeline(cfg=cfg, templates=templates, device=args.device)
+            if mesh is not None:
+                print(f"      sharding batches over {args.n_devices} devices")
+            pipe = DetectionPipeline(cfg=cfg, templates=templates, device=args.device,
+                                     mesh=mesh)
             t0 = time.time()
             n_frames = len(list_frame_files(test_path))
-            with prof.stage("detect", items=n_frames):
+            with profiler_trace(args.trace_dir), prof.stage("detect", items=n_frames):
                 detections = pipe.run_directory(test_path, progress=True)
             dt = time.time() - t0
             print(f"      {len(detections)} detections over {n_frames} frames "

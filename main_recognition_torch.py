@@ -15,7 +15,8 @@ Builds the training set (GT positives + mined negatives, proposal cache on
 disk, readable by either package), trains the classifier, runs the 10%
 held-out validation, prints the confusion matrix and classification report,
 and saves the model (a directory either package loads).  ``--n_devices``
-above 1 (the SPMD fit) is not ported and exits 2.
+above 1 fits the LDABAYES heads over a mesh of that many shards of
+``--device`` (cards, or shards run in turn on the CPU).
 """
 
 from __future__ import annotations
@@ -36,12 +37,6 @@ from opencv_traffic_sign_detector_tpu_torch.constants import SIGN_NAMES
 from opencv_traffic_sign_detector_tpu_torch.models.recognizer import run_validation
 from opencv_traffic_sign_detector_tpu_torch.runtime.build import missing_card
 from opencv_traffic_sign_detector_tpu_torch.utils.stages import StageError, stage
-
-
-def _not_ported(what: str, slice_: str) -> int:
-    print(f"{what} is not ported to the PyTorch/CUDA package yet "
-          f"(ROADMAP.md queue 1, {slice_}); use main_recognition.py")
-    return 2
 
 
 def main(argv=None) -> int:
@@ -91,8 +86,8 @@ def main(argv=None) -> int:
     parser.add_argument("--cnn_params", default="artifacts/cnn_detector/params.npz",
                         help="CNN weights for --proposals CNN")
     parser.add_argument("--n_devices", type=int, default=1,
-                        help="fit the classifier over an N-device mesh "
-                             "(not ported: must be 1)")
+                        help="fit the classifier over an N-device mesh of "
+                             "--device (SPMD statistics fit)")
     args = parser.parse_args(argv)
 
     try:
@@ -101,8 +96,6 @@ def main(argv=None) -> int:
     except ConfigError as e:
         print(f"Invalid spec: {e}")
         return 2
-    if args.n_devices > 1:
-        return _not_ported("The distributed classifier fit (--n_devices)", "slice 7")
     why = missing_card(args.device)
     if why:
         print(why)
@@ -155,6 +148,15 @@ def _run(args, mser, clf_cfg) -> int:
     print(f"validating {clf_cfg.to_string()} with detector {mser.to_string()} "
           f"on {args.device}")
     t0 = time.time()
+    mesh = None
+    if args.n_devices > 1:
+        from opencv_traffic_sign_detector_tpu_torch.parallel.mesh import data_mesh
+
+        try:
+            mesh = data_mesh(args.n_devices, device=args.device)
+        except ValueError as e:
+            print(e)
+            return 2
     cnn_det = _parse_cnn_proposals(args, args.device)
     proposals = None
     if cnn_det is not None:
@@ -179,6 +181,7 @@ def _run(args, mser, clf_cfg) -> int:
             limit=args.limit,
             seed=args.seed,
             verbose=True,
+            mesh=mesh,
             # CNN proposals are only useful with matched-distribution
             # positives, so they imply the flag
             proposal_positives=args.proposal_positives or cnn_det is not None,

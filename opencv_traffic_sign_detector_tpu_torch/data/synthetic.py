@@ -77,11 +77,22 @@ def _background(rng, yy: np.ndarray, xx: np.ndarray) -> np.ndarray:
 def make_frames(n: int, h: int = 800, w: int = 1360, seed: int = 0,
                 signs_per_frame: int = 6) -> np.ndarray:
     """[n, h, w, 3] uint8 BGR frames with red rings, triangles, blue discs."""
+    return make_frames_with_boxes(n, h, w, seed, signs_per_frame)[0]
+
+
+def make_frames_with_boxes(n: int, h: int = 800, w: int = 1360, seed: int = 0,
+                           signs_per_frame: int = 6):
+    """:func:`make_frames`' frames and, per frame, where its signs were
+    drawn, as :func:`make_labelled_frames` gives them: a list of (x1, y1,
+    x2, y2, super-type), rings type 1, triangles 2, discs 6 (signs may
+    overlap here)."""
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
     frames = np.empty((n, h, w, 3), np.uint8)
+    boxes = []
     for i in range(n):
         img = _background(rng, yy, xx)
+        found = []
         for _ in range(signs_per_frame):
             size = int(rng.integers(20, min(71, min(h, w) // 2)))
             cy = rng.uniform(size, h - size)
@@ -90,8 +101,12 @@ def make_frames(n: int, h: int = 800, w: int = 1360, seed: int = 0,
             patch = img[y0:y0 + 2 * size + 1, x0:x0 + 2 * size + 1]
             shape = ("ring", "triangle", "disc")[rng.integers(0, 3)]
             _draw(patch, shape, cy - y0, cx - x0, size)
+            r = size / 2.0
+            found.append((int(np.floor(cx - r)), int(np.floor(cy - r)), int(np.ceil(cx + r)),
+                          int(np.ceil(cy + r)), SUPERTYPE_SHAPES.index(shape) + 1))
         frames[i] = img
-    return frames
+        boxes.append(found)
+    return frames, boxes
 
 
 def make_labelled_frames(n: int, h: int = 800, w: int = 1360, seed: int = 0,

@@ -126,7 +126,18 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     """A generator on ``device`` seeded from ``(seed, step)`` alone, as the
     reference folds ``step`` into ``PRNGKey(seed)``: a step's draws do not
     depend on the steps before it."""
-    state = np.random.SeedSequence((seed, step)).generate_state(1, np.uint64)[0]
+    return _seeded((seed, step), device)
+
+
+def shard_generator(seed: int, step: int, shard: int, device) -> torch.Generator:
+    """:func:`step_generator` of one shard of a data mesh, seeded from
+    ``(seed, step, shard)``, as the reference folds the step and then the
+    device index into ``PRNGKey(seed)`` (``parallel/cnn.py``)."""
+    return _seeded((seed, step, shard), device)
+
+
+def _seeded(entropy: tuple[int, ...], device) -> torch.Generator:
+    state = np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(state))
 
 

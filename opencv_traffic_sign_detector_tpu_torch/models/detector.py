@@ -110,43 +110,52 @@ def _pack(boxes, types, scores, valid) -> torch.Tensor:
 
 class DetectionPipeline:
     """Host-facing detector: owns the templates on the device and runs
-    batches through :func:`detect_batch`, one batch in flight."""
+    batches through :func:`detect_batch`, one batch in flight.
+
+    With ``mesh`` (:func:`..parallel.mesh.data_mesh`), each batch is split
+    over the mesh's shards, every shard enqueued before any is read; the
+    records come back in frame order, as without a mesh.  The batch size
+    must divide by the mesh's size.
+    """
 
     def __init__(self, cfg: PipelineConfig, templates: MeanMaskTemplates,
-                 device="cuda", timer=None):
+                 device="cuda", timer=None, mesh=None):
+        from ..parallel.mesh import Mesh, explicit_device, sharded_detect_fn
+
         check_supported(cfg.mser)
+        if mesh is None:
+            mesh = Mesh((explicit_device(torch.device(device)),))
+        elif cfg.batch_size % mesh.size:
+            raise ValueError(f"batch_size {cfg.batch_size} must be divisible by the "
+                             f"mesh size {mesh.size}")
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = mesh.devices[0]
         self.timer = timer
         self.red, self.blue = templates_to_torch(templates, self.device)
+        self._detect = sharded_detect_fn(mesh, self._detect_packed)
+
+    def _detect_packed(self, frames, red, blue) -> torch.Tensor:
+        return _pack(*detect_batch(frames, red, blue, self.cfg, self.timer))
 
     def dispatch(self, frames: np.ndarray):
         """Enqueue one [B, H, W, 3] uint8 batch; returns a pending handle.
 
-        On the card the upload is pinned and non-blocking, the packed result
-        is copied back into pinned memory without blocking, and an event
-        marks its arrival, so the caller can decode and upload the next batch
-        meanwhile (:meth:`run_directory`).
+        On a card each shard's upload is pinned and non-blocking, its packed
+        result is copied back into pinned memory without blocking, and an
+        event a shard marks its arrival, so the caller can decode and upload
+        the next batch meanwhile (:meth:`run_directory`).
         """
-        host = torch.from_numpy(np.ascontiguousarray(frames))
-        if self.device.type != "cuda":
-            out = _pack(*detect_batch(host.to(self.device), self.red, self.blue,
-                                      self.cfg, self.timer))
-            return out, None, host
-        host = host.pin_memory()
-        dev_frames = host.to(self.device, non_blocking=True)
-        packed = _pack(*detect_batch(dev_frames, self.red, self.blue, self.cfg, self.timer))
-        out = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-        out.copy_(packed, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        return out, done, host  # host stays referenced until the copy ran
+        from ..parallel.mesh import shard_batch, to_host
+
+        packed = self._detect(shard_batch(self.mesh, frames), self.red, self.blue)
+        return to_host(self.mesh, packed)
 
     def collect(self, pending, names: list[str]) -> list[GroundTruthBox]:
         """Wait for a dispatched batch and unpad it into detection records."""
-        out, done, _ = pending
-        if done is not None:
-            done.synchronize()
+        out, done = pending
+        for event in done:
+            event.synchronize()
         packed = out.numpy()
         boxes = packed[..., :4].astype(np.int64)
         types = packed[..., 4].astype(np.int64)

@@ -15,8 +15,9 @@ Counterpart of ``opencv_traffic_sign_detector_tpu/models/recognizer.py``
 * the validation harness: per-class shuffle, 90/10 split, fit, predict,
   confusion matrix + classification report.
 
-The SPMD fit over a device mesh (``mesh``) is not ported (ROADMAP.md queue
-1, slice 7).
+With a data mesh (``run_validation(mesh=...)``) the LDABAYES heads are fit
+from statistics summed over the mesh's shards
+(``parallel/train.py: fit_classifier_distributed``).
 """
 
 from __future__ import annotations
@@ -510,11 +511,8 @@ def run_validation(
     device="cuda",
 ) -> ValidationResult:
     """Train on (1-pct) of the per-class data, validate on the held-out pct.
-    ``mesh`` (the reference's SPMD fit) is not ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the distributed classifier fit is not ported to the PyTorch/CUDA "
-            "package (ROADMAP.md queue 1, slice 7)")
+    With ``mesh`` (``parallel.mesh.data_mesh``), LDABAYES heads are fit from
+    statistics summed over the mesh's shards."""
     mser_cfg = mser_cfg or MSERConfig()
     clf_cfg = clf_cfg or ClassifierConfig()
 
@@ -533,8 +531,14 @@ def run_validation(
     val_feats = compute_features_dict(val, clf_cfg.features, device)
 
     if verbose:
-        print(f"fitting {clf_cfg.classifier} ...")
-    clf = fit_classifier(train_feats, clf_cfg)
+        print(f"fitting {clf_cfg.classifier} ..."
+              + (f" (SPMD over {mesh.shards} devices)" if mesh else ""))
+    if mesh is not None:
+        from ..parallel.train import fit_classifier_distributed
+
+        clf = fit_classifier_distributed(train_feats, clf_cfg, mesh)
+    else:
+        clf = fit_classifier(train_feats, clf_cfg)
 
     Xv = np.concatenate([val_feats[c] for c in range(7)])
     yv = np.concatenate([np.full(len(val_feats[c]), c) for c in range(7)])

@@ -1,4 +1,5 @@
-"""Box geometry: aspect filter + grow, pairwise corner similarity, IoU.
+"""Box geometry: aspect filter + grow, pairwise corner similarity, the
+statistics' match score, IoU.
 
 Counterpart of ``opencv_traffic_sign_detector_tpu/ops/geometry.py``, with
 the same f32 operation order.  Every function takes any leading batch dims.
@@ -53,6 +54,16 @@ def pairwise_coord_similarity(boxes_xyxy: torch.Tensor) -> torch.Tensor:
     d_br = torch.linalg.vector_norm(br[..., :, None, :] - br[..., None, :, :], dim=-1)
     return torch.sqrt(sigmoid_distance_similarity(d_tl)
                       * sigmoid_distance_similarity(d_br))
+
+
+def boxes_match_score(det_xyxy: torch.Tensor, gt_xyxy: torch.Tensor) -> torch.Tensor:
+    """[..., N, 4] x [..., M, 4] -> [..., N, M] geometric means of the
+    corner-wise sigmoid similarities (the statistics' match score)."""
+    d = det_xyxy.to(torch.float32)
+    g = gt_xyxy.to(device=d.device, dtype=torch.float32)
+    d_tl = torch.linalg.vector_norm(d[..., :, None, :2] - g[..., None, :, :2], dim=-1)
+    d_br = torch.linalg.vector_norm(d[..., :, None, 2:] - g[..., None, :, 2:], dim=-1)
+    return torch.sqrt(sigmoid_distance_similarity(d_tl) * sigmoid_distance_similarity(d_br))
 
 
 def iou_matrix(a_xyxy: torch.Tensor, b_xyxy: torch.Tensor) -> torch.Tensor:

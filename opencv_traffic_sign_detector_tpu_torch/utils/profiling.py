@@ -1,9 +1,10 @@
-"""Per-stage wall-clock timers for the CLIs.
+"""Per-stage wall-clock timers for the CLIs, and profiler traces.
 
 The port's copy of ``StageProfiler`` from
 ``opencv_traffic_sign_detector_tpu/utils/profiling.py``.  Where a stage's
 time must include the card's work, the caller synchronises
-(``torch.cuda.synchronize``) inside the stage.
+(``torch.cuda.synchronize``) inside the stage.  :func:`profiler_trace` is
+the counterpart of the reference's ``xla_trace``.
 """
 
 from __future__ import annotations
@@ -56,3 +57,22 @@ class StageProfiler:
                 f"{rate:>12}"
             )
         return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def profiler_trace(log_dir: str | None):
+    """Capture a ``torch.profiler`` trace of the host and, where a card is
+    visible, of the card into ``log_dir`` (a ``*.pt.trace.json`` file that
+    TensorBoard's profiler plugin and chrome://tracing read) when
+    ``log_dir`` is set; no-op otherwise."""
+    if not log_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)):
+        yield

@@ -26,12 +26,14 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+_DEF_TRAIN = "/root/reference/Deteción de Objetos/train_jpg"
+
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--params", default="artifacts/cnn_detector/params.npz")
     ap.add_argument("--out", default="artifacts/cnn_detector/params_int8.npz")
-    ap.add_argument("--calib_dir", default="train_jpg")
+    ap.add_argument("--calib_dir", default=_DEF_TRAIN)
     ap.add_argument("--calib_frames", type=int, default=32)
     # 100 = max calibration: a lower percentile clips the activation tail
     # that the detector's center peaks ride on

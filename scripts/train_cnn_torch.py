@@ -27,11 +27,13 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+DET_DATA = "/root/reference/Deteción de Objetos"
+
 
 def main(argv: list[str] | None = None) -> int:
     parser = argparse.ArgumentParser()
-    parser.add_argument("--train_path", default="train_jpg")
-    parser.add_argument("--test_path", default="test_alumnos_jpg")
+    parser.add_argument("--train_path", default=os.path.join(DET_DATA, "train_jpg"))
+    parser.add_argument("--test_path", default=os.path.join(DET_DATA, "test_alumnos_jpg"))
     parser.add_argument("--steps", type=int, default=4000)
     parser.add_argument("--batch", type=int, default=32)
     parser.add_argument("--lr", type=float, default=2.5e-4)

@@ -154,3 +154,40 @@ def test_quantize_script_refuses_missing_card_and_other_arch(tmp_path, calib_dir
     with pytest.raises(SystemExit, match="implements arch v3"):
         quantize_cnn_torch.main(["--params", slim, "--calib_dir", calib_dir,
                                  "--out", str(tmp_path / "x.npz"), "--device", "cpu"])
+
+
+class _Parsed(Exception):
+    """Raised in place of ``parse_args``: carries the parser it was called on."""
+
+    def __init__(self, parser):
+        super().__init__("parser captured")
+        self.parser = parser
+
+
+def _parser_defaults(main, monkeypatch) -> dict:
+    """The defaults of the parser that ``main()`` builds, by ``dest``, the
+    port-only ``--device`` left out."""
+    import argparse
+
+    def capture(self, *args, **kwargs):
+        raise _Parsed(self)
+
+    with monkeypatch.context() as mp:
+        mp.setattr(argparse.ArgumentParser, "parse_args", capture)
+        with pytest.raises(_Parsed) as caught:
+            main()
+    return {a.dest: a.default for a in caught.value.parser._actions
+            if a.dest not in ("help", "device")}
+
+
+def test_quantize_script_defaults_equal_reference(monkeypatch):
+    """Every flag of ``scripts/quantize_cnn_torch.py`` but ``--device``
+    defaults as in ``scripts/quantize_cnn.py``: the calibration frames are
+    read from the reference's train_jpg unless ``--calib_dir`` says
+    otherwise."""
+    import quantize_cnn
+    import quantize_cnn_torch
+
+    got = _parser_defaults(quantize_cnn_torch.main, monkeypatch)
+    want = _parser_defaults(quantize_cnn.main, monkeypatch)
+    assert got == want

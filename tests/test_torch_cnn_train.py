@@ -681,3 +681,44 @@ def test_train_script_refuses_a_missing_card(tmp_path, gt_dir, capsys, monkeypat
                                  "--device", "cuda"]) == 2
     assert "torch.cuda.is_available() is false" in capsys.readouterr().out
     assert not (tmp_path / "x.npz").exists()
+
+
+class _Parsed(Exception):
+    """Raised in place of ``parse_args``: carries the parser it was called on."""
+
+    def __init__(self, parser):
+        super().__init__("parser captured")
+        self.parser = parser
+
+
+def _parser_defaults(main, monkeypatch) -> dict:
+    """The defaults of the parser that ``main()`` builds, by ``dest``, the
+    port-only ``--device`` left out."""
+    import argparse
+
+    def capture(self, *args, **kwargs):
+        raise _Parsed(self)
+
+    with monkeypatch.context() as mp:
+        mp.setattr(argparse.ArgumentParser, "parse_args", capture)
+        with pytest.raises(_Parsed) as caught:
+            main()
+    return {a.dest: a.default for a in caught.value.parser._actions
+            if a.dest not in ("help", "device")}
+
+
+def test_train_script_defaults_equal_reference(monkeypatch):
+    """Every flag of ``scripts/train_cnn_torch.py`` but ``--device``
+    defaults as in ``scripts/train_cnn.py``: train and test frames come
+    from the reference's train_jpg and test_alumnos_jpg unless given.  The
+    twin writes ``--resultado`` into the process's temp dir, the
+    reference into /tmp: the two are compared with the temp dir at /tmp."""
+    import tempfile
+
+    import train_cnn
+    import train_cnn_torch
+
+    monkeypatch.setattr(tempfile, "tempdir", "/tmp")
+    got = _parser_defaults(train_cnn_torch.main, monkeypatch)
+    want = _parser_defaults(train_cnn.main, monkeypatch)
+    assert got == want

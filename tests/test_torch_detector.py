@@ -150,12 +150,41 @@ def test_cli_xla_sweep_modes_write_same_results(interpret, cli_dirs, flags):
 @pytest.mark.parametrize("argv", [
     ["--n_devices", "2"], ["--trace_dir", "t"], ["--detector", "MSER_7_200"],
 ])
-def test_cli_rejects_unported_modes(argv, capsys):
-    """MSER with a flag of a slice not ported yet exits 2; with the CNN
-    detector both CLIs ignore those flags (tests/test_torch_cnn_cli.py)."""
-    assert main_detection_torch.main(argv + ["--device", "cpu"]) == 2
-    out = capsys.readouterr().out
-    assert "ROADMAP" in out or "Invalid detector spec" in out
+def test_cli_rejects_unported_modes(argv, interpret, cli_dirs, tmp_path, capsys):
+    """The MSER modes that exited 2 until scale-out was ported now run:
+    ``--device cpu --n_devices 2`` (each batch split over 2 CPU shards)
+    writes the same resultado.txt as ``main_detection.py --n_devices 2``
+    (its batches split over 2 of its virtual devices) and both print the
+    sharding line; ``--trace_dir`` writes a profiler trace that names the
+    port's ops.  A bad detector spec is still refused with exit 2.  With
+    the CNN detector both CLIs ignore the first two flags
+    (tests/test_torch_cnn_cli.py)."""
+    train, test, root = cli_dirs
+    common = ["--train_path", train, "--test_path", test, "--batch_size", "2", "--no-images"]
+    if argv[0] == "--detector":
+        assert main_detection_torch.main(argv + ["--device", "cpu"]) == 2
+        assert "Invalid detector spec" in capsys.readouterr().out
+        return
+    if argv[0] == "--n_devices":
+        ref_out, port_out = str(tmp_path / "ref.txt"), str(tmp_path / "port.txt")
+        assert main_detection.main(common + argv + ["--out", ref_out]) == 0
+        ref_log = capsys.readouterr().out
+        assert main_detection_torch.main(common + argv + ["--out", port_out,
+                                                          "--device", "cpu"]) == 0
+        assert "sharding batches over 2 devices" in ref_log
+        assert "sharding batches over 2 devices" in capsys.readouterr().out
+        with open(ref_out) as a, open(port_out) as b:
+            ref, port = a.read(), b.read()
+        assert ref == port
+        assert ref.strip(), "no detections to compare; pick another seed"
+        return
+    trace_dir = tmp_path / "trace"
+    assert main_detection_torch.main(common + ["--trace_dir", str(trace_dir), "--out",
+                                               str(tmp_path / "port.txt"), "--device",
+                                               "cpu"]) == 0
+    traces = list(trace_dir.glob("*.pt.trace.json"))
+    assert len(traces) == 1
+    assert "aten::" in traces[0].read_text()
 
 
 def test_pipeline_rejects_unported_config(templates):

@@ -213,9 +213,9 @@ def test_templates_load_and_train_match(tmp_path):
 # --- guards and wrappers -----------------------------------------------------
 
 def test_port_imports_no_jax(tmp_path):
-    """Importing the port, its CNN and recognition modules and the CLIs,
-    and running the detection CLI's CNN branch on a one-frame directory on
-    the CPU (``--upscale 1.6``, and yuv420 ingest, which becomes yuv420p),
+    """Importing the port, its CNN, recognition and scale-out modules and
+    the CLIs, and running the detection CLI's CNN branch on a one-frame
+    directory on the CPU (``--upscale 1.6``, and yuv420 ingest, which becomes yuv420p),
     imports neither jax nor any module of the reference package."""
     frames = str(tmp_path / "frames")
     cli = (f"['--detector', 'CNN_0.3', '--test_path', {frames!r}, '--device', 'cpu', "
@@ -228,6 +228,9 @@ def test_port_imports_no_jax(tmp_path):
         "import main_detection_torch, serve_detection_torch, main_recognition_torch; "
         "import evaluate_results_torch; "
         "import opencv_traffic_sign_detector_tpu_torch.models.rec_pipeline; "
+        "import opencv_traffic_sign_detector_tpu_torch.parallel.cnn; "
+        "import opencv_traffic_sign_detector_tpu_torch.parallel.multihost; "
+        "import opencv_traffic_sign_detector_tpu_torch.eval.device_stats; "
         "from opencv_traffic_sign_detector_tpu_torch.data.synthetic import write_test_dir; "
         f"write_test_dir({frames!r}, 1, 64, 64); "
         f"assert main_detection_torch.main({cli}, '--upscale', '1.6']) == 0; "

@@ -163,9 +163,25 @@ def test_both_clis_reject_bad_spec(argv, capsys):
     assert "Invalid spec" in ref
 
 
-def test_cli_rejects_unported_and_missing_card(capsys):
-    assert main_recognition_torch.main(["--n_devices", "2", "--device", "cpu"]) == 2
-    assert "ROADMAP" in capsys.readouterr().out
+def test_cli_rejects_unported_and_missing_card(dirs, cli_runs, capsys):
+    """``--n_devices 2 --device cpu``, once refused, fits the heads over 2
+    CPU shards and prints the reference's report (``main_recognition.py
+    --n_devices 2`` on 2 of its virtual devices), both from the port's
+    proposal cache; without a card ``--device cuda`` exits 2."""
+    train, _, root = dirs
+    outs = {}
+    with pytest.MonkeyPatch.context() as mp:
+        _cut_scale(mp)
+        for name, main, extra in [("ref", main_recognition.main, []),
+                                  ("port", main_recognition_torch.main, ["--device", "cpu"])]:
+            assert main(["--train_path", train, "--proposals", "MSER", "--n_devices", "2",
+                         "--validation_pct", "0.5", "--cache", str(root / "port_cache.npz"),
+                         "--model_out", str(root / f"{name}_mesh_model"), *extra]) == 0
+            outs[name] = [ln for ln in capsys.readouterr().out.splitlines()
+                          if not re.search(r"took|saved|validating", ln)]
+    assert "fitting LDABAYES ... (SPMD over 2 devices)" in outs["port"]
+    assert "validation accuracy" in "\n".join(outs["port"])
+    assert outs["port"] == outs["ref"]
     if not torch.cuda.is_available():
         assert main_recognition_torch.main([]) == 2
         assert "torch.cuda.is_available() is false" in capsys.readouterr().out

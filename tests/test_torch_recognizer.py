@@ -283,6 +283,43 @@ def test_cnn_proposal_caches_cross_load(mined, tmp_path, monkeypatch):
                                                      batch_size=2), got)
 
 
-def test_run_validation_rejects_mesh():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trec.run_validation("unused", mesh=object(), device="cpu")
+def test_run_validation_rejects_mesh(mined):
+    """``run_validation(mesh=...)``, once refused, now fits the LDABAYES
+    heads from statistics summed over a mesh: the port's 8 CPU shards
+    against the reference's virtual 8-device mesh give the same confusion
+    matrix, report and accuracy.  Each head's 324-dim covariance of a few
+    dozen HOG descriptors is near singular, so its coefficients differ by
+    far more than the f32 rounding on either side (as the reference's own
+    sharded and unsharded fits do); both packages' heads are held to the
+    head's training statistics instead: normwise backward error and
+    intercept within 1e-5 (``tests/test_torch_parallel.py``)."""
+    from opencv_traffic_sign_detector_tpu.parallel.mesh import data_mesh as jdata_mesh
+    from opencv_traffic_sign_detector_tpu_torch.parallel.mesh import data_mesh
+
+    train, props, _, _ = mined
+    cfg = ClassifierConfig.from_string("HOG_LDA_LDABAYES")
+    want = jrec.run_validation(train, mser_cfg=MINE, clf_cfg=cfg, proposals=props,
+                               validation_pct=0.4, mesh=jdata_mesh())
+    got = trec.run_validation(train, mser_cfg=_t(MINE), clf_cfg=_t(cfg), proposals=props,
+                              validation_pct=0.4, device="cpu",
+                              mesh=data_mesh(8, device="cpu"))
+    np.testing.assert_array_equal(got.confusion, want.confusion)
+    assert got.report == want.report
+    assert got.accuracy == want.accuracy
+    from opencv_traffic_sign_detector_tpu_torch.parallel.train import _class_statistics
+    from test_torch_parallel import _backward_error
+
+    data = trec.build_training_data(train, mser_cfg=_t(MINE), proposals=props, device="cpu")
+    feats = trec.compute_features_dict(trec.split_validation(data, 0.4)[0], "HOG", "cpu")
+    for t, (g, r) in enumerate(zip(got.classifier.heads, want.classifier.heads), start=1):
+        assert (g is None) == (r is None) and (r is None) == (len(feats[t]) == 0)
+        if r is None:
+            continue
+        assert not r.xbar.any() and not g.xbar.any()
+        X = np.concatenate([feats[0], feats[t]])
+        y = np.concatenate([np.zeros(len(feats[0])), np.ones(len(feats[t]))])
+        stats = [a.numpy() for a in _class_statistics(
+            torch.from_numpy(X), torch.from_numpy(y), torch.ones(len(y)), n_classes=2)]
+        for head in (g, r):
+            eta, int_err = _backward_error(head.coef, head.intercept, stats)
+            assert eta <= 1e-5 and int_err <= 1e-5, (t, eta, int_err)
