@@ -146,7 +146,25 @@ Phases:
     (g) (b) and (f) again through a one-rank NCCL process group (a
     ``FileStore`` under ``build/``), so the all-reduce runs on the card;
     (h) one MSER batch under ``profiler_trace``, whose trace must name the
-    tiled sweep kernel.
+    tiled sweep kernel;
+17. the bench and the tool twins (:func:`_bench_phases`), on a
+    ``write_gt_dir`` tree of 16 labelled 1360x800 frames with template
+    crops under ``build/`` as the bench's data root: (a) K1 with and
+    without its LUT tail, K2, K3 and K4 at the shapes the bench's 1080p
+    probe gives them (batch 32 of 1088x1920: 8x8 tiles of 136x240, one
+    strip of sweep windows, 4096 flood windows), exact against their plain
+    versions, timed and bounded as in phase 3; (b) ``bench_torch.main``
+    at ``--frames 64 --cnn_iters 4 --fed_batches 2`` (every CNN scope at
+    batch 128, the MSER scope, end to end and live quality on the tree:
+    smoke values), its JSON line and peak memory printed, K1-K4 once a
+    ``detect_batch`` call and no launch in the CNN scopes; (c) ``--model
+    mser --skip_e2e``, whose 1080p probe must launch K1-K4 once a batch;
+    (d) the probe's records on 2 frames against the CPU path; (e) one
+    window of 4 dispatches of each CNN device-queue route, and of the fed
+    scope, under ``torch.cuda.set_sync_debug_mode("warn")``: no host sync;
+    (f) ``scripts/cnn_profile_torch.py --size gtsdb --batch 16`` and (g)
+    ``scripts/quality_probe_torch.py --limit 4`` on the tree.  Templates
+    the bench trains at the repository root are removed at the end.
 
 Then one JSON line with the kernel table (each kernel's launches on its
 path's run, max abs error, ms, plain ms, bound ms and what bounds it, the
@@ -162,12 +180,15 @@ import contextlib
 import dataclasses
 import io
 import json
+import os
 import re
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from collections import defaultdict
 
 import torch
@@ -369,13 +390,15 @@ def _k1_library(x: torch.Tensor, tiles: int = 8):
 
 
 def _measure(name: str, kern, plain, a: tuple, kw: dict, src: str, replaces: str,
-             smi: str) -> dict:
+             smi: str, kind: str | None = None) -> dict:
     """Phase 3 for one kernel at one call's inputs: the kernel against its
     plain version (exact), its single-call and queued ms, the plain ms, the
     bound and the library call where there is one; -> its table row (0
-    launches until its path has run)."""
+    launches until its path has run).  ``kind``: the kernel's launch
+    counter, where ``name`` labels one more call site or shape of it."""
     from opencv_traffic_sign_detector_tpu_torch.ops import prop_cuda
 
+    kind = kind or name
     got = kern(*a, **kw)
     want = plain(*a, **kw)
     torch.cuda.synchronize()
@@ -384,10 +407,10 @@ def _measure(name: str, kern, plain, a: tuple, kw: dict, src: str, replaces: str
     err = (got.to(torch.int64) - want.to(torch.int64)).abs().max().item()
     # the refine's windows stop at their fixed points: the bound counts
     # the passes these seed floods need
-    need = _passes_to_rest(*a) if name == "propagate_rolls_refine" else None
-    bound_ms, bound_by, nbytes, ops = _bound(name, a, got, need)
+    need = _passes_to_rest(*a) if kind == "propagate_rolls_refine" else None
+    bound_ms, bound_by, nbytes, ops = _bound(kind, a, got, need)
     library_ms = None
-    if name == "tile_histograms":
+    if kind == "tile_histograms":
         lib = _k1_library(*a)
         _require(torch.equal(lib().to(torch.int32).reshape(got.shape), got),
                  "K1: torch.bincount differs")
@@ -398,9 +421,9 @@ def _measure(name: str, kern, plain, a: tuple, kw: dict, src: str, replaces: str
     queued_ms = _queued_ms(lambda: kern(*a, **kw))
     plain_ms = _time_ms(lambda: plain(*a, **kw))
     library = (f"library {library_ms:.3f} ms (torch.bincount)" if library_ms is not None
-               else f"library none ({NO_LIBRARY[name]})")
+               else f"library none ({NO_LIBRARY.get(name) or NO_LIBRARY[kind]})")
     old = OLD_DESIGN.get(name)
-    if name.startswith("propagate_rolls") and name != "propagate_rolls_refine":
+    if kind.startswith("propagate_rolls") and kind != "propagate_rolls_refine":
         # the tiled form: ceil(passes / span) CUDA launches a call
         spans = prop_cuda.rolls_spans(a[3])
         core = prop_cuda.rolls_tiles(*a[0].shape[1:], spans[0])
@@ -1897,6 +1920,262 @@ def _scale_out_phases(rt, dev, smi: str, frames, signs, templates, mcfg, seed: i
     return paths
 
 
+def _sync_sites(dispatch, iters: int) -> list[str]:
+    """Where one window of ``iters`` dispatches makes the host wait for the
+    card (``torch.cuda.set_sync_debug_mode("warn")``): the distinct file:line
+    of each synchronising call, after a warm-up outside the window."""
+    dispatch()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            for _ in range(iters):
+                dispatch()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sorted({f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+                   if "called a synchronizing" in str(w.message)})
+
+
+def _same_detections(card, cpu) -> bool:
+    """Phase 7's criterion: the same count, files and classes in order,
+    boxes at IoU >= 0.99."""
+    def iou(a, b):
+        ix = max(0, min(a.x2, b.x2) - max(a.x1, b.x1))
+        iy = max(0, min(a.y2, b.y2) - max(a.y1, b.y1))
+        inter = ix * iy
+        union = (a.x2 - a.x1) * (a.y2 - a.y1) + (b.x2 - b.x1) * (b.y2 - b.y1) - inter
+        return inter / union if union else 1.0
+
+    return len(card) == len(cpu) and all(
+        a.filename == b.filename and a.class_id == b.class_id and iou(a, b) >= 0.99
+        for a, b in zip(card, cpu))
+
+
+def _bench_phases(rt, dev, smi: str, seed: int) -> tuple[list[dict], dict, int]:
+    """Phase 17: the bench twin and the tool twins on the card.  -> (the
+    kernel rows at the 1080p probe's shapes, {path: (launch counts,
+    batches)}, the probe's batches)."""
+    import copy
+
+    import numpy as np
+
+    import bench_torch
+    from opencv_traffic_sign_detector_tpu_torch.config import MSERConfig, PipelineConfig
+    from opencv_traffic_sign_detector_tpu_torch.data.synthetic import (
+        write_gt_dir,
+        write_train_dir,
+    )
+    from opencv_traffic_sign_detector_tpu_torch.models import detector as det
+    from opencv_traffic_sign_detector_tpu_torch.models.cnn_detector import CNNDetector
+    from opencv_traffic_sign_detector_tpu_torch.models.cnn_quant import QuantCNNDetector
+    from opencv_traffic_sign_detector_tpu_torch.models.mean_masks import (
+        MeanMaskTemplates,
+        templates_to_torch,
+    )
+    from opencv_traffic_sign_detector_tpu_torch.ops import clahe_cuda, mser, mser_cuda, prop_cuda
+    from opencv_traffic_sign_detector_tpu_torch.ops.yuv import patchify_yuv_planes
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    import cnn_profile_torch
+    import quality_probe_torch
+
+    t_phase = time.perf_counter()
+    work = rt.BUILD_ROOT.parent / "chip_smoke_bench"
+    shutil.rmtree(work, ignore_errors=True)
+    write_gt_dir(str(work / "test_alumnos_jpg"), 16, 800, 1360, seed=seed + 17)
+    write_train_dir(str(work / "train_jpg"), seed=seed + 17)
+    # the bench and the probe cache templates at the repository root
+    cache = os.path.join(os.path.dirname(os.path.abspath(bench_torch.__file__)), "mean_masks.npz")
+    had_cache = os.path.exists(cache)
+    saved = bench_torch.DET_DATA, quality_probe_torch.DET
+    bench_torch.DET_DATA = quality_probe_torch.DET = str(work)
+    try:
+        # --- 17a. K1 with its tail, K2, K3 and K4 at the 1080p probe's shapes
+        cfg = PipelineConfig(mser=MSERConfig(max_variation=1.0, max_regions=128, downscale=2,
+                                             ccl_iters=2, ccl_jumps=0, level_step=9,
+                                             refine_scan_passes=2), batch_size=32)
+        hd = bench_torch._load_frames(2 * cfg.batch_size, "1080p")   # the probe's frames
+        hd_dev = torch.from_numpy(hd[:cfg.batch_size]).to(dev)
+        red, blue = templates_to_torch(MeanMaskTemplates.load("artifacts/mean_masks.npz"), dev)
+        calls = defaultdict(list)
+        by_name = lambda name: lambda a, kw: name  # noqa: E731
+        with contextlib.ExitStack() as stack:
+            for target, attr, key in [(clahe_cuda, "tile_luts", by_name("tile_luts")),
+                                      (clahe_cuda, "clahe_apply", by_name("clahe_apply")),
+                                      (mser_cuda, "level_sweep_windows", by_name("level_sweep")),
+                                      (mser, "flood_bbox", by_name("flood_bbox"))]:
+                stack.enter_context(_recording(calls, target, attr, key))
+            det.detect_batch(hd_dev, red, blue, cfg)
+        torch.cuda.synchronize()
+        inputs = {k: v[0] for k, v in calls.items()}
+        lut_x, _, _, lut_tiles = inputs["tile_luts"][0]
+        inputs["tile_histograms"] = ((lut_x, lut_tiles), {})
+        windows, _, core, halo, nl, _ = inputs["level_sweep"][0]
+        print(f"[bench kernels] the 1080p probe, batch {cfg.batch_size} of "
+              f"{tuple(hd_dev.shape[1:3])}: K1/K2 on {tuple(lut_x.shape)} in {lut_tiles}x"
+              f"{lut_tiles} tiles of {lut_x.shape[1] // lut_tiles}x{lut_x.shape[2] // lut_tiles}; "
+              f"K3 on windows {tuple(windows.shape)}, {nl} levels, core {core}, halo {halo}; "
+              f"K4 on {tuple(inputs['flood_bbox'][0][1].shape)} candidates")
+        _require(halo == 0 and core == windows.shape[1],
+                 f"the 1080p sweep is not one strip: core {core} halo {halo}")
+        del calls, hd_dev
+        pallas = "opencv_traffic_sign_detector_tpu/ops/"
+        rows = []
+        for name, mod, fn, plain_fn, src, replaces in [
+            ("tile_histograms", clahe_cuda, "tile_histograms", "tile_histograms_plain",
+             "csrc/clahe.cu", f"{pallas}clahe_pallas.py:66"),
+            ("tile_luts", clahe_cuda, "tile_luts", "tile_luts_plain", "csrc/clahe.cu",
+             f"{pallas}clahe.py:42"),
+            ("clahe_apply", clahe_cuda, "clahe_apply", "clahe_apply_plain", "csrc/clahe.cu",
+             f"{pallas}clahe_pallas.py:165"),
+            ("level_sweep", mser_cuda, "level_sweep_windows", "level_sweep_windows_plain",
+             "csrc/mser_sweep.cu", f"{pallas}mser_pallas.py:507"),
+            ("flood_bbox", prop_cuda, "flood_bbox", "flood_bbox_plain", "csrc/flood.cu",
+             f"{pallas}pallas_prop.py:234"),
+        ]:
+            a, kw = inputs[name]
+            rows.append(_measure(f"{name}_1080p", getattr(mod, fn), getattr(mod, plain_fn), a,
+                                 kw, src, replaces, smi, kind=name))
+        del inputs, a, kw, lut_x, windows
+        torch.cuda.empty_cache()
+
+        # --- 17b-c. bench_torch.main: every scope, then the MSER one with
+        # the 1080p probe; launches counted a detect_batch call, by shape
+        per_shape = defaultdict(lambda: [0, defaultdict(int)])
+        cnn_counts = {}
+        detect_batch, bench_cnn = det.detect_batch, bench_torch._bench_cnn
+
+        def counted(frames, *a, **kw):
+            before = rt.launch_counts()
+            out = detect_batch(frames, *a, **kw)
+            entry = per_shape[tuple(frames.shape[1:3])]
+            entry[0] += 1
+            for k, v in rt.launch_counts().items():
+                entry[1][k] += v - before[k]
+            return out
+
+        def cnn_scopes(*a):
+            rt.reset_launch_counts()
+            bench_cnn(*a)
+            torch.cuda.synchronize()
+            cnn_counts.update(rt.launch_counts())
+
+        def bench(argv):
+            per_shape.clear()
+            out = io.StringIO()
+            torch.cuda.reset_peak_memory_stats()
+            det.detect_batch, bench_torch._bench_cnn = counted, cnn_scopes
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(out):
+                    rc = bench_torch.main(argv)
+            finally:
+                det.detect_batch, bench_torch._bench_cnn = detect_batch, bench_cnn
+            lines = out.getvalue().splitlines()
+            _require(rc == 0 and len(lines) == 1, f"bench_torch.py {argv}: rc {rc}, {lines}")
+            print(f"[bench] bench_torch.py {' '.join(argv)} in {time.perf_counter() - t0:.1f} s, "
+                  f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated; its line "
+                  f"(quality keys are smoke values on 16 synthetic frames): {lines[0]}")
+            result = json.loads(lines[0])
+            _require(result["device"] == torch.cuda.get_device_name(0),
+                     f"bench device {result['device']}")
+            for (h, w), (n, counts) in sorted(per_shape.items()):
+                print(f"[bench launches] detect_batch on {h}x{w}: {n} batches, "
+                      + ", ".join(f"{k} {v / n:g}" for k, v in counts.items() if v) + " a batch")
+                for k in ("tile_luts", "clahe_apply", "level_sweep", "flood_bbox"):
+                    _require(counts[k] == n, f"bench MSER at {h}x{w}: {k} {counts[k]} launches "
+                             f"in {n} batches")
+            return result
+
+        argv = ["--frames", "64", "--cnn_iters", "4", "--fed_batches", "2"]
+        result = bench(argv)
+        print(f"[bench launches] the CNN scopes: {cnn_counts}")
+        _require(cnn_counts and not any(cnn_counts.values()),
+                 f"the CNN scopes launched {cnn_counts}")
+        quality = [k for k in result if k.startswith(("cnn_f1", "cnn_ap", "mser_f1", "mser_ap"))]
+        _require(len(quality) == 12 and all(0 <= result[k] <= 1 for k in quality),
+                 f"quality keys {quality}")
+        _require(all(result[k] > 0 for k in result if k.endswith("fps") or k == "value"),
+                 "a bench rate is not positive")
+        paths = {"bench MSER (gtsdb)": (dict(per_shape[(800, 1360)][1]),
+                                        per_shape[(800, 1360)][0])}
+        bench(["--model", "mser", "--frames", "64", "--skip_e2e"])
+        n_hd, hd_counts = per_shape[(1088, 1920)]
+        _require(n_hd == 5, f"the 1080p probe ran {n_hd} batches")
+        paths["bench 1080p probe"] = (dict(hd_counts), n_hd)
+        for row in rows:
+            row["launches"] = hd_counts[row["name"].removesuffix("_1080p")]
+        rows[0]["launches"] = hd_counts["tile_luts"]  # K1 runs inside tile_luts' launch
+
+        # --- 17d. the probe's records on 2 frames against the CPU path --------
+        templates = MeanMaskTemplates.load(cache)
+        two = dataclasses.replace(cfg, batch_size=2)
+        names = ["a.jpg", "b.jpg"]
+        t0 = time.perf_counter()
+        card = det.DetectionPipeline(cfg=two, templates=templates, device=dev).detect_frames(
+            hd[:2], names)
+        cpu = det.DetectionPipeline(cfg=two, templates=templates, device="cpu").detect_frames(
+            hd[:2], names)
+        same = _same_detections(card, cpu)
+        print(f"[bench 1080p vs plain] 2 frames of 1088x1920 on the CPU in "
+              f"{time.perf_counter() - t0:.1f} s: card {len(card)} cpu {len(cpu)} detections, "
+              f"match {same}, identical {card == cpu}")
+        _require(same, f"1080p probe: card {card} cpu {cpu}")
+
+        # --- 17e. no host sync inside the CNN device-queue windows -----------
+        fdet = CNNDetector.load(bench_torch.CNN_PARAMS, device=dev)
+        qdet = QuantCNNDetector.load(os.path.join(os.path.dirname(bench_torch.CNN_PARAMS),
+                                                  "params_int8.npz"), device=dev)
+        frames = bench_torch._load_frames(32, "gtsdb")
+        bgr = torch.from_numpy(frames).to(dev)
+        p8 = torch.from_numpy(np.ascontiguousarray(
+            frames.reshape(32, 100, 8, 170, 24).transpose(0, 1, 3, 2, 4)
+            .reshape(32, 100, 170, 192))).to(dev)
+        yuv = [torch.from_numpy(p).to(dev)
+               for p in patchify_yuv_planes(*bench_torch._yuv420_planes(frames))]
+        up_f, up_q = copy.copy(fdet), copy.copy(qdet)
+        up_f.upscale = up_q.upscale = 1.6
+        host = [bench_torch._pinned((frames[i * 16:(i + 1) * 16],), dev) for i in range(2)]
+        sites = {}
+        for label, fn in [
+            ("float patches8", lambda: fdet.dispatch(p8)), ("float bgr", lambda: fdet.dispatch(bgr)),
+            ("float yuv420p", lambda: fdet.dispatch_yuv(*yuv)),
+            ("int8 patches8", lambda: qdet.dispatch(p8)),
+            ("int8 bgr 1.6", lambda: up_q.dispatch(bgr)),
+            ("float bgr 1.6", lambda: up_f.dispatch(bgr)),
+            ("fed bgr", lambda: bench_torch._fed(fdet.dispatch, host, dev)),
+        ]:
+            sites[label] = _sync_sites(fn, 4)
+        print(f"[bench sync] host syncs in a window of 4 dispatches (sync debug mode): {sites}")
+        _require(not any(sites.values()), f"the device-queue windows sync the host: {sites}")
+
+        # --- 17f-g. the profile twin and one quality twin -----------------------
+        for label, main_fn, argv in [
+            ("cnn_profile_torch", cnn_profile_torch.main, ["--size", "gtsdb", "--batch", "16"]),
+            ("quality_probe_torch", quality_probe_torch.main, ["--limit", "4", "--tag",
+                                                               "chip_smoke"]),
+        ]:
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = main_fn(argv)
+            _require(rc == 0, f"{label} {argv} exited {rc}")
+            for line in out.getvalue().splitlines():
+                print(f"[{label}] {line}")
+            print(f"[{label}] {' '.join(argv)}: {time.perf_counter() - t0:.1f} s; {smi}")
+        os.unlink(os.path.join(tempfile.gettempdir(), "probe_chip_smoke.txt"))
+    finally:
+        bench_torch.DET_DATA, quality_probe_torch.DET = saved
+        if not had_cache and os.path.exists(cache):
+            os.unlink(cache)
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"[bench] phase 17 in {time.perf_counter() - t_phase:.1f} s; {smi}")
+    return rows, paths, n_hd
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2226,6 +2505,14 @@ def main() -> int:
     # --- 16. scale-out ------------------------------------------------------
     torch.cuda.empty_cache()
     paths.update(_scale_out_phases(rt, dev, smi, frames, signs, templates, mcfg, args.seed))
+
+    # --- 17. the bench and the tool twins ---------------------------------
+    torch.cuda.empty_cache()
+    bench_rows, bench_paths, hd_batches = _bench_phases(rt, dev, smi, args.seed)
+    paths.update(bench_paths)
+    for row in bench_rows:
+        table.append(row)
+        batches[row["name"]] = hd_batches
     for label, (counts, n) in paths.items():
         print(f"[launches a batch] {label}: "
               + ", ".join(f"{k} {v / n:g}" for k, v in counts.items() if v) + f" ({n} batches)")

@@ -42,6 +42,7 @@ from ..data.gt import GroundTruthBox
 from ..data.images import list_frame_files
 from ..data.prefetch import batched_frames
 from ..ops.fused_upscale import FusedUpscalePlan, find_plan, fused_upscale_stem
+from ..ops.resident import resident, scalar
 from ..ops.upscale import upscale_bilinear_u8
 from ..ops.yuv import patchify_yuv_planes, yuv420_patches_to_bgr_patches8, yuv420_to_bgr
 from .detector import full_f32_matmuls, upload
@@ -81,8 +82,9 @@ class CNNDetectorConfig:
 
 def _const(value: float, like: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """A scalar rounded to ``dtype`` first, as ``jnp.asarray(value, dtype)``
-    (a Python float would enter a bf16 product unrounded)."""
-    return torch.tensor(value, dtype=dtype, device=like.device)
+    (a Python float would enter a bf16 product unrounded), on ``like``'s
+    device once (``ops/resident.py``)."""
+    return resident(scalar, value, dtype, device=like.device)
 
 
 def patchify(x: torch.Tensor, p: int = _PATCH) -> torch.Tensor:
@@ -529,14 +531,18 @@ def decode_detections(outputs: dict, k: int, score_threshold: float, stride: int
     pw = wh[..., 0] * stride
     ph = wh[..., 1] * stride
     boxes = torch.stack([pcx - pw / 2, pcy - ph / 2, pcx + pw / 2, pcy + ph / 2], dim=-1)
-    thr = torch.tensor(score_threshold, dtype=torch.float32, device=scores.device)
+    thr = resident(scalar, float(score_threshold), torch.float32, device=scores.device)
     valid = (scores >= thr) & (pw > 2) & (ph > 2)
     return boxes, cls + 1, scores, valid
 
 
+def _box_scale(sx: float, sy: float) -> torch.Tensor:
+    return torch.tensor([sx, sy, sx, sy], dtype=torch.float32)
+
+
 def rescale_boxes(boxes: torch.Tensor, sx: float, sy: float) -> torch.Tensor:
     """Map decoded xyxy boxes from the upscaled grid back to native pixels."""
-    return boxes / torch.tensor([sx, sy, sx, sy], dtype=torch.float32, device=boxes.device)
+    return boxes / resident(_box_scale, float(sx), float(sy), device=boxes.device)
 
 
 def upscaled_hw(h: int, w: int, scale: float, stride: int = 16) -> tuple[int, int]:

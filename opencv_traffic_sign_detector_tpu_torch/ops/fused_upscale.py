@@ -29,6 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .resident import resident, scalar
 from .upscale import _MAX_PHASES
 
 _PATCH = 8
@@ -173,20 +174,20 @@ def fused_upscale_stem(frames_u8: torch.Tensor, kernel: torch.Tensor,
     # ---- width: a 3-tap conv over the block grid, padding (0, 0), (1, 1)
     g_w = plan.w_pad // n
     xr = x.reshape(b, h, g_w, 3 * n).to(dtype)
-    kw = torch.from_numpy(_width_conv_weights(plan)).to(dev).permute(3, 2, 0, 1).to(dtype)
+    kw = resident(_width_conv_weights, plan, device=dev).permute(3, 2, 0, 1).to(dtype)
     y = _nhwc(F.conv2d(_nchw(xr), kw, padding=(0, 1)))       # [b, h, g_w, sb*24]
-    y = (y * torch.tensor(1.0 / 255.0, dtype=dtype, device=dev)
-         - torch.tensor(0.5, dtype=dtype, device=dev))
+    y = (y * resident(scalar, 1.0 / 255.0, dtype, device=dev)
+         - resident(scalar, 0.5, dtype, device=dev))
     wq = plan.w_out // _PATCH
     y = y.reshape(b, h, wq, 3 * _PATCH)
 
     # replicate-column corrections of the two edge blocks, normalised
     # without the -0.5 (the affine constant lives in the main term only)
-    taps = torch.from_numpy(_superblock_taps(plan.t, plan.a, sb, n)).to(dev)
+    taps = resident(_superblock_taps, plan.t, plan.a, sb, n, device=dev)
     eyec = torch.eye(3, dtype=f32, device=dev)
     wl = torch.einsum("tk,cd->ctkd", taps[:, :, 0], eyec).reshape(3, sb * 3 * _PATCH)
     wr = torch.einsum("tk,cd->ctkd", taps[:, :, n + 1], eyec).reshape(3, sb * 3 * _PATCH)
-    scale = torch.tensor(np.float32(1.0 / 255.0), device=dev)
+    scale = resident(scalar, float(np.float32(1.0 / 255.0)), f32, device=dev)
     cl = torch.einsum("bhc,cm->bhm", xr[:, :, 0, :3].to(f32),
                       wl * scale).reshape(b, h, sb, 3 * _PATCH).to(dtype)
     cr = torch.einsum("bhc,cm->bhm", xr[:, :, -1, 3 * n - 3:].to(f32),

@@ -17,10 +17,13 @@ its formula: a triangle kernel widened by the factor when downscaling
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
+
+from .resident import resident
 
 # Above this many phases per axis the dense pass is taken (as in the reference).
 _MAX_PHASES = 192
@@ -52,6 +55,12 @@ def _band_matrix(A: int, T: int, taps) -> np.ndarray:
     return W
 
 
+def _band(in_size: int, out_size: int) -> np.ndarray:
+    """The band matrix of an axis that has a phase plan."""
+    A, _, T, taps = _phase_plan(in_size, out_size)
+    return _band_matrix(A, T, taps)
+
+
 def _upscale_axis(x: torch.Tensor, axis: int, out_size: int) -> torch.Tensor:
     """One separable bilinear pass of [B, H, W, C] along ``axis`` (1 or 2)
     as a blocked band product; float32 out."""
@@ -62,8 +71,8 @@ def _upscale_axis(x: torch.Tensor, axis: int, out_size: int) -> torch.Tensor:
             f"no phase plan for axis {axis}: {in_size} -> {out_size} "
             f"(phase count exceeds _MAX_PHASES={_MAX_PHASES}); use the "
             "dense resize path")
-    A, g, T, taps = plan
-    W = torch.from_numpy(_band_matrix(A, T, taps)).to(x.device)
+    A, g, T, _ = plan
+    W = resident(_band, in_size, out_size, device=x.device)
     x = x.to(torch.float32)
     xp = torch.cat([x.narrow(axis, 0, 1), x, x.narrow(axis, in_size - 1, 1)], dim=axis)
     main = xp.narrow(axis, 0, in_size)
@@ -110,11 +119,13 @@ def scale_translate_weights(in_size: int, out_size: int, inv_scale: torch.Tensor
     return torch.where(inside[:, None, :], weights, 0.0)
 
 
+@functools.lru_cache(maxsize=None)
 def _dense_weights(in_size: int, out_size: int, device) -> torch.Tensor:
     """[in, out] f32 bilinear weights as ``jax.image.resize`` computes them:
     the scale is a Python float there, so ``1 / scale`` is taken in f64, and
     jit turns the division by the constant kernel scale into a product with
-    its f32 reciprocal."""
+    its f32 reciprocal.  Computed on ``device`` once (its inputs copy there:
+    ``ops/resident.py``)."""
     inv_scale = torch.tensor([1.0 / (out_size / in_size)], dtype=torch.float32, device=device)
     return scale_translate_weights(in_size, out_size, inv_scale, torch.zeros_like(inv_scale),
                                    reciprocal=True)[0]
@@ -130,6 +141,20 @@ def _dense_axis(x: torch.Tensor, axis: int, out_size: int) -> torch.Tensor:
     xm = x.to(torch.float32).movedim(axis, -1)
     out = (xm.reshape(-1, xm.shape[-1]) @ w).reshape(*xm.shape[:-1], out_size)
     return out.movedim(-1, axis)
+
+
+def resize_bilinear_u8(frames_u8: torch.Tensor, th: int, tw: int) -> torch.Tensor:
+    """[B, H, W, C] uint8 -> (th, tw) as ``jax.image.resize(frames.astype(
+    f32), (B, th, tw, C), "bilinear")`` under jit, rounded half to even,
+    clipped and cast back: each resized axis is one f32 product with the
+    dense weights (:func:`scale_translate_weights`, ``reciprocal=True``),
+    whatever the ratio, the width first (the order closest to XLA's on the
+    CPU).  The quality passes at 1920x1088 use it."""
+    x = frames_u8
+    for axis, size in ((2, tw), (1, th)):
+        if size != x.shape[axis]:
+            x = _dense_axis(x, axis, size)
+    return torch.clamp(torch.round(x.to(torch.float32)), 0, 255).to(torch.uint8)
 
 
 def upscale_bilinear_u8(frames_u8: torch.Tensor, th: int, tw: int) -> torch.Tensor:

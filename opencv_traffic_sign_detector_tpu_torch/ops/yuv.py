@@ -24,6 +24,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .resident import resident
+
 # jdcolor.c build_ycc_rgb_table constants: FIX(x) = round(x * 2^16).
 _FIX_1_40200 = 91881
 _FIX_1_77200 = 116130
@@ -79,6 +81,15 @@ def _fancy_kernel_and_bias() -> tuple[np.ndarray, np.ndarray]:
     return k, bias
 
 
+def _fancy_weight() -> torch.Tensor:
+    """The fancy-upsample kernel as an OIHW view."""
+    return torch.from_numpy(_fancy_kernel_and_bias()[0]).permute(3, 2, 0, 1)
+
+
+def _fancy_bias() -> np.ndarray:
+    return _fancy_kernel_and_bias()[1]
+
+
 def _pad_chroma_patches(c_p: torch.Tensor) -> torch.Tensor:
     """[B, P, Q, 16] -> [B, P+2, Q+2, 16] halo with libjpeg's clamp: the conv
     reads only row 3 of the top halo patch, row 0 of the bottom one, column 3
@@ -105,11 +116,10 @@ def _fancy_upsample_patches(c_p: torch.Tensor) -> torch.Tensor:
     convolution algorithm that is not exact in f32 (Winograd, FFT) cannot
     move a value across a multiple of 16.
     """
-    k, bias = _fancy_kernel_and_bias()
-    weight = torch.from_numpy(k).permute(3, 2, 0, 1).to(c_p.device)   # OIHW
+    weight = resident(_fancy_weight, device=c_p.device)
     cp = _pad_chroma_patches(c_p).to(torch.float32).permute(0, 3, 1, 2)
     acc = torch.round(F.conv2d(cp, weight)).permute(0, 2, 3, 1)
-    acc = acc + torch.from_numpy(bias).to(c_p.device)
+    acc = acc + resident(_fancy_bias, device=c_p.device)
     return torch.floor(acc * (1.0 / 16.0)).to(torch.int32)
 
 

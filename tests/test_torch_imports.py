@@ -1,6 +1,6 @@
-"""The port stands alone: no file of it, of its CLIs, of its training and
-quantization scripts or of its chip smoke run imports JAX, flax, optax or
-the reference package.
+"""The port stands alone: no file of it, of its CLIs and bench, of its
+script twins or of its chip smoke run imports JAX, flax, optax or the
+reference package.
 
 An AST scan of each file (one case per file) fails on any ``import`` or
 ``from ... import`` of ``jax``, ``flax``, ``optax`` or
@@ -12,6 +12,7 @@ test_port_imports_no_jax`` checks the same at run time through
 """
 
 import ast
+import glob
 import os
 
 import pytest
@@ -22,9 +23,11 @@ FORBIDDEN = ("jax", "flax", "optax", "opencv_traffic_sign_detector_tpu")
 
 
 def _port_files() -> list[str]:
-    files = ["main_detection_torch.py", "serve_detection_torch.py", "main_recognition_torch.py",
-             "evaluate_results_torch.py", "chip_smoke.py", "scripts/train_cnn_torch.py",
-             "scripts/quantize_cnn_torch.py"]
+    """The root ``*_torch.py`` entry points, ``scripts/*_torch.py``,
+    ``chip_smoke.py`` and every module of the port."""
+    files = sorted(os.path.relpath(p, REPO) for pattern in ("*_torch.py", "scripts/*_torch.py")
+                   for p in glob.glob(os.path.join(REPO, pattern)))
+    files.append("chip_smoke.py")
     for root, _, names in os.walk(os.path.join(REPO, PORT)):
         files += sorted(os.path.relpath(os.path.join(root, n), REPO)
                         for n in names if n.endswith(".py"))
