@@ -61,9 +61,6 @@ DET_DATA = "/root/reference/Deteción de Objetos"
 CNN_PARAMS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                           "artifacts", "cnn_detector", "params.npz")
 
-# MSER options outside the port (ROADMAP.md, do-not-port list)
-UNPORTED_FLAGS = ("scan_passes", "extent_only")
-
 
 def _load_frames(n: int, size: str) -> np.ndarray:
     """[n, H, W, 3] uint8: the first test frames of ``DET_DATA``, tiled to
@@ -408,10 +405,8 @@ def main(argv=None) -> int:
     parser.add_argument("--ccl_iters", type=int, default=2)
     parser.add_argument("--level_step", type=int, default=9,
                         help="0 = auto (= delta); 9 = tuned")
-    parser.add_argument("--scan_passes", type=int, default=0,
-                        help="not ported: > 0 exits 2")
-    parser.add_argument("--extent_only", type=int, default=0,
-                        help="not ported: 1 exits 2")
+    parser.add_argument("--scan_passes", type=int, default=0)
+    parser.add_argument("--extent_only", type=int, default=0)
     parser.add_argument("--refine_scan", type=int, default=2)
     parser.add_argument("--skip_e2e", action="store_true",
                         help="skip the end-to-end (decode+serialize) scope")
@@ -435,11 +430,6 @@ def main(argv=None) -> int:
     if why:
         print(why)
         return 2
-    for flag in UNPORTED_FLAGS:
-        if getattr(args, flag):
-            print(f"--{flag} {getattr(args, flag)}: not ported to the PyTorch/CUDA package "
-                  "(ROADMAP.md, do-not-port list)")
-            return 2
 
     use_cnn = args.model == "cnn" or (args.model == "auto" and os.path.exists(CNN_PARAMS))
     cnn_result: dict = {}

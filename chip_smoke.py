@@ -19,7 +19,8 @@ Phases:
    batch 32, 4096 windows of 128x128 held in registers, 96 passes or fewer
    where a window's flood is at rest), runs the kernel and its plain
    PyTorch version on those same CUDA tensors, requires exact equality, and
-   times both with CUDA events (median of 10 after warm-up, :func:`_time_ms`),
+   times both with CUDA events (median of 10 after warm-up, :func:`_time_ms`;
+   a plain version of 300 ms a call or more on its one checking call),
    with K1's library yardstick (``torch.bincount``), and computes each
    kernel's bound from its inputs (:func:`_bound`); the kernel is also
    timed as calls queued behind a spin of the card (:func:`_queued_ms`),
@@ -28,12 +29,20 @@ Phases:
    (:data:`OLD_DESIGN`); K5's bound at the refine counts the passes each
    window's data needs (:func:`_passes_to_rest`), and one more line times
    that call on random keys under a dense mask, where no window comes to
-   rest and all 96 passes run;
+   rest and all 96 passes run; then the sweep's other bodies at the tuned
+   shapes, K3 and K7 each in its extent-only, scan-pass (2 passes) and
+   combined form (:func:`_sweep_bodies`), and K4 and K5 at the low-res refine's
+   shapes (``sweep_res_pipeline``: 4096 windows of 64x64 over the small
+   stack; K5 with ``refine_scan_passes=0``, in its resident form);
 4. identities: K7's per-level maps folded into ``max((qv << lbits) | t)``
    equal K3's output on the tuned single-strip windows (the two outputs of
    one tiled kernel), and the bbox and area of ``K6(seed map, mask) == 0``
    equal K4's output, both exactly (the launches of K6 and K7 are counted
-   here: they are oracles); then K3 and K7 at seven more shapes and
+   here: they are oracles); K7 folded equals K3 in each of the other three
+   bodies; the scan-pass body of K3 on a 2-strip ``--downscale 1`` window
+   set (4 frames of 1024x1360: 16 windows of 808x1364, halo 96) against
+   its plain version (:func:`_scan_strips`); then K3 and K7 at seven more
+   shapes and
    configs cut from the tuned windows, each against its plain version and
    K7 folded against K3, and their refusal of windows too wide for their
    int16 bbox planes (:func:`_sweep_shapes`); K4 at more shapes
@@ -66,10 +75,16 @@ Phases:
    launch and every frame to have proposals; then one batch of 8 of the
    recall config (requires K5 launches on the sweep) and one batch of 32
    of the tuned config with the roll-flood refine (requires K5 launches on
-   the refine);
+   the refine); then slice 9, the tuned config with each of the sweep's
+   knobs (``sweep_extent_only``, ``scan_passes=2``,
+   ``sweep_res_pipeline``), one warm-up and 3 timed batches each (K1-K4
+   must launch), and the low-res refine with ``refine_scan_passes=0`` (K5
+   on the refine must launch, K4 not);
 7. slices vs plain: the tuned path on 2 frames, the pixel-area path on 2
    frames and the recall path on 1 frame on the CPU (plain versions) must
-   give identical proposals, and the tuned path matching detections;
+   give identical proposals, and the tuned path matching detections; each
+   knob of slice 9 identical proposals and matching detections on 2
+   frames;
 8. slice 3, the CNN detector: the same 32 frames through every route of
    ``main_detection_torch.py --detector CNN`` (float v3 ``params.npz``:
    bgr, patches8, yuv420 tight and yuv420p planes made with numpy,
@@ -158,12 +173,14 @@ Phases:
     batch 128, the MSER scope, end to end and live quality on the tree:
     smoke values), its JSON line and peak memory printed, K1-K4 once a
     ``detect_batch`` call and no launch in the CNN scopes; (c) ``--model
-    mser --skip_e2e``, whose 1080p probe must launch K1-K4 once a batch;
+    mser --skip_e2e``, whose 1080p probe must launch K1-K4 once a batch,
+    and the same with ``--scan_passes 2 --extent_only 1``;
     (d) the probe's records on 2 frames against the CPU path; (e) one
     window of 4 dispatches of each CNN device-queue route, and of the fed
     scope, under ``torch.cuda.set_sync_debug_mode("warn")``: no host sync;
     (f) ``scripts/cnn_profile_torch.py --size gtsdb --batch 16`` and (g)
-    ``scripts/quality_probe_torch.py --limit 4`` on the tree.  Templates
+    ``scripts/quality_probe_torch.py --limit 4`` on the tree, and with
+    ``--sweep_res 1``.  Templates
     the bench trains at the repository root are removed at the end.
 
 Then one JSON line with the kernel table (each kernel's launches on its
@@ -214,6 +231,17 @@ INT_OPS_S = LANE_OPS_S / 2
 # max 1, bf16 conversions 8), whose f32 products, sums, division, floor
 # and conversions (20 of its 56) take the f32 pipe.
 SWEEP_OPS = {"init": (17, 0), "pass": (27, 0), "emit": (36, 20)}
+# The extent-only emit takes the squared height: two shifts, a subtraction,
+# an add and a conversion fewer than the bbox area.
+EXTENT_EMIT_OPS = (32, 19)
+# The scan-pass body (csrc/mser_sweep.cu: scan_row_kernel, scan_col_kernel)
+# per mask pixel: a row resolve (the load's mask 2, live 2 and three
+# selects; four walks over a lane's chunk, each an element (mask 3) and a
+# segmented fold (a break test, a min and two packed min/max); the write
+# back's mask, live and selects 7) and a column resolve (mask 1, the key's
+# min 1, live 1, two packed min/max, the run's start and end tests 3, its
+# live test and two selects 3).  Warm start and emit as above.
+SWEEP_SCAN_OPS = {"row": (42, 0), "col": (11, 0)}
 # K1 one count a pixel (its LUT tail adds, a bin of each tile's 256, two
 # for the clip, three for the bonus, a sum, a conversion, a product and a
 # round: LUT_OPS); K2 four lookups, their conversions, the bilinear
@@ -328,9 +356,12 @@ def _bound(name: str, args: tuple, out: torch.Tensor,
             _, cfg, d_idx, nl = args
             params = SweepParams.from_config(cfg, d_idx)
         px = _mask_pixel_levels(x, params.step, nl)
-        (i0, f0), (i1, f1), (i2, f2) = (SWEEP_OPS[k] for k in ("init", "pass", "emit"))
-        int_ops = px * (i0 + params.num_passes * i1 + i2)
-        f32_ops = px * (f0 + params.num_passes * f1 + f2)
+        emit = EXTENT_EMIT_OPS if params.extent_only else SWEEP_OPS["emit"]
+        sp = params.scan_passes
+        row, col = SWEEP_SCAN_OPS["row"], SWEEP_SCAN_OPS["col"]
+        prop = ([(sp + 1) * r + sp * c for r, c in zip(row, col)] if sp
+                else [params.num_passes * v for v in SWEEP_OPS["pass"]])
+        int_ops, f32_ops = (px * sum(v) for v in zip(SWEEP_OPS["init"], prop, emit))
     elif name.startswith("flood_bbox"):
         # the plane bytes under the windows whose seed is on its mask, each
         # once (the windows overlap), and any other window's seed byte:
@@ -358,6 +389,10 @@ def _bound(name: str, args: tuple, out: torch.Tensor,
     return (max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes,
             int_ops + f32_ops)
 
+
+# A plain version this slow is timed on its one checking call, not as the
+# median of 10 (the sweeps' plain versions take 0.5-5 s a call)
+PLAIN_ONCE_MS = 300.0
 
 # Kernels without a PyTorch call that computes the same function
 NO_LIBRARY = {
@@ -400,8 +435,12 @@ def _measure(name: str, kern, plain, a: tuple, kw: dict, src: str, replaces: str
 
     kind = kind or name
     got = kern(*a, **kw)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
     want = plain(*a, **kw)
+    end.record()
     torch.cuda.synchronize()
+    plain_once = start.elapsed_time(end)
     _require(got.shape == want.shape and got.dtype == want.dtype,
              f"{name}: {got.shape}/{got.dtype} vs plain {want.shape}/{want.dtype}")
     err = (got.to(torch.int64) - want.to(torch.int64)).abs().max().item()
@@ -419,7 +458,10 @@ def _measure(name: str, kern, plain, a: tuple, kw: dict, src: str, replaces: str
     shapes = [tuple(x.shape) for x in a if isinstance(x, torch.Tensor)]
     ms = _time_ms(lambda: kern(*a, **kw))
     queued_ms = _queued_ms(lambda: kern(*a, **kw))
-    plain_ms = _time_ms(lambda: plain(*a, **kw))
+    # a plain version of 300 ms a call or more (the sweeps') is timed on its
+    # one checking call
+    slow = plain_once >= PLAIN_ONCE_MS
+    plain_ms = plain_once if slow else _time_ms(lambda: plain(*a, **kw))
     library = (f"library {library_ms:.3f} ms (torch.bincount)" if library_ms is not None
                else f"library none ({NO_LIBRARY.get(name) or NO_LIBRARY[kind]})")
     old = OLD_DESIGN.get(name)
@@ -434,7 +476,8 @@ def _measure(name: str, kern, plain, a: tuple, kw: dict, src: str, replaces: str
     print(f"[kernel] {name}: inputs {shapes} -> exact required, max_abs_err {err}; "
           f"kernel {ms:.4f} ms (queued behind a spin {queued_ms:.4f} ms)"
           + (f" ({old[0]} {old[1]:.3f} ms, recorded)" if old else "")
-          + f" plain {plain_ms:.3f} ms; bound {bound_ms:.4f} ms by {bound_by} "
+          + f" plain {plain_ms:.3f} ms{' (one call)' if slow else ''}; "
+          f"bound {bound_ms:.4f} ms by {bound_by} "
           f"({nbytes} bytes, {ops} operations); {library}; {smi}")
     _require(err == 0, f"{name}: kernel differs from its plain version")
     _require(min(ms, queued_ms) >= bound_ms, f"{name}: {min(ms, queued_ms):.4f} ms reads "
@@ -625,7 +668,8 @@ def _sweep_shapes(mc, captured: tuple, cfg) -> None:
     ``ring3_step5`` config (6 passes a level, pool 2, 55 levels),
     ``ccl_iters`` 5 (10 passes a level: spans end inside levels), a plane of
     3 rows, and a strip halo (K3 only: K7 has no strips); then both
-    kernels' refusal of planes too wide for their int16 bbox planes."""
+    kernels' refusal of planes too wide for their int16 bbox planes, and the
+    scan-pass body's of rows wider than its row resolve holds."""
     from opencv_traffic_sign_detector_tpu_torch.config import MSERConfig
 
     windows, params, _, _, nl, lbits = captured
@@ -681,6 +725,122 @@ def _sweep_shapes(mc, captured: tuple, cfg) -> None:
             refused.append(name)
     print(f"[kernel K3/K7 int16] windows {tuple(wide.shape)} refused by {refused}")
     _require(refused == ["K3", "K7"], "K3 or K7 took windows wider than its int16 bbox planes")
+    # the scan-pass body's row resolve holds a row in one block's shared memory
+    wide = torch.zeros((1, 4, mc.SCAN_MAX_WIDTH + 1), dtype=torch.uint8, device=windows.device)
+    scan_cfg = dataclasses.replace(cfg, scan_passes=2)
+    refused = []
+    for name, call in (("K3", lambda: mc.level_sweep_windows(
+                            wide, dataclasses.replace(params, scan_passes=2), 4, 0, nl, lbits)),
+                       ("K7", lambda: mc.fused_level_sweep_full(wide, scan_cfg, params.d, nl))):
+        try:
+            call()
+        except ValueError:
+            refused.append(name)
+    print(f"[kernel K3/K7 scan width] windows {tuple(wide.shape)} refused by {refused}")
+    _require(refused == ["K3", "K7"], "the scan-pass body took rows wider than it holds")
+
+
+# The sweep's other two bodies, K3's and K7's forms of each
+SWEEP_BODIES = {"extent": {"extent_only": True}, "scan": {"scan_passes": 2},
+                "combined": {"extent_only": True, "scan_passes": 2}}
+MSER_PALLAS = "opencv_traffic_sign_detector_tpu/ops/mser_pallas.py"
+
+
+def _body_config(cfg, change: dict):
+    """An MSER config with one of :data:`SWEEP_BODIES`' changes."""
+    return dataclasses.replace(cfg, sweep_extent_only=change.get("extent_only", False),
+                               scan_passes=change.get("scan_passes", 0))
+
+
+def _sweep_bodies(mc, k3_args: tuple, k7_args: tuple, smi: str) -> list[dict]:
+    """Phase 3 for the extent-only, scan-pass (2 passes) and combined bodies
+    of K3 and K7 at the tuned path's shapes (its [64, 408, 684] windows and
+    [64, 402, 682] planes): each exact against its plain version, timed
+    (one call and queued) and bounded, and the scan-pass K3 call split by
+    kernel (:func:`_scan_split`).  -> the table rows of the first two (the
+    combined form's line is printed only)."""
+    windows, params, core, halo, nl, lbits = k3_args
+    im2, cfg, d_idx, nl7 = k7_args
+    rows = []
+    for tag, change in SWEEP_BODIES.items():
+        k3 = _measure(f"level_sweep_{tag}", mc.level_sweep_windows, mc.level_sweep_windows_plain,
+                      (windows, dataclasses.replace(params, **change), core, halo, nl, lbits),
+                      {}, "csrc/mser_sweep.cu", f"{MSER_PALLAS}:507", smi, kind="level_sweep")
+        k7 = _measure(f"level_sweep_full_{tag}", mc.fused_level_sweep_full,
+                      mc.fused_level_sweep_full_plain, (im2, _body_config(cfg, change), d_idx, nl7),
+                      {}, "csrc/mser_sweep.cu", f"{MSER_PALLAS}:569", smi,
+                      kind="level_sweep_full")
+        if tag == "scan":
+            p = dataclasses.replace(params, **change)
+            _scan_split(lambda: mc.level_sweep_windows(windows, p, core, halo, nl, lbits),
+                        "level_sweep_scan", smi)
+        if tag != "combined":
+            rows += [k3, k7]
+    return rows
+
+
+def _scan_split(fn, label: str, smi: str) -> None:
+    """Where one call of the scan-pass body spends its device time
+    (torch.profiler): its row resolves (the warm start in the first of a
+    level, the emit in the last) and its column resolves."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    split = defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kind = next((k for k in ("scan_row_kernel", "scan_col_kernel") if k in e.name),
+                        "other")
+            split[kind][0] += e.device_time / 1e3
+            split[kind][1] += 1
+    print(f"[kernel] {label}, one call's device time (torch.profiler): "
+          + ", ".join(f"{k} {ms:.3f} ms in {n} launches ({ms / n * 1e3:.1f} us each)"
+                      for k, (ms, n) in sorted(split.items())) + f"; {smi}")
+
+
+def _body_fold(mc, k3_args: tuple, k7_cfg, d_idx: int, tag: str) -> None:
+    """Phase 4: K7 folded equals K3 on the tuned windows in one body."""
+    windows, params, core, halo, nl, lbits = k3_args
+    change = SWEEP_BODIES[tag]
+    k3 = mc.level_sweep_windows(windows, dataclasses.replace(params, **change), core, halo, nl,
+                                lbits)
+    k7 = mc.fused_level_sweep_full(windows, _body_config(k7_cfg, change), d_idx, nl)
+    fold = torch.zeros_like(k3)
+    for t in range(nl):
+        fold = torch.maximum(fold, k7[:, t].to(torch.int32) * (1 << lbits) + t)
+    ok = torch.equal(fold, k3)
+    print(f"[identity] K7 fold == K3, {tag} body, on {tuple(windows.shape)} windows, "
+          f"{nl} levels: {ok}; candidate pixels {int((k3 >> lbits > 0).sum())}")
+    _require(ok, f"K7 folded differs from K3 in the {tag} body")
+
+
+def _scan_strips(mc, mser, enhance_contrast, make_frames_with_boxes, base, dev, seed: int,
+                 smi: str) -> None:
+    """Phase 4, the scan-pass body (2 passes) on a 2-strip ``--downscale 1``
+    window set: 4 frames of 1024x1360 at native resolution, whose padded
+    1026 rows take 2 strips of 808 rows (core 616, halo 96) at 1364 columns.
+    K3 against its plain version, timed and bounded; a run reduce must not
+    see the next strip."""
+    frames, _ = make_frames_with_boxes(4, 1024, 1360, seed=seed + 9)
+    im2 = mser.pad_pol(enhance_contrast(torch.from_numpy(frames).to(dev)))
+    im2 = im2.reshape(8, 1026, 1362).contiguous()
+    cfg = dataclasses.replace(base, downscale=1, ccl_iters=2, level_step=9, ccl_jumps=0,
+                              scan_passes=2)
+    d_idx, nl = _schedule(cfg)
+    calls = defaultdict(list)
+    with _recording(calls, mc, "level_sweep_windows", lambda a, kw: "k3"):
+        mc.fused_level_sweep(im2, cfg, d_idx, nl)
+    a = calls["k3"][0][0]
+    windows, _, core, halo, _, _ = a
+    _require(windows.shape[0] == 16 and halo > 0 and windows.shape[2] == 1364,
+             f"the downscale-1 set is not 2 strips of 1364 columns: {tuple(windows.shape)}, "
+             f"core {core}, halo {halo}")
+    _measure("level_sweep_scan_strips", mc.level_sweep_windows, mc.level_sweep_windows_plain,
+             a, {}, "csrc/mser_sweep.cu", f"{MSER_PALLAS}:507", smi, kind="level_sweep")
 
 
 def _ptxas_kernels(report: str, kernel: str) -> dict[str, str]:
@@ -2106,6 +2266,9 @@ def _bench_phases(rt, dev, smi: str, seed: int) -> tuple[list[dict], dict, int]:
         n_hd, hd_counts = per_shape[(1088, 1920)]
         _require(n_hd == 5, f"the 1080p probe ran {n_hd} batches")
         paths["bench 1080p probe"] = (dict(hd_counts), n_hd)
+        # the sweep's scan-pass and extent-only bodies together, both shapes
+        bench(["--model", "mser", "--frames", "64", "--skip_e2e", "--scan_passes", "2",
+               "--extent_only", "1"])
         for row in rows:
             row["launches"] = hd_counts[row["name"].removesuffix("_1080p")]
         rows[0]["launches"] = hd_counts["tile_luts"]  # K1 runs inside tile_luts' launch
@@ -2157,6 +2320,8 @@ def _bench_phases(rt, dev, smi: str, seed: int) -> tuple[list[dict], dict, int]:
             ("cnn_profile_torch", cnn_profile_torch.main, ["--size", "gtsdb", "--batch", "16"]),
             ("quality_probe_torch", quality_probe_torch.main, ["--limit", "4", "--tag",
                                                                "chip_smoke"]),
+            ("quality_probe_torch", quality_probe_torch.main, ["--limit", "4", "--sweep_res",
+                                                               "1", "--tag", "chip_smoke_res"]),
         ]:
             out = io.StringIO()
             t0 = time.perf_counter()
@@ -2166,7 +2331,8 @@ def _bench_phases(rt, dev, smi: str, seed: int) -> tuple[list[dict], dict, int]:
             for line in out.getvalue().splitlines():
                 print(f"[{label}] {line}")
             print(f"[{label}] {' '.join(argv)}: {time.perf_counter() - t0:.1f} s; {smi}")
-        os.unlink(os.path.join(tempfile.gettempdir(), "probe_chip_smoke.txt"))
+        for tag in ("chip_smoke", "chip_smoke_res"):
+            os.unlink(os.path.join(tempfile.gettempdir(), f"probe_{tag}.txt"))
     finally:
         bench_torch.DET_DATA, quality_probe_torch.DET = saved
         if not had_cache and os.path.exists(cache):
@@ -2225,6 +2391,10 @@ def main() -> int:
         print(f"[build] ptxas {name} ({mode}): {props}")
     if len(sweep_kernels) != 2:
         print(f"[build] ptxas: {len(sweep_kernels)} sweep_tile_kernel entries in the report")
+    # the scan-pass body's run resolves (a row kernel per output, a column kernel)
+    for kernel in ("scan_row_kernel", "scan_col_kernel"):
+        for name, props in _ptxas_kernels(report.getvalue(), kernel).items():
+            print(f"[build] ptxas {name}: {props}")
 
     # slice 1, the main path: MSER_7_200_2000_1, tuned --downscale 2 point
     base = MSERConfig.from_string("MSER_7_200_2000_1")
@@ -2237,6 +2407,13 @@ def main() -> int:
                                level_step=3, max_regions=1024, fused_sweep=False)
     # the tuned config with the roll-flood refine (--refine_scan 0)
     fcfg = dataclasses.replace(mcfg, refine_scan_passes=0)
+    # slice 9: the tuned config with each of the sweep's knobs; the low-res
+    # refine with K4 and, with --refine_scan 0, K5
+    knobs = {"extent_only": dataclasses.replace(mcfg, sweep_extent_only=True),
+             "scan_passes 2": dataclasses.replace(mcfg, scan_passes=2),
+             "sweep_res": dataclasses.replace(mcfg, sweep_res_pipeline=True)}
+    xcfg = knobs["sweep_res"]
+    xfcfg = dataclasses.replace(xcfg, refine_scan_passes=0)
     frames, signs = make_frames_with_boxes(32, 800, 1360, seed=args.seed)
     names = [f"{i:05d}.jpg" for i in range(len(frames))]
     templates = MeanMaskTemplates.load("artifacts/mean_masks.npz")
@@ -2289,6 +2466,11 @@ def main() -> int:
     area_calls = defaultdict(list)  # the pixel-area sweep's K5 calls apart
     with _recording(area_calls, ccl, "propagate_rolls", lambda a, kw: a[4]):
         det.detect_batch(frames_dev, red, blue, PipelineConfig(mser=pcfg))
+    res_calls = defaultdict(list)  # the low-res refine's K4 and K5 calls apart
+    with _recording(res_calls, mser, "flood_bbox", by_name("flood_bbox")), \
+            _recording(res_calls, ccl, "propagate_rolls", lambda a, kw: a[4]):
+        det.detect_batch(frames_dev, red, blue, PipelineConfig(mser=xcfg))
+        det.detect_batch(frames_dev, red, blue, PipelineConfig(mser=xfcfg))
     torch.cuda.synchronize()
 
     inputs = {k: calls[k][0] for k in ("tile_luts", "clahe_apply", "level_sweep", "flood_bbox")}
@@ -2313,6 +2495,23 @@ def main() -> int:
         a, kw = inputs[name]
         table.append(_measure(name, getattr(mod, fn), getattr(mod, plain_fn), a, kw, src,
                               replaces, smi))
+    # K4 and K5 at the low-res refine's shapes: 4096 windows of 64x64 over
+    # the small stack
+    k4_res = res_calls["flood_bbox"][0]
+    k5_res = (res_calls["propagate_rolls_refine"][0][0][:4], {})
+    del res_calls
+    print(f"[kernel] sweep_res refine: K4 on {tuple(k4_res[0][1].shape)} candidates, windows "
+          f"{k4_res[0][2]}x{k4_res[0][3]} over {tuple(k4_res[0][0].shape)}; K5 on "
+          f"{tuple(k5_res[0][0].shape)}")
+    table.append(_measure("flood_bbox_sweep_res", prop_cuda.flood_bbox, prop_cuda.flood_bbox_plain,
+                          *k4_res, "csrc/flood.cu", f"{pallas_prop}:234", smi, kind="flood_bbox"))
+    table.append(_measure("propagate_rolls_sweep_res", prop_cuda.propagate_rolls,
+                          prop_cuda.propagate_rolls_plain, *k5_res, "csrc/prop_rolls.cu",
+                          f"{pallas_prop}:69", smi, kind="propagate_rolls_refine"))
+    del k4_res, k5_res
+    # the sweep's extent-only, scan-pass and combined bodies
+    table += _sweep_bodies(mser_cuda, inputs["level_sweep"][0], inputs["level_sweep_full"][0],
+                           smi)
     rows = {row["name"]: row for row in table}
     _k5_all_passes(prop_cuda, inputs["propagate_rolls_refine"][0], smi,
                    torch.Generator(device=dev).manual_seed(args.seed))
@@ -2343,6 +2542,15 @@ def main() -> int:
     for name in ("propagate_scan", "level_sweep_full"):
         rows[name]["launches"] = counts[name]
         _require(counts[name] > 0, f"{name} never launched")
+    for tag in ("extent", "scan", "combined"):
+        _, counts = _run_path(rt, f"identities, {tag} body (K7 as an oracle)",
+                              lambda: _body_fold(mser_cuda, inputs["level_sweep"][0], scfg,
+                                                 d_idx, tag))
+        if tag != "combined":
+            rows[f"level_sweep_full_{tag}"]["launches"] = counts["level_sweep_full"]
+        _require(counts["level_sweep_full"] > 0, f"K7's {tag} body never launched")
+    _scan_strips(mser_cuda, mser, enhance_contrast, make_frames_with_boxes, base, dev,
+                 args.seed, smi)
     _sweep_shapes(mser_cuda, inputs["level_sweep"][0], scfg)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     _k4_shapes(prop_cuda, planes, cand, big, gen)
@@ -2451,6 +2659,24 @@ def main() -> int:
     _require(counts["propagate_rolls_refine"] > 0 and counts["flood_bbox"] == 0,
              "roll refine: K5 never launched on the refine, or K4 did")
 
+    # --- 6b. slice 9: the sweep's knobs through DetectionPipeline ---------
+    knob_runs = {}
+    for label, cfg_ in knobs.items():
+        kp, kv, kdets, counts = run_slice(f"slice9 {label}", cfg_, 32, 3)
+        for name in ("tile_luts", "clahe_apply", "level_sweep", "flood_bbox"):
+            _require(counts[name] > 0, f"slice 9 {label}: {name} never launched")
+        knob_runs[label] = (cfg_, kp[:2].cpu(), kv[:2].cpu(),
+                            [d for d in kdets if d.filename in names[:2]])
+        row, counter = {"extent_only": ("level_sweep_extent", "level_sweep"),
+                        "scan_passes 2": ("level_sweep_scan", "level_sweep"),
+                        "sweep_res": ("flood_bbox_sweep_res", "flood_bbox")}[label]
+        rows[row]["launches"] = counts[counter]
+        batches[row] = 3
+    _, _, _, counts = run_slice("slice9 sweep_res roll refine", xfcfg, 32, 1)
+    rows["propagate_rolls_sweep_res"]["launches"] = counts["propagate_rolls_refine"]
+    _require(counts["propagate_rolls_refine"] > 0 and counts["flood_bbox"] == 0,
+             "low-res roll refine: K5 never launched on the refine, or K4 did")
+
     # --- 7. slices vs plain on the CPU -----------------------------------
     for label, cfg_, n, (p_dev, v_dev) in [("slice", mcfg, 2, (props, pvalid)),
                                            ("slice2 pixel_area", pcfg, 2, (pprops, ppvalid)),
@@ -2480,6 +2706,26 @@ def main() -> int:
     print(f"[slice vs plain detections] 2 frames: card {len(gpu_dets)} "
           f"cpu {len(cpu_dets)} match {ok}")
     _require(ok, f"detections differ: card {gpu_dets} cpu {cpu_dets}")
+    for label, (cfg_, p_dev, v_dev, card_dets) in knob_runs.items():
+        t0 = time.perf_counter()
+        # one plain run gives both: the proposals as detect_batch makes them
+        proposals = []
+        regions = det.mser_regions
+        det.mser_regions = lambda *a, **kw: proposals.append(regions(*a, **kw)) or proposals[-1]
+        try:
+            cpu_knob = det.DetectionPipeline(cfg=PipelineConfig(mser=cfg_), templates=templates,
+                                             device="cpu").detect_frames(frames[:2], names[:2])
+        finally:
+            det.mser_regions = regions
+        p_cpu, v_cpu = proposals[0]
+        same = torch.equal(p_dev, p_cpu) and torch.equal(v_dev, v_cpu)
+        match = _same_detections(card_dets, cpu_knob)
+        print(f"[slice9 {label} vs plain] 2 frames on the CPU in "
+              f"{time.perf_counter() - t0:.1f} s: proposals identical {same} "
+              f"({int(v_cpu.sum())} valid); detections card {len(card_dets)} cpu "
+              f"{len(cpu_knob)} match {match}")
+        _require(same and match, f"slice 9 {label}: the card differs from the CPU plain path")
+    del knob_runs
 
     # --- 8-9. slice 3: the CNN detector ----------------------------------
     del props, pvalid, pprops, ppvalid, rprops, rpvalid, frames_dev

@@ -69,7 +69,6 @@ class MSERConfig:
     refine_scan_passes: int = 2
     # Extent-only fused sweep: propagate just keys + vertical extents and
     # use squared height as the area proxy (3 roll channels instead of 5).
-    # Not ported: the port's sweep raises on it.
     sweep_extent_only: bool = False
     # Candidate top-k pooling factor: stability maps are max-pooled
     # (pool x pool) with in-block argmax before the top-k (16x less top-k

@@ -14,6 +14,12 @@
 //   [n, levels, r, w].  It is the reference's oracle between K3 and the XLA
 //   sweep, so "K7 folded == K3" compares the two outputs of one kernel.
 //
+// _sweep_body has three forms, chosen by the config, and each has both
+// outputs here: the default (below: Jacobi passes in tiles); extent-only
+// (cfg.sweep_extent_only: the area is the squared height; a flag of the
+// emit, Thresholds::extent_only); and scan-pass (cfg.scan_passes > 0: whole-
+// run resolves along rows and columns; a second design, further below).
+//
 // On the TPU the whole sweep state of one strip window stays in VMEM across
 // all levels.  Here one window is ~0.28 M pixels with ~30 bytes of state per
 // pixel (8 MB), far beyond one SM's 227 KB of shared memory, so the state
@@ -100,9 +106,11 @@ constexpr int kRegionPx = kRegion * kRegion;
 constexpr int kTileSmem = 2 * 3 * kRegionPx * 4;         // two exchange buffers
 constexpr int kLoInit = 0x7FFF7FFF;                      // (ymin, xmin) = INT16_MAX
 constexpr int kHiInit = -1;                              // (ymax, xmax) = -1
+constexpr int kScanSmemMax = 232448;                     // a block's shared memory
 
 struct Thresholds {
     float min_area, max_area, max_variation, min_diversity;
+    bool extent_only;  // the area proxy is the squared height, not the bbox area
 };
 
 struct TileGeom {
@@ -144,6 +152,83 @@ __device__ __forceinline__ bool same_bits(__nv_bfloat16 a, __nv_bfloat16 b) {
     return __bfloat16_as_ushort(a) == __bfloat16_as_ushort(b);
 }
 
+// The ring slots level t reads (slots 0..d the area ring, d + 1 and d + 2
+// the variation ring, d + 3 the last emitted area): A[t-d-1] in `area`, which
+// is also the slot the level writes, A[t-d] in `a_td`, V[t-d-1] in `v_c`, and
+// V[t-d-2] in `v_prev`, the variation slot the level writes.
+struct RingSlots {
+    int area, a_td, v_c, v_prev, last;
+};
+
+__device__ __forceinline__ RingSlots ring_slots(int t, int d) {
+    const int nring = d + 1;
+    const int v_new_s = (t + 2 * nring - d) % 2;
+    return {t % nring, (t + nring - d % nring) % nring, nring + 1 - v_new_s, nring + v_new_s,
+            nring + 2};
+}
+
+// The emit of both designs, per pixel (mser_pallas.py: _sweep_body after the
+// propagation).  anchor_area: a mask pixel whose key is its own is its
+// component's anchor; its area is the bbox area of the packed pairs, or with
+// extent_only the squared height, an f32 product capped at 65535, and past
+// max_area the anchor takes key -1 (the dead mark).  0 off an anchor.
+__device__ __forceinline__ float anchor_area(int& key, int lo, int hi, int key0, bool in_mask,
+                                             const Thresholds& th) {
+    if (!in_mask || key != key0) return 0.0f;
+    const float h = (float)((hi >> 16) - (lo >> 16) + 1);
+    const float a = fminf(
+        __fmul_rn(h, th.extent_only ? h : (float)((int)(short)hi - (int)(short)lo + 1)),
+        65535.0f);
+    if (a > th.max_area) key = -1;  // after the area
+    return a;
+}
+
+// stability: the candidate test of one emitting pixel from its area this
+// level and its ring values (A[t-d-1], A[t-d], V[t-d-1], V[t-d-2], the last
+// emitted area); -> whether it is a candidate, its byte, and the values its
+// variation and last-emit rings take.
+struct Stability {
+    bool cand;
+    float qv, v_new, last;
+};
+
+__device__ __forceinline__ Stability stability(float a_cur, float area_c, float atd, float vc,
+                                               float v_prev, float lst, const Thresholds& th) {
+    Stability s;
+    s.v_new = (atd > 0.0f && a_cur > 0.0f) ? __fdiv_rn(__fsub_rn(a_cur, atd), fmaxf(atd, 1.0f))
+                                           : __int_as_float(0x7f800000);
+    const bool cand = area_c >= th.min_area && area_c <= th.max_area &&
+                      vc < th.max_variation && vc <= v_prev && vc <= s.v_new;
+    s.cand = cand && (lst <= 0.0f || __fsub_rn(area_c, lst) >=
+                                         __fmul_rn(th.min_diversity, fmaxf(area_c, 1.0f)));
+    const float qv = __fsub_rn(254.0f, floorf(__fmul_rn(vc, 253.0f)));
+    s.qv = fminf(fmaxf(qv, 1.0f), 254.0f);
+    s.last = s.cand ? area_c : lst;
+    return s;
+}
+
+template <bool kFull>
+using SweepOut = std::conditional_t<kFull, uint8_t, int32_t>;
+
+// One pixel's output at level t: K7 its byte (0 without a candidate) at
+// out[o]; K3 the running max of (qv << lbits) | t at out[o], read and
+// written only on a candidate, at the first level and at the last (a level
+// without a candidate adds t, which the last level's t bounds).
+template <bool kFull>
+__device__ __forceinline__ void emit_out(SweepOut<kFull>* out, long long o, const Stability& s,
+                                         int t, int num_levels, int lbits) {
+    if constexpr (kFull) {
+        out[o] = (uint8_t)(int)(s.cand ? s.qv : 0.0f);
+    } else {
+        const int packed = (int)(s.cand ? s.qv : 0.0f) * (1 << lbits) + t;
+        if (t == 0) {
+            out[o] = packed;
+        } else if (s.cand || t == num_levels - 1) {
+            out[o] = max(out[o], packed);
+        }
+    }
+}
+
 // One span of the sweep: passes [t0 * num_passes + p0, ... + npass) of the
 // level sequence, with the warm starts and emits that fall inside it.
 // Grid: (tiles of one window, windows).  A block holds a region of
@@ -163,9 +248,6 @@ __device__ __forceinline__ bool same_bits(__nv_bfloat16 a, __nv_bfloat16 b) {
 //
 // out: K3 (kFull false) int32 [n, core, w], the strip's core rows; K7
 // (kFull true) u8 [n, num_levels, r, w], every level of the whole window.
-template <bool kFull>
-using SweepOut = std::conditional_t<kFull, uint8_t, int32_t>;
-
 template <bool kFull>
 __global__ void __launch_bounds__(kTileThreads, 1)
 sweep_tile_kernel(const uint8_t* __restrict__ win, const int32_t* __restrict__ s_in,
@@ -301,19 +383,17 @@ sweep_tile_kernel(const uint8_t* __restrict__ win, const int32_t* __restrict__ s
         if (p < num_passes) break;  // the span ends inside level t
 
         // emit: bbox-area stability, dead mark, candidate test, collapse
-        const int old_a = t % nring;  // also the slot this level writes
-        const int td_a = (t + nring - d % nring) % nring;
-        const int v_new_s = (t + 2 * nring - d) % 2;
+        const RingSlots sl = ring_slots(t, d);
         const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
         const __nv_bfloat16 inf = __float2bfloat16_rn(__int_as_float(0x7f800000));
         // level 0 reads the initial rings: areas and last-emit 0, variations inf
         RingRec area, a_td, v_c, v_prev, last;
         if (emits && t) {  // five vector loads, all in flight together
-            area.v = rec[old_a * kTileThreads];
-            a_td.v = rec[td_a * kTileThreads];
-            v_c.v = rec[(nring + 1 - v_new_s) * kTileThreads];
-            v_prev.v = rec[(nring + v_new_s) * kTileThreads];
-            last.v = rec[(nring + 2) * kTileThreads];
+            area.v = rec[sl.area * kTileThreads];
+            a_td.v = rec[sl.a_td * kTileThreads];
+            v_c.v = rec[sl.v_c * kTileThreads];
+            v_prev.v = rec[sl.v_prev * kTileThreads];
+            last.v = rec[sl.last * kTileThreads];
         } else {
 #pragma unroll
             for (int k = 0; k < kRows; ++k) {
@@ -325,67 +405,41 @@ sweep_tile_kernel(const uint8_t* __restrict__ win, const int32_t* __restrict__ s
         int gr = gr0;
 #pragma unroll
         for (int k = 0; k < kRows; ++k) {
-            float a_cur = 0.0f;
             const int v = (V[k / 4] >> (8 * (k % 4))) & 0xff;
-            if ((mask >> k & 1u) && K[k] == v * hw + gr * g.w + gc) {  // anchor
-                const float bb = __fmul_rn((float)((HI[k] >> 16) - (LO[k] >> 16) + 1),
-                                           (float)((int)(short)HI[k] - (int)(short)LO[k] + 1));
-                a_cur = fminf(bb, 65535.0f);
-                if (a_cur > th.max_area) K[k] = -1;  // dead mark, after the area
-            }
+            const float a_cur = anchor_area(K[k], LO[k], HI[k], v * hw + gr * g.w + gc,
+                                            mask >> k & 1u, th);
             if (emits >> k & 1u) {
-                const float area_c = __bfloat162float(area.h[k]);
-                const float atd = __bfloat162float(a_td.h[k]);
-                const float vc = __bfloat162float(v_c.h[k]);
-                const float v_new = (atd > 0.0f && a_cur > 0.0f)
-                                        ? __fdiv_rn(__fsub_rn(a_cur, atd), fmaxf(atd, 1.0f))
-                                        : __int_as_float(0x7f800000);
-                bool cand = area_c >= th.min_area && area_c <= th.max_area &&
-                            vc < th.max_variation && vc <= __bfloat162float(v_prev.h[k]) &&
-                            vc <= v_new;
-                const float lst = __bfloat162float(last.h[k]);
-                cand = cand && (lst <= 0.0f ||
-                                __fsub_rn(area_c, lst) >=
-                                    __fmul_rn(th.min_diversity, fmaxf(area_c, 1.0f)));
-                float qv = __fsub_rn(254.0f, floorf(__fmul_rn(vc, 253.0f)));
-                qv = fminf(fmaxf(qv, 1.0f), 254.0f);
-                const int packed = (int)(cand ? qv : 0.0f) * (1 << lbits) + t;
+                const Stability s = stability(
+                    a_cur, __bfloat162float(area.h[k]), __bfloat162float(a_td.h[k]),
+                    __bfloat162float(v_c.h[k]), __bfloat162float(v_prev.h[k]),
+                    __bfloat162float(last.h[k]), th);
                 const __nv_bfloat16 a_newb = __float2bfloat16_rn(a_cur);
-                const __nv_bfloat16 v_newb = __float2bfloat16_rn(v_new);
-                const __nv_bfloat16 l_newb = __float2bfloat16_rn(cand ? area_c : lst);
+                const __nv_bfloat16 v_newb = __float2bfloat16_rn(s.v_new);
+                const __nv_bfloat16 l_newb = __float2bfloat16_rn(s.last);
                 a_changed |= !same_bits(a_newb, area.h[k]);
                 v_changed |= !same_bits(v_newb, v_prev.h[k]);
                 l_changed |= !same_bits(l_newb, last.h[k]);
-                area.h[k] = a_newb;    // slot old_a is the slot written
-                v_prev.h[k] = v_newb;  // and so is slot v_new_s
+                area.h[k] = a_newb;    // slot sl.area is the slot written
+                v_prev.h[k] = v_newb;  // and so is slot sl.v_prev
                 last.h[k] = l_newb;
-                if constexpr (kFull) {  // this level's byte, 0 without a candidate
-                    out[obase + (long long)t * hw + gr * g.w + gc] =
-                        (uint8_t)(int)(cand ? qv : 0.0f);
-                } else {
-                    int32_t* o = out + obase + gr * g.w + gc;
-                    // a level without a candidate adds t, which the last level's t bounds
-                    if (t == 0) {
-                        *o = packed;
-                    } else if (cand || t == num_levels - 1) {
-                        *o = max(*o, packed);
-                    }
-                }
+                emit_out<kFull>(out, kFull ? obase + (long long)t * hw + gr * g.w + gc
+                                           : obase + gr * g.w + gc,
+                                s, t, num_levels, lbits);
             }
             gr = gr + 1 == g.r ? 0 : gr + 1;
         }
         if (emits) {
             if (t == 0) {  // the first level writes every slot: no fill launch
                 for (int k = 0; k < nring; ++k) {
-                    rec[k * kTileThreads] = k == old_a ? area.v : make_uint2(0, 0);
+                    rec[k * kTileThreads] = k == sl.area ? area.v : make_uint2(0, 0);
                 }
-                rec[(nring + v_new_s) * kTileThreads] = v_prev.v;
-                rec[(nring + 1 - v_new_s) * kTileThreads] = v_c.v;  // all inf
-                rec[(nring + 2) * kTileThreads] = last.v;
+                rec[sl.v_prev * kTileThreads] = v_prev.v;
+                rec[sl.v_c * kTileThreads] = v_c.v;  // all inf
+                rec[sl.last * kTileThreads] = last.v;
             } else {
-                if (a_changed) rec[old_a * kTileThreads] = area.v;
-                if (v_changed) rec[(nring + v_new_s) * kTileThreads] = v_prev.v;
-                if (l_changed) rec[(nring + 2) * kTileThreads] = last.v;
+                if (a_changed) rec[sl.area * kTileThreads] = area.v;
+                if (v_changed) rec[sl.v_prev * kTileThreads] = v_prev.v;
+                if (l_changed) rec[sl.last * kTileThreads] = last.v;
             }
         }
         ++t;
@@ -438,6 +492,313 @@ int run_tiles(const void* win, void* out, void* state, void* rings, int n, int r
     return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// The scan-pass body (cfg.scan_passes > 0): per level a warm start, then
+// scan_passes times a row resolve and a column resolve, then one more row
+// resolve, then the emit.  A resolve reduces each run of mask pixels along
+// its row (column) whole, so it cannot run in the tiles above: a run spans
+// the window, and a row that is all mask (every row at the levels of 255
+// and up, where the border and the padding join the mask) wraps round it.
+// So the state stays in device memory, int32 [3, n, r, w] as above, updated
+// in place, and each resolve is a launch: 2 * scan_passes + 1 a level, the
+// warm start fused into the first row resolve and the emit into the last.
+// The rings take the plain layout bf16 [d + 4, n, r, w] (slots as above).
+//
+// Row resolve (scan_row_kernel): a warp a (window, row), the row's three
+// planes in its slice of shared memory.  The run reduce is a segmented scan
+// whose element is (break, keys, lo, hi): a pixel off the mask is a break
+// holding the identities.  Each lane folds a chunk of ceil(w / 32)
+// consecutive pixels; a shuffle scan over the lanes gives each chunk its
+// carry.  The scan is cyclic as pltpu.roll is: the carry into the row's
+// first pixel is the whole row's aggregate, which is the run that crosses
+// column w - 1 into 0, or the whole row where no pixel breaks it.  A forward
+// walk leaves at each pixel the reduce from its run's start; a backward walk
+// over those values leaves at each pixel its whole run's reduce.
+//
+// Column resolve (scan_col_kernel): a thread a (window, column), walking
+// down; rows 0 and r - 1 are off the mask, so column runs never wrap.  A run
+// is reduced as it is read and its value written back over it when it
+// ends.  Pixels off the mask hold the sentinels since the level's warm
+// start, and the column resolve leaves them so.
+//
+// What bounds it: a resolve reads and writes the three planes (24 bytes a
+// pixel; the column resolve only its mask pixels), ~0.13 ms at [64, 408,
+// 684] at 3.35 TB/s, five resolves a level at scan_passes 2, over ~31
+// levels.  The operations are a few per pixel and resolve.  A first form:
+// nothing is kept on chip between resolves.
+//
+// The same semantics as the reference's axis_resolve: keys reduce by min
+// over mask ? keys : big, the packed pairs by __vmins2 / __vmaxs2 over
+// live ? pair : sentinel, live = mask & keys >= 0 taken before the resolve;
+// after it the pairs keep their run's value only where the run's key is
+// >= 0.  A dead mark (-1) spreads through its run within the resolve.
+
+struct ScanGeom {
+    int n, r, w;     // windows, rows, columns
+    int core, halo;  // K3: the strip's emitted rows [halo, halo + core)
+    int wpb;         // rows (warps) a block of the row resolve
+};
+
+// A segmented-scan element or aggregate: f = a break lies in it
+struct Run {
+    int f, k, lo, hi;
+};
+
+// a, then b, in scan order
+__device__ __forceinline__ Run seg(const Run& a, const Run& b) {
+    if (b.f) return b;
+    return {a.f, min(a.k, b.k), (int)__vmins2((unsigned)a.lo, (unsigned)b.lo),
+            (int)__vmaxs2((unsigned)a.hi, (unsigned)b.hi)};
+}
+
+__device__ __forceinline__ Run shfl(const Run& x, int src, int mode) {
+    // mode 0: from lane src; 1: from lane - src; 2: from lane + src
+    const unsigned all = 0xffffffffu;
+    if (mode == 1) {
+        return {__shfl_up_sync(all, x.f, src), __shfl_up_sync(all, x.k, src),
+                __shfl_up_sync(all, x.lo, src), __shfl_up_sync(all, x.hi, src)};
+    }
+    if (mode == 2) {
+        return {__shfl_down_sync(all, x.f, src), __shfl_down_sync(all, x.k, src),
+                __shfl_down_sync(all, x.lo, src), __shfl_down_sync(all, x.hi, src)};
+    }
+    return {__shfl_sync(all, x.f, src), __shfl_sync(all, x.k, src),
+            __shfl_sync(all, x.lo, src), __shfl_sync(all, x.hi, src)};
+}
+
+// The carry into this lane's chunk, given each lane's chunk aggregate, for a
+// cyclic scan over the lanes in ascending (fwd) or descending order: the
+// whole row's aggregate, then the chunks before this one.
+__device__ __forceinline__ Run warp_carry(Run x, bool fwd, int big) {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {  // inclusive scan
+        const Run o = shfl(x, d, fwd ? 1 : 2);
+        if (fwd ? lane >= d : lane + d < 32) x = seg(o, x);
+    }
+    const Run total = shfl(x, fwd ? 31 : 0, 0);
+    Run excl = shfl(x, 1, fwd ? 1 : 2);
+    if (lane == (fwd ? 0 : 31)) excl = {0, big, kLoInit, kHiInit};
+    return seg(total, excl);
+}
+
+// Ints of one warp's slice of shared memory: keys, lo and hi of the row,
+// then its window bytes.
+__host__ __device__ __forceinline__ int scan_slice_ints(int w) { return 3 * w + (w + 3) / 4; }
+
+template <bool kFull>
+__global__ void scan_row_kernel(const uint8_t* __restrict__ win, int32_t* __restrict__ state,
+                                __nv_bfloat16* __restrict__ rings,
+                                SweepOut<kFull>* __restrict__ out, ScanGeom g, int t,
+                                bool warm, bool emit, int num_levels, int step, int d,
+                                int lbits, Thresholds th) {
+    extern __shared__ int32_t smem[];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const long long row = (long long)blockIdx.x * g.wpb + warp;
+    if (row >= (long long)g.n * g.r) return;  // a whole warp: no barrier follows
+    const int w = g.w, y = (int)(row % g.r);
+    const long long win_i = row / g.r;
+    const int hw = g.r * w, big = 256 * hw;
+    const long long total = (long long)g.n * hw;
+    const long long base = row * w;  // pixel (win_i, y, 0)
+    const int level = t * step;
+    const bool interior = y > 0 && y < g.r - 1;
+    int32_t* sk = smem + (long long)warp * scan_slice_ints(w);
+    int32_t* slo = sk + w;
+    int32_t* shi = slo + w;
+    uint8_t* sv = reinterpret_cast<uint8_t*>(shi + w);
+
+    // load (and warm start): the elements of the row
+    for (int i = lane; i < w; i += 32) {
+        const int v = win[base + i];
+        const bool m = interior && v <= level;
+        int K = big, LO = kLoInit, HI = kHiInit;
+        if (!(warm && t == 0)) {
+            K = state[base + i];
+            LO = state[total + base + i];
+            HI = state[2 * total + base + i];
+        }
+        if (warm) {  // fold the level's mask into the state
+            const int rc = (y << 16) | i;
+            K = m ? min(K, v * hw + y * w + i) : big;
+            LO = m ? (int)__vmins2((unsigned)LO, (unsigned)rc) : kLoInit;
+            HI = m ? (int)__vmaxs2((unsigned)HI, (unsigned)rc) : kHiInit;
+        }
+        const bool live = m && K >= 0;
+        sk[i] = m ? K : big;
+        slo[i] = live ? LO : kLoInit;
+        shi[i] = live ? HI : kHiInit;
+        sv[i] = (uint8_t)v;
+    }
+    __syncwarp();
+
+    const int chunk = (w + 31) / 32;
+    const int a = min(lane * chunk, w), b = min(a + chunk, w);
+    auto elem = [&](int i) {
+        return Run{!(interior && sv[i] <= level), sk[i], slo[i], shi[i]};
+    };
+    // forward: each pixel the reduce from its run's start
+    Run acc = {0, big, kLoInit, kHiInit};
+    for (int i = a; i < b; ++i) acc = seg(acc, elem(i));
+    acc = warp_carry(acc, true, big);
+    for (int i = a; i < b; ++i) {
+        acc = seg(acc, elem(i));
+        sk[i] = acc.k;
+        slo[i] = acc.lo;
+        shi[i] = acc.hi;
+    }
+    // backward over those: each pixel its whole run's reduce
+    acc = {0, big, kLoInit, kHiInit};
+    for (int i = b - 1; i >= a; --i) acc = seg(acc, elem(i));
+    acc = warp_carry(acc, false, big);
+    for (int i = b - 1; i >= a; --i) {
+        acc = seg(acc, elem(i));
+        sk[i] = acc.k;
+        slo[i] = acc.lo;
+        shi[i] = acc.hi;
+    }
+    __syncwarp();
+
+    // write back, and at the last resolve the emit
+    const bool emits = emit && (kFull || (y >= g.halo && y < g.halo + g.core));
+    const RingSlots sl = ring_slots(t, d);
+    const float inf = __int_as_float(0x7f800000);
+    for (int i = lane; i < w; i += 32) {
+        const int v = sv[i];
+        const bool m = interior && v <= level;
+        int K = m ? sk[i] : big;
+        const bool live = m && K >= 0;
+        const int LO = live ? slo[i] : kLoInit, HI = live ? shi[i] : kHiInit;
+        const long long px = base + i;
+        if (emit) {
+            const float a_cur = anchor_area(K, LO, HI, v * hw + y * w + i, m, th);
+            if (emits) {
+                __nv_bfloat16* ring = rings + px;
+                // level 0 reads the initial rings: areas and last-emit 0,
+                // variations inf
+                const bool t0 = t == 0;
+                const Stability s = stability(
+                    a_cur, t0 ? 0.0f : __bfloat162float(ring[sl.area * total]),
+                    t0 ? 0.0f : __bfloat162float(ring[sl.a_td * total]),
+                    t0 ? inf : __bfloat162float(ring[sl.v_c * total]),
+                    t0 ? inf : __bfloat162float(ring[sl.v_prev * total]),
+                    t0 ? 0.0f : __bfloat162float(ring[sl.last * total]), th);
+                if (t0) {  // the first level writes every slot
+                    for (int k = 0; k <= d; ++k) ring[k * total] = __float2bfloat16_rn(0.0f);
+                    ring[sl.v_c * total] = __float2bfloat16_rn(inf);
+                }
+                ring[sl.area * total] = __float2bfloat16_rn(a_cur);
+                ring[sl.v_prev * total] = __float2bfloat16_rn(s.v_new);
+                ring[sl.last * total] = __float2bfloat16_rn(s.last);
+                emit_out<kFull>(out,
+                                kFull ? (win_i * num_levels + t) * hw + (long long)y * w + i
+                                      : (win_i * g.core + y - g.halo) * w + i,
+                                s, t, num_levels, lbits);
+            }
+        }
+        state[px] = K;
+        state[total + px] = LO;
+        state[2 * total + px] = HI;
+    }
+}
+
+__global__ void scan_col_kernel(const uint8_t* __restrict__ win, int32_t* __restrict__ state,
+                                ScanGeom g, int level) {
+    const int x = blockIdx.x * blockDim.x + threadIdx.x;
+    if (x >= g.w) return;
+    const int hw = g.r * g.w, big = 256 * hw;
+    const long long total = (long long)g.n * hw;
+    const long long base = (long long)blockIdx.y * hw + x;
+    int32_t* sk = state;
+    int32_t* slo = state + total;
+    int32_t* shi = state + 2 * total;
+    int rk = big, rlo = kLoInit, rhi = kHiInit, start = -1;  // the open run
+    constexpr int kBatch = 8;  // rows read together
+    for (int y0 = 1; y0 < g.r - 1; y0 += kBatch) {
+        int vk[kBatch], vlo[kBatch], vhi[kBatch];
+        unsigned mb = 0;
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j) {
+            const long long p = base + (long long)(y0 + j) * g.w;
+            if (y0 + j < g.r - 1 && win[p] <= level) mb |= 1u << j;
+        }
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j) {
+            if (mb >> j & 1u) {
+                const long long p = base + (long long)(y0 + j) * g.w;
+                vk[j] = sk[p];
+                vlo[j] = slo[p];
+                vhi[j] = shi[p];
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < kBatch; ++j) {
+            const int y = y0 + j;
+            if (y >= g.r - 1) break;
+            const bool m = mb >> j & 1u;
+            if (m) {
+                rk = min(rk, vk[j]);
+                if (vk[j] >= 0) {  // live
+                    rlo = (int)__vmins2((unsigned)rlo, (unsigned)vlo[j]);
+                    rhi = (int)__vmaxs2((unsigned)rhi, (unsigned)vhi[j]);
+                }
+                if (start < 0) start = y;
+            }
+            if (start >= 0 && (!m || y == g.r - 2)) {  // the run ends
+                const int end = m ? y : y - 1;
+                const bool live = rk >= 0;
+                const int lo = live ? rlo : kLoInit, hi = live ? rhi : kHiInit;
+                for (int yy = start; yy <= end; ++yy) {
+                    const long long p = base + (long long)yy * g.w;
+                    sk[p] = rk;
+                    slo[p] = lo;
+                    shi[p] = hi;
+                }
+                rk = big;
+                rlo = kLoInit;
+                rhi = kHiInit;
+                start = -1;
+            }
+        }
+    }
+}
+
+// The level loop of the scan-pass body, both outputs.
+template <bool kFull>
+int run_scan(const void* win, void* out, void* state, void* rings, int n, int r, int w,
+             int core, int halo, int num_levels, int step, int d, int scan_passes, int lbits,
+             Thresholds th, void* stream) {
+    const int slice = scan_slice_ints(w) * 4;
+    if (scan_passes < 1 || w < 1 || r >= 32767 || w >= 32767 || slice > kScanSmemMax) {
+        return (int)cudaErrorInvalidValue;
+    }
+    const int wpb = max(1, min(8, 48 * 1024 / slice));
+    const int smem = wpb * slice;
+    if (smem > 48 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(
+            scan_row_kernel<kFull>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    cudaStream_t st = (cudaStream_t)stream;
+    const ScanGeom g{n, r, w, core, halo, wpb};
+    const long long rows = (long long)n * r;
+    const dim3 row_grid((unsigned)((rows + wpb - 1) / wpb));
+    const dim3 col_grid((w + 127) / 128, n);
+    for (int t = 0; t < num_levels; ++t) {
+        for (int k = 0; k <= scan_passes; ++k) {
+            scan_row_kernel<kFull><<<row_grid, 32 * wpb, smem, st>>>(
+                (const uint8_t*)win, (int32_t*)state, (__nv_bfloat16*)rings,
+                (SweepOut<kFull>*)out, g, t, k == 0, k == scan_passes, num_levels, step, d,
+                lbits, th);
+            if (k < scan_passes) {
+                scan_col_kernel<<<col_grid, 128, 0, st>>>((const uint8_t*)win,
+                                                          (int32_t*)state, g, t * step);
+            }
+        }
+    }
+    return (int)cudaGetLastError();
+}
 }  // namespace
 
 // win: u8 [n, r, w]; state: i32 [2, 3, n, r, w] (two buffers of keys,
@@ -449,11 +810,12 @@ int run_tiles(const void* win, void* out, void* state, void* rings, int n, int r
 TSD_API int tsd_level_sweep(const void* win, void* out, void* state, void* rings,
                             int n, int r, int w, int core, int halo, int th, int tw,
                             int span, int num_levels, int step, int d, int num_passes,
-                            int lbits, float min_area, float max_area,
+                            int lbits, int extent_only, float min_area, float max_area,
                             float max_variation, float min_diversity, void* stream) {
     return run_tiles<false>(win, out, state, rings, n, r, w, core, halo, th, tw, span,
                             num_levels, step, d, num_passes, lbits,
-                            Thresholds{min_area, max_area, max_variation, min_diversity},
+                            Thresholds{min_area, max_area, max_variation, min_diversity,
+                                       extent_only != 0},
                             stream);
 }
 
@@ -461,10 +823,27 @@ TSD_API int tsd_level_sweep(const void* win, void* out, void* state, void* rings
 TSD_API int tsd_level_sweep_full(const void* win, void* full, void* state, void* rings,
                                  int n, int r, int w, int th, int tw, int span,
                                  int num_levels, int step, int d, int num_passes,
-                                 float min_area, float max_area, float max_variation,
-                                 float min_diversity, void* stream) {
+                                 int extent_only, float min_area, float max_area,
+                                 float max_variation, float min_diversity, void* stream) {
     return run_tiles<true>(win, full, state, rings, n, r, w, r, 0, th, tw, span, num_levels,
                            step, d, num_passes, 0,
-                           Thresholds{min_area, max_area, max_variation, min_diversity},
+                           Thresholds{min_area, max_area, max_variation, min_diversity,
+                                      extent_only != 0},
                            stream);
+}
+
+// The scan-pass body of K3 (full = 0: out i32 [n, core, w]) or K7 (full = 1,
+// core = r, halo = 0: out u8 [n, num_levels, r, w]).  state: i32 [3, n, r,
+// w]; rings: bf16 [d + 4, n, r, w].  Refuses rows wider than one block's
+// shared memory holds: 12 bytes a pixel and its window byte.
+TSD_API int tsd_level_sweep_scan(const void* win, void* out, void* state, void* rings,
+                                 int full, int n, int r, int w, int core, int halo,
+                                 int num_levels, int step, int d, int scan_passes, int lbits,
+                                 int extent_only, float min_area, float max_area,
+                                 float max_variation, float min_diversity, void* stream) {
+    const Thresholds th{min_area, max_area, max_variation, min_diversity, extent_only != 0};
+    return full ? run_scan<true>(win, out, state, rings, n, r, w, r, 0, num_levels, step, d,
+                                 scan_passes, 0, th, stream)
+                : run_scan<false>(win, out, state, rings, n, r, w, core, halo, num_levels,
+                                  step, d, scan_passes, lbits, th, stream);
 }

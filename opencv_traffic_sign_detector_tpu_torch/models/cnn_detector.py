@@ -496,6 +496,11 @@ def saved_meta(path: str) -> dict:
     return meta
 
 
+def saved_arch(path: str) -> str | None:
+    """Read the arch tag stored in a checkpoint, if present."""
+    return saved_meta(path).get("arch")
+
+
 def load_params(path: str, model: nn.Module) -> nn.Module:
     with np.load(path) as data:
         return load_flat_params(model, data, path)
@@ -543,6 +548,12 @@ def _box_scale(sx: float, sy: float) -> torch.Tensor:
 def rescale_boxes(boxes: torch.Tensor, sx: float, sy: float) -> torch.Tensor:
     """Map decoded xyxy boxes from the upscaled grid back to native pixels."""
     return boxes / resident(_box_scale, float(sx), float(sy), device=boxes.device)
+
+
+def upscale_frames(frames_u8: torch.Tensor, th: int, tw: int) -> torch.Tensor:
+    """Bilinear upscale of [B, H, W, C] uint8 frames to (th, tw), uint8: the
+    two-stage route's resize (``ops/upscale.py: upscale_bilinear_u8``)."""
+    return upscale_bilinear_u8(frames_u8, th, tw)
 
 
 def upscaled_hw(h: int, w: int, scale: float, stride: int = 16) -> tuple[int, int]:

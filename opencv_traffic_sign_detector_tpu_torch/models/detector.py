@@ -29,7 +29,7 @@ from ..data.images import list_frame_files
 from ..data.prefetch import batched_frames
 from ..ops.dedup import dedup_by_coords, dedup_by_histogram
 from ..ops.geometry import filter_and_grow_boxes
-from ..ops.mser import check_supported, mser_regions, stage_scope
+from ..ops.mser import mser_regions, stage_scope
 from ..ops.preprocess import enhance_contrast
 from ..ops.resize import crop_and_resize
 from .mean_masks import MeanMaskTemplates, mask_correlation_classify, templates_to_torch
@@ -102,6 +102,13 @@ def detect_batch(frames: torch.Tensor, red_templates: torch.Tensor,
     return out
 
 
+def detect_frame(bgr: torch.Tensor, red_templates: torch.Tensor,
+                 blue_templates: torch.Tensor, cfg: PipelineConfig):
+    """One [H, W, 3] uint8 frame -> (boxes [D, 4] xyxy, types [D], scores
+    [D], valid [D]): :func:`detect_batch` of a batch of one."""
+    return tuple(x[0] for x in detect_batch(bgr[None], red_templates, blue_templates, cfg))
+
+
 def _pack(boxes, types, scores, valid) -> torch.Tensor:
     """All four outputs as one [B, D, 7] f32 tensor: one device->host copy."""
     return torch.cat([boxes.to(torch.float32), types[..., None].to(torch.float32),
@@ -122,7 +129,6 @@ class DetectionPipeline:
                  device="cuda", timer=None, mesh=None):
         from ..parallel.mesh import Mesh, explicit_device, sharded_detect_fn
 
-        check_supported(cfg.mser)
         if mesh is None:
             mesh = Mesh((explicit_device(torch.device(device)),))
         elif cfg.batch_size % mesh.size:

@@ -87,6 +87,14 @@ def recognize_batch(frames: torch.Tensor, clf_arrays, cfg: PipelineConfig, featu
     return _classify(boxes, gray_crops, keep, clf_arrays, cfg, features, clf_kind, knn_k)
 
 
+def recognize_frame(bgr: torch.Tensor, clf_arrays, cfg: PipelineConfig, features: str,
+                    clf_kind: str = "LDABAYES", knn_k: int = 4):
+    """One [H, W, 3] uint8 frame -> (boxes [D, 4] xyxy, labels [D], scores
+    [D], valid [D]): :func:`recognize_batch` of a batch of one."""
+    return tuple(x[0] for x in recognize_batch(bgr[None], clf_arrays, cfg, features,
+                                               clf_kind, knn_k))
+
+
 def grow_boxes_xyxy(boxes: torch.Tensor, valid: torch.Tensor, grow: float, frame_hw):
     """Float xyxy boxes -> grown (about the centre), clipped int32 xyxy, and
     the keep mask of boxes at least 2 px on each side: the REC-variant

@@ -80,3 +80,8 @@ def iou_matrix(a_xyxy: torch.Tensor, b_xyxy: torch.Tensor) -> torch.Tensor:
     area_b = (b[:, 2] - b[:, 0] + 1) * (b[:, 3] - b[:, 1] + 1)
     union = area_a[:, None] + area_b[None, :] - inter
     return inter / torch.clamp(union, min=1e-9)
+
+
+def mean_coords(a_xyxy: torch.Tensor, b_xyxy: torch.Tensor) -> torch.Tensor:
+    """Integer midpoint of two int boxes (floor division, like the reference)."""
+    return torch.div(a_xyxy.to(torch.int32) + b_xyxy.to(torch.int32), 2, rounding_mode="floor")

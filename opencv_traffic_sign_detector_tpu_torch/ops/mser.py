@@ -12,14 +12,13 @@ mser_regions``: optional 2x2-mean downscale (area thresholds / 4), the
   with an exact top-k over every level's byte map;
 
 and the native-resolution refine: the seed flood (kernel K4) when
-``refine_scan_passes > 0``, else the roll flood (kernel K5).  The exact
-pixel-area window is applied after the refine on the fused branch only, as
-in the reference.  Frames are a batch dimension throughout; the XLA sweep
-loops over levels, not frames.
-
-The low-res refine (``sweep_res_pipeline``) and the extent-only and
-scan-pass sweep variants are not ported; configs that ask for them raise
-``NotImplementedError``.
+``refine_scan_passes > 0``, else the roll flood (kernel K5).  With
+``sweep_res_pipeline`` and a downscale the refine runs on the sweep's own
+small stack instead, in 64-px windows, and the boxes are scaled back.  The
+exact pixel-area window is applied after the refine on the fused branch
+only, as in the reference.  Frames are a batch dimension throughout; the
+XLA sweep loops over levels, not frames.  The fused sweep's extent-only and
+scan-pass bodies are K3's (``.mser_cuda``).
 """
 
 from __future__ import annotations
@@ -39,20 +38,6 @@ _WIN = 128
 _REFINE_ROLLS = 48
 # The XLA sweep's top-k key: (byte << 40) | (2^40 - 1 - flat index)
 _IDX_BITS = 40
-
-
-def check_supported(cfg: MSERConfig) -> None:
-    """Raise NotImplementedError for MSER options outside the port."""
-    unported = {
-        "sweep_res_pipeline": cfg.sweep_res_pipeline,
-        "sweep_extent_only": cfg.sweep_extent_only,
-        "scan_passes > 0": cfg.scan_passes > 0,
-    }
-    missing = [name for name, hit in unported.items() if hit]
-    if missing:
-        raise NotImplementedError(
-            f"MSER option(s) {', '.join(missing)} are not ported to the "
-            "PyTorch/CUDA package (ROADMAP.md queue 1, do-not-port list)")
 
 
 def stage_scope(timer, name: str):
@@ -301,7 +286,6 @@ def mser_regions(gray: torch.Tensor, cfg: MSERConfig, timer=None):
     [B, max_regions]), most stable first.  ``timer``, when given, is called
     with a stage name and returns a context manager around that stage.
     """
-    check_supported(cfg)
     ds = max(1, cfg.downscale)
     b, h0, w0 = gray.shape
     if ds > 1:
@@ -313,6 +297,19 @@ def mser_regions(gray: torch.Tensor, cfg: MSERConfig, timer=None):
             cfg, min_area=max(cfg.min_area // (ds * ds), 1),
             max_area=max(cfg.max_area // (ds * ds), 1), downscale=1)
         seeds_s, level_vals, pol_idx, valid, fused = sweep_candidates(small, sub_cfg, timer)
+        if cfg.sweep_res_pipeline:
+            # the low-res refine: flood at sweep resolution in 64-px
+            # windows, boxes scaled back to native coordinates
+            with stage_scope(timer, "refine"):
+                boxes, areas = _refine_boxes(pad_pol(small), seeds_s, level_vals, pol_idx,
+                                             cfg.refine_scan_passes, win=64)
+                if fused:
+                    valid = (valid & (areas >= sub_cfg.min_area)
+                             & (areas <= sub_cfg.max_area))
+                boxes[..., 0] -= 1
+                boxes[..., 1] -= 1
+                boxes = torch.where(valid[..., None], boxes * ds, 0).to(torch.int32)
+            return boxes, valid
         seeds = (seeds_s - 1) * ds + ds // 2 + 1  # block centre, native pad
         slack = ds
     else:
@@ -329,3 +326,9 @@ def mser_regions(gray: torch.Tensor, cfg: MSERConfig, timer=None):
         boxes[..., 1] -= 1
         boxes = torch.where(valid[..., None], boxes, 0).to(torch.int32)
     return boxes, valid
+
+
+def mser_regions_batch(gray_batch: torch.Tensor, cfg: MSERConfig):
+    """[B, H, W] -> ([B, N, 4], [B, N]): the reference's vmapped
+    ``mser_regions``; :func:`mser_regions` takes the batch as it is."""
+    return mser_regions(gray_batch, cfg)

@@ -16,7 +16,11 @@ versions for CPU tensors; the two are exact against each other.  K3 and K7
 are the two output modes of one kernel, which runs in shared-memory tiles,
 one launch per span of Jacobi passes (:data:`SWEEP_SPAN`,
 :func:`sweep_tiles`), with the same state and ring scratch
-(:func:`_tile_scratch`).
+(:func:`_tile_scratch`).  The reference's sweep body has two more forms,
+both ported: the extent-only area (``sweep_extent_only``, a flag of the
+tiled kernel's emit) and the scan-pass propagation (``scan_passes > 0``), a
+second design of run resolves a launch each over state in device memory
+(:func:`_scan_scratch`), again with both outputs.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ import torch
 
 from ..config import MSERConfig
 from ..runtime import build as rt
-from .prop_cuda import nb4
+from .prop_cuda import axis_resolve, nb4
 
 # The reference's per-strip VMEM pixel budget.  It fixes where the
 # reference cuts a frame into strips (and so which candidates it emits);
@@ -101,6 +105,11 @@ class SweepParams:
     max_area: float
     max_variation: float
     min_diversity: float
+    # the extent-only body: squared height is the area proxy
+    extent_only: bool = False
+    # the scan-pass body: > 0 replaces the Jacobi passes with this many
+    # (row, column) run resolves and one more row resolve
+    scan_passes: int = 0
 
     @classmethod
     def from_config(cls, cfg: MSERConfig, d_idx: int) -> "SweepParams":
@@ -112,6 +121,8 @@ class SweepParams:
             max_area=float(cfg.max_area) * cfg.bbox_area_cap_scale,
             max_variation=float(cfg.max_variation),
             min_diversity=float(cfg.min_diversity),
+            extent_only=cfg.sweep_extent_only,
+            scan_passes=cfg.scan_passes,
         )
 
 
@@ -126,6 +137,10 @@ SWEEP_SPAN = 6
 # kTileThreads, kRows): the ring scratch holds one record of TILE_ROWS bf16
 # per thread and slot.
 TILE_THREADS, TILE_ROWS = 1024, 4
+# The widest window row the scan-pass design takes: its row resolve holds a
+# row's three int32 planes and its bytes in one block's 227 KB of shared
+# memory (csrc/mser_sweep.cu: scan_slice_ints, kScanSmemMax).
+SCAN_MAX_WIDTH = 17_880
 
 
 def sweep_tiles(r: int, w: int) -> tuple[int, int]:
@@ -138,6 +153,28 @@ def sweep_tiles(r: int, w: int) -> tuple[int, int]:
         return -(-n // -(-n // side))
 
     return even(r), even(w)
+
+
+def _scan_resolves(mask: torch.Tensor, keys: torch.Tensor, chans: list[torch.Tensor],
+                   passes: int, big: int, bigc: int):
+    """The scan-pass body's propagation (``mser_pallas.py: _sweep_body``,
+    ``axis_resolve``): ``passes`` times a row resolve then a column resolve,
+    then one more row resolve.  A resolve reduces each mask run whole: keys by
+    min over ``mask ? keys : big``, the bbox channels (ymin, ymax, xmin,
+    xmax) by min/max over ``live ? channel : fill`` with ``live = mask &
+    keys >= 0`` taken before it; then the channels keep their run's value
+    only where its key is >= 0.  -> (keys, ymin, ymax, xmin, xmax)."""
+    mn, mx = torch.minimum, torch.maximum
+    ops, fills = [mn, mn, mx, mn, mx], [big, bigc, -1, bigc, -1]
+    for dim in [-1, -2] * passes + [-1]:
+        live = mask & (keys >= 0)
+        vals = [torch.where(mask, keys, big)] + [
+            torch.where(live, ch, fill) for ch, fill in zip(chans, fills[1:])]
+        out = axis_resolve(vals, ops, mask, dim)
+        keys = torch.where(mask, out[0], big)
+        live = mask & (keys >= 0)
+        chans = [torch.where(live, v, fill) for v, fill in zip(out[1:], fills[1:])]
+    return (keys, *chans)
 
 
 def _sweep_levels_plain(windows: torch.Tensor, p: SweepParams, num_levels: int):
@@ -177,17 +214,22 @@ def _sweep_levels_plain(windows: torch.Tensor, p: SweepParams, num_levels: int):
         ymax = torch.where(mask, mx(ymax, rows), -1)
         xmin = torch.where(mask, mn(xmin, cols), bigc)
         xmax = torch.where(mask, mx(xmax, cols), -1)
-        for _ in range(p.num_passes):  # Jacobi: every pass reads the last one
-            knew = torch.where(mask, mn(keys, nb4(keys, mn)), big)
-            live = mask & (knew >= 0)
-            ymin = torch.where(live, mn(ymin, nb4(ymin, mn)), bigc)
-            ymax = torch.where(live, mx(ymax, nb4(ymax, mx)), -1)
-            xmin = torch.where(live, mn(xmin, nb4(xmin, mn)), bigc)
-            xmax = torch.where(live, mx(xmax, nb4(xmax, mx)), -1)
-            keys = knew
+        if p.scan_passes > 0:
+            keys, ymin, ymax, xmin, xmax = _scan_resolves(
+                mask, keys, [ymin, ymax, xmin, xmax], p.scan_passes, big, bigc)
+        else:
+            for _ in range(p.num_passes):  # Jacobi: every pass reads the last one
+                knew = torch.where(mask, mn(keys, nb4(keys, mn)), big)
+                live = mask & (knew >= 0)
+                ymin = torch.where(live, mn(ymin, nb4(ymin, mn)), bigc)
+                ymax = torch.where(live, mx(ymax, nb4(ymax, mx)), -1)
+                xmin = torch.where(live, mn(xmin, nb4(xmin, mn)), bigc)
+                xmax = torch.where(live, mx(xmax, nb4(xmax, mx)), -1)
+                keys = knew
 
         anchor = mask & (keys == keys0)
-        bb = (ymax - ymin + 1).to(f32) * (xmax - xmin + 1).to(f32)
+        height = (ymax - ymin + 1).to(f32)
+        bb = height * (height if p.extent_only else (xmax - xmin + 1).to(f32))
         bb = mn(bb, c(65535.0))
         a_cur = torch.where(anchor, bb, zero)
         keys = torch.where(anchor & (bb > max_area), -1, keys)
@@ -248,25 +290,59 @@ def _tile_scratch(windows: torch.Tensor, p: SweepParams):
     return th, tw, state, rings
 
 
+def _scan_scratch(windows: torch.Tensor, p: SweepParams):
+    """(state, rings) of the scan-pass body over [N, R, W] windows: the
+    state in place, int32 [3, N, R, W], and the rings in the plain layout,
+    bf16 [d + 4, N, R, W].  Its row resolve holds a window row in one block's
+    shared memory, so it refuses rows wider than :data:`SCAN_MAX_WIDTH`."""
+    n, r, w = windows.shape
+    if w > SCAN_MAX_WIDTH or r >= 1 << 15:
+        raise ValueError(f"windows of {r}x{w} exceed the scan-pass kernel's limits "
+                         f"(rows < 32767, columns <= {SCAN_MAX_WIDTH})")
+    dev = windows.device
+    return (torch.empty((3, n, r, w), dtype=torch.int32, device=dev),
+            torch.empty((p.d + 4, n, r, w), dtype=torch.bfloat16, device=dev))
+
+
+def _launch_scan(windows: torch.Tensor, out: torch.Tensor, p: SweepParams, full: bool,
+                 core: int, halo: int, num_levels: int, lbits: int) -> int:
+    """The scan-pass body's launches (csrc/mser_sweep.cu: run_scan): per
+    level ``2 * scan_passes + 1`` run resolves, the warm start in the first
+    and the emit in the last."""
+    n, r, w = windows.shape
+    state, rings = _scan_scratch(windows, p)
+    return rt.library().tsd_level_sweep_scan(
+        windows.data_ptr(), out.data_ptr(), state.data_ptr(), rings.data_ptr(), int(full),
+        n, r, w, core, halo, num_levels, p.step, p.d, p.scan_passes, lbits,
+        int(p.extent_only), p.min_area, p.max_area, p.max_variation, p.min_diversity,
+        rt.stream_ptr(windows.device))
+
+
 def level_sweep_windows(windows: torch.Tensor, p: SweepParams, core: int,
                         halo: int, num_levels: int, lbits: int) -> torch.Tensor:
     """K3 over stacked strip windows: [N, R, W] uint8 -> [N, core, W] int32.
 
-    Replaces ``mser_pallas.py: fused_level_sweep`` (``_collapsed_kernel``).
-    The kernel refuses windows of 32767 rows or columns; the plain version
-    takes any size.
+    Replaces ``mser_pallas.py: fused_level_sweep`` (``_collapsed_kernel``)
+    with each of its bodies: the tiled Jacobi passes, with the extent-only
+    area where ``p.extent_only``, or the scan-pass design where
+    ``p.scan_passes > 0``.  The tiles refuse windows of 32767 rows or
+    columns, the scan-pass design rows wider than :data:`SCAN_MAX_WIDTH`;
+    the plain version takes any size.
     """
     _check_windows(windows, core, halo)
     if rt.uses_plain(windows):
         return level_sweep_windows_plain(windows, p, core, halo, num_levels, lbits)
     n, r, w = windows.shape
-    th, tw, state, rings = _tile_scratch(windows, p)
     out = torch.empty((n, core, w), dtype=torch.int32, device=windows.device)
-    rc = rt.library().tsd_level_sweep(
-        windows.data_ptr(), out.data_ptr(), state.data_ptr(), rings.data_ptr(),
-        n, r, w, core, halo, th, tw, SWEEP_SPAN, num_levels, p.step, p.d, p.num_passes,
-        lbits, p.min_area, p.max_area, p.max_variation, p.min_diversity,
-        rt.stream_ptr(windows.device))
+    if p.scan_passes > 0:
+        rc = _launch_scan(windows, out, p, False, core, halo, num_levels, lbits)
+    else:
+        th, tw, state, rings = _tile_scratch(windows, p)
+        rc = rt.library().tsd_level_sweep(
+            windows.data_ptr(), out.data_ptr(), state.data_ptr(), rings.data_ptr(),
+            n, r, w, core, halo, th, tw, SWEEP_SPAN, num_levels, p.step, p.d, p.num_passes,
+            lbits, int(p.extent_only), p.min_area, p.max_area, p.max_variation,
+            p.min_diversity, rt.stream_ptr(windows.device))
     rt.check(rc, "level_sweep")
     rt.count_launch("level_sweep")
     return out
@@ -302,10 +378,6 @@ def fused_level_sweep(im2: torch.Tensor, cfg: MSERConfig, d_idx: int,
 
 def _full_params(im2: torch.Tensor, cfg: MSERConfig, d_idx: int) -> SweepParams:
     rt.check_tensor(im2, "im2", torch.uint8, 3)
-    if cfg.sweep_extent_only or cfg.scan_passes > 0:
-        raise NotImplementedError(
-            "sweep_extent_only and scan_passes > 0 are not ported to the "
-            "PyTorch/CUDA package (ROADMAP.md, do-not-port list)")
     return SweepParams.from_config(cfg, d_idx)
 
 
@@ -324,20 +396,23 @@ def fused_level_sweep_full(im2: torch.Tensor, cfg: MSERConfig, d_idx: int,
     Replaces ``mser_pallas.py: fused_level_sweep_full``: one strip per
     plane, no halo, the plane's own width (no pool padding), and each
     level's byte ``qv`` (0 where no candidate) for every row.  It is K3's
-    tiled kernel with its full-map output.  The kernel refuses planes of
-    32767 rows or columns; the plain version takes any size.
+    kernels with their full-map output, for each body.  The kernels refuse
+    planes as K3's do; the plain version takes any size.
     """
     p = _full_params(im2, cfg, d_idx)
     if rt.uses_plain(im2):
         return fused_level_sweep_full_plain(im2, cfg, d_idx, num_levels)
     n, r, w = im2.shape
-    th, tw, state, rings = _tile_scratch(im2, p)
     full = torch.empty((n, num_levels, r, w), dtype=torch.uint8, device=im2.device)
-    rc = rt.library().tsd_level_sweep_full(
-        im2.data_ptr(), full.data_ptr(), state.data_ptr(), rings.data_ptr(),
-        n, r, w, th, tw, SWEEP_SPAN, num_levels, p.step, p.d, p.num_passes,
-        p.min_area, p.max_area, p.max_variation, p.min_diversity,
-        rt.stream_ptr(im2.device))
+    if p.scan_passes > 0:
+        rc = _launch_scan(im2, full, p, True, r, 0, num_levels, 0)
+    else:
+        th, tw, state, rings = _tile_scratch(im2, p)
+        rc = rt.library().tsd_level_sweep_full(
+            im2.data_ptr(), full.data_ptr(), state.data_ptr(), rings.data_ptr(),
+            n, r, w, th, tw, SWEEP_SPAN, num_levels, p.step, p.d, p.num_passes,
+            int(p.extent_only), p.min_area, p.max_area, p.max_variation, p.min_diversity,
+            rt.stream_ptr(im2.device))
     rt.check(rc, "level_sweep_full")
     rt.count_launch("level_sweep_full")
     return full

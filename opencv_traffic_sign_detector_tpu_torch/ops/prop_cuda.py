@@ -55,25 +55,37 @@ def nb4(x: torch.Tensor, op) -> torch.Tensor:
               op(torch.roll(x, 1, -1), torch.roll(x, -1, -1)))
 
 
-def _axis_resolve(k: torch.Tensor, m: torch.Tensor, big: int, dim: int) -> torch.Tensor:
-    """Segmented run-min along ``dim`` by Hillis-Steele doubling over rolled
-    copies (the reference kernel's own formulation)."""
-    size = k.shape[dim]
+def axis_resolve(vals: list[torch.Tensor], ops: list, m: torch.Tensor,
+                 dim: int) -> list[torch.Tensor]:
+    """Segmented full-run reduce along ``dim``: each ``vals[i]`` reduced by
+    ``ops[i]`` (min or max) over its mask run, by Hillis-Steele doubling over
+    rolled copies in both directions, the run flags shared by all values
+    (the reference kernels' own formulation).  The rolls wrap: a run that
+    crosses the last index into the first is one run, and a line that is all
+    mask reduces whole.  Values off the mask are not masked here."""
+    size = vals[0].shape[dim]
     mi = m.to(torch.int32)
     seg_fwd = mi * (1 - torch.roll(mi, 1, dim))
     seg_bwd = mi * (1 - torch.roll(mi, -1, dim))
 
-    def dir_scan(x, f, fwd):
+    def dir_scan(xs, f, fwd):
         step = 1
         while step < size:
             amt = step if fwd else -step
-            x = torch.where(f > 0, x, torch.minimum(x, torch.roll(x, amt, dim)))
+            blocked = f > 0
+            xs = [torch.where(blocked, x, op(x, torch.roll(x, amt, dim)))
+                  for x, op in zip(xs, ops)]
             f = torch.maximum(f, torch.roll(f, amt, dim))
             step *= 2
-        return x
+        return xs
 
-    out = torch.minimum(dir_scan(k, seg_fwd, True), dir_scan(k, seg_bwd, False))
-    return torch.where(m, out, big)
+    return [op(a, b) for a, b, op in zip(dir_scan(vals, seg_fwd, True),
+                                         dir_scan(vals, seg_bwd, False), ops)]
+
+
+def _key_resolve(k: torch.Tensor, m: torch.Tensor, big: int, dim: int) -> torch.Tensor:
+    """Segmented run-min of keys along ``dim``, ``big`` off the mask."""
+    return torch.where(m, axis_resolve([k], [torch.minimum], m, dim)[0], big)
 
 
 def candidate_windows(planes: torch.Tensor, cand: torch.Tensor, win_h: int, win_w: int):
@@ -233,9 +245,9 @@ def propagate_scan_plain(keys: torch.Tensor, mask: torch.Tensor, big: int,
     resolve of ``mask ? keys : big``."""
     k = torch.where(mask, keys, big)
     for _ in range(passes):
-        k = _axis_resolve(k, mask, big, 2)
-        k = _axis_resolve(k, mask, big, 1)
-    return _axis_resolve(k, mask, big, 2)
+        k = _key_resolve(k, mask, big, 2)
+        k = _key_resolve(k, mask, big, 1)
+    return _key_resolve(k, mask, big, 2)
 
 
 def propagate_scan(keys: torch.Tensor, mask: torch.Tensor, big: int,

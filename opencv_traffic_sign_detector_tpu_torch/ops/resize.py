@@ -127,3 +127,11 @@ def crop_and_resize(image: torch.Tensor, boxes_xyxy: torch.Tensor,
         out = _crop_resize_gather(image, boxes_xyxy, out_size, reciprocal)
     out = out.clamp(0, 255).to(torch.uint8)
     return out[..., 0] if squeeze else out
+
+
+def resize_batch(images: torch.Tensor, out_size: int) -> torch.Tensor:
+    """Resize a stack [N, H, W(, C)] uint8 to [N, out_size, out_size(, C)]:
+    :func:`crop_and_resize` of each whole image."""
+    n, h, w = images.shape[:3]
+    boxes = torch.tensor([0, 0, w, h], dtype=torch.int32, device=images.device)
+    return crop_and_resize(images, boxes.expand(n, 1, 4), out_size, reciprocal=False)[:, 0]

@@ -9,8 +9,7 @@ The twin of ``scripts/quality_probe.py``: the same flags, defaults, cache
 ``train_jpg`` when absent) and one ``PROBE`` line: detections / P / R / F1
 / AP and frames/s; the detections go to ``probe_<tag>.txt`` in the temp
 directory (``/tmp`` unless ``TMPDIR`` names another).  Plus ``--device``
-(default ``cuda``; without a visible card it exits 2).  ``--extent_only``,
-``--scan_passes`` and ``--sweep_res`` other than 0 are not ported and exit 2.
+(default ``cuda``; without a visible card it exits 2).
 """
 
 from __future__ import annotations
@@ -25,9 +24,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 DET = "/root/reference/Deteción de Objetos"
 
-# MSER options outside the port (ROADMAP.md, do-not-port list)
-UNPORTED_FLAGS = ("extent_only", "scan_passes", "sweep_res")
-
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
@@ -38,10 +34,12 @@ def main(argv=None) -> int:
     ap.add_argument("--topk_pool", type=int, default=4)
     ap.add_argument("--cap_scale", type=float, default=4.0)
     ap.add_argument("--fused", type=int, default=1)
-    ap.add_argument("--extent_only", type=int, default=0, help="not ported: 1 exits 2")
-    ap.add_argument("--scan_passes", type=int, default=0, help="not ported: > 0 exits 2")
+    ap.add_argument("--extent_only", type=int, default=0)
+    ap.add_argument("--scan_passes", type=int, default=0)
     ap.add_argument("--refine_scan", type=int, default=0)
-    ap.add_argument("--sweep_res", type=int, default=0, help="not ported: 1 exits 2")
+    ap.add_argument("--sweep_res", type=int, default=0,
+                    help="1 = low-res front-end (preprocess + refine at "
+                         "sweep resolution)")
     ap.add_argument("--fine_scores", type=int, default=0,
                     help="1 = unrounded score ranking (AP tie-breaks)")
     ap.add_argument("--batch", type=int, default=4)
@@ -67,17 +65,16 @@ def main(argv=None) -> int:
     if why:
         print(why)
         return 2
-    for flag in UNPORTED_FLAGS:
-        if getattr(args, flag):
-            print(f"--{flag} {getattr(args, flag)}: not ported to the PyTorch/CUDA package "
-                  "(ROADMAP.md, do-not-port list)")
-            return 2
 
     mser = MSERConfig(
         max_variation=1.0, downscale=args.downscale, ccl_iters=args.ccl_iters,
         ccl_jumps=0, level_step=args.level_step, max_regions=args.max_regions,
         fused_sweep=bool(args.fused), bbox_area_cap_scale=args.cap_scale,
-        topk_pool=args.topk_pool, refine_scan_passes=args.refine_scan,
+        topk_pool=args.topk_pool,
+        sweep_extent_only=bool(args.extent_only),
+        scan_passes=args.scan_passes,
+        refine_scan_passes=args.refine_scan,
+        sweep_res_pipeline=bool(args.sweep_res),
     )
     cfg = PipelineConfig(mser=mser, batch_size=args.batch, fine_scores=bool(args.fine_scores))
 

@@ -152,17 +152,6 @@ def test_parser_defaults_equal_reference(monkeypatch):
         bench.main, monkeypatch)
 
 
-@pytest.mark.parametrize("flag", ["--scan_passes", "--extent_only"])
-def test_unported_flags_exit_2_before_any_work(flag, monkeypatch, capsys):
-    def no_work(*a, **kw):
-        raise AssertionError("work started")
-
-    monkeypatch.setattr(bench_torch, "_load_frames", no_work)
-    monkeypatch.setattr(bench_torch, "_bench_cnn", no_work)
-    assert bench_torch.main([flag, "1", "--device", "cpu"]) == 2
-    assert flag in capsys.readouterr().out
-
-
 # --- spies on the scopes --------------------------------------------------------
 
 def _spy_detect_batch(monkeypatch, mod, calls: list, jax_side: bool):

@@ -185,9 +185,3 @@ def test_cli_rejects_unported_modes(argv, interpret, cli_dirs, tmp_path, capsys)
     traces = list(trace_dir.glob("*.pt.trace.json"))
     assert len(traces) == 1
     assert "aten::" in traces[0].read_text()
-
-
-def test_pipeline_rejects_unported_config(templates):
-    cfg = dataclasses.replace(T_CFG, mser=dataclasses.replace(T_MSER, sweep_res_pipeline=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdet.DetectionPipeline(cfg=cfg, templates=templates, device="cpu")

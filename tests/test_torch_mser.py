@@ -184,12 +184,3 @@ def test_plan_helpers_copy_match(pool):
                 assert tmc.sweep_plan(h, w, pool, halo) == jmp.sweep_plan(h, w, pool, halo)
     for nl in (2, 31, 32, 55):
         assert tmc.packing_bits(pool, nl) == jmp.packing_bits(pool, nl)
-
-
-@pytest.mark.parametrize("change", [
-    {"sweep_res_pipeline": True}, {"sweep_extent_only": True}, {"scan_passes": 1},
-])
-def test_unported_options_raise(change):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmser.mser_regions(torch.zeros((1, 64, 64), dtype=torch.uint8),
-                           _port(dataclasses.replace(TUNED, **change)))

@@ -245,12 +245,3 @@ def test_k3_equals_fold_of_k7(gray, name):
     np.testing.assert_array_equal(fold.numpy(), k3.numpy())
     np.testing.assert_array_equal(
         k3.numpy(), tmc.fused_level_sweep(im2, _port(cfg), d_idx, nl).numpy())
-
-
-def test_k7_rejects_unported_variants():
-    im2 = torch.zeros((2, 16, 16), dtype=torch.uint8)
-    for change in ({"scan_passes": 1}, {"sweep_extent_only": True}):
-        with pytest.raises(NotImplementedError):
-            tmc.fused_level_sweep_full(
-                im2, _port(dataclasses.replace(K7_CFGS["tuned"], **change)),
-                                       1, 31)

@@ -160,12 +160,6 @@ def test_quality_probe_equal_reference(tree, interpret, tmp_path, monkeypatch):
     np.testing.assert_array_equal(caches[1]["red"], caches[0]["red"])
 
 
-@pytest.mark.parametrize("flag", ["--extent_only", "--scan_passes", "--sweep_res"])
-def test_quality_probe_refuses_unported_flags(flag, capsys):
-    assert quality_probe_torch.main([flag, "1", "--device", "cpu"]) == 2
-    assert flag in capsys.readouterr().out
-
-
 def _os_with_tmp(dst: str):
     """The ``os`` module as the original sees it, with ``os.path.exists``
     reading ``dst`` where it is given ``/tmp``."""
