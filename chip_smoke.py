@@ -41,7 +41,9 @@ Phases:
    here: they are oracles); K7 folded equals K3 in each of the other three
    bodies; the scan-pass body of K3 on a 2-strip ``--downscale 1`` window
    set (4 frames of 1024x1360: 16 windows of 808x1364, halo 96) against
-   its plain version (:func:`_scan_strips`); then K3 and K7 at seven more
+   its plain version (:func:`_scan_strips`), and K3 and K7's scan-pass body
+   under plans forced to bands of 1, 2, 3 and 7 rows and several waves
+   (:func:`_scan_bands`); then K3 and K7 at seven more
    shapes and
    configs cut from the tuned windows, each against its plain version and
    K7 folded against K3, and their refusal of windows too wide for their
@@ -66,10 +68,11 @@ Phases:
    versions; frames/s on the host's clock is printed as median, min and
    max), and requires K1 with its LUT tail and K2-K4 to have launched,
    every frame to have proposals and K2's plan tables not to have been
-   built (uploaded) in the timed batches; prints the CUDA kernels one
-   ``enhance_contrast`` call launches, and those of the histogram-to-LUT
+   built (uploaded) in the timed batches; requires one ``enhance_contrast``
+   call to launch K1 with its tail and K2 once each (launch counts), and
+   prints the CUDA kernels it launches, and those of the histogram-to-LUT
    steps as K1 with the plain steps and as ``tile_luts``
-   (``torch.profiler``);
+   (``torch.profiler``, :func:`_cuda_trace`);
 6. slice 2: the same for the ``--pixel_area_stability`` config (XLA sweep,
    pixel-count stability), requiring K1, K2 and K4 to launch, K3 not to
    launch and every frame to have proposals; then one batch of 8 of the
@@ -168,7 +171,9 @@ Phases:
     without its LUT tail, K2, K3 and K4 at the shapes the bench's 1080p
     probe gives them (batch 32 of 1088x1920: 8x8 tiles of 136x240, one
     strip of sweep windows, 4096 flood windows), exact against their plain
-    versions, timed and bounded as in phase 3; (b) ``bench_torch.main``
+    versions, timed and bounded as in phase 3, and K3 and K7's scan-pass
+    body with extent-only (as the bench's ``--scan_passes 2 --extent_only
+    1`` runs it) on that strip; (b) ``bench_torch.main``
     at ``--frames 64 --cnn_iters 4 --fed_batches 2`` (every CNN scope at
     batch 128, the MSER scope, end to end and live quality on the tree:
     smoke values), its JSON line and peak memory printed, K1-K4 once a
@@ -234,14 +239,14 @@ SWEEP_OPS = {"init": (17, 0), "pass": (27, 0), "emit": (36, 20)}
 # The extent-only emit takes the squared height: two shifts, a subtraction,
 # an add and a conversion fewer than the bbox area.
 EXTENT_EMIT_OPS = (32, 19)
-# The scan-pass body (csrc/mser_sweep.cu: scan_row_kernel, scan_col_kernel)
-# per mask pixel: a row resolve (the load's mask 2, live 2 and three
-# selects; four walks over a lane's chunk, each an element (mask 3) and a
-# segmented fold (a break test, a min and two packed min/max); the write
-# back's mask, live and selects 7) and a column resolve (mask 1, the key's
-# min 1, live 1, two packed min/max, the run's start and end tests 3, its
-# live test and two selects 3).  Warm start and emit as above.
-SWEEP_SCAN_OPS = {"row": (42, 0), "col": (11, 0)}
+# The scan-pass body (mser_pallas.py: axis_resolve) per mask pixel and run
+# resolve, along a row or a column alike: the reduce of each run over its
+# line, one fold of each pixel into its run (mask 1, the key's min 1, live
+# 1, two packed min/max) and the run's start and end tests 3, then the
+# whole run's value written back (the result's live test and two selects
+# 3).  A row's runs wrap from column w - 1 to 0, a carry a row, not a
+# pixel.  Warm start and emit as above.
+SWEEP_SCAN_OPS = (11, 0)
 # K1 one count a pixel (its LUT tail adds, a bin of each tile's 256, two
 # for the clip, three for the bonus, a sum, a conversion, a product and a
 # round: LUT_OPS); K2 four lookups, their conversions, the bilinear
@@ -275,6 +280,12 @@ K1_OLD_MS = 0.0857
 K5_REFINE_OLD_MS = 10.4507
 K6_OLD_MS = 3.6236
 K7_OLD_MS = 44.4576
+# The scan-pass body's first form (a launch a run resolve, the state in
+# device memory between them), 2 passes: K3 on the tuned [64,408,684]
+# windows and the 2-strip [16,808,1364] set, K7 on [64,402,682] planes.
+K3_SCAN_OLD_MS = 48.2324
+K3_SCAN_STRIPS_OLD_MS = 60.0918
+K7_SCAN_OLD_MS = 47.7864
 OLD_DESIGN = {"level_sweep": ("old per-pass design", K3_OLD_MS),
               "level_sweep_full": ("old per-pass design", K7_OLD_MS),
               "flood_bbox": ("old run-walk design", K4_OLD_MS),
@@ -283,7 +294,10 @@ OLD_DESIGN = {"level_sweep": ("old per-pass design", K3_OLD_MS),
               "tile_histograms": ("old block-a-tile design", K1_OLD_MS),
               "propagate_rolls_refine": ("old shared-memory design, all passes",
                                          K5_REFINE_OLD_MS),
-              "propagate_scan": ("old run-walk design", K6_OLD_MS)}
+              "propagate_scan": ("old run-walk design", K6_OLD_MS),
+              "level_sweep_scan": ("scan body's first form", K3_SCAN_OLD_MS),
+              "level_sweep_scan_strips": ("scan body's first form", K3_SCAN_STRIPS_OLD_MS),
+              "level_sweep_full_scan": ("scan body's first form", K7_SCAN_OLD_MS)}
 
 
 def _mask_pixel_levels(x: torch.Tensor, step: int, num_levels: int) -> int:
@@ -358,8 +372,7 @@ def _bound(name: str, args: tuple, out: torch.Tensor,
         px = _mask_pixel_levels(x, params.step, nl)
         emit = EXTENT_EMIT_OPS if params.extent_only else SWEEP_OPS["emit"]
         sp = params.scan_passes
-        row, col = SWEEP_SCAN_OPS["row"], SWEEP_SCAN_OPS["col"]
-        prop = ([(sp + 1) * r + sp * c for r, c in zip(row, col)] if sp
+        prop = ([(2 * sp + 1) * v for v in SWEEP_SCAN_OPS] if sp
                 else [params.num_passes * v for v in SWEEP_OPS["pass"]])
         int_ops, f32_ops = (px * sum(v) for v in zip(SWEEP_OPS["init"], prop, emit))
     elif name.startswith("flood_bbox"):
@@ -606,6 +619,28 @@ def _require(cond: bool, msg: str) -> None:
         raise AssertionError(msg)
 
 
+def _cuda_trace(fn, want=None, tries: int = 3) -> list:
+    """The CUDA events (kernels and copies) of one call of ``fn`` under
+    ``torch.profiler``.  On the H100 the profiler drops records of a trace,
+    more of them the longer the process has run under load (a trace of one
+    ``tile_luts`` call here reads its one kernel or none), and never adds
+    one.  So up to ``tries`` calls are traced: the first whose events satisfy
+    ``want`` is returned, else the fullest.  A count that must be exact is
+    taken from the wrappers' launch counts, not from a trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    best: list = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if want is not None and want(ev):
+            return ev
+        best = max(best, ev, key=len)
+    return best
+
+
 def _need_note(need: torch.Tensor, passes: int) -> str:
     return (f"passes the data needs, a plane: mean {need.float().mean().item():.2f}, min "
             f"{int(need.min())}, max {int(need.max())} of {passes}; "
@@ -669,7 +704,8 @@ def _sweep_shapes(mc, captured: tuple, cfg) -> None:
     ``ccl_iters`` 5 (10 passes a level: spans end inside levels), a plane of
     3 rows, and a strip halo (K3 only: K7 has no strips); then both
     kernels' refusal of planes too wide for their int16 bbox planes, and the
-    scan-pass body's of rows wider than its row resolve holds."""
+    scan-pass body's of rows wider than a block's shared memory holds and of
+    windows with more bands than can be resident."""
     from opencv_traffic_sign_detector_tpu_torch.config import MSERConfig
 
     windows, params, _, _, nl, lbits = captured
@@ -725,19 +761,28 @@ def _sweep_shapes(mc, captured: tuple, cfg) -> None:
             refused.append(name)
     print(f"[kernel K3/K7 int16] windows {tuple(wide.shape)} refused by {refused}")
     _require(refused == ["K3", "K7"], "K3 or K7 took windows wider than its int16 bbox planes")
-    # the scan-pass body's row resolve holds a row in one block's shared memory
-    wide = torch.zeros((1, 4, mc.SCAN_MAX_WIDTH + 1), dtype=torch.uint8, device=windows.device)
+    # the scan-pass body: a window row must fit one block's shared memory,
+    # and a window's bands must all be resident (ops/mser_cuda.py: scan_plan)
+    sms, smem = mc.scan_device(windows.device)
+    widest = (smem - mc.SCAN_ROW_EXTRA) // mc.SCAN_ROW_BYTES
+    tallest = sms * (smem // (mc.SCAN_ROW_BYTES * 684 + mc.SCAN_ROW_EXTRA))
     scan_cfg = dataclasses.replace(cfg, scan_passes=2)
-    refused = []
-    for name, call in (("K3", lambda: mc.level_sweep_windows(
-                            wide, dataclasses.replace(params, scan_passes=2), 4, 0, nl, lbits)),
-                       ("K7", lambda: mc.fused_level_sweep_full(wide, scan_cfg, params.d, nl))):
-        try:
-            call()
-        except ValueError:
-            refused.append(name)
-    print(f"[kernel K3/K7 scan width] windows {tuple(wide.shape)} refused by {refused}")
-    _require(refused == ["K3", "K7"], "the scan-pass body took rows wider than it holds")
+    scan_params = dataclasses.replace(params, scan_passes=2)
+    for label, shape in (("width", (1, 4, widest + 1)), ("height", (1, tallest + 1, 684))):
+        big = torch.zeros(shape, dtype=torch.uint8, device=windows.device)
+        refused = []
+        for name, call in (("K3", lambda: mc.level_sweep_windows(big, scan_params, shape[1], 0,
+                                                                 nl, lbits)),
+                           ("K7", lambda: mc.fused_level_sweep_full(big, scan_cfg, params.d, nl))):
+            try:
+                call()
+            except ValueError:
+                refused.append(name)
+        print(f"[kernel K3/K7 scan {label}] windows {shape} refused by {refused} (the plan "
+              f"holds rows of up to {widest} columns, windows of up to {tallest} rows of 684 "
+              f"on {sms} SMs of {smem} bytes)")
+        _require(refused == ["K3", "K7"], f"the scan-pass body took windows past its plan's "
+                                          f"{label}")
 
 
 # The sweep's other two bodies, K3's and K7's forms of each
@@ -756,9 +801,10 @@ def _sweep_bodies(mc, k3_args: tuple, k7_args: tuple, smi: str) -> list[dict]:
     """Phase 3 for the extent-only, scan-pass (2 passes) and combined bodies
     of K3 and K7 at the tuned path's shapes (its [64, 408, 684] windows and
     [64, 402, 682] planes): each exact against its plain version, timed
-    (one call and queued) and bounded, and the scan-pass K3 call split by
-    kernel (:func:`_scan_split`).  -> the table rows of the first two (the
-    combined form's line is printed only)."""
+    (one call and queued) and bounded, and one scan-pass K3 call in a
+    profiler trace with its plan and timed by passes (:func:`_scan_split`).
+    -> the table rows
+    of the first two (the combined form's line is printed only)."""
     windows, params, core, halo, nl, lbits = k3_args
     im2, cfg, d_idx, nl7 = k7_args
     rows = []
@@ -772,34 +818,111 @@ def _sweep_bodies(mc, k3_args: tuple, k7_args: tuple, smi: str) -> list[dict]:
                       kind="level_sweep_full")
         if tag == "scan":
             p = dataclasses.replace(params, **change)
-            _scan_split(lambda: mc.level_sweep_windows(windows, p, core, halo, nl, lbits),
-                        "level_sweep_scan", smi)
+            _scan_split(mc, k3_args, p, "level_sweep_scan", smi)
         if tag != "combined":
             rows += [k3, k7]
     return rows
 
 
-def _scan_split(fn, label: str, smi: str) -> None:
-    """Where one call of the scan-pass body spends its device time
-    (torch.profiler): its row resolves (the warm start in the first of a
-    level, the emit in the last) and its column resolves."""
-    from torch.profiler import ProfilerActivity, profile
+def _scan_split(mc, k3_args: tuple, p, label: str, smi: str) -> None:
+    """One call of the scan-pass body in a profiler trace (torch.profiler):
+    its device time by kernel (the band kernel, one cooperative launch; the
+    counters' memset) and the plan's waves, bands, shared memory and
+    barriers; then the call timed at 1, 2 and 3 passes (CUDA events, median
+    of 5), whose steps are a pass's cost: a row and a column resolve a
+    level, with the column resolve's barrier."""
+    windows, _, core, halo, nl, lbits = k3_args
 
-    fn()
+    def call(passes=p.scan_passes):
+        q = dataclasses.replace(p, scan_passes=passes)
+        return mc.level_sweep_windows(windows, q, core, halo, nl, lbits)
+
+    n, r, w = windows.shape
+    plan = mc.scan_plan(n, r, w, *mc.scan_device(windows.device))
+    call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
     split = defaultdict(lambda: [0.0, 0])
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            kind = next((k for k in ("scan_row_kernel", "scan_col_kernel") if k in e.name),
-                        "other")
-            split[kind][0] += e.device_time / 1e3
-            split[kind][1] += 1
+    for e in _cuda_trace(call, lambda ev: any("scan_band_kernel" in e.name for e in ev)):
+        kind = "scan_band_kernel" if "scan_band_kernel" in e.name else e.name[:40]
+        split[kind][0] += e.device_time / 1e3
+        split[kind][1] += 1
+    launches = split["scan_band_kernel"][1]
     print(f"[kernel] {label}, one call's device time (torch.profiler): "
-          + ", ".join(f"{k} {ms:.3f} ms in {n} launches ({ms / n * 1e3:.1f} us each)"
-                      for k, (ms, n) in sorted(split.items())) + f"; {smi}")
+          + ", ".join(f"{k} {ms:.3f} ms in {n_} launch(es)"
+                      for k, (ms, n_) in sorted(split.items()))
+          + f"; plan: bands of {plan.rows} rows, {plan.bands} a window, {plan.slots} windows a "
+          f"wave, {plan.waves} waves, {plan.grid} blocks of {mc.SCAN_THREADS} threads, "
+          f"{plan.smem_bytes} bytes of shared memory a block, {plan.summary_bytes} bytes of "
+          f"counters and summaries, {plan.waves * nl * p.scan_passes} barriers a "
+          f"window slot a call; {smi}")
+    _require(launches == 1, f"{label}: {launches} band kernel launches in one call, not 1")
+    ms = {k: _time_ms(lambda k=k: call(k), runs=5) for k in (1, 2, 3)}
+    print(f"[kernel] {label} by passes: "
+          + ", ".join(f"{k} pass(es) {t:.4f} ms" for k, t in ms.items())
+          + f"; a pass (a row and a column resolve a level, {plan.waves * nl} barriers a slot) "
+          f"{ms[2] - ms[1]:.4f} and {ms[3] - ms[2]:.4f} ms; at {p.scan_passes} passes the rest "
+          f"(warm starts, last row resolves, emits) "
+          f"{ms[2] - (ms[3] - ms[1]):.4f} ms; {smi}")
+
+
+def _scan_bands(mc, captured: tuple, cfg) -> None:
+    """Phase 4, the scan-pass body under plans forced by a smaller card
+    (``scan_device`` patched): bands of 1, 2 and 7 rows, one window a wave,
+    and bands of 3 rows two windows a wave over several waves, on planes of
+    dark blobs of 8x8 over noise with a 255 border (runs across bands, the
+    border joining the mask at the top levels) and on one without a border
+    whose dark band crosses columns w - 1 -> 0.  K3 (with a strip halo too)
+    and K7 against their plain versions, 2 passes, with and without
+    extent-only, at areas of 5 to 200: candidates and dead marks on planes
+    this small, and every case must have candidates."""
+    import numpy as np
+
+    windows, params, _, _, nl, lbits = captured
+    dev = windows.device
+    rng = np.random.default_rng(14)
+    noise = rng.integers(0, 256, (3, 37, 70))
+    blobs = np.kron(rng.integers(0, 256, (3, 5, 9)), np.ones((1, 8, 8), np.int64))[:, :37, :70]
+    blobs = np.pad(np.minimum(noise, blobs), ((0, 0), (1, 1), (1, 1)), constant_values=255)
+    seam = rng.integers(100, 256, (2, 41, 53))
+    seam[:, 5:30, 45:] = 10
+    seam[:, 5:30, :6] = 12
+    seam[:, 1] = 3
+    seam[:, -2] = 4
+    seam[:, :, 20] = 30
+    planes = {name: torch.from_numpy(a.astype(np.uint8)).to(dev)
+              for name, a in (("blobs", blobs), ("seam", seam))}
+    small = dataclasses.replace(cfg, min_area=5, max_area=200)
+    real = mc.scan_device
+    try:
+        for label, win in planes.items():
+            n, r, w = win.shape
+            row_bytes = mc.SCAN_ROW_BYTES * w + mc.SCAN_ROW_EXTRA
+            forced = [(-(-r // k), k * row_bytes) for k in (1, 2, 7)]
+            forced.append((2 * -(-r // 3), 3 * row_bytes))
+            for body in ({"scan_passes": 2}, {"scan_passes": 2, "extent_only": True}):
+                k7_cfg = _body_config(small, body)
+                p = mc.SweepParams.from_config(k7_cfg, params.d)
+                want = {halo: mc.level_sweep_windows_plain(win, p, r - 2 * halo, halo, nl, lbits)
+                        for halo in (0, 4)}
+                want7 = mc.fused_level_sweep_full_plain(win, k7_cfg, params.d, nl)
+                cands = int((want7 > 0).sum())
+                _require(cands > 0, f"scan bands {label}: no candidates to compare")
+                for lim in forced:
+                    mc.scan_device = lambda device, lim=lim: lim
+                    plan = mc.scan_plan(n, r, w, *lim)
+                    ok = all(torch.equal(mc.level_sweep_windows(win, p, r - 2 * halo, halo, nl,
+                                                                lbits), want[halo])
+                             for halo in (0, 4))
+                    ok7 = torch.equal(mc.fused_level_sweep_full(win, k7_cfg, params.d, nl), want7)
+                    print(f"[kernel K3/K7 scan bands] {label} {tuple(win.shape)}, "
+                          f"extent_only {p.extent_only}: bands of {plan.rows} rows, "
+                          f"{plan.bands} a window, {plan.slots} a wave, {plan.waves} waves: "
+                          f"K3 equals plain {ok}, K7 equals plain {ok7}; candidate pixel-levels "
+                          f"{cands}")
+                    _require(ok and ok7, f"scan bands {label}: K3 or K7 differs from its "
+                                         f"plain version under plan {plan}")
+    finally:
+        mc.scan_device = real
 
 
 def _body_fold(mc, k3_args: tuple, k7_cfg, d_idx: int, tag: str) -> None:
@@ -2065,13 +2188,17 @@ def _scale_out_phases(rt, dev, smi: str, frames, signs, templates, mcfg, seed: i
         store_path.unlink(missing_ok=True)
 
     # --- 16h. one MSER batch under profiler_trace ---------------------------
+    # the profiler can drop a trace's records (_cuda_trace): up to 3 traces
     trace_dir = rt.BUILD_ROOT.parent / "chip_smoke_trace"
-    shutil.rmtree(trace_dir, ignore_errors=True)
-    with profiler_trace(str(trace_dir)):
-        pipe.detect_frames(frames[:batch], names)
-        torch.cuda.synchronize()
-    traces = sorted(trace_dir.glob("*.pt.trace.json"))
-    named = bool(traces) and "sweep_tile_kernel" in traces[0].read_text()
+    for _ in range(3):
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        with profiler_trace(str(trace_dir)):
+            pipe.detect_frames(frames[:batch], names)
+            torch.cuda.synchronize()
+        traces = sorted(trace_dir.glob("*.pt.trace.json"))
+        named = bool(traces) and "sweep_tile_kernel" in traces[0].read_text()
+        if named:
+            break
     print(f"[scale-out trace] profiler_trace of one MSER batch: {[t.name for t in traces]}, "
           f"{sum(t.stat().st_size for t in traces)} bytes, names the tiled sweep kernel {named}")
     _require(len(traces) == 1 and named, "the profiler trace is missing or misses the sweep")
@@ -2199,6 +2326,21 @@ def _bench_phases(rt, dev, smi: str, seed: int) -> tuple[list[dict], dict, int]:
             a, kw = inputs[name]
             rows.append(_measure(f"{name}_1080p", getattr(mod, fn), getattr(mod, plain_fn), a,
                                  kw, src, replaces, smi, kind=name))
+        # the scan-pass body with extent-only at the probe's strip, as the
+        # bench's --scan_passes 2 --extent_only 1 runs it: K3, and K7 on the
+        # strip's windows as planes, each against its plain version
+        a, _ = inputs["level_sweep"]
+        body = SWEEP_BODIES["combined"]
+        rows.append(_measure("level_sweep_scan_1080p", mser_cuda.level_sweep_windows,
+                             mser_cuda.level_sweep_windows_plain,
+                             (a[0], dataclasses.replace(a[1], **body), *a[2:]), {},
+                             "csrc/mser_sweep.cu", f"{pallas}mser_pallas.py:507", smi,
+                             kind="level_sweep"))
+        rows.append(_measure("level_sweep_full_scan_1080p", mser_cuda.fused_level_sweep_full,
+                             mser_cuda.fused_level_sweep_full_plain,
+                             (a[0], _body_config(cfg.mser, body), a[1].d, nl), {},
+                             "csrc/mser_sweep.cu", f"{pallas}mser_pallas.py:569", smi,
+                             kind="level_sweep_full"))
         del inputs, a, kw, lut_x, windows
         torch.cuda.empty_cache()
 
@@ -2269,8 +2411,13 @@ def _bench_phases(rt, dev, smi: str, seed: int) -> tuple[list[dict], dict, int]:
         # the sweep's scan-pass and extent-only bodies together, both shapes
         bench(["--model", "mser", "--frames", "64", "--skip_e2e", "--scan_passes", "2",
                "--extent_only", "1"])
+        n_scan, scan_counts = per_shape[(1088, 1920)]
+        _require(n_scan == 5, f"the 1080p probe with the scan-pass body ran {n_scan} batches")
         for row in rows:
             row["launches"] = hd_counts[row["name"].removesuffix("_1080p")]
+        by_row = {row["name"]: row for row in rows}
+        by_row["level_sweep_scan_1080p"]["launches"] = scan_counts["level_sweep"]
+        by_row["level_sweep_full_scan_1080p"]["launches"] = 0  # an oracle
         rows[0]["launches"] = hd_counts["tile_luts"]  # K1 runs inside tile_luts' launch
 
         # --- 17d. the probe's records on 2 frames against the CPU path --------
@@ -2391,10 +2538,10 @@ def main() -> int:
         print(f"[build] ptxas {name} ({mode}): {props}")
     if len(sweep_kernels) != 2:
         print(f"[build] ptxas: {len(sweep_kernels)} sweep_tile_kernel entries in the report")
-    # the scan-pass body's run resolves (a row kernel per output, a column kernel)
-    for kernel in ("scan_row_kernel", "scan_col_kernel"):
-        for name, props in _ptxas_kernels(report.getvalue(), kernel).items():
-            print(f"[build] ptxas {name}: {props}")
+    # the scan-pass body's band kernel, K3 (kFull false) and K7 (kFull true)
+    for name, props in _ptxas_kernels(report.getvalue(), "scan_band_kernel").items():
+        mode = "K7, full map" if "ILb1E" in name else "K3, collapsed"
+        print(f"[build] ptxas {name} ({mode}): {props}")
 
     # slice 1, the main path: MSER_7_200_2000_1, tuned --downscale 2 point
     base = MSERConfig.from_string("MSER_7_200_2000_1")
@@ -2551,6 +2698,7 @@ def main() -> int:
         _require(counts["level_sweep_full"] > 0, f"K7's {tag} body never launched")
     _scan_strips(mser_cuda, mser, enhance_contrast, make_frames_with_boxes, base, dev,
                  args.seed, smi)
+    _scan_bands(mser_cuda, inputs["level_sweep"][0], scfg)
     _sweep_shapes(mser_cuda, inputs["level_sweep"][0], scfg)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     _k4_shapes(prop_cuda, planes, cand, big, gen)
@@ -2612,18 +2760,18 @@ def main() -> int:
     _require(counts["tile_histograms"] == 0, "slice 1 called K1 without its LUT tail")
     rows["tile_histograms"]["launches"] = counts["tile_luts"]
     batches["tile_histograms"] = 10
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        enhance_contrast(frames_dev)
-        torch.cuda.synchronize()
-    launched = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    ours = [n for n in launched
-            if any(k in n for k in ("tile_hist_kernel", "tile_lut_kernel", "clahe_apply_kernel"))]
+    ours_names = ("tile_hist_kernel", "tile_lut_kernel", "clahe_apply_kernel")
+    _, pre_counts = _run_path(rt, "slice preprocess", lambda: enhance_contrast(frames_dev))
+    launched = [e.name for e in _cuda_trace(
+        lambda: enhance_contrast(frames_dev),
+        lambda ev: sum(any(k in e.name for k in ours_names) for e in ev) >= 2)]
+    ours = [n for n in launched if any(k in n for k in ours_names)]
     print(f"[slice preprocess] one enhance_contrast call of {tuple(frames_dev.shape)}: "
           f"{len(launched)} CUDA kernels and copies traced by torch.profiler, "
-          f"{len(ours)} of them this package's (tile_hist_kernel, tile_lut_kernel, "
-          "clahe_apply_kernel)")
-    _require(len(ours) >= 2, f"enhance_contrast launched {ours}, not K1 with its tail and K2")
+          f"{len(ours)} of them this package's ({', '.join(ours_names)})")
+    _require(pre_counts["tile_luts"] == 1 and pre_counts["clahe_apply"] == 1
+             and sum(pre_counts.values()) == 2,
+             f"enhance_contrast launched {pre_counts}, not K1 with its tail and K2 once each")
     # the same steps as before the LUT tail: K1 alone, then the plain clip,
     # cumsum and rounding
     from opencv_traffic_sign_detector_tpu_torch.ops.clahe import (
@@ -2631,16 +2779,11 @@ def main() -> int:
         _tile_luts,
     )
     lx, lclip, larea, ltiles = inputs["tile_luts"][0]
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        _tile_luts(_clip_and_redistribute(clahe_cuda.tile_histograms(lx, ltiles), lclip), larea)
-        torch.cuda.synchronize()
-    steps = sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        clahe_cuda.tile_luts(lx, lclip, larea, ltiles)
-        torch.cuda.synchronize()
-    fused = sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+    steps = len(_cuda_trace(lambda: _tile_luts(
+        _clip_and_redistribute(clahe_cuda.tile_histograms(lx, ltiles), lclip), larea)))
+    fused = len(_cuda_trace(lambda: clahe_cuda.tile_luts(lx, lclip, larea, ltiles)))
     print(f"[slice preprocess] histograms to LUTs of {tuple(lx.shape)}: K1 and the plain steps "
-          f"{steps} CUDA kernels and copies, tile_luts {fused}")
+          f"{steps} CUDA kernels and copies, tile_luts {fused} (the fullest of 3 traces each)")
     _require(fused < steps, "tile_luts launches no fewer kernels than the plain steps")
 
     # --- 6. slice 2: the XLA sweep paths ---------------------------------

@@ -18,12 +18,13 @@
 // outputs here: the default (below: Jacobi passes in tiles); extent-only
 // (cfg.sweep_extent_only: the area is the squared height; a flag of the
 // emit, Thresholds::extent_only); and scan-pass (cfg.scan_passes > 0: whole-
-// run resolves along rows and columns; a second design, further below).
+// run resolves along rows and columns; a second design, further below, that
+// keeps a band of rows on chip for all levels).
 //
 // On the TPU the whole sweep state of one strip window stays in VMEM across
 // all levels.  Here one window is ~0.28 M pixels with ~30 bytes of state per
-// pixel (8 MB), far beyond one SM's 227 KB of shared memory, so the state
-// lives in device memory between launches.
+// pixel (8 MB), far beyond one SM's 227 KB of shared memory, so the tiled
+// design's state lives in device memory between launches.
 //
 // What bounds it: the sweep's real work is 181 operations a mask pixel a
 // level (17 for the warm start, 27 a pass, 56 for the emit), 161 of them
@@ -106,7 +107,6 @@ constexpr int kRegionPx = kRegion * kRegion;
 constexpr int kTileSmem = 2 * 3 * kRegionPx * 4;         // two exchange buffers
 constexpr int kLoInit = 0x7FFF7FFF;                      // (ymin, xmin) = INT16_MAX
 constexpr int kHiInit = -1;                              // (ymax, xmax) = -1
-constexpr int kScanSmemMax = 232448;                     // a block's shared memory
 
 struct Thresholds {
     float min_area, max_area, max_variation, min_diversity;
@@ -500,45 +500,88 @@ int run_tiles(const void* win, void* out, void* state, void* rings, int n, int r
 // its row (column) whole, so it cannot run in the tiles above: a run spans
 // the window, and a row that is all mask (every row at the levels of 255
 // and up, where the border and the padding join the mask) wraps round it.
-// So the state stays in device memory, int32 [3, n, r, w] as above, updated
-// in place, and each resolve is a launch: 2 * scan_passes + 1 a level, the
-// warm start fused into the first row resolve and the emit into the last.
-// The rings take the plain layout bf16 [d + 4, n, r, w] (slots as above).
 //
-// Row resolve (scan_row_kernel): a warp a (window, row), the row's three
-// planes in its slice of shared memory.  The run reduce is a segmented scan
-// whose element is (break, keys, lo, hi): a pixel off the mask is a break
-// holding the identities.  Each lane folds a chunk of ceil(w / 32)
+// Bands (scan_band_kernel): a block owns a band of `rows` whole window rows
+// and keeps their sweep state (keys, (ymin, xmin), (ymax, xmax): 12 bytes a
+// pixel) and window bytes in shared memory for all levels of the call, so
+// no resolve goes through device memory.  One cooperative launch runs the
+// call: `slots` windows a wave, `bands` blocks a window, at most one block
+// an SM, all co-resident; each block loops over the waves.  The host's plan
+// (ops/mser_cuda.py: scan_plan) picks the band height from the SM count and
+// the shared memory a block may take, for the fewest waves x band rows; the
+// launch refuses a grid that cannot be co-resident, and the wrapper raises
+// before it on windows no plan holds.
+//
+// Row resolve: local to the band, a warp a row.  The run reduce is a
+// segmented scan whose element is (break, keys, lo, hi): a pixel off the
+// mask is a break holding the identities.  Each lane folds a chunk of
 // consecutive pixels; a shuffle scan over the lanes gives each chunk its
 // carry.  The scan is cyclic as pltpu.roll is: the carry into the row's
 // first pixel is the whole row's aggregate, which is the run that crosses
 // column w - 1 into 0, or the whole row where no pixel breaks it.  A forward
 // walk leaves at each pixel the reduce from its run's start; a backward walk
-// over those values leaves at each pixel its whole run's reduce.
+// over those values leaves at each pixel its whole run's reduce.  A row
+// with no pixel in the level's mask holds the sentinels and is skipped.
+// The warm start is fused into a level's first row resolve, the emit into
+// its last.
 //
-// Column resolve (scan_col_kernel): a thread a (window, column), walking
-// down; rows 0 and r - 1 are off the mask, so column runs never wrap.  A run
-// is reduced as it is read and its value written back over it when it
-// ends.  Pixels off the mask hold the sentinels since the level's warm
-// start, and the column resolve leaves them so.
+// Column resolve, with band carries.  Column runs never wrap (rows 0 and
+// r - 1 are off the mask), but they cross bands.  A thread a column walks
+// its band once: it writes back each run that lies between two breaks
+// inside the band, and leaves the band's summary in device memory (its
+// first and last break, the aggregate of its top run, from the band's
+// first row to the first break, and of its bottom run).  Then the block
+// waits at a barrier of its window's blocks.  Then each column combines the
+// bottom runs of the bands above it up to the first band with a break, and
+// the top runs of the bands below, and writes its top and bottom runs'
+// whole values.  The barrier is a
+// counter per window slot in device memory that only grows (the target is
+// bands x the barriers passed), legal because the cooperative launch makes
+// every block co-resident; the summaries are double-buffered across
+// column resolves, so no block overwrites a summary another still reads.
+// cooperative_groups' grid sync is not used: a window's bands wait only
+// for each other.
 //
-// What bounds it: a resolve reads and writes the three planes (24 bytes a
-// pixel; the column resolve only its mask pixels), ~0.13 ms at [64, 408,
-// 684] at 3.35 TB/s, five resolves a level at scan_passes 2, over ~31
-// levels.  The operations are a few per pixel and resolve.  A first form:
-// nothing is kept on chip between resolves.
+// Replaces the scan_passes > 0 branch of mser_pallas.py: _sweep_body
+// (axis_resolve), in both fused_level_sweep and fused_level_sweep_full.
+// What bounds it: the function's operations (chip_smoke.py: SWEEP_SCAN_OPS)
+// against the windows in and the output once.  Its floors in this design:
+// shared-memory walks, tens of bytes a pixel a resolve; the rings, which
+// stay in device memory, read (5 bf16) and written where they change for
+// each mask pixel of an emitting row from its first level in the mask (a
+// pixel's rings hold their initial values until then, so they are neither
+// read nor written before); the barriers, scan_passes a level and wave,
+// each as long as the slowest band of the window.  chip_smoke.py times a
+// call at 1, 2 and 3 passes: the steps are a pass's cost (PERF.md).
 //
 // The same semantics as the reference's axis_resolve: keys reduce by min
 // over mask ? keys : big, the packed pairs by __vmins2 / __vmaxs2 over
 // live ? pair : sentinel, live = mask & keys >= 0 taken before the resolve;
 // after it the pairs keep their run's value only where the run's key is
-// >= 0.  A dead mark (-1) spreads through its run within the resolve.
+// >= 0.  A dead mark (-1) spreads through its run within the resolve.  The
+// shared state is kept in that form: off the mask the sentinels, and the
+// pairs at their sentinels where the key is < 0 (the warm start folds the
+// liveness in; the emit's dead mark is folded in at the next warm start).
 
-struct ScanGeom {
-    int n, r, w;     // windows, rows, columns
-    int core, halo;  // K3: the strip's emitted rows [halo, halo + core)
-    int wpb;         // rows (warps) a block of the row resolve
+constexpr int kBandThreads = 1024;
+constexpr int kNotInterior = 1 << 30;  // a row's least byte off the mask's rows
+constexpr int kSummaryFields = 8;      // first break + 1, top, bottom runs, last break
+constexpr int kCounterStride = 32;     // ints between two slots' barrier counters
+
+struct BandGeom {
+    int n, r, w;      // windows, rows, columns
+    int core, halo;   // K3: the strip's emitted rows [halo, halo + core)
+    int rows, bands;  // rows a band, bands a window
+    int slots, waves; // windows a wave, waves
 };
+
+// Shared memory of a band: keys, lo and hi, each row's least byte (int32),
+// then the window bytes.  The host plans with the same cost a row
+// (ops/mser_cuda.py: SCAN_ROW_BYTES, SCAN_ROW_EXTRA) and passes its bytes;
+// a plan that gives a band fewer is refused, not launched.
+__host__ __device__ __forceinline__ long long band_smem_bytes(int rows, int w) {
+    return (long long)rows * (13LL * w + 4);
+}
 
 // A segmented-scan element or aggregate: f = a break lies in it
 struct Run {
@@ -550,6 +593,12 @@ __device__ __forceinline__ Run seg(const Run& a, const Run& b) {
     if (b.f) return b;
     return {a.f, min(a.k, b.k), (int)__vmins2((unsigned)a.lo, (unsigned)b.lo),
             (int)__vmaxs2((unsigned)a.hi, (unsigned)b.hi)};
+}
+
+// the reduce of a and (k, lo, hi), keeping a's break flag
+__device__ __forceinline__ Run merge(const Run& a, int k, int lo, int hi) {
+    return {a.f, min(a.k, k), (int)__vmins2((unsigned)a.lo, (unsigned)lo),
+            (int)__vmaxs2((unsigned)a.hi, (unsigned)hi)};
 }
 
 __device__ __forceinline__ Run shfl(const Run& x, int src, int mode) {
@@ -583,220 +632,400 @@ __device__ __forceinline__ Run warp_carry(Run x, bool fwd, int big) {
     return seg(total, excl);
 }
 
-// Ints of one warp's slice of shared memory: keys, lo and hi of the row,
-// then its window bytes.
-__host__ __device__ __forceinline__ int scan_slice_ints(int w) { return 3 * w + (w + 3) / 4; }
+// Pixels of a lane's chunk in a row resolve: odd, so that the lanes' first
+// pixels fall in distinct shared-memory banks.
+__device__ __forceinline__ int scan_chunk(int w) { return ((w + 31) / 32) | 1; }
 
-template <bool kFull>
-__global__ void scan_row_kernel(const uint8_t* __restrict__ win, int32_t* __restrict__ state,
-                                __nv_bfloat16* __restrict__ rings,
-                                SweepOut<kFull>* __restrict__ out, ScanGeom g, int t,
-                                bool warm, bool emit, int num_levels, int step, int d,
-                                int lbits, Thresholds th) {
-    extern __shared__ int32_t smem[];
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const long long row = (long long)blockIdx.x * g.wpb + warp;
-    if (row >= (long long)g.n * g.r) return;  // a whole warp: no barrier follows
-    const int w = g.w, y = (int)(row % g.r);
-    const long long win_i = row / g.r;
-    const int hw = g.r * w, big = 256 * hw;
-    const long long total = (long long)g.n * hw;
-    const long long base = row * w;  // pixel (win_i, y, 0)
-    const int level = t * step;
-    const bool interior = y > 0 && y < g.r - 1;
-    int32_t* sk = smem + (long long)warp * scan_slice_ints(w);
-    int32_t* slo = sk + w;
-    int32_t* shi = slo + w;
-    uint8_t* sv = reinterpret_cast<uint8_t*>(shi + w);
+// Wait until every block of this window slot has arrived here: `target` is
+// the slot's bands times the barriers it has passed, this one included.  A
+// wait of kBarrierTimeout cycles (seconds; a legitimate wait is a band's
+// resolve, microseconds) can only be a block that is not resident: the
+// kernel traps, and the launch reports an error, rather than hang the card.
+constexpr long long kBarrierTimeout = 1LL << 34;
 
-    // load (and warm start): the elements of the row
-    for (int i = lane; i < w; i += 32) {
-        const int v = win[base + i];
-        const bool m = interior && v <= level;
-        int K = big, LO = kLoInit, HI = kHiInit;
-        if (!(warm && t == 0)) {
-            K = state[base + i];
-            LO = state[total + base + i];
-            HI = state[2 * total + base + i];
+__device__ __forceinline__ void slot_barrier(int* ctr, int target) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        __threadfence();
+        atomicAdd(ctr, 1);
+        const long long t0 = clock64();
+        while (*(volatile int*)ctr < target) {
+            if (clock64() - t0 > kBarrierTimeout) __trap();
         }
-        if (warm) {  // fold the level's mask into the state
-            const int rc = (y << 16) | i;
-            K = m ? min(K, v * hw + y * w + i) : big;
-            LO = m ? (int)__vmins2((unsigned)LO, (unsigned)rc) : kLoInit;
-            HI = m ? (int)__vmaxs2((unsigned)HI, (unsigned)rc) : kHiInit;
-        }
-        const bool live = m && K >= 0;
-        sk[i] = m ? K : big;
-        slo[i] = live ? LO : kLoInit;
-        shi[i] = live ? HI : kHiInit;
-        sv[i] = (uint8_t)v;
+        __threadfence();
     }
-    __syncwarp();
+    __syncthreads();
+}
 
-    const int chunk = (w + 31) / 32;
+// The band's shared state and the level a block works on.
+struct BandLevel {
+    int32_t *sk, *slo, *shi;
+    const int32_t* rowmin;
+    const uint8_t* sv;
+    int w, level;
+
+    __device__ __forceinline__ bool mask(int i, int x) const {
+        return rowmin[i] <= level && sv[i * w + x] <= level;
+    }
+};
+
+// One row resolve of band row i (window row y) by one warp; with `warm`
+// the level's warm start first.  The row holds a pixel of the level's mask.
+// Three walks over each lane's chunk: a fold (the warm start and the
+// chunk's aggregate), a forward walk (each pixel the reduce from its run's
+// start), a backward walk over those values (each pixel its whole run's
+// reduce).  The backward carry comes from the forward walk: the descending
+// aggregate of a chunk's prefix values is its prefix before its first
+// break (prefixes only grow along a run), or its last prefix.
+__device__ __forceinline__ void band_row_resolve(const BandLevel& s, int i, int y, int hw,
+                                                 int big, bool warm) {
+    const int lane = threadIdx.x & 31, w = s.w, level = s.level;
+    int32_t* rk = s.sk + i * w;
+    int32_t* rlo = s.slo + i * w;
+    int32_t* rhi = s.shi + i * w;
+    const uint8_t* rv = s.sv + i * w;
+    const int chunk = scan_chunk(w);
     const int a = min(lane * chunk, w), b = min(a + chunk, w);
-    auto elem = [&](int i) {
-        return Run{!(interior && sv[i] <= level), sk[i], slo[i], shi[i]};
-    };
-    // forward: each pixel the reduce from its run's start
-    Run acc = {0, big, kLoInit, kHiInit};
-    for (int i = a; i < b; ++i) acc = seg(acc, elem(i));
+    const Run id = {0, big, kLoInit, kHiInit};
+    // fold of the chunk, with the warm start: fold the level's mask into
+    // the state, liveness included
+    Run acc = id;
+    for (int x = a; x < b; ++x) {
+        const int v = rv[x];
+        const bool m = v <= level;
+        int K = rk[x], LO = rlo[x], HI = rhi[x];
+        if (warm && m) {
+            const int rc = (y << 16) | x;
+            K = min(K, v * hw + y * w + x);
+            LO = K >= 0 ? (int)__vmins2((unsigned)LO, (unsigned)rc) : kLoInit;
+            HI = K >= 0 ? (int)__vmaxs2((unsigned)HI, (unsigned)rc) : kHiInit;
+            rk[x] = K;
+            rlo[x] = LO;
+            rhi[x] = HI;
+        }
+        acc = seg(acc, Run{!m, K, LO, HI});
+    }
+    // forward walk: each pixel the reduce from its run's start
     acc = warp_carry(acc, true, big);
-    for (int i = a; i < b; ++i) {
-        acc = seg(acc, elem(i));
-        sk[i] = acc.k;
-        slo[i] = acc.lo;
-        shi[i] = acc.hi;
+    Run desc = id;  // the descending aggregate of the chunk's prefixes
+    for (int x = a; x < b; ++x) {
+        if (!(rv[x] <= level)) {
+            acc = id;
+            desc.f = 1;
+            continue;
+        }
+        acc = merge(acc, rk[x], rlo[x], rhi[x]);
+        rk[x] = acc.k;
+        rlo[x] = acc.lo;
+        rhi[x] = acc.hi;
+        if (!desc.f) desc = {0, acc.k, acc.lo, acc.hi};
     }
-    // backward over those: each pixel its whole run's reduce
-    acc = {0, big, kLoInit, kHiInit};
-    for (int i = b - 1; i >= a; --i) acc = seg(acc, elem(i));
-    acc = warp_carry(acc, false, big);
-    for (int i = b - 1; i >= a; --i) {
-        acc = seg(acc, elem(i));
-        sk[i] = acc.k;
-        slo[i] = acc.lo;
-        shi[i] = acc.hi;
+    // backward over those: each pixel its whole run's reduce, the pairs
+    // at their sentinels where the run's key is < 0
+    acc = warp_carry(desc, false, big);
+    for (int x = b - 1; x >= a; --x) {
+        if (!(rv[x] <= level)) {
+            acc = id;
+            continue;
+        }
+        acc = merge(acc, rk[x], rlo[x], rhi[x]);
+        const bool live = acc.k >= 0;
+        rk[x] = acc.k;
+        rlo[x] = live ? acc.lo : kLoInit;
+        rhi[x] = live ? acc.hi : kHiInit;
     }
-    __syncwarp();
+}
 
-    // write back, and at the last resolve the emit
-    const bool emits = emit && (kFull || (y >= g.halo && y < g.halo + g.core));
+// The emit of band row i (window row y, `has`: it holds a mask pixel) by one
+// warp, a lane a column: the tiled design's emit per pixel, over the rings
+// in the plain layout bf16 [d + 4, n, r, w] (ring slot k of pixel px at
+// rings[k * total + px]).  A pixel off the mask has no anchor and its rings
+// hold their initial values, so it is a non-candidate and they are not
+// touched; at a pixel's first level in the mask they are read as their
+// initial values and every slot is written.
+template <bool kFull>
+__device__ __forceinline__ void band_row_emit(const BandLevel& s, int i, int y, bool has,
+                                              long long px0, long long o0, long long total,
+                                              __nv_bfloat16* __restrict__ rings,
+                                              SweepOut<kFull>* __restrict__ out, int hw, int t,
+                                              int step, int num_levels, int d, int lbits,
+                                              const Thresholds& th) {
+    const int lane = threadIdx.x & 31, w = s.w, level = s.level;
+    int32_t* rk = s.sk + i * w;
+    const uint8_t* rv = s.sv + i * w;
     const RingSlots sl = ring_slots(t, d);
     const float inf = __int_as_float(0x7f800000);
-    for (int i = lane; i < w; i += 32) {
-        const int v = sv[i];
-        const bool m = interior && v <= level;
-        int K = m ? sk[i] : big;
-        const bool live = m && K >= 0;
-        const int LO = live ? slo[i] : kLoInit, HI = live ? shi[i] : kHiInit;
-        const long long px = base + i;
-        if (emit) {
-            const float a_cur = anchor_area(K, LO, HI, v * hw + y * w + i, m, th);
-            if (emits) {
-                __nv_bfloat16* ring = rings + px;
-                // level 0 reads the initial rings: areas and last-emit 0,
-                // variations inf
-                const bool t0 = t == 0;
-                const Stability s = stability(
-                    a_cur, t0 ? 0.0f : __bfloat162float(ring[sl.area * total]),
-                    t0 ? 0.0f : __bfloat162float(ring[sl.a_td * total]),
-                    t0 ? inf : __bfloat162float(ring[sl.v_c * total]),
-                    t0 ? inf : __bfloat162float(ring[sl.v_prev * total]),
-                    t0 ? 0.0f : __bfloat162float(ring[sl.last * total]), th);
-                if (t0) {  // the first level writes every slot
-                    for (int k = 0; k <= d; ++k) ring[k * total] = __float2bfloat16_rn(0.0f);
-                    ring[sl.v_c * total] = __float2bfloat16_rn(inf);
-                }
-                ring[sl.area * total] = __float2bfloat16_rn(a_cur);
-                ring[sl.v_prev * total] = __float2bfloat16_rn(s.v_new);
-                ring[sl.last * total] = __float2bfloat16_rn(s.last);
-                emit_out<kFull>(out,
-                                kFull ? (win_i * num_levels + t) * hw + (long long)y * w + i
-                                      : (win_i * g.core + y - g.halo) * w + i,
-                                s, t, num_levels, lbits);
-            }
+    const Stability off = {false, 1.0f, inf, 0.0f};
+    const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
+    const __nv_bfloat16 binf = __float2bfloat16_rn(inf);
+    for (int x = lane; x < w; x += 32) {
+        const int v = rv[x];
+        if (!(has && v <= level)) {
+            emit_out<kFull>(out, o0 + x, off, t, num_levels, lbits);
+            continue;
         }
-        state[px] = K;
-        state[total + px] = LO;
-        state[2 * total + px] = HI;
+        const int K0 = rk[x];
+        int K = K0;
+        const float a_cur = anchor_area(K, s.slo[i * w + x], s.shi[i * w + x],
+                                        v * hw + y * w + x, true, th);
+        if (K != K0) rk[x] = K;  // the dead mark
+        __nv_bfloat16* ring = rings + px0 + x;
+        const bool first = v > level - step;  // the pixel's first level in the mask
+        // there the rings hold their initial values: areas and last-emit 0,
+        // variations inf
+        __nv_bfloat16 area = zero, a_td = zero, v_c = binf, v_prev = binf, last = zero;
+        if (!first) {
+            area = ring[sl.area * total];
+            a_td = ring[sl.a_td * total];
+            v_c = ring[sl.v_c * total];
+            v_prev = ring[sl.v_prev * total];
+            last = ring[sl.last * total];
+        }
+        const Stability st =
+            stability(a_cur, __bfloat162float(area), __bfloat162float(a_td),
+                      __bfloat162float(v_c), __bfloat162float(v_prev), __bfloat162float(last), th);
+        const __nv_bfloat16 a_newb = __float2bfloat16_rn(a_cur);
+        const __nv_bfloat16 v_newb = __float2bfloat16_rn(st.v_new);
+        const __nv_bfloat16 l_newb = __float2bfloat16_rn(st.last);
+        if (first) {  // every slot
+            for (int k = 0; k <= d; ++k) ring[k * total] = k == sl.area ? a_newb : zero;
+            ring[sl.v_c * total] = binf;
+            ring[sl.v_prev * total] = v_newb;
+            ring[sl.last * total] = l_newb;
+        } else {  // the slots the level writes, where they change
+            if (!same_bits(a_newb, area)) ring[sl.area * total] = a_newb;
+            if (!same_bits(v_newb, v_prev)) ring[sl.v_prev * total] = v_newb;
+            if (!same_bits(l_newb, last)) ring[sl.last * total] = l_newb;
+        }
+        emit_out<kFull>(out, o0 + x, st, t, num_levels, lbits);
     }
 }
 
-__global__ void scan_col_kernel(const uint8_t* __restrict__ win, int32_t* __restrict__ state,
-                                ScanGeom g, int level) {
-    const int x = blockIdx.x * blockDim.x + threadIdx.x;
-    if (x >= g.w) return;
-    const int hw = g.r * g.w, big = 256 * hw;
-    const long long total = (long long)g.n * hw;
-    const long long base = (long long)blockIdx.y * hw + x;
-    int32_t* sk = state;
-    int32_t* slo = state + total;
-    int32_t* shi = state + 2 * total;
-    int rk = big, rlo = kLoInit, rhi = kHiInit, start = -1;  // the open run
-    constexpr int kBatch = 8;  // rows read together
-    for (int y0 = 1; y0 < g.r - 1; y0 += kBatch) {
-        int vk[kBatch], vlo[kBatch], vhi[kBatch];
-        unsigned mb = 0;
+// Writes run value v over band rows [i0, i1) of column x, the pairs at
+// their sentinels where its key is < 0.
+__device__ __forceinline__ void put_run(const BandLevel& s, int x, int i0, int i1, const Run& v) {
+    const bool live = v.k >= 0;
+    const int lo = live ? v.lo : kLoInit, hi = live ? v.hi : kHiInit;
+    for (int i = i0; i < i1; ++i) {
+        s.sk[i * s.w + x] = v.k;
+        s.slo[i * s.w + x] = lo;
+        s.shi[i * s.w + x] = hi;
+    }
+}
+
+// The carry into a band's column x from the bands that `step` (-1: above,
+// +1: below) leads to, to the first band with a break: the reduce of their
+// bottom (above) or top (below) runs.  Summaries are read kCarryBatch bands
+// at a time, their loads in flight together.
+constexpr int kCarryBatch = 8;
+
+__device__ __forceinline__ Run band_carry(const int* summ, int band, int bands, int step,
+                                          int x, int w, int big) {
+    Run c = {0, big, kLoInit, kHiInit};
+    const int field = step < 0 ? 4 : 1;  // bottom run, or top run
+    for (int bb = band + step; bb >= 0 && bb < bands; bb += kCarryBatch * step) {
+        int f[kCarryBatch], k[kCarryBatch], lo[kCarryBatch], hi[kCarryBatch];
 #pragma unroll
-        for (int j = 0; j < kBatch; ++j) {
-            const long long p = base + (long long)(y0 + j) * g.w;
-            if (y0 + j < g.r - 1 && win[p] <= level) mb |= 1u << j;
-        }
-#pragma unroll
-        for (int j = 0; j < kBatch; ++j) {
-            if (mb >> j & 1u) {
-                const long long p = base + (long long)(y0 + j) * g.w;
-                vk[j] = sk[p];
-                vlo[j] = slo[p];
-                vhi[j] = shi[p];
+        for (int j = 0; j < kCarryBatch; ++j) {
+            const int b = bb + j * step;
+            f[j] = 1;
+            k[j] = big;
+            lo[j] = kLoInit;
+            hi[j] = kHiInit;
+            if (b >= 0 && b < bands) {
+                const int* o = summ + (long long)b * kSummaryFields * w + x;
+                f[j] = __ldcg(o);
+                k[j] = __ldcg(o + field * w);
+                lo[j] = __ldcg(o + (field + 1) * w);
+                hi[j] = __ldcg(o + (field + 2) * w);
             }
         }
 #pragma unroll
-        for (int j = 0; j < kBatch; ++j) {
-            const int y = y0 + j;
-            if (y >= g.r - 1) break;
-            const bool m = mb >> j & 1u;
-            if (m) {
-                rk = min(rk, vk[j]);
-                if (vk[j] >= 0) {  // live
-                    rlo = (int)__vmins2((unsigned)rlo, (unsigned)vlo[j]);
-                    rhi = (int)__vmaxs2((unsigned)rhi, (unsigned)vhi[j]);
+        for (int j = 0; j < kCarryBatch; ++j) {
+            c = merge(c, k[j], lo[j], hi[j]);
+            if (f[j]) return c;
+        }
+    }
+    return c;
+}
+
+// One column resolve of the band, a thread a column.  Before the slot's
+// barrier one walk down the column writes each run that lies between two
+// breaks inside the band (the band's alone) and leaves the band's summary:
+// its first break + 1 (0: none), the reduce of its top run (rows above the
+// first break), of its bottom run (rows below the last break), and its last
+// break.  After it, the top and bottom runs take the carries from the bands
+// above and below.  summ: this resolve's summary buffer of the slot, int32
+// [bands, 8, w].
+__device__ __forceinline__ void band_col_resolve(const BandLevel& s, int nrows, int band,
+                                                 int bands, int* summ, int* ctr, int target,
+                                                 int big) {
+    const int w = s.w;
+    const Run id = {0, big, kLoInit, kHiInit};
+    for (int x = threadIdx.x; x < w; x += blockDim.x) {
+        int first = -1, last = -1, start = -1;
+        Run top = id, run = id;
+        for (int i = 0; i < nrows; ++i) {
+            if (!s.mask(i, x)) {
+                if (first < 0) {
+                    first = i;
+                } else if (start >= 0) {
+                    put_run(s, x, start, i, run);
                 }
-                if (start < 0) start = y;
-            }
-            if (start >= 0 && (!m || y == g.r - 2)) {  // the run ends
-                const int end = m ? y : y - 1;
-                const bool live = rk >= 0;
-                const int lo = live ? rlo : kLoInit, hi = live ? rhi : kHiInit;
-                for (int yy = start; yy <= end; ++yy) {
-                    const long long p = base + (long long)yy * g.w;
-                    sk[p] = rk;
-                    slo[p] = lo;
-                    shi[p] = hi;
-                }
-                rk = big;
-                rlo = kLoInit;
-                rhi = kHiInit;
+                last = i;
+                run = id;
                 start = -1;
+                continue;
+            }
+            const int q = i * w + x;
+            if (first < 0) {
+                top = merge(top, s.sk[q], s.slo[q], s.shi[q]);
+            } else {
+                run = merge(run, s.sk[q], s.slo[q], s.shi[q]);
+                if (start < 0) start = i;
+            }
+        }
+        const Run bot = first < 0 ? top : run;
+        const int vals[kSummaryFields] = {first + 1, top.k, top.lo, top.hi,
+                                          bot.k,     bot.lo, bot.hi, last};
+        int* mine = summ + (long long)band * kSummaryFields * w + x;
+#pragma unroll
+        for (int j = 0; j < kSummaryFields; ++j) __stcg(mine + j * w, vals[j]);
+    }
+    slot_barrier(ctr, target);
+    for (int x = threadIdx.x; x < w; x += blockDim.x) {
+        const int* mine = summ + (long long)band * kSummaryFields * w + x;
+        const int first = __ldcg(mine) - 1, last = __ldcg(mine + 7 * w);
+        const Run top = {0, __ldcg(mine + w), __ldcg(mine + 2 * w), __ldcg(mine + 3 * w)};
+        const Run bot = {0, __ldcg(mine + 4 * w), __ldcg(mine + 5 * w), __ldcg(mine + 6 * w)};
+        if (first < 0) {  // no break: the band is one run
+            const Run up = band_carry(summ, band, bands, -1, x, w, big);
+            const Run dn = band_carry(summ, band, bands, 1, x, w, big);
+            put_run(s, x, 0, nrows, merge(merge(up, top.k, top.lo, top.hi), dn.k, dn.lo, dn.hi));
+            continue;
+        }
+        if (first > 0) {
+            const Run up = band_carry(summ, band, bands, -1, x, w, big);
+            put_run(s, x, 0, first, merge(up, top.k, top.lo, top.hi));
+        }
+        if (last < nrows - 1) {
+            const Run dn = band_carry(summ, band, bands, 1, x, w, big);
+            put_run(s, x, last + 1, nrows, merge(dn, bot.k, bot.lo, bot.hi));
+        }
+    }
+}
+
+// The whole scan-pass call.  Block (slot, band) owns rows [band * rows,
+// band * rows + rows) of window wave * slots + slot in each wave.
+// sync: int32, the slots' barrier counters (kCounterStride apart, zero at
+// the launch), then two summary buffers [2, slots, bands, 8, w].
+// out: K3 (kFull false) int32 [n, core, w]; K7 (kFull true) u8 [n,
+// num_levels, r, w].
+template <bool kFull>
+__global__ void __launch_bounds__(kBandThreads, 1)
+scan_band_kernel(const uint8_t* __restrict__ win, __nv_bfloat16* __restrict__ rings,
+                 SweepOut<kFull>* __restrict__ out, int* __restrict__ sync, BandGeom g,
+                 int num_levels, int step, int d, int scan_passes, int lbits, Thresholds th) {
+    extern __shared__ int32_t smem[];
+    const int w = g.w, hw = g.r * w, big = 256 * hw;
+    const long long total = (long long)g.n * hw;
+    const int slot = blockIdx.x / g.bands, band = blockIdx.x - slot * g.bands;
+    const int y0 = band * g.rows, nrows = min(g.rows, g.r - y0);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+    const int bw = g.rows * w;
+    int32_t* rowmin = smem + 3 * bw;
+    BandLevel s{smem, smem + bw, smem + 2 * bw, rowmin,
+                reinterpret_cast<const uint8_t*>(rowmin + g.rows), w, 0};
+    uint8_t* sv = reinterpret_cast<uint8_t*>(rowmin + g.rows);
+    int* ctr = sync + slot * kCounterStride;
+    int* summ = sync + g.slots * kCounterStride;
+    const long long buf_ints = (long long)g.slots * g.bands * kSummaryFields * w;
+    int barriers = 0;
+
+    for (int wave = 0; wave < g.waves; ++wave) {
+        const int wi = wave * g.slots + slot;
+        if (wi >= g.n) break;  // every block of the slot stops here
+        const long long wbase = (long long)wi * hw;
+        // the band's window bytes, the sentinel state, each row's least byte
+        for (int i = warp; i < nrows; i += nwarps) {
+            const int y = y0 + i;
+            int least = 255;
+            for (int x = lane; x < w; x += 32) {
+                const int v = win[wbase + (long long)y * w + x];
+                sv[i * w + x] = (uint8_t)v;
+                s.sk[i * w + x] = big;
+                s.slo[i * w + x] = kLoInit;
+                s.shi[i * w + x] = kHiInit;
+                least = min(least, v);
+            }
+#pragma unroll
+            for (int o = 16; o > 0; o >>= 1) {
+                least = min(least, __shfl_xor_sync(0xffffffffu, least, o));
+            }
+            if (lane == 0) rowmin[i] = y > 0 && y < g.r - 1 ? least : kNotInterior;
+        }
+        __syncthreads();
+        for (int t = 0; t < num_levels; ++t) {
+            s.level = t * step;
+            for (int k = 0;; ++k) {
+                const bool emit = k == scan_passes;
+                for (int i = warp; i < nrows; i += nwarps) {
+                    const int y = y0 + i;
+                    const bool has = rowmin[i] <= s.level;
+                    if (has) band_row_resolve(s, i, y, hw, big, k == 0);
+                    if (emit && (kFull || (y >= g.halo && y < g.halo + g.core))) {
+                        __syncwarp();
+                        const long long o0 =
+                            kFull ? ((long long)wi * num_levels + t) * hw + (long long)y * w
+                                  : ((long long)wi * g.core + y - g.halo) * w;
+                        band_row_emit<kFull>(s, i, y, has, wbase + (long long)y * w, o0, total,
+                                             rings, out, hw, t, step, num_levels, d, lbits, th);
+                    }
+                }
+                __syncthreads();
+                if (emit) break;
+                ++barriers;
+                int* sb = summ + (barriers & 1) * buf_ints +
+                          (long long)slot * g.bands * kSummaryFields * w;
+                band_col_resolve(s, nrows, band, g.bands, sb, ctr, g.bands * barriers, big);
+                __syncthreads();
             }
         }
     }
 }
 
-// The level loop of the scan-pass body, both outputs.
+// The scan-pass call of both outputs: one cooperative launch of a plan's
+// grid with `smem` bytes of shared memory a block, after the barrier
+// counters are zeroed.  The device refuses what the plan got wrong: more
+// shared memory than a block may opt in to (cudaFuncSetAttribute), or a
+// grid that cannot be all resident, which a window's bands need since they
+// wait for each other (cudaLaunchCooperativeKernel).
 template <bool kFull>
-int run_scan(const void* win, void* out, void* state, void* rings, int n, int r, int w,
-             int core, int halo, int num_levels, int step, int d, int scan_passes, int lbits,
-             Thresholds th, void* stream) {
-    const int slice = scan_slice_ints(w) * 4;
-    if (scan_passes < 1 || w < 1 || r >= 32767 || w >= 32767 || slice > kScanSmemMax) {
+int run_scan(const void* win, void* out, void* sync, void* rings, BandGeom g, int smem,
+             int num_levels, int step, int d, int scan_passes, int lbits, Thresholds th,
+             void* stream) {
+    if (scan_passes < 1 || g.n < 1 || g.r < 1 || g.w < 1 || g.r >= 32767 || g.w >= 32767 ||
+        g.rows < 1 || g.bands < 1 || g.slots < 1 || g.waves < 1 ||
+        (long long)g.rows * g.bands < g.r || (long long)g.rows * (g.bands - 1) >= g.r ||
+        (long long)g.slots * g.waves < g.n || smem < band_smem_bytes(g.rows, g.w)) {
         return (int)cudaErrorInvalidValue;
     }
-    const int wpb = max(1, min(8, 48 * 1024 / slice));
-    const int smem = wpb * slice;
-    if (smem > 48 * 1024) {
-        cudaError_t e = cudaFuncSetAttribute(
-            scan_row_kernel<kFull>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-        if (e != cudaSuccess) return (int)e;
-    }
+    auto kernel = scan_band_kernel<kFull>;
+    cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         smem);
+    if (e != cudaSuccess) return (int)e;
     cudaStream_t st = (cudaStream_t)stream;
-    const ScanGeom g{n, r, w, core, halo, wpb};
-    const long long rows = (long long)n * r;
-    const dim3 row_grid((unsigned)((rows + wpb - 1) / wpb));
-    const dim3 col_grid((w + 127) / 128, n);
-    for (int t = 0; t < num_levels; ++t) {
-        for (int k = 0; k <= scan_passes; ++k) {
-            scan_row_kernel<kFull><<<row_grid, 32 * wpb, smem, st>>>(
-                (const uint8_t*)win, (int32_t*)state, (__nv_bfloat16*)rings,
-                (SweepOut<kFull>*)out, g, t, k == 0, k == scan_passes, num_levels, step, d,
-                lbits, th);
-            if (k < scan_passes) {
-                scan_col_kernel<<<col_grid, 128, 0, st>>>((const uint8_t*)win,
-                                                          (int32_t*)state, g, t * step);
-            }
-        }
-    }
+    e = cudaMemsetAsync(sync, 0, sizeof(int) * kCounterStride * g.slots, st);
+    if (e != cudaSuccess) return (int)e;
+    const uint8_t* win_p = (const uint8_t*)win;
+    __nv_bfloat16* rings_p = (__nv_bfloat16*)rings;
+    SweepOut<kFull>* out_p = (SweepOut<kFull>*)out;
+    int* sync_p = (int*)sync;
+    void* args[] = {&win_p, &rings_p, &out_p, &sync_p, &g, &num_levels, &step, &d,
+                    &scan_passes, &lbits, &th};
+    e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(g.slots * g.bands),
+                                    dim3(kBandThreads), args, (size_t)smem, st);
+    if (e != cudaSuccess) return (int)e;
     return (int)cudaGetLastError();
 }
 }  // namespace
@@ -833,17 +1062,27 @@ TSD_API int tsd_level_sweep_full(const void* win, void* full, void* state, void*
 }
 
 // The scan-pass body of K3 (full = 0: out i32 [n, core, w]) or K7 (full = 1,
-// core = r, halo = 0: out u8 [n, num_levels, r, w]).  state: i32 [3, n, r,
-// w]; rings: bf16 [d + 4, n, r, w].  Refuses rows wider than one block's
-// shared memory holds: 12 bytes a pixel and its window byte.
-TSD_API int tsd_level_sweep_scan(const void* win, void* out, void* state, void* rings,
+// core = r, halo = 0: out u8 [n, num_levels, r, w]) as one cooperative
+// launch of bands x slots blocks of `rows` window rows each, over `waves`
+// waves, `smem` bytes of shared memory a block (ops/mser_cuda.py:
+// scan_plan).  sync: i32, the barrier counters and summaries
+// (scan_band_kernel); rings: bf16 [d + 4, n, r, w].  Refuses a plan whose
+// band does not fit its bytes or a block's shared memory, or whose grid
+// cannot be co-resident.
+TSD_API int tsd_level_sweep_scan(const void* win, void* out, void* sync, void* rings,
                                  int full, int n, int r, int w, int core, int halo,
+                                 int rows, int bands, int slots, int waves, int smem,
                                  int num_levels, int step, int d, int scan_passes, int lbits,
-                                 int extent_only, float min_area, float max_area,
-                                 float max_variation, float min_diversity, void* stream) {
+                                 int extent_only,
+                                 float min_area, float max_area, float max_variation,
+                                 float min_diversity, void* stream) {
     const Thresholds th{min_area, max_area, max_variation, min_diversity, extent_only != 0};
-    return full ? run_scan<true>(win, out, state, rings, n, r, w, r, 0, num_levels, step, d,
-                                 scan_passes, 0, th, stream)
-                : run_scan<false>(win, out, state, rings, n, r, w, core, halo, num_levels,
-                                  step, d, scan_passes, lbits, th, stream);
+    if (full) {
+        const BandGeom g{n, r, w, r, 0, rows, bands, slots, waves};
+        return run_scan<true>(win, out, sync, rings, g, smem, num_levels, step, d, scan_passes, 0,
+                              th, stream);
+    }
+    const BandGeom g{n, r, w, core, halo, rows, bands, slots, waves};
+    return run_scan<false>(win, out, sync, rings, g, smem, num_levels, step, d, scan_passes,
+                           lbits, th, stream);
 }

@@ -19,8 +19,9 @@ one launch per span of Jacobi passes (:data:`SWEEP_SPAN`,
 (:func:`_tile_scratch`).  The reference's sweep body has two more forms,
 both ported: the extent-only area (``sweep_extent_only``, a flag of the
 tiled kernel's emit) and the scan-pass propagation (``scan_passes > 0``), a
-second design of run resolves a launch each over state in device memory
-(:func:`_scan_scratch`), again with both outputs.
+second design that keeps bands of window rows in shared memory for all
+levels, one cooperative launch a call sized by :func:`scan_plan`, again with
+both outputs.
 """
 
 from __future__ import annotations
@@ -137,10 +138,77 @@ SWEEP_SPAN = 6
 # kTileThreads, kRows): the ring scratch holds one record of TILE_ROWS bf16
 # per thread and slot.
 TILE_THREADS, TILE_ROWS = 1024, 4
-# The widest window row the scan-pass design takes: its row resolve holds a
-# row's three int32 planes and its bytes in one block's 227 KB of shared
-# memory (csrc/mser_sweep.cu: scan_slice_ints, kScanSmemMax).
-SCAN_MAX_WIDTH = 17_880
+# The scan-pass design (csrc/mser_sweep.cu: scan_band_kernel): a block of
+# SCAN_THREADS holds a band of window rows in shared memory, SCAN_ROW_BYTES
+# a column of a row (keys, (ymin, xmin), (ymax, xmax) as int32 and the
+# window byte) and SCAN_ROW_EXTRA a row (its least byte), the plan's bytes
+# that the launch takes (the kernel refuses fewer than its layout); its
+# summary buffer holds SCAN_COUNTER_INTS barrier counter ints a window slot, then
+# two buffers of SCAN_SUMMARY_FIELDS int32 a column, band and slot.
+SCAN_THREADS = 1024
+SCAN_ROW_BYTES, SCAN_ROW_EXTRA = 13, 4
+# Shared memory CUDA reserves a block on sm_80 and later
+# (cudaDevAttrReservedSharedMemoryPerBlock): the opt-in limit is an SM's
+# shared memory less this, 232448 bytes on an H100.
+SCAN_SMEM_RESERVED = 1024
+SCAN_COUNTER_INTS, SCAN_SUMMARY_FIELDS = 32, 8
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanPlan:
+    """The launch of the scan-pass design over [n, r, w] windows."""
+
+    rows: int           # window rows a band (a block's share)
+    bands: int          # bands a window
+    slots: int          # windows a wave
+    waves: int          # waves of one call
+    smem_bytes: int     # shared memory a block
+    summary_bytes: int  # the barrier counters and band summaries
+
+    @property
+    def grid(self) -> int:
+        return self.slots * self.bands
+
+
+def scan_plan(n: int, r: int, w: int, sms: int, smem_bytes: int) -> ScanPlan:
+    """The scan-pass design's plan for ``n`` windows of ``r`` x ``w`` on a
+    card of ``sms`` SMs whose blocks may take ``smem_bytes`` of shared
+    memory each, one block an SM.  Every band of a window must be resident
+    at once (its blocks wait for each other at each column resolve), so a
+    window takes at most ``sms`` bands; of the band heights that fit, the
+    plan takes the one with the fewest waves x band rows (a wave's time is
+    about its band's rows), then the fewest waves (barriers).
+
+    Raises ValueError where no plan holds the windows: a row wider than one
+    block's shared memory holds, more bands than SMs, or rows or columns
+    past the int16 bbox pairs.
+    """
+    if min(n, r, w) < 1:
+        raise ValueError(f"no scan-pass plan for {n} windows of {r}x{w}")
+    if max(r, w) >= 1 << 15:
+        raise ValueError(f"windows of {r}x{w} exceed the scan-pass kernel's int16 bbox pairs")
+    max_rows = smem_bytes // (SCAN_ROW_BYTES * w + SCAN_ROW_EXTRA)
+    if max_rows < 1:
+        raise ValueError(f"a window row of {w} columns does not fit one block's "
+                         f"{smem_bytes} bytes of shared memory "
+                         f"({SCAN_ROW_BYTES * w + SCAN_ROW_EXTRA} bytes a row)")
+    min_bands = -(-r // max_rows)
+    if min_bands > sms:
+        raise ValueError(f"windows of {r}x{w} take {min_bands} bands of at most {max_rows} "
+                         f"rows, more than the {sms} blocks that can be resident")
+    best = None
+    for bands in range(min_bands, min(sms, r) + 1):
+        rows = -(-r // bands)
+        bands = -(-r // rows)  # no empty band
+        slots = min(sms // bands, n)
+        waves = -(-n // slots)
+        key = (waves * rows, waves)
+        if best is None or key < best[0]:
+            best = (key, rows, bands, slots, waves)
+    _, rows, bands, slots, waves = best
+    summary = 4 * (SCAN_COUNTER_INTS * slots + 2 * slots * bands * SCAN_SUMMARY_FIELDS * w)
+    return ScanPlan(rows, bands, slots, waves, rows * (SCAN_ROW_BYTES * w + SCAN_ROW_EXTRA),
+                    summary)
 
 
 def sweep_tiles(r: int, w: int) -> tuple[int, int]:
@@ -155,25 +223,32 @@ def sweep_tiles(r: int, w: int) -> tuple[int, int]:
     return even(r), even(w)
 
 
-def _scan_resolves(mask: torch.Tensor, keys: torch.Tensor, chans: list[torch.Tensor],
-                   passes: int, big: int, bigc: int):
-    """The scan-pass body's propagation (``mser_pallas.py: _sweep_body``,
-    ``axis_resolve``): ``passes`` times a row resolve then a column resolve,
-    then one more row resolve.  A resolve reduces each mask run whole: keys by
-    min over ``mask ? keys : big``, the bbox channels (ymin, ymax, xmin,
-    xmax) by min/max over ``live ? channel : fill`` with ``live = mask &
-    keys >= 0`` taken before it; then the channels keep their run's value
-    only where its key is >= 0.  -> (keys, ymin, ymax, xmin, xmax)."""
+def _scan_resolve(mask: torch.Tensor, keys: torch.Tensor, chans: list[torch.Tensor],
+                  dim: int, big: int, bigc: int):
+    """One run resolve of the scan-pass body along ``dim`` (``mser_pallas.py:
+    axis_resolve``): each mask run reduced whole, keys by min over ``mask ?
+    keys : big``, the bbox channels (ymin, ymax, xmin, xmax) by min/max over
+    ``live ? channel : fill`` with ``live = mask & keys >= 0`` taken before
+    it; then the channels keep their run's value only where its key is >= 0.
+    -> (keys, [ymin, ymax, xmin, xmax])."""
     mn, mx = torch.minimum, torch.maximum
     ops, fills = [mn, mn, mx, mn, mx], [big, bigc, -1, bigc, -1]
+    live = mask & (keys >= 0)
+    vals = [torch.where(mask, keys, big)] + [
+        torch.where(live, ch, fill) for ch, fill in zip(chans, fills[1:])]
+    out = axis_resolve(vals, ops, mask, dim)
+    keys = torch.where(mask, out[0], big)
+    live = mask & (keys >= 0)
+    return keys, [torch.where(live, v, fill) for v, fill in zip(out[1:], fills[1:])]
+
+
+def _scan_resolves(mask: torch.Tensor, keys: torch.Tensor, chans: list[torch.Tensor],
+                   passes: int, big: int, bigc: int):
+    """The scan-pass body's propagation (``mser_pallas.py: _sweep_body``):
+    ``passes`` times a row resolve then a column resolve, then one more row
+    resolve (:func:`_scan_resolve`).  -> (keys, ymin, ymax, xmin, xmax)."""
     for dim in [-1, -2] * passes + [-1]:
-        live = mask & (keys >= 0)
-        vals = [torch.where(mask, keys, big)] + [
-            torch.where(live, ch, fill) for ch, fill in zip(chans, fills[1:])]
-        out = axis_resolve(vals, ops, mask, dim)
-        keys = torch.where(mask, out[0], big)
-        live = mask & (keys >= 0)
-        chans = [torch.where(live, v, fill) for v, fill in zip(out[1:], fills[1:])]
+        keys, chans = _scan_resolve(mask, keys, chans, dim, big, bigc)
     return (keys, *chans)
 
 
@@ -290,32 +365,30 @@ def _tile_scratch(windows: torch.Tensor, p: SweepParams):
     return th, tw, state, rings
 
 
-def _scan_scratch(windows: torch.Tensor, p: SweepParams):
-    """(state, rings) of the scan-pass body over [N, R, W] windows: the
-    state in place, int32 [3, N, R, W], and the rings in the plain layout,
-    bf16 [d + 4, N, R, W].  Its row resolve holds a window row in one block's
-    shared memory, so it refuses rows wider than :data:`SCAN_MAX_WIDTH`."""
-    n, r, w = windows.shape
-    if w > SCAN_MAX_WIDTH or r >= 1 << 15:
-        raise ValueError(f"windows of {r}x{w} exceed the scan-pass kernel's limits "
-                         f"(rows < 32767, columns <= {SCAN_MAX_WIDTH})")
-    dev = windows.device
-    return (torch.empty((3, n, r, w), dtype=torch.int32, device=dev),
-            torch.empty((p.d + 4, n, r, w), dtype=torch.bfloat16, device=dev))
+def scan_device(device: torch.device) -> tuple[int, int]:
+    """(SMs, shared memory bytes a block may opt in to) of a CUDA device:
+    an SM's shared memory less what CUDA reserves a block."""
+    props = torch.cuda.get_device_properties(device)
+    return props.multi_processor_count, props.shared_memory_per_multiprocessor - SCAN_SMEM_RESERVED
 
 
 def _launch_scan(windows: torch.Tensor, out: torch.Tensor, p: SweepParams, full: bool,
                  core: int, halo: int, num_levels: int, lbits: int) -> int:
-    """The scan-pass body's launches (csrc/mser_sweep.cu: run_scan): per
-    level ``2 * scan_passes + 1`` run resolves, the warm start in the first
-    and the emit in the last."""
+    """The scan-pass body (csrc/mser_sweep.cu: scan_band_kernel): one
+    cooperative launch of :func:`scan_plan`'s grid, the warm starts, every
+    level's ``2 * scan_passes + 1`` run resolves and the emits inside it,
+    the sweep state on chip.  Scratch: the barrier counters and band
+    summaries, and the rings in the plain layout, bf16 [d + 4, N, R, W]."""
     n, r, w = windows.shape
-    state, rings = _scan_scratch(windows, p)
+    plan = scan_plan(n, r, w, *scan_device(windows.device))
+    dev = windows.device
+    sync = torch.empty(plan.summary_bytes // 4, dtype=torch.int32, device=dev)
+    rings = torch.empty((p.d + 4, n, r, w), dtype=torch.bfloat16, device=dev)
     return rt.library().tsd_level_sweep_scan(
-        windows.data_ptr(), out.data_ptr(), state.data_ptr(), rings.data_ptr(), int(full),
-        n, r, w, core, halo, num_levels, p.step, p.d, p.scan_passes, lbits,
-        int(p.extent_only), p.min_area, p.max_area, p.max_variation, p.min_diversity,
-        rt.stream_ptr(windows.device))
+        windows.data_ptr(), out.data_ptr(), sync.data_ptr(), rings.data_ptr(), int(full),
+        n, r, w, core, halo, plan.rows, plan.bands, plan.slots, plan.waves, plan.smem_bytes,
+        num_levels, p.step, p.d, p.scan_passes, lbits, int(p.extent_only), p.min_area,
+        p.max_area, p.max_variation, p.min_diversity, rt.stream_ptr(dev))
 
 
 def level_sweep_windows(windows: torch.Tensor, p: SweepParams, core: int,
@@ -326,8 +399,8 @@ def level_sweep_windows(windows: torch.Tensor, p: SweepParams, core: int,
     with each of its bodies: the tiled Jacobi passes, with the extent-only
     area where ``p.extent_only``, or the scan-pass design where
     ``p.scan_passes > 0``.  The tiles refuse windows of 32767 rows or
-    columns, the scan-pass design rows wider than :data:`SCAN_MAX_WIDTH`;
-    the plain version takes any size.
+    columns, the scan-pass design windows that :func:`scan_plan` cannot
+    hold; the plain version takes any size.
     """
     _check_windows(windows, core, halo)
     if rt.uses_plain(windows):

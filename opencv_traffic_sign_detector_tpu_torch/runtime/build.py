@@ -51,7 +51,7 @@ _SIGNATURES = {
     "tsd_clahe_apply": [_V] * 7 + [_I] * 6 + [_V],
     "tsd_level_sweep": [_V] * 4 + [_I] * 14 + [_F] * 4 + [_V],
     "tsd_level_sweep_full": [_V] * 4 + [_I] * 11 + [_F] * 4 + [_V],
-    "tsd_level_sweep_scan": [_V] * 4 + [_I] * 12 + [_F] * 4 + [_V],
+    "tsd_level_sweep_scan": [_V] * 4 + [_I] * 17 + [_F] * 4 + [_V],
     "tsd_flood_bbox": [_V, _V, _V] + [_I] * 8 + [_V],
     "tsd_propagate_scan": [_V, _V, _V] + [_I] * 5 + [_V],
     "tsd_propagate_rolls": [_V] * 4 + [_I] * 8 + [_V],

@@ -20,6 +20,7 @@ import os
 import shutil
 import sys
 import tempfile
+import types
 
 import jax
 import jax.numpy as jnp
@@ -292,3 +293,231 @@ def test_quality_probe_sweep_res_extent_line_equal(tree, interpret, tmp_path,  #
     assert "ext=1" in out["ref"][-1] and "dets=0 " not in out["ref"][-1]
     with open(port_tmp / "probe_v.txt") as a, open(ref_tmp / "probe_v.txt") as b:
         assert a.read() == b.read()
+
+
+# --- the scan-pass kernel's plan and its band decomposition ---------------------
+
+H100_SMS, H100_SMEM = 132, 232448
+# (windows, rows, columns) -> (rows a band, bands, windows a wave, waves)
+SCAN_PLANS = {
+    "tuned": ((64, 408, 684), (26, 16, 8, 8)),
+    "two_strip": ((16, 808, 1364), (13, 63, 2, 8)),
+    "probe_1080p": ((64, 552, 964), (17, 33, 4, 16)),
+}
+
+
+@pytest.mark.parametrize("name", list(SCAN_PLANS))
+def test_scan_plan_at_the_card_limits(name):
+    """The plan of each shape the scan-pass body runs at on an H100: every
+    band of a window resident at once, bands covering the rows with none
+    empty, the shared memory within a block's, the fewest waves x band rows
+    among the band heights that fit."""
+    (n, r, w), want = SCAN_PLANS[name]
+    plan = tmc.scan_plan(n, r, w, H100_SMS, H100_SMEM)
+    assert (plan.rows, plan.bands, plan.slots, plan.waves) == want
+    assert plan.grid <= H100_SMS and plan.slots * plan.waves >= n
+    assert (plan.bands - 1) * plan.rows < r <= plan.bands * plan.rows
+    assert plan.smem_bytes == plan.rows * (13 * w + 4) <= H100_SMEM
+    assert plan.summary_bytes == 4 * plan.slots * (32 + 2 * plan.bands * 8 * w)
+    cost = plan.waves * plan.rows
+    for rows in range(1, H100_SMEM // (13 * w + 4) + 1):
+        bands = -(-r // rows)
+        if bands <= H100_SMS:
+            assert -(-n // min(H100_SMS // bands, n)) * rows >= cost
+
+
+@pytest.mark.parametrize("shape,why", [
+    ((1, 4, 17881), "does not fit one block"),  # a row wider than a block holds
+    ((4, 3500, 684), "more than the 132 blocks"),  # a window's bands not all resident
+    ((1, 4, 1 << 15), "int16"),
+])
+def test_scan_plan_refuses_windows_it_cannot_hold(shape, why):
+    with pytest.raises(ValueError, match=why):
+        tmc.scan_plan(*shape, H100_SMS, H100_SMEM)
+    assert tmc.scan_plan(1, 4, 17880, H100_SMS, H100_SMEM).rows == 1  # the widest row
+
+
+def test_scan_device_reads_the_opt_in_limit(monkeypatch):
+    """The plan's card limits come from torch's device properties: an H100
+    reports 132 SMs of 233472 bytes of shared memory, of which a block may
+    opt in to 232448 (1024 reserved a block)."""
+    props = types.SimpleNamespace(multi_processor_count=132,
+                                  shared_memory_per_multiprocessor=233472)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda device: props)
+    assert tmc.scan_device(torch.device("cuda", 0)) == (H100_SMS, H100_SMEM)
+
+
+def _band_column_resolve(mask, keys, chans, rows: int, big: int, bigc: int):
+    """Plain model of the kernel's column resolve by bands of ``rows``
+    window rows (csrc/mser_sweep.cu: band_col_resolve) over the state as the
+    kernel keeps it (sentinels off the mask, channels at their fills where the
+    key is < 0): per band and column a summary (a break in the band, the
+    reduce of its top run and of its bottom run), then per band the carries
+    (the bottom runs of the bands above to the first band with a break, the
+    top runs of those below), then the local apply of each run's whole
+    value, the carries joining only the runs on the band's first and last
+    rows.  -> (keys, [ymin, ymax, xmin, xmax])."""
+    mn, mx = torch.minimum, torch.maximum
+    ops, ident = [mn, mn, mx, mn, mx], [big, bigc, -1, bigc, -1]
+    live = mask & (keys >= 0)
+    vals = [torch.where(mask, keys, big)] + [
+        torch.where(live, c, f) for c, f in zip(chans, ident[1:])]
+    n, r, w = mask.shape
+    bands = -(-r // rows)
+    spans = [(b * rows, min(r, (b + 1) * rows)) for b in range(bands)]
+
+    def full(v):
+        return torch.full((n, w), v, dtype=torch.int32)
+
+    summaries = []
+    for y0, y1 in spans:
+        brk = torch.zeros((n, w), dtype=torch.bool)
+        top, bot = [full(v) for v in ident], [full(v) for v in ident]
+        for y in range(y0, y1):
+            m = mask[:, y]
+            top = [torch.where(~brk & m, op(t, v[:, y]), t) for t, v, op in zip(top, vals, ops)]
+            bot = [torch.where(m, op(b, v[:, y]), full(i))
+                   for b, v, op, i in zip(bot, vals, ops, ident)]
+            brk = brk | ~m
+        summaries.append((brk, top, bot))
+    out = [v.clone() for v in vals]
+    for b, (y0, y1) in enumerate(spans):
+        up, dn = [full(v) for v in ident], [full(v) for v in ident]
+        for others, carry, part in ((range(b - 1, -1, -1), up, 2), (range(b + 1, bands), dn, 1)):
+            stop = torch.zeros((n, w), dtype=torch.bool)
+            for bb in others:
+                s = summaries[bb]
+                carry[:] = [torch.where(stop, c, op(c, v)) for c, v, op in zip(carry, s[part], ops)]
+                stop = stop | s[0]
+        # forward: each pixel the reduce from its run's start, the carry from
+        # above joining a run on the band's first row
+        acc, fwd = up, []
+        for y in range(y0, y1):
+            m = mask[:, y]
+            acc = [torch.where(m, op(a, v[:, y]), full(i))
+                   for a, v, op, i in zip(acc, vals, ops, ident)]
+            fwd.append(acc)
+        # backward: each run its value at its end, the carry from below
+        # joining a run on the band's last row
+        res = None
+        for j in range(y1 - y0 - 1, -1, -1):
+            y = y0 + j
+            m = mask[:, y]
+            end = [op(f, d) for f, d, op in zip(fwd[j], dn, ops)] if j == y1 - y0 - 1 else (
+                [torch.where(mask[:, y + 1], rv, f) for rv, f in zip(res, fwd[j])])
+            res = end
+            for o, v in zip(out, res):
+                o[:, y] = torch.where(m, v, o[:, y])
+    keys = torch.where(mask, out[0], big)
+    live = mask & (keys >= 0)
+    return keys, [torch.where(live, v, f) for v, f in zip(out[1:], ident[1:])]
+
+
+@pytest.mark.parametrize("rows", [1, 2, 7, "r"])
+def test_band_column_resolve_matches_axis_resolve(rows):
+    """The band decomposition equals ``axis_resolve`` along the columns, run
+    through the sweep's key and channel handling, on masks whose runs cross
+    bands, columns all mask inside a band (and across all bands) and dead
+    keys (-1) that must spread through their runs."""
+    rng = np.random.default_rng(11)
+    n, r, w = 3, 31, 23
+    big, bigc = 256 * r * w, 1 << 28
+    mask = rng.random((n, r, w)) < 0.8
+    mask[:, :, 3] = True            # a whole column: one run across every band
+    mask[:, 9:17, 5:8] = True       # all mask across a band boundary
+    mask[:, 14, 10:12] = False      # a break just inside a band
+    mask[:, [0, -1]] = False        # the window's first and last rows
+    keys = rng.integers(0, big, (n, r, w))
+    keys[rng.random((n, r, w)) < 0.06] = -1
+    keys[:, 20, 3] = -1             # a dead key in the whole column's run
+    chans = [rng.integers(0, r, (n, r, w)), rng.integers(0, r, (n, r, w)),
+             rng.integers(0, w, (n, r, w)), rng.integers(0, w, (n, r, w))]
+    mask_t = torch.from_numpy(mask)
+    keys_t = torch.from_numpy(keys.astype(np.int32))
+    chans_t = [torch.from_numpy(c.astype(np.int32)) for c in chans]
+    want_k, want_c = tmc._scan_resolve(mask_t, keys_t, chans_t, -2, big, bigc)
+    got_k, got_c = _band_column_resolve(mask_t, keys_t, chans_t, r if rows == "r" else rows,
+                                        big, bigc)
+    assert torch.equal(got_k, want_k)
+    for g, wnt in zip(got_c, want_c):
+        assert torch.equal(g, wnt)
+    assert (want_k[:, 1:-1, 3] == -1).all()  # the dead key spread through its run
+
+
+def _sweep_levels_ring_skip(windows: torch.Tensor, p, num_levels: int):
+    """The plain sweep's levels with the scan-pass kernel's ring traffic
+    (csrc/mser_sweep.cu: band_row_emit): the rings start as garbage, a pixel
+    off the level's mask neither reads nor writes them and emits as a
+    non-candidate, and at its first level in the mask it reads their initial
+    values and writes every slot.  Yields each level's byte map."""
+    n, r, w = windows.shape
+    f32, bf16 = torch.float32, torch.bfloat16
+    hw = r * w
+    big, bigc = 256 * hw, 1 << 28
+    im = windows.to(torch.int32)
+    rows = torch.arange(r, dtype=torch.int32).view(1, r, 1)
+    cols = torch.arange(w, dtype=torch.int32).view(1, 1, w)
+    keys0 = im * hw + rows * w + cols
+    mn, mx = torch.minimum, torch.maximum
+    keys = torch.full((n, r, w), big, dtype=torch.int32)
+    chans = [torch.full((n, r, w), v, dtype=torch.int32) for v in (bigc, -1, bigc, -1)]
+    nring = p.d + 1
+    rings = torch.full((p.d + 4, n, r, w), float("nan"), dtype=bf16)  # garbage
+    zero, inf = torch.tensor(0.0), torch.tensor(float("inf"))
+    for t in range(num_levels):
+        level = t * p.step
+        mask = (im <= level) & (rows > 0) & (rows < r - 1)
+        first = mask & (im > level - p.step)
+        keys = torch.where(mask, mn(keys, keys0), big)
+        chans = [torch.where(mask, op(c, v), fill) for c, v, op, fill in
+                 zip(chans, (rows, rows, cols, cols), (mn, mx, mn, mx), (bigc, -1, bigc, -1))]
+        keys, *chans = tmc._scan_resolves(mask, keys, chans, p.scan_passes, big, bigc)
+        ymin, ymax, xmin, xmax = chans
+        anchor = mask & (keys == keys0)
+        bb = mn((ymax - ymin + 1).to(f32) * (xmax - xmin + 1).to(f32), torch.tensor(65535.0))
+        a_cur = torch.where(anchor, bb, zero)
+        keys = torch.where(anchor & (bb > p.max_area), -1, keys)
+        s_area = t % nring
+        s_td = (t + nring - p.d % nring) % nring
+        s_vnew = nring + (t + 2 * nring - p.d) % 2
+        s_vc = 2 * nring + 1 - s_vnew
+        s_last = nring + 2
+
+        def read(slot, init):
+            return torch.where(first, init, rings[slot].to(f32))
+
+        area_c, a_td = read(s_area, zero), read(s_td, zero)
+        v_c, v_prev, last = read(s_vc, inf), read(s_vnew, inf), read(s_last, zero)
+        v_new = torch.where((a_td > 0) & (a_cur > 0), (a_cur - a_td) / mx(a_td, torch.tensor(1.0)),
+                            inf)
+        cand = ((area_c >= p.min_area) & (area_c <= p.max_area) & (v_c < p.max_variation)
+                & (v_c <= v_prev) & (v_c <= v_new))
+        cand &= (last <= 0) | ((area_c - last) >= p.min_diversity * mx(area_c, torch.tensor(1.0)))
+        cand &= mask
+        qv = torch.clamp(254.0 - torch.floor(v_c * 253.0), 1.0, 254.0)
+        for k in range(nring):  # at a first level every slot is written
+            rings[k] = torch.where(first, zero.to(bf16), rings[k])
+        rings[s_vc] = torch.where(first, inf.to(bf16), rings[s_vc])
+        writes = ((s_area, a_cur), (s_vnew, v_new), (s_last, torch.where(cand, area_c, last)))
+        for slot, v in writes:
+            rings[slot] = torch.where(mask, v.to(bf16), rings[slot])
+        yield torch.where(cand, qv, zero)
+
+
+@pytest.mark.parametrize("body", ["scan1", "scan2"])
+def test_ring_skip_equals_the_plain_rings(body):
+    """The scan-pass kernel leaves a pixel's rings untouched until it joins
+    the mask and then starts them from their initial values: the same
+    candidates, level by level, as the plain sweep's rings over every pixel
+    (on bordered planes and the seam plane, dead marks included)."""
+    cfg = dataclasses.replace(BODIES[body], max_area=60)
+    d_idx, nl = _schedule(cfg)
+    p = tmc.SweepParams.from_config(_port(cfg), d_idx)
+    for plane in PLANES.values():
+        win = torch.from_numpy(plane())
+        got = list(_sweep_levels_ring_skip(win, p, nl))
+        want = list(tmc._sweep_levels_plain(win, p, nl))
+        assert len(got) == len(want) == nl
+        for g, wnt in zip(got, want):
+            assert torch.equal(g, wnt)
+        assert sum(int((wnt > 0).sum()) for wnt in want) > 0
