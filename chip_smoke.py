@@ -9,7 +9,8 @@ Phases:
    the card's name and ``nvidia-smi`` name and power limit;
 2. build: builds the CUDA kernels from ``csrc/`` (into ``build/``, one nvcc
    per source, in parallel) and loads them, and prints ptxas' registers and
-   spills of the tiled sweep's two instantiations (K3 and K7);
+   spills of the tiled sweep's two instantiations (K3 and K7), the scan-pass
+   body's and K5's two register forms;
 3. kernels: captures the inputs that the paths hand each kernel on
    synthetic 1360x800 frames (K1 with and without its LUT tail, K2-K4, K7
    on the tuned main path at batch 32; K6 on that path's refine windows;
@@ -26,14 +27,15 @@ Phases:
    timed as calls queued behind a spin of the card (:func:`_queued_ms`),
    which leaves a short kernel's launch overhead out; the lines of K1-K7
    also print the recorded times of their earlier designs
-   (:data:`OLD_DESIGN`); K5's bound at the refine counts the passes each
-   window's data needs (:func:`_passes_to_rest`), and one more line times
-   that call on random keys under a dense mask, where no window comes to
-   rest and all 96 passes run; then the sweep's other bodies at the tuned
-   shapes, K3 and K7 each in its extent-only, scan-pass (2 passes) and
-   combined form (:func:`_sweep_bodies`), and K4 and K5 at the low-res refine's
-   shapes (``sweep_res_pipeline``: 4096 windows of 64x64 over the small
-   stack; K5 with ``refine_scan_passes=0``, in its resident form);
+   (:data:`OLD_DESIGN`); K5's bound, where its form stops at a fixed point
+   (every form but the tiled one), counts the passes each plane's data
+   needs (:func:`_passes_to_rest`); then the sweep's other bodies at the
+   tuned shapes, K3 and K7 each in its extent-only, scan-pass (2 passes)
+   and combined form (:func:`_sweep_bodies`), and K4 and K5 at the low-res
+   refine's shapes (``sweep_res_pipeline``: 4096 windows of 64x64 over the
+   small stack; K5 with ``refine_scan_passes=0``, in its 64-px register
+   form); one more line each times K5's two register-form calls where no
+   window comes to rest and all 96 passes run (:func:`_k5_all_passes`);
 4. identities: K7's per-level maps folded into ``max((qv << lbits) | t)``
    equal K3's output on the tuned single-strip windows (the two outputs of
    one tiled kernel), and the bbox and area of ``K6(seed map, mask) == 0``
@@ -52,10 +54,14 @@ Phases:
    heights, unaligned rows and a reflect-padded frame (:func:`_k2_shapes`);
    K5's tiled form at planes narrower and shorter than a region, ragged
    sizes, 0 to 2 spans + 3 passes, masks on all four edges, 1 and 130
-   planes, its window form at 1, 133 and 300 planes of 128x128 with masks
-   on all four edges, a serpentine whose flood outlasts its passes and a
-   sparse mask that must stop early, and its resident form at planes
-   smaller than a window (:func:`_k5_shapes`); K6 on random keys of both
+   planes, its register forms at 1, 133 and 300 planes of 128x128 and 1,
+   3, 4 and 4097 of 64x64 with masks on all four edges, at each side a
+   serpentine whose flood outlasts its passes and a sparse mask that must
+   stop early (by its time), and its resident form at planes smaller than
+   a window, 98x98 among them, and at the largest it takes (160x161)
+   beside the smallest tiled plane (161x161), each shape's form as
+   :func:`ops.prop_cuda.rolls_form` and the library name it
+   (:func:`_k5_shapes`); K6 on random keys of both
    signs at 128x128, 37x100, thin and odd-width planes, passes 0 to 3, and
    on one run along a whole row and column (:func:`_k6_shapes`); K1 and its
    LUT tail at 1, 4 and 8 tiles,
@@ -151,7 +157,9 @@ Phases:
     frames/s; (b) ``distributed_train_step`` over 2 shards on the card on
     the dry run's planted frames against 2 CPU shards (class counts equal,
     statistics within 1e-5, each fit within 1e-5 of solving the CPU's
-    statistics, :func:`_lda_backward_error`); (c) ``sharded_recognize_fn`` with (b)'s heads against the
+    statistics, :func:`_lda_backward_error`), and K5 at that step's sweep
+    planes (``[8,98,98]``, 8 passes, the resident form) as a kernel row
+    measured as in phase 3, its launches those of the step (78 a shard); (c) ``sharded_recognize_fn`` with (b)'s heads against the
     unsharded ``recognize_batch`` (boxes, labels, valid equal); (d) the
     SPMD CNN step on the tiny config for 2 steps (finite losses, moving
     parameters), its first step at f32 against the CPU mesh on the same
@@ -259,6 +267,12 @@ K2_OPS, SCAN_OPS, LUT_OPS = 20, 6, 9
 # reversals, a union), each column resolve (an and and an or down and up)
 # and the reduction (popcount, sum, column OR).
 FLOOD_OPS = {"mask": 1, "pack": 1, "row": 14, "col": 4, "reduce": 3}
+# K5 a pixel a pass: the least of five keys, two 3-input minima (one
+# integer instruction each on sm_90, __vimin3_s32), and the mask, one
+# maximum with a floor or a select; plus the mask once a pixel.  A test for
+# a change that lets a form stop at a fixed point is the design's work, not
+# the function's: the passes counted are those the data needs instead.
+ROLLS_OPS = 3
 # Earlier designs at the tuned path's shapes, one call between events, as
 # recorded on NVIDIA H100 80GB HBM3, 700.00 W (PERF.md section 6): K3 per
 # pass (an init, each pass and an emit a launch, state in device memory;
@@ -286,6 +300,9 @@ K7_OLD_MS = 44.4576
 K3_SCAN_OLD_MS = 48.2324
 K3_SCAN_STRIPS_OLD_MS = 60.0918
 K7_SCAN_OLD_MS = 47.7864
+# K5 at the low-res refine's [4096,64,64] windows, 96 passes, in the
+# shared-memory form that ran every pass (a block a plane of 1024 threads).
+K5_SWEEP_RES_OLD_MS = 3.0928
 OLD_DESIGN = {"level_sweep": ("old per-pass design", K3_OLD_MS),
               "level_sweep_full": ("old per-pass design", K7_OLD_MS),
               "flood_bbox": ("old run-walk design", K4_OLD_MS),
@@ -297,7 +314,9 @@ OLD_DESIGN = {"level_sweep": ("old per-pass design", K3_OLD_MS),
               "propagate_scan": ("old run-walk design", K6_OLD_MS),
               "level_sweep_scan": ("scan body's first form", K3_SCAN_OLD_MS),
               "level_sweep_scan_strips": ("scan body's first form", K3_SCAN_STRIPS_OLD_MS),
-              "level_sweep_full_scan": ("scan body's first form", K7_SCAN_OLD_MS)}
+              "level_sweep_full_scan": ("scan body's first form", K7_SCAN_OLD_MS),
+              "propagate_rolls_sweep_res": ("old shared-memory form, all passes",
+                                            K5_SWEEP_RES_OLD_MS)}
 
 
 def _mask_pixel_levels(x: torch.Tensor, step: int, num_levels: int) -> int:
@@ -392,7 +411,7 @@ def _bound(name: str, args: tuple, out: torch.Tensor,
     elif name.startswith("propagate_rolls"):
         per_plane = x[0].numel()
         total = x.shape[0] * args[3] if need is None else int(need.sum())
-        int_ops = x.numel() + 5 * per_plane * total
+        int_ops = x.numel() + ROLLS_OPS * per_plane * total
     elif name == "propagate_scan":
         int_ops = x.numel() * (1 + SCAN_OPS * (2 * args[3] + 1))
     else:
@@ -422,6 +441,7 @@ NO_LIBRARY = {
     "level_sweep_full": "as K3",
     "flood_bbox_recognition": "as at the detection path",
     "propagate_rolls_recognition": "as at the recall config's call",
+    "propagate_rolls_lda": "as at the recall config's call",
 }
 
 
@@ -457,9 +477,10 @@ def _measure(name: str, kern, plain, a: tuple, kw: dict, src: str, replaces: str
     _require(got.shape == want.shape and got.dtype == want.dtype,
              f"{name}: {got.shape}/{got.dtype} vs plain {want.shape}/{want.dtype}")
     err = (got.to(torch.int64) - want.to(torch.int64)).abs().max().item()
-    # the refine's windows stop at their fixed points: the bound counts
-    # the passes these seed floods need
-    need = _passes_to_rest(*a) if kind == "propagate_rolls_refine" else None
+    # K5's one-launch forms stop at their fixed points: the bound counts the
+    # passes these keys need
+    form = prop_cuda.rolls_form(*a[0].shape[1:]) if kind.startswith("propagate_rolls") else None
+    need = _passes_to_rest(*a) if form not in (None, "tiled") else None
     bound_ms, bound_by, nbytes, ops = _bound(kind, a, got, need)
     library_ms = None
     if kind == "tile_histograms":
@@ -478,12 +499,14 @@ def _measure(name: str, kern, plain, a: tuple, kw: dict, src: str, replaces: str
     library = (f"library {library_ms:.3f} ms (torch.bincount)" if library_ms is not None
                else f"library none ({NO_LIBRARY.get(name) or NO_LIBRARY[kind]})")
     old = OLD_DESIGN.get(name)
-    if kind.startswith("propagate_rolls") and kind != "propagate_rolls_refine":
-        # the tiled form: ceil(passes / span) CUDA launches a call
+    if form == "tiled":
+        # ceil(passes / span) CUDA launches a call
         spans = prop_cuda.rolls_spans(a[3])
         core = prop_cuda.rolls_tiles(*a[0].shape[1:], spans[0])
-        shapes.append(f"{a[3]} passes in {len(spans)} CUDA launch(es) of spans {spans}, "
-                      f"core {core[0]}x{core[1]}")
+        shapes.append(f"tiled form, {a[3]} passes in {len(spans)} CUDA launch(es) of spans "
+                      f"{spans}, core {core[0]}x{core[1]}")
+    elif form is not None:
+        shapes.append(f"{form} form, one CUDA launch")
     if need is not None:
         shapes.append(_need_note(need, a[3]))
     print(f"[kernel] {name}: inputs {shapes} -> exact required, max_abs_err {err}; "
@@ -662,14 +685,30 @@ def _distinct_keys(shape, gen) -> torch.Tensor:
     return order.to(torch.int32).reshape(shape)
 
 
-def _k5_all_passes(pc, refine_args: tuple, smi: str, gen) -> None:
-    """Phase 3, K5's window form where no early stop fires: the refine
-    call's shape and passes on distinct random keys under a mask of density
-    0.9 that wraps: a plane's least key is still on its way, up to 128
-    pixels round the torus, when the passes are up."""
+def _serpentine(n: int, dev) -> torch.Tensor:
+    """A one-pixel path through every other row of an n x n plane, joined at
+    alternating ends: a flood from its head needs its length in passes."""
+    snake = torch.zeros((n, n), dtype=torch.bool, device=dev)
+    snake[1:-1:2, 1:-1] = True
+    for i, r in enumerate(range(2, n - 2, 2)):
+        snake[r, n - 2 if i % 2 == 0 else 1] = True
+    return snake
+
+
+def _k5_all_passes(pc, refine_args: tuple, label: str, smi: str, gen) -> None:
+    """Phase 3, a register form of K5 where no early stop fires: the refine
+    call's shape and passes on distinct random keys.  At 128 px a mask of
+    density 0.9 that wraps: a plane's least key is still on its way, up to
+    128 pixels round the torus, when the passes are up.  At 64 px the torus
+    is too small for that, so the mask is a serpentine: the path's least key
+    is hundreds of pixels from one of its ends."""
     keys0, _, big, passes = refine_args
     keys = _distinct_keys(keys0.shape, gen)
-    mask = _edge_mask(keys0.shape, 0.9, gen)
+    p, side = keys0.shape[0], keys0.shape[-1]
+    if side == 128:
+        mask, what = _edge_mask(keys0.shape, 0.9, gen), "mask density 0.9 on all four edges"
+    else:
+        mask, what = _serpentine(side, keys.device).expand(p, side, side).contiguous(), "serpentine"
     got = pc.propagate_rolls(keys, mask, big, passes)
     same = torch.equal(got, pc.propagate_rolls_plain(keys, mask, big, passes))
     need = _passes_to_rest(keys, mask, big, passes)
@@ -678,13 +717,13 @@ def _k5_all_passes(pc, refine_args: tuple, smi: str, gen) -> None:
     del got
     ms = _time_ms(lambda: pc.propagate_rolls(keys, mask, big, passes))
     queued_ms = _queued_ms(lambda: pc.propagate_rolls(keys, mask, big, passes))
-    print(f"[kernel] propagate_rolls_refine, no plane at rest: inputs {tuple(keys.shape)} distinct "
-          f"random keys, mask density 0.9 on all four edges, {_need_note(need, passes)} -> "
-          f"equals plain {same}; kernel {ms:.4f} ms (queued behind a spin {queued_ms:.4f} ms); bound "
-          f"{bound_ms:.4f} ms by {bound_by} ({nbytes} bytes, {ops} operations); {smi}")
-    _require(same, "K5 window form on random keys differs from its plain version")
-    _require(int(need.min()) == passes, "K5 all-passes call: a plane came to rest")
-    _require(min(ms, queued_ms) >= bound_ms, "K5 all-passes call reads under its bound")
+    print(f"[kernel] {label}, no plane at rest: inputs {tuple(keys.shape)} distinct random keys, "
+          f"{what}, {_need_note(need, passes)} -> equals plain {same}; kernel {ms:.4f} ms "
+          f"(queued behind a spin {queued_ms:.4f} ms); bound {bound_ms:.4f} ms by {bound_by} "
+          f"({nbytes} bytes, {ops} operations); {smi}")
+    _require(same, f"{label}: K5 on random keys differs from its plain version")
+    _require(int(need.min()) == passes, f"{label}: K5 all-passes call, a plane came to rest")
+    _require(min(ms, queued_ms) >= bound_ms, f"{label}: K5 all-passes call reads under its bound")
 
 
 def _schedule(cfg) -> tuple[int, int]:
@@ -1063,27 +1102,35 @@ def _k5_shapes(pc, rt, gen) -> None:
     form: a plane narrower and a plane shorter than one region (the plane
     repeats inside it), sizes that are no multiple of a tile, 1 and 130
     planes (more than the card has SMs), at 0, 1, S-1, S, S+1 and 2S+3
-    passes.  The window form: 1, 133 and 300 planes of 128x128 at 0, 1, 2,
-    95 and 96 passes; a seed flood along a serpentine, which needs more
-    passes than it is given, so that a stop would show as a difference; and
-    a sparse mask at rest after a few passes, which must take less than
-    half the time of a dense one that is not.  The resident form: planes
-    smaller than a window."""
+    passes.  The register forms: 1, 133 and 300 planes of 128x128 and 1, 3,
+    4 and 4097 planes of 64x64 at 0, 1, 2, 95 and 96 passes; per side, a seed flood along a serpentine, which needs
+    more passes than it is given, so that a stop would show as a difference,
+    and a sparse mask at rest after a few passes, which must take less than
+    half the time of a dense one that needs many.  The resident form: planes
+    smaller than a window, the LDA step's 98x98 among them, and the largest
+    it takes, 160x161, beside the smallest tiled one, 161x161.  Each shape's
+    form is :func:`rolls_form`'s and the library's."""
     dev = gen.device
     span = pc.ROLLS_SPAN
     big = 1 << 21
-    resident = rt.library().tsd_propagate_rolls_resident
+    form_of = rt.library().tsd_propagate_rolls_form
     tiled = (0, 1, span - 1, span, span + 1, 2 * span + 3)
+    windows = (0, 1, 2, 95, 96)
     cases = [("tiled, narrower than a region", (2, 300, 100), tiled),
              ("tiled, shorter than a region", (2, 40, 700), tiled),
              ("tiled, ragged", (3, 131, 307), tiled), ("tiled, one plane", (1, 203, 202), tiled),
-             ("tiled, 130 planes", (130, 170, 160), tiled)]
-    cases += [("window", (planes, 128, 128), (0, 1, 2, 95, 96)) for planes in (1, 133, 300)]
-    cases += [("resident", shape, (0, 1, 7, 96)) for shape in ((64, 100, 128), (64, 37, 100))]
+             ("tiled, 130 planes", (130, 170, 160), tiled),
+             ("tiled, the smallest", (2, 161, 161), tiled)]
+    cases += [("window", (planes, 128, 128), windows) for planes in (1, 133, 300)]
+    cases += [("window64", (planes, 64, 64), windows) for planes in (1, 3, 4, 4097)]
+    cases += [("resident", shape, (0, 1, 7, 96))
+              for shape in ((64, 100, 128), (64, 37, 100), (8, 98, 98), (2, 160, 161))]
     for label, shape, passes_list in cases:
         _, h, w = shape
-        form = "window" if (h, w) == (128, 128) else "resident" if resident(h, w) else "tiled"
-        _require(label.startswith(form), f"K5 {label}: a {h}x{w} plane takes the {form} form")
+        form = pc.rolls_form(h, w)
+        _require(label.split(",")[0] == form, f"K5 {label}: a {h}x{w} plane takes the {form} form")
+        _require(pc.ROLLS_FORMS[form_of(h, w)] == form,
+                 f"K5 {label}: rolls_form and the library disagree")
         results = []
         for i, passes in enumerate(passes_list):
             density = (0.1, 0.9)[i % 2]
@@ -1105,41 +1152,42 @@ def _k5_shapes(pc, rt, gen) -> None:
         _require(all(moved > 0 for p_, _, _, moved in results if p_ > 0),
                  f"K5 {label}: a case moved no key")
 
-    # a path through every other row, joined at alternating ends
-    snake = torch.zeros((128, 128), dtype=torch.bool, device=dev)
-    snake[1:-1:2, 1:-1] = True
-    for i, r in enumerate(range(2, 126, 2)):
-        snake[r, 126 if i % 2 == 0 else 1] = True
-    mask = snake.expand(133, 128, 128).contiguous()
-    keys = torch.full((133, 128, 128), big, dtype=torch.int32, device=dev)
-    keys[:, 1, 1] = 0
-    same = torch.equal(pc.propagate_rolls(keys, mask, big, 96),
-                       pc.propagate_rolls_plain(keys, mask, big, 96))
-    need = _passes_to_rest(keys, mask, big, 96)
-    print(f"[kernel K5 window form, serpentine] planes {tuple(keys.shape)}, a seed at the head of "
-          f"a path of {int(snake.sum())} pixels, 96 passes: equals plain {same}; "
-          f"{_need_note(need, 96)}")
-    _require(same and int(need.min()) == 96, "K5 window form: the serpentine flood stopped early "
-             "or differs from its plain version")
-
-    shape = (1056, 128, 128)  # 8 blocks an SM, one after the other
-    timed = {}
-    for density in (0.1, 0.9):
-        keys = _distinct_keys(shape, gen)
-        mask = _edge_mask(shape, density, gen)
+    for side in (128, 64):
+        form = pc.rolls_form(side, side)
+        snake = _serpentine(side, dev)
+        mask = snake.expand(133, side, side).contiguous()
+        keys = torch.full((133, side, side), big, dtype=torch.int32, device=dev)
+        keys[:, 1, 1] = 0
         same = torch.equal(pc.propagate_rolls(keys, mask, big, 96),
                            pc.propagate_rolls_plain(keys, mask, big, 96))
         need = _passes_to_rest(keys, mask, big, 96)
-        ms = _queued_ms(lambda: pc.propagate_rolls(keys, mask, big, 96))
-        timed[density] = (ms, int(need.max()), int(need.min()))
-        print(f"[kernel K5 window form, early stop] planes {shape}, density {density}, 96 passes: "
-              f"equals plain {same}; {_need_note(need, 96)}; queued {ms:.4f} ms")
-        _require(same, "K5 window form differs from its plain version")
-    _require(timed[0.1][1] < 96 and timed[0.9][2] == 96,
-             f"K5 window form: the stop cases need other passes than meant: {timed}")
-    _require(timed[0.1][0] < 0.5 * timed[0.9][0],
-             f"K5 window form: planes at rest took {timed[0.1][0]:.4f} ms, those that are not "
-             f"{timed[0.9][0]:.4f} ms: the early stop did not fire")
+        print(f"[kernel K5 {form} form, serpentine] planes {tuple(keys.shape)}, a seed at the "
+              f"head of a path of {int(snake.sum())} pixels, 96 passes: equals plain {same}; "
+              f"{_need_note(need, 96)}")
+        _require(same and int(need.min()) == 96, f"K5 {form} form: the serpentine flood stopped "
+                 "early or differs from its plain version")
+
+        # 8 blocks an SM at 128 px, one after the other; the refine's count at 64
+        shape = (1056, 128, 128) if side == 128 else (4096, 64, 64)
+        timed = {}
+        for density in (0.1, 0.9):
+            keys = _distinct_keys(shape, gen)
+            mask = _edge_mask(shape, density, gen)
+            same = torch.equal(pc.propagate_rolls(keys, mask, big, 96),
+                               pc.propagate_rolls_plain(keys, mask, big, 96))
+            need = _passes_to_rest(keys, mask, big, 96)
+            ms = _queued_ms(lambda: pc.propagate_rolls(keys, mask, big, 96))
+            timed[density] = (ms, int(need.max()), int(need.min()))
+            print(f"[kernel K5 {form} form, early stop] planes {shape}, density {density}, 96 "
+                  f"passes: equals plain {same}; {_need_note(need, 96)}; queued {ms:.4f} ms")
+            _require(same, f"K5 {form} form differs from its plain version")
+        # a dense 64-px torus is at rest within ~its 64-pixel radius, plus
+        # detours: it needs many passes, not all 96
+        _require(timed[0.1][1] < 96 and timed[0.9][2] >= (96 if side == 128 else 48),
+                 f"K5 {form} form: the stop cases need other passes than meant: {timed}")
+        _require(timed[0.1][0] < 0.5 * timed[0.9][0],
+                 f"K5 {form} form: planes at rest took {timed[0.1][0]:.4f} ms, those that are "
+                 f"not {timed[0.9][0]:.4f} ms: the early stop did not fire")
 
 
 def _k6_shapes(pc, gen) -> None:
@@ -1918,8 +1966,10 @@ def _lda_backward_error(coef, intercept, stats) -> tuple[float, float]:
     return eta.item(), ((intercept - want).abs().max() / want.abs().max()).item()
 
 
-def _scale_out_phases(rt, dev, smi: str, frames, signs, templates, mcfg, seed: int) -> dict:
-    """Phase 16: scale-out on the card.  -> {path: (launch counts, batches)}."""
+def _scale_out_phases(rt, dev, smi: str, frames, signs, templates, mcfg,
+                      seed: int) -> tuple[dict, dict]:
+    """Phase 16: scale-out on the card.  -> ({path: (launch counts, batches)},
+    the table row of K5 at the LDA step's sweep planes)."""
     import copy
 
     import numpy as np
@@ -1934,6 +1984,7 @@ def _scale_out_phases(rt, dev, smi: str, frames, signs, templates, mcfg, seed: i
     from opencv_traffic_sign_detector_tpu_torch.models import cnn_train as ct
     from opencv_traffic_sign_detector_tpu_torch.models import detector as det
     from opencv_traffic_sign_detector_tpu_torch.models.rec_pipeline import recognize_batch
+    from opencv_traffic_sign_detector_tpu_torch.ops import ccl, prop_cuda
     from opencv_traffic_sign_detector_tpu_torch.parallel import cnn as pcnn
     from opencv_traffic_sign_detector_tpu_torch.parallel import mesh as pm
     from opencv_traffic_sign_detector_tpu_torch.parallel import train as ptrain
@@ -1990,8 +2041,10 @@ def _scale_out_phases(rt, dev, smi: str, frames, signs, templates, mcfg, seed: i
     def train_step(m):
         return ptrain.distributed_train_step(m, dry)(*(pm.shard_batch(m, a) for a in planted))
 
-    (coef, intercept, class_counts), counts = _run_path(rt, "scale-out train step",
-                                                        lambda: train_step(two))
+    kept = {}  # K5's resident form at the step's sweep planes, 8 passes a call
+    with _record_nth(ccl, "propagate_rolls", 38, kept, "propagate_rolls"):
+        (coef, intercept, class_counts), counts = _run_path(rt, "scale-out train step",
+                                                            lambda: train_step(two))
     ccoef, cint, ccounts = train_step(cpu2)
 
     def statistics_on(device):
@@ -2018,6 +2071,14 @@ def _scale_out_phases(rt, dev, smi: str, frames, signs, templates, mcfg, seed: i
              and all(e <= 1e-5 and i <= 1e-5 for e, i in fits.values()),
              "the card's SPMD train step differs from the CPU mesh's")
     paths["scale-out train step"] = (counts, 1)
+    lda = kept.pop("propagate_rolls")[0][:4]
+    row = _measure("propagate_rolls_lda", prop_cuda.propagate_rolls,
+                   prop_cuda.propagate_rolls_plain, lda, {}, "csrc/prop_rolls.cu",
+                   "opencv_traffic_sign_detector_tpu/ops/pallas_prop.py:69", smi,
+                   kind="propagate_rolls")
+    row["launches"] = counts["propagate_rolls"]
+    _require(row["launches"] > 0, "scale-out train step: K5 never launched")
+    del kept, lda
 
     # --- 16c. sharded recognition with (b)'s heads -------------------------
     det_frames, red = _red_sign_frames(8)
@@ -2204,7 +2265,7 @@ def _scale_out_phases(rt, dev, smi: str, frames, signs, templates, mcfg, seed: i
     _require(len(traces) == 1 and named, "the profiler trace is missing or misses the sweep")
     shutil.rmtree(trace_dir, ignore_errors=True)
     print(f"[scale-out] phase 16 in {time.perf_counter() - t_phase:.1f} s; {smi}")
-    return paths
+    return paths, row
 
 
 def _sync_sites(dispatch, iters: int) -> list[str]:
@@ -2542,6 +2603,9 @@ def main() -> int:
     for name, props in _ptxas_kernels(report.getvalue(), "scan_band_kernel").items():
         mode = "K7, full map" if "ILb1E" in name else "K3, collapsed"
         print(f"[build] ptxas {name} ({mode}): {props}")
+    # K5's register forms, one template: rolls_window_kernel<Window>, <Window64>
+    for name, props in _ptxas_kernels(report.getvalue(), "rolls_window_kernel").items():
+        print(f"[build] ptxas {name} ({'64' if 'Window64' in name else '128'} px): {props}")
 
     # slice 1, the main path: MSER_7_200_2000_1, tuned --downscale 2 point
     base = MSERConfig.from_string("MSER_7_200_2000_1")
@@ -2655,13 +2719,16 @@ def main() -> int:
     table.append(_measure("propagate_rolls_sweep_res", prop_cuda.propagate_rolls,
                           prop_cuda.propagate_rolls_plain, *k5_res, "csrc/prop_rolls.cu",
                           f"{pallas_prop}:69", smi, kind="propagate_rolls_refine"))
-    del k4_res, k5_res
+    del k4_res
     # the sweep's extent-only, scan-pass and combined bodies
     table += _sweep_bodies(mser_cuda, inputs["level_sweep"][0], inputs["level_sweep_full"][0],
                            smi)
     rows = {row["name"]: row for row in table}
-    _k5_all_passes(prop_cuda, inputs["propagate_rolls_refine"][0], smi,
-                   torch.Generator(device=dev).manual_seed(args.seed))
+    all_gen = torch.Generator(device=dev).manual_seed(args.seed)
+    _k5_all_passes(prop_cuda, inputs["propagate_rolls_refine"][0], "propagate_rolls_refine",
+                   smi, all_gen)
+    _k5_all_passes(prop_cuda, k5_res[0], "propagate_rolls_sweep_res", smi, all_gen)
+    del k5_res
     # --- 4. identities between kernels ---------------------------------
     # K3 and K7 are the two outputs of one tiled kernel: the fold checks
     # that they agree; K7's independent check is its plain version (above)
@@ -2893,7 +2960,11 @@ def main() -> int:
 
     # --- 16. scale-out ------------------------------------------------------
     torch.cuda.empty_cache()
-    paths.update(_scale_out_phases(rt, dev, smi, frames, signs, templates, mcfg, args.seed))
+    scale_paths, lda_row = _scale_out_phases(rt, dev, smi, frames, signs, templates, mcfg,
+                                             args.seed)
+    paths.update(scale_paths)
+    table.append(lda_row)
+    batches[lda_row["name"]] = 2  # its launches a shard
 
     # --- 17. the bench and the tool twins ---------------------------------
     torch.cuda.empty_cache()

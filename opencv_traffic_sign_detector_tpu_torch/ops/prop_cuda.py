@@ -12,11 +12,12 @@
   seed component to ``(ymin, ymax, xmin, xmax, area)``.
 * K5 ``propagate_rolls``: K synchronous masked 4-neighbour min passes with
   wraparound, counterpart of ``pallas_prop.py: propagate_rolls_pallas``.
-  A 128x128 plane (the refine's windows) runs all passes in one block's
-  registers and stops at a fixed point; another plane that fits one block's
-  shared memory runs them resident there; larger ones (the sweeps' planes)
-  run spans of passes over tiles with halos (:func:`rolls_tiles`,
-  :func:`rolls_spans`).
+  The form follows from the planes' shape (:func:`rolls_form`): a 128x128
+  plane (the refine's windows) or a 64x64 one (the low-res refine's) runs
+  all passes in registers and stops at a fixed point; another plane that
+  fits one block's shared memory runs them resident there, with the same
+  stop; larger ones (the sweeps' planes) run spans of passes over tiles with
+  halos (:func:`rolls_tiles`, :func:`rolls_spans`).
 * K6 ``propagate_scan``: K4's flood on given keys without the reduction,
   counterpart of ``pallas_prop.py: propagate_scan_pallas``: a plane of at
   most 128x128 in one block's registers, each resolve a segmented min scan
@@ -46,6 +47,12 @@ MAX_WIN = 128
 # quarter (PERF.md section 6).
 ROLLS_REGION_H, ROLLS_REGION_W = 64, 128
 ROLLS_SPAN = 12
+# Shared memory one block may use on sm_90 (csrc/prop_rolls.cu:
+# kResidentBytes): the resident form holds two int32 key buffers and a mask
+# byte a pixel.
+ROLLS_RESIDENT_BYTES = 232448
+# K5's forms by csrc/prop_rolls.cu: tsd_propagate_rolls_form's codes.
+ROLLS_FORMS = ("window", "window64", "resident", "tiled")
 
 
 def nb4(x: torch.Tensor, op) -> torch.Tensor:
@@ -202,6 +209,19 @@ def rolls_spans(passes: int) -> list[int]:
     return [min(span, passes - i) for i in range(0, passes, span)]
 
 
+def rolls_form(h: int, w: int) -> str:
+    """K5's form for [*, h, w] planes, as ``csrc/prop_rolls.cu: rolls_form``
+    chooses it: "window" (128x128 in registers), "window64" (64x64 in
+    registers), "resident" (any other plane whose two key buffers and mask
+    fit one block's shared memory) or "tiled".  The library's choice is the
+    one that runs; :func:`propagate_rolls` raises where this one differs."""
+    if (h, w) == (128, 128):
+        return "window"
+    if (h, w) == (64, 64):
+        return "window64"
+    return "resident" if h * w * 9 <= ROLLS_RESIDENT_BYTES else "tiled"
+
+
 def propagate_rolls(keys: torch.Tensor, mask: torch.Tensor, big: int, passes: int,
                     site: str = "propagate_rolls") -> torch.Tensor:
     """K5: keys int32 [P, H, W], mask bool [P, H, W] -> propagated keys.
@@ -209,22 +229,27 @@ def propagate_rolls(keys: torch.Tensor, mask: torch.Tensor, big: int, passes: in
     Replaces ``pallas_prop.py: propagate_rolls_pallas`` at any plane size
     (the reference's VMEM cap does not apply).  ``site`` names the launch
     counter: the sweep and the refine count apart.  The kernel's form
-    follows from H and W alone.  A 128x128 plane runs in one block's
-    registers, in one CUDA launch, and leaves the loop at the first pass
-    that changes no pixel (a fixed point: exact).  Any other plane that fits
-    one block's shared memory (the refine's windows on frames smaller than
-    128 pixels) runs all passes resident there, in one launch too.  A larger
-    one takes ``len(rolls_spans(passes))`` launches (``ceil(passes /
-    ROLLS_SPAN)``; the mask alone at 0 passes) over tiles.
+    follows from H and W alone (:func:`rolls_form`).  The window forms hold
+    a 128x128 or a 64x64 plane in one block's registers, the resident form
+    any other plane that fits one block's shared memory (the refine's windows
+    on frames smaller than 128 pixels, small sweep planes); each runs in one
+    CUDA launch and leaves the loop at the first pass that changes no pixel
+    of its plane (a fixed point: exact).  A larger plane takes
+    ``len(rolls_spans(passes))`` launches (``ceil(passes / ROLLS_SPAN)``; the
+    mask alone at 0 passes) over tiles.
     """
     _check_keys_mask(keys, mask)
     if rt.uses_plain(keys, mask):
         return propagate_rolls_plain(keys, mask, big, passes)
     p, h, w = keys.shape
     lib = rt.library()
+    form = ROLLS_FORMS[lib.tsd_propagate_rolls_form(h, w)]
+    if form != rolls_form(h, w):
+        raise RuntimeError(f"K5 on {h}x{w} planes: the library takes the {form} form, "
+                           f"rolls_form the {rolls_form(h, w)} form")
     out = torch.empty_like(keys)
     span, core_h, core_w, scratch = 0, 0, 0, None
-    if p and h and w and passes and not lib.tsd_propagate_rolls_resident(h, w):
+    if p and h and w and passes and form == "tiled":
         spans = rolls_spans(passes)
         span = spans[0]
         core_h, core_w = rolls_tiles(h, w, span)

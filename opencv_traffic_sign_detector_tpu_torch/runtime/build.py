@@ -55,7 +55,7 @@ _SIGNATURES = {
     "tsd_flood_bbox": [_V, _V, _V] + [_I] * 8 + [_V],
     "tsd_propagate_scan": [_V, _V, _V] + [_I] * 5 + [_V],
     "tsd_propagate_rolls": [_V] * 4 + [_I] * 8 + [_V],
-    "tsd_propagate_rolls_resident": [_I, _I],
+    "tsd_propagate_rolls_form": [_I, _I],
 }
 
 _launches = dict.fromkeys(KERNELS, 0)

@@ -342,34 +342,43 @@ def _from_regs(regs, h, w):
 
 
 def _k5_window_model(keys, mask, big, passes):
-    """One block of rolls_window_kernel in numpy: a 128x128 plane in the
-    register layout, each pass reading up and down from the lane's own rows
-    or the exchange rows of the warps (wp + 15) % 16 and (wp + 1) % 16, left
-    and right from its own columns or lanes (lane + 31) % 32 and (lane + 1)
-    % 32; the mask applied as a floor under the neighbours' minimum (the
-    least int32 on the mask, ``big`` off it); the barrier of pass p leaves
-    the loop when pass p - 1 changed no pixel.  -> (keys, passes run)."""
-    m = _to_regs(mask, False)
-    v = np.where(m, _to_regs(keys, 0), big).astype(np.int32)
+    """One block of rolls_window_kernel (S = 128) or rolls_window64_kernel
+    (S = 64) in numpy on an [S, S] plane: registers [warp S / 8, row 8, lane
+    32, column C = S / 32], pixel (i, j) being row i % 8 of warp i // 8 and
+    column j % C of lane j // C.  Each
+    pass reads up and down from the lane's own rows or the exchange rows of
+    the warps (wp - 1) and (wp + 1) modulo the warps, left and right from its
+    own columns or lanes (lane + 31) % 32 and (lane + 1) % 32; the mask is a
+    floor under the neighbours' minimum (the least int32 on the mask, ``big``
+    off it); the barrier of pass p leaves the loop when pass p - 1 changed
+    no pixel.  -> (keys, passes run)."""
+    side = keys.shape[0]
+    cols, warps = side // 32, side // _ROWS
+
+    def to_regs(x):
+        return x.reshape(warps, _ROWS, 32, cols).copy()
+
+    m = to_regs(mask)
+    v = np.where(m, to_regs(keys), big).astype(np.int32)
     floor = np.where(m, np.iinfo(np.int32).min, big).astype(np.int32)
-    wp, lane = np.arange(_WARPS), np.arange(_LANES)
+    wp, lane = np.arange(warps), np.arange(32)
     changed, ran = True, 0
     for _ in range(passes):
-        first, last = v[:, 0].copy(), v[:, _ROWS - 1].copy()  # publish_rows
+        first, last = v[:, 0].copy(), v[:, _ROWS - 1].copy()  # the exchange rows
         if not changed:
             break
-        prev, below = last[(wp + _WARPS - 1) % _WARPS], first[(wp + 1) % _WARPS]
+        prev, below = last[(wp + warps - 1) % warps], first[(wp + 1) % warps]
         up = np.concatenate([prev[:, None], v[:, :-1]], 1)
         dn = np.concatenate([v[:, 1:], below[:, None]], 1)
-        lf_in = v[:, :, (lane + 31) & 31, 3]  # the shuffle of cur.w
-        rt_in = v[:, :, (lane + 1) & 31, 0]   # the shuffle of cur.x
+        lf_in = v[:, :, (lane + 31) & 31, cols - 1]  # the shuffle of the last column
+        rt_in = v[:, :, (lane + 1) & 31, 0]          # the shuffle of the first
         lf = np.concatenate([lf_in[..., None], v[..., :-1]], -1)
         rt_ = np.concatenate([v[..., 1:], rt_in[..., None]], -1)
         new = np.maximum(np.minimum(np.minimum(np.minimum(v, up), np.minimum(dn, lf)), rt_), floor)
         changed = bool((new ^ v).any())
         v = new
         ran += 1
-    return _from_regs(v, 128, 128), ran
+    return v.reshape(side, side), ran
 
 
 def _edge_mask(rng, shape, density):
@@ -466,6 +475,205 @@ def test_k5_window_stop_fires_only_at_rest():
     off[64, 60], off[3, 3] = big, 0  # a seed off its mask: at rest after one pass
     got, ran = _k5_window_model(off, blob, big, 96)
     assert ran == 1 and (got == big).all()
+
+
+@pytest.mark.parametrize("density", [0.1, 0.9])
+@pytest.mark.parametrize("passes", [0, 1, 2, 95, 96])
+def test_k5_window64_model_matches_plain(passes, density):
+    """K5's 64-px register form written out in numpy (lanes of 2 columns,
+    the wrap through lane 31 and warp 7, the stop on a pass without change)
+    equals the plain version exactly on 3 planes of random keys with masks
+    that touch all four edges."""
+    rng = np.random.default_rng(passes * 10 + int(density * 10))
+    shape, big = (3, 64, 64), 2**21
+    keys = rng.integers(-5, 2**20, shape).astype(np.int32)
+    mask = _edge_mask(rng, shape, density)
+    want = tprop.propagate_rolls_plain(torch.from_numpy(keys), torch.from_numpy(mask), big,
+                                       passes).numpy()
+    for q in range(shape[0]):
+        got, ran = _k5_window_model(keys[q], mask[q], big, passes)
+        np.testing.assert_array_equal(got, want[q])
+        assert ran <= passes
+    if passes:
+        assert (want != np.where(mask, keys, big)).any()  # some keys moved
+
+
+@pytest.mark.parametrize("density,passes", [(0.15, 40), (0.95, 9)])
+def test_k5_window64_model_matches_kernel_interpret(density, passes):
+    """The 64-px model against the reference kernel body run through the
+    Pallas interpreter at (2, 64, 64), exactly: a sparse mask comes to rest
+    before its passes are up (the model stops), a dense one does not."""
+    rng = np.random.default_rng(passes + 64)
+    shape, big = (2, 64, 64), 2**21
+    keys = rng.integers(-5, 2**20, shape).astype(np.int32)
+    mask = _edge_mask(rng, shape, density)
+    kern = functools.partial(jprop._kernel, num_rolls=passes, big=big)
+    want = np.asarray(pl.pallas_call(
+        kern,
+        out_shape=jax.ShapeDtypeStruct(shape, jnp.int32),
+        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 2,
+        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
+        interpret=True,
+    )(jnp.asarray(keys), jnp.asarray(mask).astype(jnp.int8)))
+    rans = []
+    for q in range(shape[0]):
+        got, ran = _k5_window_model(keys[q], mask[q], big, passes)
+        np.testing.assert_array_equal(got, want[q])
+        rans.append(ran)
+    assert (max(rans) < passes) == (density < 0.5)
+
+
+def test_k5_window64_stop_fires_only_at_rest():
+    """At 64 px: a seed flood along a serpentine needs more than 96 passes,
+    so the stop must not fire; a seed in a 6x15 blob is at rest after
+    (35 - 32) + (34 - 25) = 12 changing passes and the model stops at the
+    13th, with the plain result."""
+    big = 64 * 64 + 1
+    snake = _serpentine(64)
+    seed = np.full((64, 64), big, np.int32)
+    seed[1, 1] = 0
+    got, ran = _k5_window_model(seed, snake, big, 96)
+    want = tprop.propagate_rolls_plain(torch.from_numpy(seed[None]), torch.from_numpy(snake[None]),
+                                       big, 96).numpy()[0]
+    np.testing.assert_array_equal(got, want)
+    assert ran == 96 and (got == 0).sum() == 97
+
+    blob = np.zeros((64, 64), bool)
+    blob[30:36, 20:35] = True
+    seed = np.full((64, 64), big, np.int32)
+    seed[32, 25] = 0
+    got, ran = _k5_window_model(seed, blob, big, 96)
+    want = tprop.propagate_rolls_plain(torch.from_numpy(seed[None]), torch.from_numpy(blob[None]),
+                                       big, 96).numpy()[0]
+    np.testing.assert_array_equal(got, want)
+    assert ran == 13 and (got == 0).sum() == 6 * 15
+
+
+@pytest.mark.parametrize("h,w,form", [(128, 128, "window"), (64, 64, "window64"),
+                                      (98, 98, "resident"), (100, 128, "resident"),
+                                      (37, 100, "resident"), (402, 682, "tiled"),
+                                      (160, 161, "resident"), (161, 161, "tiled")])
+def test_k5_rolls_form(h, w, form):
+    """K5's form by plane shape, as csrc/prop_rolls.cu chooses it: the two
+    register forms at exactly 128x128 and 64x64, the resident form for any
+    other plane whose 9 bytes a pixel fit a block's 232448 bytes of shared
+    memory (25,827 pixels), the tiled form beyond."""
+    assert tprop.rolls_form(h, w) == form
+
+
+def test_k5_rolls_form_mirrors_the_library_source():
+    """``rolls_form`` and ``ROLLS_FORMS`` against ``csrc/prop_rolls.cu:
+    rolls_form``, read from the source: the codes' order, the two register
+    forms' sides, and the resident form's limit (``kResidentBytes``, bytes a
+    pixel) at the planes on either side of it.  On the card the wrapper
+    checks the built library's choice at every call."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tprop.__file__).parents[1] / "csrc" / "prop_rolls.cu").read_text()
+    body = src[src.index("inline int rolls_form(int h, int w)"):]
+    body = body[:body.index("\n}\n")]
+    sides = dict(re.findall(r"struct (\w+) \{.*?static constexpr int kSide = (\w+)", src, re.S))
+    sides = {k: 32 * 4 if v == "kStripW" else int(v) for k, v in sides.items()}
+    for name, code in re.findall(r"if \(h == (\w+)::kSide && w == \1::kSide\) return (\d);",
+                                 body):
+        assert tprop.ROLLS_FORMS[int(code)] == name.lower()
+        assert tprop.rolls_form(sides[name], sides[name]) == name.lower()
+    on, off = re.search(r"return resident_bytes\(h, w\) <= kResidentBytes \? (\d) : (\d);",
+                        body).groups()
+    assert (tprop.ROLLS_FORMS[int(on)], tprop.ROLLS_FORMS[int(off)]) == ("resident", "tiled")
+    limit = int(re.search(r"constexpr long long kResidentBytes = (\d+);", src).group(1))
+    per_px = int(re.search(r"return \(long long\)h \* w \* (\d+);", src).group(1))
+    assert tprop.ROLLS_RESIDENT_BYTES == limit
+    most = limit // per_px
+    for h, w in ((160, 161), (161, 161), (1, most), (1, most + 1), (most, 1), (most + 1, 1)):
+        want = "resident" if h * w * per_px <= limit else "tiled"
+        assert tprop.rolls_form(h, w) == want, (h, w)
+    assert tprop.rolls_form(160, 161) == "resident" and tprop.rolls_form(161, 161) == "tiled"
+
+
+def _k5_resident_model(keys, mask, big, passes, threads):
+    """One block of rolls_resident_kernel in numpy on an [h, w] plane: thread
+    (tx, ty) of a 32 x threads / 32 block walks columns tx, tx + 32, ... and
+    in each its run of rows [ty * run, (ty + 1) * run), carrying the rows
+    above, at and below down the run; each pixel takes the maximum of the
+    neighbours' minimum and its floor (the mask byte 0 or -1 selects INT_MIN
+    or ``big`` bitwise); every pixel is written once a pass; the barrier
+    that starts a pass leaves the loop when the pass before changed no
+    pixel.  -> (keys, passes run)."""
+    h, w = keys.shape
+    ny = threads // 32
+    run = -(-h // ny)
+    on = np.where(mask, -1, 0).astype(np.int32)
+    floor = (on & np.int32(np.iinfo(np.int32).min)) | (~on & np.int32(big))
+    a = np.where(mask, keys, big).astype(np.int32)
+    changed, ran = True, 0
+    for _ in range(passes):
+        if not changed:
+            break
+        b = np.zeros_like(a)
+        written = np.zeros((h, w), np.int32)
+        for ty in range(ny):
+            r0, r1 = ty * run, min(h, ty * run + run)
+            for tx in range(32):
+                cols = np.arange(tx, w, 32)
+                if r0 >= r1 or not cols.size:
+                    continue
+                lc, rc = np.where(cols == 0, w - 1, cols - 1), np.where(cols == w - 1, 0, cols + 1)
+                up, cur = a[h - 1 if r0 == 0 else r0 - 1, cols], a[r0, cols]
+                for r in range(r0, r1):
+                    dn = a[0 if r == h - 1 else r + 1, cols]
+                    mn = np.minimum(np.minimum(np.minimum(cur, up), np.minimum(dn, a[r, lc])),
+                                    a[r, rc])
+                    b[r, cols] = np.maximum(mn, floor[r, cols])
+                    written[r, cols] += 1
+                    up, cur = cur, dn
+        assert (written == 1).all()
+        changed = bool((b != a).any())
+        a = b
+        ran += 1
+    return a, ran
+
+
+@pytest.mark.parametrize("threads", [1024, 512, 256])
+@pytest.mark.parametrize("h,w", [(98, 98), (100, 128), (37, 100), (5, 3)])
+def test_k5_resident_model_matches_plain(h, w, threads):
+    """The shared-memory form's walk and stop in numpy equal the plain
+    version exactly at 0, 1, 8 and 96 passes, with masks of density 0.3 and
+    0.9 on all four edges; a run of passes at rest stops early."""
+    rng = np.random.default_rng(h * w + threads)
+    big = 2**21
+    for passes, density in ((0, 0.9), (1, 0.3), (8, 0.9), (96, 0.3)):
+        keys = rng.integers(-5, 2**20, (1, h, w)).astype(np.int32)
+        mask = _edge_mask(rng, (1, h, w), density)
+        want = tprop.propagate_rolls_plain(torch.from_numpy(keys), torch.from_numpy(mask), big,
+                                           passes).numpy()[0]
+        got, ran = _k5_resident_model(keys[0], mask[0], big, passes, threads)
+        np.testing.assert_array_equal(got, want)
+        assert ran <= passes
+
+
+def test_k5_resident_stop_fires_only_at_rest():
+    """On a 98x98 plane a blob's seed flood stops one pass after the last
+    pass that changed a key; a serpentine's runs all 96 passes."""
+    big = 98 * 98 + 1
+    blob = np.zeros((98, 98), bool)
+    blob[40:47, 10:30] = True
+    seed = np.full((98, 98), big, np.int32)
+    seed[43, 15] = 0
+    got, ran = _k5_resident_model(seed, blob, big, 96, 1024)
+    want = tprop.propagate_rolls_plain(torch.from_numpy(seed[None]), torch.from_numpy(blob[None]),
+                                       big, 96).numpy()[0]
+    np.testing.assert_array_equal(got, want)
+    assert ran == (46 - 43) + (29 - 15) + 1 and (got == 0).sum() == 7 * 20
+    snake = _serpentine(98)
+    head = np.full((98, 98), big, np.int32)
+    head[1, 1] = 0
+    got, ran = _k5_resident_model(head, snake, big, 96, 1024)
+    want = tprop.propagate_rolls_plain(torch.from_numpy(head[None]),
+                                       torch.from_numpy(snake[None]), big, 96).numpy()[0]
+    np.testing.assert_array_equal(got, want)
+    assert ran == 96 and (got == 0).sum() == 97
 
 
 def _carry_min(on, val, carry):
