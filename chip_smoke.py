@@ -10,7 +10,9 @@ Phases:
 2. build: builds the CUDA kernels from ``csrc/`` (into ``build/``, one nvcc
    per source, in parallel) and loads them, and prints ptxas' registers and
    spills of the tiled sweep's two instantiations (K3 and K7), the scan-pass
-   body's and K5's two register forms;
+   body's and K5's two register forms, and the integer minima and maxima in
+   the SASS of the tiled sweep and K5's register forms (``cuobjdump``),
+   which their bounds count;
 3. kernels: captures the inputs that the paths hand each kernel on
    synthetic 1360x800 frames (K1 with and without its LUT tail, K2-K4, K7
    on the tuned main path at batch 32; K6 on that path's refine windows;
@@ -78,7 +80,12 @@ Phases:
    call to launch K1 with its tail and K2 once each (launch counts), and
    prints the CUDA kernels it launches, and those of the histogram-to-LUT
    steps as K1 with the plain steps and as ``tile_luts``
-   (``torch.profiler``, :func:`_cuda_trace`);
+   (``torch.profiler``, :func:`_cuda_trace`); requires no host sync in a
+   window of ``detect_batch`` calls and of ``DetectionPipeline.dispatch``
+   calls (:func:`_require_no_sync`), and times the slice one batch at a
+   time against two in flight (batch k+1 dispatched before batch k is
+   collected, as ``run_directory`` does), 24 batches each way in turns:
+   frames/s on the host's clock (:func:`_in_turns`);
 6. slice 2: the same for the ``--pixel_area_stability`` config (XLA sweep,
    pixel-count stability), requiring K1, K2 and K4 to launch, K3 not to
    launch and every frame to have proposals; then one batch of 8 of the
@@ -88,7 +95,8 @@ Phases:
    knobs (``sweep_extent_only``, ``scan_passes=2``,
    ``sweep_res_pipeline``), one warm-up and 3 timed batches each (K1-K4
    must launch), and the low-res refine with ``refine_scan_passes=0`` (K5
-   on the refine must launch, K4 not);
+   on the refine must launch, K4 not); each configuration's dispatch
+   without a host sync, as in phase 5;
 7. slices vs plain: the tuned path on 2 frames, the pixel-area path on 2
    frames and the recall path on 1 frame on the CPU (plain versions) must
    give identical proposals, and the tuned path matching detections; each
@@ -130,7 +138,8 @@ Phases:
     (:func:`_recognition_phases`);
 13. práctica 2, CNN proposals (the CLI's default source): mining,
     validation and inference with the detector at threshold 0.10; frames/s
-    and the same comparison with the CPU path;
+    and the same comparison with the CPU path; in 12 and 13
+    ``RecognitionPipeline.dispatch`` without a host sync, as in phase 5;
 14. training (:func:`_train_phases`): ``models/cnn_train.py: train`` of the
     v3 BatchNorm twin at the default ``TrainConfig`` (batch 32, 320x320
     crops, bf16 convs) but ``warmup_steps=3``, 31 steps, on 64 synthetic
@@ -154,10 +163,14 @@ Phases:
     data_mesh())`` (every visible card) on the tuned slice at batch 32, a
     warm-up and 3 timed batches, records equal to the unsharded pipeline's,
     K1 with its LUT tail, K2, K3 and K4 launched, device-side ms and
-    frames/s; (b) ``distributed_train_step`` over 2 shards on the card on
-    the dry run's planted frames against 2 CPU shards (class counts equal,
-    statistics within 1e-5, each fit within 1e-5 of solving the CPU's
-    statistics, :func:`_lda_backward_error`), and K5 at that step's sweep
+    frames/s, its dispatch without a host sync, frames/s one batch at a
+    time and two in flight beside one card where there are more, and the
+    host's enqueue ms a shard (:func:`_scale_out_detection`; alone:
+    :func:`scale_out_detection`); (b) ``distributed_train_step`` over 2
+    shards on the card on the dry run's planted frames against 2 CPU
+    shards (class counts equal, statistics within 1e-5, each fit within
+    1e-5 of solving the CPU's statistics, :func:`_lda_backward_error`),
+    and K5 at that step's sweep
     planes (``[8,98,98]``, 8 passes, the resident form) as a kernel row
     measured as in phase 3, its launches those of the step (78 a shard); (c) ``sharded_recognize_fn`` with (b)'s heads against the
     unsharded ``recognize_batch`` (boxes, labels, valid equal); (d) the
@@ -238,12 +251,18 @@ INT_OPS_S = LANE_OPS_S / 2
 # (integer pipe, f32 pipe).  The sweep (K3, K7), per mask pixel and level
 # (a pixel outside the level's mask keeps its sentinels and, the mask
 # growing with the level, has no ring value to move): the warm start (mask
-# 5, key 2, min/max 5, selects 5), each Jacobi pass (4 min and a select per
-# plane, liveness 2) and the emit (anchor 2, bbox area 8, dead mark 4,
-# variation 7, candidate 9, diversity 7, last-emit 1, byte 5, packing 4,
-# max 1, bf16 conversions 8), whose f32 products, sums, division, floor
-# and conversions (20 of its 56) take the f32 pipe.
-SWEEP_OPS = {"init": (17, 0), "pass": (27, 0), "emit": (36, 20)}
+# 5, key 2, min/max 5, selects 5), each Jacobi pass as the card runs it
+# (the least of five keys, two 3-input minima; the least (ymin, xmin) and
+# the largest (ymax, xmax) of five, each pair packed 16x2 in a word, two
+# 3-input packed minima or maxima each; the liveness test and the dead
+# pixel's two sentinels: 9, where 4 two-input minima and a select a plane
+# over 5 planes, 27, were counted before; the SASS of sweep_tile_kernel
+# holds VIMNMX3 twice for the key and three VIMNMX(3).S16x2 for each pair)
+# and the emit (anchor 2, bbox area 8, dead mark 4, variation 7, candidate
+# 9, diversity 7, last-emit 1, byte 5, packing 4, max 1, bf16 conversions
+# 8), whose f32 products, sums, division, floor and conversions (20 of its
+# 56) take the f32 pipe.
+SWEEP_OPS = {"init": (17, 0), "pass": (9, 0), "emit": (36, 20)}
 # The extent-only emit takes the squared height: two shifts, a subtraction,
 # an add and a conversion fewer than the bbox area.
 EXTENT_EMIT_OPS = (32, 19)
@@ -1018,6 +1037,25 @@ def _ptxas_kernels(report: str, kernel: str) -> dict[str, str]:
     return found
 
 
+def _sass_minmax(lib, kernel: str) -> dict[str, dict[str, int]]:
+    """The integer minimum and maximum instructions (``VIMNMX`` and the
+    3-input ``VIMNMX3``, with their 16x2 forms) in the SASS of each entry
+    function whose name holds ``kernel``, from ``cuobjdump -sass`` of the
+    built library: what ``SWEEP_OPS`` and ``ROLLS_OPS`` count a pass."""
+    from opencv_traffic_sign_detector_tpu_torch.runtime.build import find_nvcc
+
+    sass = subprocess.run([os.path.join(os.path.dirname(find_nvcc()), "cuobjdump"), "-sass",
+                           str(lib)], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    found = {}
+    for body in re.split(r"\n\s*Function : ", sass)[1:]:
+        name, code = body.split("\n", 1)
+        if kernel in name:
+            ops = re.findall(r"\bVIMNMX3?(?:\.S16x2)?\b", code)
+            found[name.strip()] = {op: ops.count(op) for op in sorted(set(ops))}
+    return found
+
+
 def _k4_candidates(planes: torch.Tensor, wh: int, ww: int, n: int, gen) -> torch.Tensor:
     """Random [n, 6] candidates on ``planes``: origins up to 20 pixels past
     every edge (clamped by the kernel), levels 0-59 above the seed's pixel;
@@ -1635,6 +1673,7 @@ def _recognition_phases(rt, dev, work, smi: str, seed: int) -> tuple[list[dict],
               f"{batch_ms:.2f} ms (median of 5); {len(dets)} recognitions; kernel launches a batch "
               f"{ {k: v / batches for k, v in counts.items() if v} }; {smi}")
         paths[label] = (counts, batches)
+        _require_no_sync(label, lambda: pipe.dispatch(first))
         return dets, counts
 
     def vs_cpu(label, card_dets, pipe_cpu):
@@ -1966,6 +2005,90 @@ def _lda_backward_error(coef, intercept, stats) -> tuple[float, float]:
     return eta.item(), ((intercept - want).abs().max() / want.abs().max()).item()
 
 
+def _enqueue_ms(det, pipe, host, names: list[str], batches: int = 5) -> dict[str, float]:
+    """Host ms a dispatch spends enqueueing each shard's ``detect_batch``
+    (``perf_counter`` around the call), the median over ``batches``
+    batches, each collected before the next: {device: ms}."""
+    spent = defaultdict(list)
+    orig = det.detect_batch
+
+    def timed(frames, *a, **kw):
+        t0 = time.perf_counter()
+        out = orig(frames, *a, **kw)
+        spent[str(frames.device)].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    det.detect_batch = timed
+    try:
+        for _ in range(batches):
+            pipe.collect(pipe.dispatch(host), names)
+    finally:
+        det.detect_batch = orig
+    return {k: round(statistics.median(v), 3) for k, v in spent.items()}
+
+
+def _scale_out_detection(rt, dev, smi: str, frames, templates, mcfg):
+    """Phase 16a: the tuned slice through ``DetectionPipeline(mesh=
+    data_mesh())`` over every visible card, records equal to the unsharded
+    pipeline's, K1 with its tail and K2-K4 launched, no host sync in a window
+    of dispatches; device-side ms and frames/s of 3 batches with the stage
+    timer, then one batch at a time against two in flight, beside one card
+    in the same call where the mesh has more, and the host's enqueue ms a
+    shard.  -> (launch counts of the 3 batches, their records, the
+    pipeline)."""
+    from opencv_traffic_sign_detector_tpu_torch.config import PipelineConfig
+    from opencv_traffic_sign_detector_tpu_torch.models import detector as det
+    from opencv_traffic_sign_detector_tpu_torch.parallel import mesh as pm
+
+    cards = pm.data_mesh()                     # every visible card
+    batch = 32
+    host = frames[:batch]
+    names = [f"{i:05d}.jpg" for i in range(batch)]
+    pcfg = PipelineConfig(mser=mcfg, batch_size=batch)
+    one = det.DetectionPipeline(cfg=pcfg, templates=templates, device=dev)
+    want = one.detect_frames(host, names)
+    pipe = det.DetectionPipeline(cfg=pcfg, templates=templates, mesh=cards)
+    pipe.detect_frames(host, names)  # warm-up batch
+    torch.cuda.synchronize()
+
+    def timed():
+        timer = CudaStageTimer()
+        pipe.timer = timer
+        batch_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            dets = pipe.detect_frames(host, names)
+            batch_s.append(time.perf_counter() - t0)
+        return dets, batch_s, timer.per_batch_ms(3)
+
+    (dets, batch_s, stage_ms), counts = _run_path(rt, "scale-out detection", timed)
+    pipe.timer = None
+    print(f"[scale-out detection] DetectionPipeline(mesh=data_mesh()) over {cards.size} card "
+          f"shard(s), batch {batch} of {frames.shape[2]}x{frames.shape[1]}, tuned "
+          f"MSER_7_200_2000_1: device side "
+          f"{sum(stage_ms.values()):.3f} ms a batch summed over its shards (CUDA events on "
+          "each shard's card, mean of 3 after a warm-up; "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items())
+          + f"), {batch / statistics.median(batch_s):.2f} frames/s on the host's clock (median; "
+          f"min {batch / max(batch_s):.2f}, max {batch / min(batch_s):.2f}); {len(dets)} "
+          f"detections, records equal to the unsharded pipeline's {dets == want}; {smi}")
+    _require(dets == want, "sharded detection records differ from the unsharded pipeline's")
+    for name in ("tile_luts", "clahe_apply", "level_sweep", "flood_bbox"):
+        _require(counts[name] > 0, f"scale-out detection: {name} never launched")
+    _require_no_sync("scale-out detection", lambda: pipe.dispatch(host))
+    pipes = {f"{cards.size} card(s)": pipe}
+    if cards.size > 1:
+        pipes["1 card"] = one
+    gaps = _in_turns(pipes, host, names)
+    print(f"[scale-out in flight] batch {batch}, 24 batches each way in turns, host frames to "
+          "records on the host's clock: "
+          + "; ".join(f"{label}: one at a time {_fps(batch, gaps[label, False])}, two in flight "
+                      f"{_fps(batch, gaps[label, True])}" for label in pipes)
+          + f"; host enqueue ms a shard's detect_batch (median of 5) "
+            f"{_enqueue_ms(det, pipe, host, names)}; {smi}")
+    return counts, dets, pipe
+
+
 def _scale_out_phases(rt, dev, smi: str, frames, signs, templates, mcfg,
                       seed: int) -> tuple[dict, dict]:
     """Phase 16: scale-out on the card.  -> ({path: (launch counts, batches)},
@@ -2000,37 +2123,7 @@ def _scale_out_phases(rt, dev, smi: str, frames, signs, templates, mcfg,
     # --- 16a. the tuned slice over the cards' mesh --------------------------
     batch = 32
     names = [f"{i:05d}.jpg" for i in range(batch)]
-    pcfg = PipelineConfig(mser=mcfg, batch_size=batch)
-    want = det.DetectionPipeline(cfg=pcfg, templates=templates, device=dev).detect_frames(
-        frames[:batch], names)
-    pipe = det.DetectionPipeline(cfg=pcfg, templates=templates, mesh=cards)
-    pipe.detect_frames(frames[:batch], names)  # warm-up batch
-    torch.cuda.synchronize()
-
-    def timed():
-        timer = CudaStageTimer()
-        pipe.timer = timer
-        batch_s = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            dets = pipe.detect_frames(frames[:batch], names)
-            batch_s.append(time.perf_counter() - t0)
-        return dets, batch_s, timer.per_batch_ms(3)
-
-    (dets, batch_s, stage_ms), counts = _run_path(rt, "scale-out detection", timed)
-    pipe.timer = None
-    print(f"[scale-out detection] DetectionPipeline(mesh=data_mesh()) over {cards.size} card "
-          f"shard(s), batch {batch} of {frames.shape[2]}x{frames.shape[1]}, tuned "
-          f"MSER_7_200_2000_1: device side "
-          f"{sum(stage_ms.values()):.3f} ms a batch summed over its shards (CUDA events on "
-          "each shard's card, mean of 3 after a warm-up; "
-          + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items())
-          + f"), {batch / statistics.median(batch_s):.2f} frames/s on the host's clock (median; "
-          f"min {batch / max(batch_s):.2f}, max {batch / min(batch_s):.2f}); {len(dets)} "
-          f"detections, records equal to the unsharded pipeline's {dets == want}; {smi}")
-    _require(dets == want, "sharded detection records differ from the unsharded pipeline's")
-    for name in ("tile_luts", "clahe_apply", "level_sweep", "flood_bbox"):
-        _require(counts[name] > 0, f"scale-out detection: {name} never launched")
+    counts, dets, pipe = _scale_out_detection(rt, dev, smi, frames, templates, mcfg)
     paths = {"scale-out detection": (counts, 3)}
 
     # --- 16b. the SPMD LDA train step --------------------------------------
@@ -2285,6 +2378,51 @@ def _sync_sites(dispatch, iters: int) -> list[str]:
     torch.cuda.synchronize()
     return sorted({f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
                    if "called a synchronizing" in str(w.message)})
+
+
+def _require_no_sync(label: str, dispatch, iters: int = 2) -> None:
+    """Phases 5-6, 12-13 and 16a: a window of ``iters`` dispatches, after a
+    warm-up, in which the host never waits for the card: every shape on
+    these paths is static, as under the reference's ``jax.jit``."""
+    sites = _sync_sites(dispatch, iters)
+    print(f"[{label} sync] host syncs in a window of {iters} dispatches (sync debug mode): "
+          f"{sites}")
+    _require(not sites, f"{label}: the dispatch makes the host wait for the card at {sites}")
+
+
+def _batch_gaps(pipe, host, names: list[str], batches: int, in_flight: bool) -> list[float]:
+    """Seconds between successive batches' records on the host's clock, over
+    ``batches`` batches of ``host`` frames: each dispatched and collected in
+    turn, or (``in_flight``) batch k+1 dispatched before batch k is
+    collected, as ``run_directory`` runs them."""
+    torch.cuda.synchronize()
+    t = [time.perf_counter()]
+    pending = pipe.dispatch(host) if in_flight else None
+    for k in range(batches):
+        if in_flight:
+            nxt = pipe.dispatch(host) if k + 1 < batches else None
+            pipe.collect(pending, names)
+            pending = nxt
+        else:
+            pipe.collect(pipe.dispatch(host), names)
+        t.append(time.perf_counter())
+    return [b - a for a, b in zip(t, t[1:])]
+
+
+def _fps(batch: int, gaps: list[float]) -> str:
+    return (f"{batch / statistics.median(gaps):.2f} frames/s (median of {len(gaps)} batches; "
+            f"min {batch / max(gaps):.2f}, max {batch / min(gaps):.2f}; "
+            f"{len(gaps) * batch / sum(gaps):.2f} over the runs)")
+
+
+def _in_turns(pipes: dict, host, names: list[str], batches: int = 12) -> dict:
+    """Each pipeline one batch at a time and two in flight, ``batches`` a
+    run, in turns (A B B A for each): {(label, in_flight): gaps}."""
+    gaps = defaultdict(list)
+    for in_flight in (False, True, True, False):
+        for label in (list(pipes) if in_flight else list(pipes)[::-1]):
+            gaps[label, in_flight] += _batch_gaps(pipes[label], host, names, batches, in_flight)
+    return gaps
 
 
 def _same_detections(card, cpu) -> bool:
@@ -2550,6 +2688,35 @@ def _bench_phases(rt, dev, smi: str, seed: int) -> tuple[list[dict], dict, int]:
     return rows, paths, n_hd
 
 
+def _tuned(base):
+    """``main_detection.py``'s defaults: MSER_7_200_2000_1 at the tuned
+    ``--downscale 2`` point."""
+    return dataclasses.replace(base, downscale=2, ccl_iters=2, level_step=9, ccl_jumps=0,
+                               max_regions=128)
+
+
+def scale_out_detection(seed: int = 0) -> int:
+    """Phase 16a alone, for a machine of several cards::
+
+        python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.scale_out_detection())"
+
+    builds the kernels and runs :func:`_scale_out_detection` on the 32
+    frames of phase 5; a failed check raises."""
+    _, smi = _device_phase()
+    from opencv_traffic_sign_detector_tpu_torch.config import MSERConfig
+    from opencv_traffic_sign_detector_tpu_torch.data.synthetic import make_frames_with_boxes
+    from opencv_traffic_sign_detector_tpu_torch.models.mean_masks import MeanMaskTemplates
+    from opencv_traffic_sign_detector_tpu_torch.runtime import build as rt
+
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    rt.library()
+    frames, _ = make_frames_with_boxes(32, 800, 1360, seed=seed)
+    _scale_out_detection(rt, dev, smi, frames, MeanMaskTemplates.load("artifacts/mean_masks.npz"),
+                         _tuned(MSERConfig.from_string("MSER_7_200_2000_1")))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2606,11 +2773,15 @@ def main() -> int:
     # K5's register forms, one template: rolls_window_kernel<Window>, <Window64>
     for name, props in _ptxas_kernels(report.getvalue(), "rolls_window_kernel").items():
         print(f"[build] ptxas {name} ({'64' if 'Window64' in name else '128'} px): {props}")
+    # the minima and maxima instructions the card runs, which the sweep's and K5's
+    # bounds count (SWEEP_OPS, ROLLS_OPS)
+    for kernel in ("sweep_tile_kernel", "rolls_window_kernel"):
+        for name, ops in _sass_minmax(rt.build(), kernel).items():
+            print(f"[build] sass {name}: integer min/max instructions {ops}")
 
     # slice 1, the main path: MSER_7_200_2000_1, tuned --downscale 2 point
     base = MSERConfig.from_string("MSER_7_200_2000_1")
-    mcfg = dataclasses.replace(base, downscale=2, ccl_iters=2, level_step=9,
-                               ccl_jumps=0, max_regions=128)
+    mcfg = _tuned(base)
     # slice 2: main_detection.py --pixel_area_stability (XLA sweep, jumps)
     pcfg = dataclasses.replace(base, max_regions=128, downscale=2, fused_sweep=False)
     # the recall config of scripts/proposal_recall.py (XLA sweep, no jumps)
@@ -2814,6 +2985,8 @@ def main() -> int:
                  f"{label}: frames without proposals: {np.nonzero(per_frame < 1)[0]}")
         _require(all(np.isfinite(d.score) and 1 <= d.class_id <= 6 for d in dets),
                  f"{label}: malformed detection records")
+        pipe.timer = None
+        _require_no_sync(label, lambda: pipe.dispatch(host))
         return props, pvalid, dets, counts
 
     batches = defaultdict(lambda: 1)  # batches of each kernel's path's run
@@ -2827,6 +3000,17 @@ def main() -> int:
     _require(counts["tile_histograms"] == 0, "slice 1 called K1 without its LUT tail")
     rows["tile_histograms"]["launches"] = counts["tile_luts"]
     batches["tile_histograms"] = 10
+    _require_no_sync("slice detect_batch", lambda: det.detect_batch(
+        frames_dev, red, blue, PipelineConfig(mser=mcfg)), 3)
+    flight = det.DetectionPipeline(cfg=PipelineConfig(mser=mcfg, batch_size=32),
+                                   templates=templates, device=dev)
+    flight.detect_frames(frames, names)  # warm-up batch
+    gaps = _in_turns({"slice": flight}, frames, names)
+    print(f"[slice in flight] batch 32 of 1360x800, tuned MSER_7_200_2000_1, 24 batches each way "
+          f"in turns, host frames to records on the host's clock: one batch at a time "
+          f"{_fps(32, gaps['slice', False])}; two in flight (batch k+1 dispatched before batch k "
+          f"is collected) {_fps(32, gaps['slice', True])}; {smi}")
+    del flight, gaps
     ours_names = ("tile_hist_kernel", "tile_lut_kernel", "clahe_apply_kernel")
     _, pre_counts = _run_path(rt, "slice preprocess", lambda: enhance_contrast(frames_dev))
     launched = [e.name for e in _cuda_trace(

@@ -17,7 +17,8 @@ from __future__ import annotations
 import torch
 
 from ..constants import STATS_MATCH_TOL
-from ..ops.geometry import _f32, boxes_match_score
+from ..ops.geometry import boxes_match_score
+from ..ops.resident import const_f32
 from ..parallel.mesh import device_scope, psum
 
 N_TYPES = 6
@@ -37,12 +38,12 @@ def frame_type_counts(det_boxes: torch.Tensor, det_types: torch.Tensor,
     gt_alive = gt_types > 0
     same_type = det_types[..., :, None] == gt_types[..., None, :]
     eligible = same_type & gt_alive[..., None, :] & det_valid[..., :, None]
-    eff = torch.where(eligible, scores, _f32(float("-inf"), scores))
+    eff = torch.where(eligible, scores, const_f32(float("-inf"), scores.device))
     # one -inf column past the last GT: the max of a frame without GT slots
     eff = torch.cat([eff, eff.new_full(eff.shape[:-1] + (1,), float("-inf"))], dim=-1)
     best_gt = torch.argmax(eff, dim=-1)
     best_score = torch.amax(eff, dim=-1)
-    det_correct = det_valid & (best_score > _f32(STATS_MATCH_TOL, scores))
+    det_correct = det_valid & (best_score > const_f32(STATS_MATCH_TOL, scores.device))
 
     # a GT is detected iff it is some correct detection's best match
     chosen = torch.zeros(eff.shape[:-2] + eff.shape[-1:], dtype=torch.int32,

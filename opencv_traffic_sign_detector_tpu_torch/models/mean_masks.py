@@ -21,6 +21,7 @@ from ..constants import (
 )
 from ..data.images import load_image_bgr
 from ..ops.color import color_mask
+from ..ops.resident import const_f32
 from ..ops.resize import crop_and_resize
 
 _PIX = DETECT_CROP * DETECT_CROP
@@ -112,8 +113,8 @@ def _score_color(crop_masks: torch.Tensor, templates: torch.Tensor):
     raw = 2.0 * tp / torch.clamp(2.0 * tp + fn, min=1e-9)
     raw = torch.where(tp + fn <= _PIX * 0.01, torch.zeros_like(raw), raw)
     # "/ 100" as the reference's jit computes it: times the f32 reciprocal
-    score = torch.round(raw * 100.0) * torch.tensor(np.float32(1.0) / np.float32(100.0),
-                                                    device=raw.device)
+    score = torch.round(raw * 100.0) * const_f32(float(np.float32(1.0) / np.float32(100.0)),
+                                                 raw.device)
     best = torch.argmax(score, dim=-1, keepdim=True)
     take = lambda x: torch.gather(x, -1, best)[..., 0]  # noqa: E731
     return take(score), best[..., 0].to(torch.int32) + 1, take(raw)

@@ -24,8 +24,8 @@ from ..data.gt import GroundTruthBox
 from ..data.images import list_frame_files
 from ..data.prefetch import batched_frames
 from ..ops.color import bgr_to_gray
-from ..ops.geometry import _f32
 from ..ops.hog import gray_descriptors, hog_descriptors
+from ..ops.resident import const_f32
 from ..ops.resize import crop_and_resize
 from .detector import _pack, compact_first, full_f32_matmuls, upload
 from .knn import knn_vote
@@ -45,7 +45,7 @@ def classify_crops_knn(feats, xbar, scalings, train_x, train_y, classes, k: int)
     reduced = (feats - xbar) @ scalings
     best, votes = knn_vote(reduced, train_x, train_y, classes, k)
     # the reference divides under jit: a product with the f32 reciprocal
-    conf = votes.to(torch.float32) * _f32(1.0 / k, feats)
+    conf = votes.to(torch.float32) * const_f32(1.0 / k, feats.device)
     return classes[best].to(torch.int32), conf
 
 
@@ -58,7 +58,8 @@ def classify_crops_lda(feats, head_coefs, head_ints, tol: float, sign_margin: fl
     probs = torch.stack([1.0 - p1, p1], dim=-1)  # [6, N, 2]
     labels = arbitrate_lda_heads(probs, tol, sign_margin)
     conf = torch.amax(torch.maximum(probs[..., 0], probs[..., 1]), dim=0)
-    sign_conf = torch.amax(torch.where(p1 >= _f32(0.5 - sign_margin, p1), p1, 0.0), dim=0)
+    sign_conf = torch.amax(torch.where(p1 >= const_f32(0.5 - sign_margin, p1.device), p1, 0.0),
+                           dim=0)
     return labels, torch.where(labels > 0, sign_conf, conf)
 
 
@@ -103,13 +104,13 @@ def grow_boxes_xyxy(boxes: torch.Tensor, valid: torch.Tensor, grow: float, frame
     h, w = (int(v) for v in frame_hw)
     b = boxes.to(torch.float32)
     x1, y1, x2, y2 = b.unbind(-1)
-    half, g = _f32(0.5, b), _f32(grow, b)
+    half, g = const_f32(0.5, b.device), const_f32(grow, b.device)
     cx, cy = (x1 + x2) * half, (y1 + y2) * half
     bw, bh = (x2 - x1) * g, (y2 - y1) * g
     nx1 = torch.clamp(cx - bw * half, 0.0, w - 2.0)
     ny1 = torch.clamp(cy - bh * half, 0.0, h - 2.0)
-    nx2 = torch.minimum(torch.maximum(cx + bw * half, nx1 + 1.0), _f32(float(w), b))
-    ny2 = torch.minimum(torch.maximum(cy + bh * half, ny1 + 1.0), _f32(float(h), b))
+    nx2 = torch.minimum(torch.maximum(cx + bw * half, nx1 + 1.0), const_f32(float(w), b.device))
+    ny2 = torch.minimum(torch.maximum(cy + bh * half, ny1 + 1.0), const_f32(float(h), b.device))
     out = torch.stack([nx1, ny1, nx2, ny2], dim=-1).to(torch.int32)
     keep = valid & ((x2 - x1) >= 2) & ((y2 - y1) >= 2)
     return out, keep

@@ -45,10 +45,11 @@ from ..data.prefetch import batched_frames
 from ..eval.reports import classification_report, confusion_matrix
 from ..ops.color import bgr_to_gray
 from ..ops.dedup import dedup_by_coords, dedup_by_histogram
-from ..ops.geometry import _f32, filter_and_grow_boxes, iou_matrix
+from ..ops.geometry import filter_and_grow_boxes, iou_matrix
 from ..ops.hog import gray_descriptors, hog_descriptors
 from ..ops.mser import mser_regions
 from ..ops.preprocess import enhance_contrast
+from ..ops.resident import const_f32
 from ..ops.resize import crop_and_resize
 from .detector import full_f32_matmuls, upload
 from .knn import KNNParams, knn_fit, knn_predict
@@ -450,15 +451,15 @@ def arbitrate_lda_heads(probs: torch.Tensor, tol: float,
     """
     no_sign_p, sign_p = probs[..., 0], probs[..., 1]
     if sign_margin > 0.0:
-        head_says_sign = sign_p >= _f32(0.5 - sign_margin, probs)
+        head_says_sign = sign_p >= const_f32(0.5 - sign_margin, probs.device)
         head_conf = torch.where(head_says_sign, sign_p, no_sign_p)
-        asserted = head_says_sign & (head_conf > _f32(tol - sign_margin, probs))
+        asserted = head_says_sign & (head_conf > const_f32(tol - sign_margin, probs.device))
     else:
         head_says_sign = sign_p >= no_sign_p  # ties -> sign
         head_conf = torch.maximum(no_sign_p, sign_p)
-        asserted = head_says_sign & (head_conf > _f32(tol, probs))
+        asserted = head_says_sign & (head_conf > const_f32(tol, probs.device))
     any_sign = torch.any(asserted, dim=0)
-    score = torch.where(head_says_sign, head_conf, _f32(float("-inf"), probs))
+    score = torch.where(head_says_sign, head_conf, const_f32(float("-inf"), probs.device))
     best_head = torch.argmax(score, dim=0)
     return torch.where(any_sign, best_head + 1, 0).to(torch.int32)
 

@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .resident import const_f32
+
 
 def _clip_and_redistribute(hist: torch.Tensor, clip_limit: int) -> torch.Tensor:
     """OpenCV clip rule: cap bins, spread excess evenly, then the residual
@@ -31,7 +33,7 @@ def _clip_and_redistribute(hist: torch.Tensor, clip_limit: int) -> torch.Tensor:
 def _tile_luts(hist: torch.Tensor, tile_area: int) -> torch.Tensor:
     """Per-tile LUT: round-half-even(cumsum * 255 / tileArea), uint8."""
     cdf = torch.cumsum(hist, dim=-1).to(torch.float32)
-    scale = torch.tensor(255.0 / tile_area, dtype=torch.float32, device=hist.device)
+    scale = const_f32(255.0 / tile_area, hist.device)
     return torch.round(cdf * scale).clamp(0, 255).to(torch.uint8)
 
 

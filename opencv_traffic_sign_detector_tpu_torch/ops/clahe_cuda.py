@@ -19,6 +19,7 @@ import torch
 
 from ..runtime import build as rt
 from .clahe import _clip_and_redistribute, _interp_coords, _tile_luts
+from .resident import resident
 
 # The kernels' limits: the tile rows and sets a block keeps in shared memory
 # (csrc/clahe.cu: kMaxTiles) and, for K2, the grid's frame dimension
@@ -117,16 +118,18 @@ def tile_luts(x: torch.Tensor, clip: int, tile_area: int, tiles: int = 8) -> tor
     return luts
 
 
+def _axis_coords(size: int, tiles: int, k: int) -> np.ndarray:
+    """Item ``k`` of :func:`_interp_coords` along one axis: the two tile
+    indices as int32 (k 0, 1), the weight as f32 (k 2)."""
+    a = _interp_coords(size, tiles, size // tiles)[k]
+    return np.ascontiguousarray(a if k == 2 else a.astype(np.int32))
+
+
 def _coords(h: int, w: int, tiles: int, device: torch.device):
-    """Row and column tile indices and weights as tensors on ``device``."""
-    ty1, ty2, ya = _interp_coords(h, tiles, h // tiles)
-    tx1, tx2, xa = _interp_coords(w, tiles, w // tiles)
-
-    def t(a, dtype):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device=device, dtype=dtype)
-
-    return (t(ty1, torch.int32), t(ty2, torch.int32), t(ya, torch.float32),
-            t(tx1, torch.int32), t(tx2, torch.int32), t(xa, torch.float32))
+    """Row and column tile indices and weights (ty1, ty2, ya, tx1, tx2, xa)
+    on ``device``, made there once (``ops/resident.py``)."""
+    return tuple(resident(_axis_coords, size, tiles, k, device=device)
+                 for size in (h, w) for k in range(3))
 
 
 # Columns a K2 block covers (csrc/clahe.cu: kSegCols) and the most rows it

@@ -8,8 +8,6 @@ first operation.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
@@ -18,12 +16,9 @@ from ..constants import (
     RED_HIGH_BAND,
     RED_LOW_BAND,
 )
+from .resident import const_f32, resident
 
 _HSV_SHIFT = 12
-
-
-def _f32(x: float, device: torch.device) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=device)
 
 
 def bgr_to_gray(bgr: torch.Tensor) -> torch.Tensor:
@@ -48,18 +43,18 @@ def bgr_to_hsv(bgr: torch.Tensor) -> torch.Tensor:
     diff = v - mn
 
     dev = bgr.device
-    one = _f32(1.0, dev)
+    one, zero = const_f32(1.0, dev), const_f32(0.0, dev)
     sdiv_v = torch.where(
         v > 0,
-        torch.round(_f32(float(255 << _HSV_SHIFT), dev)
+        torch.round(const_f32(float(255 << _HSV_SHIFT), dev)
                     / torch.maximum(v.to(torch.float32), one)),
-        _f32(0.0, dev),
+        zero,
     ).to(torch.int32)
     hdiv_d = torch.where(
         diff > 0,
-        torch.round(_f32(float(180 << _HSV_SHIFT) / 6.0, dev)
+        torch.round(const_f32(float(180 << _HSV_SHIFT) / 6.0, dev)
                     / torch.maximum(diff.to(torch.float32), one)),
-        _f32(0.0, dev),
+        zero,
     ).to(torch.int32)
     s = (diff * sdiv_v + (1 << (_HSV_SHIFT - 1))) >> _HSV_SHIFT
 
@@ -92,7 +87,6 @@ def color_mask(bgr: torch.Tensor, color: str) -> torch.Tensor:
     return m.to(torch.uint8) * 255
 
 
-@functools.cache
 def gamma_lut(gamma: float) -> np.ndarray:
     """256-entry uint8 gamma table with the reference's truncation."""
     i = np.arange(256, dtype=np.float64)
@@ -107,7 +101,6 @@ def gamma_correct(img: torch.Tensor, gamma: float = 2.0) -> torch.Tensor:
     f32 sqrt evaluates exactly; other gammas index the table.
     """
     if float(gamma) == 2.0:
-        y = torch.sqrt(img.to(torch.float32) * _f32(255.0, img.device))
+        y = torch.sqrt(img.to(torch.float32) * const_f32(255.0, img.device))
         return y.to(torch.uint8)  # truncates toward zero, y >= 0
-    lut = torch.from_numpy(gamma_lut(float(gamma))).to(img.device)
-    return lut[img.long()]
+    return resident(gamma_lut, float(gamma), device=img.device)[img.long()]

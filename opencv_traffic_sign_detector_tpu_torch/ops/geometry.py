@@ -10,10 +10,7 @@ from __future__ import annotations
 import torch
 
 from ..constants import ASPECT_MAX, ASPECT_MIN
-
-
-def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=like.device)
+from .resident import const_f32
 
 
 def filter_and_grow_boxes(boxes_xywh: torch.Tensor, valid: torch.Tensor,
@@ -21,13 +18,15 @@ def filter_and_grow_boxes(boxes_xywh: torch.Tensor, valid: torch.Tensor,
     """Keep ASPECT_MIN < w/h < ASPECT_MAX, grow by ``grow`` about the centre,
     clamp at 0, truncate.  -> (boxes_xyxy int32 [..., N, 4], keep [..., N])."""
     b = boxes_xywh.to(torch.float32)
+    dev = b.device
     x, y, w, h = b.unbind(-1)
-    zero = _f32(0.0, b)
-    hsafe = torch.maximum(h, _f32(1.0, b))
+    zero = const_f32(0.0, dev)
+    hsafe = torch.maximum(h, const_f32(1.0, dev))
     ratio = w / hsafe
-    keep = valid & (ratio > _f32(ASPECT_MIN, b)) & (ratio < _f32(ASPECT_MAX, b)) & (h > 0)
-    g = _f32(grow - 1.0, b)  # in f64 first, like the reference's weak scalar
-    half = _f32(0.5, b)
+    keep = (valid & (ratio > const_f32(ASPECT_MIN, dev)) & (ratio < const_f32(ASPECT_MAX, dev))
+            & (h > 0))
+    g = const_f32(grow - 1.0, dev)  # in f64 first, like the reference's weak scalar
+    half = const_f32(0.5, dev)
     dw = w * g * half
     dh = h * g * half
     x1 = torch.maximum(x - dw, zero)

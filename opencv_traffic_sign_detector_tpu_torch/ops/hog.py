@@ -14,7 +14,6 @@ callers set with ``models.detector.full_f32_matmuls``.
 
 from __future__ import annotations
 
-import functools
 import math
 
 import numpy as np
@@ -26,7 +25,7 @@ from ..constants import (
     HOG_NBINS,
     HOG_WIN_SIZE,
 )
-from .geometry import _f32
+from .resident import const_f32, resident
 
 _WIN = HOG_WIN_SIZE[0]
 _BLK = HOG_BLOCK_SIZE[0]
@@ -37,7 +36,6 @@ _NBLOCKS = (_WIN - _BLK) // _STRIDE + 1  # 3 per axis
 _CPB = _BLK // _CELL  # 2 cells per block axis
 
 
-@functools.cache
 def _spatial_weights() -> np.ndarray:
     """[16, 16, 2, 2] per-block-pixel weight to each of the 2x2 cells,
     Gaussian * bilinear, OpenCV conventions."""
@@ -80,16 +78,17 @@ def hog_descriptors(crops: torch.Tensor) -> torch.Tensor:
     mag = torch.sqrt(dx * dx + dy * dy)
     ang = torch.atan2(dy, dx)  # [-pi, pi]: signed gradients span 2*pi
 
-    fbin = ang * _f32(_NB / (2.0 * math.pi), ang) - _f32(0.5, ang)
+    dev = crops.device
+    fbin = ang * const_f32(_NB / (2.0 * math.pi), dev) - const_f32(0.5, dev)
     b0 = torch.floor(fbin)
     w1 = fbin - b0
     b0i = torch.remainder(b0.to(torch.int32), _NB)
     b1i = torch.remainder(b0i + 1, _NB)
-    bins = torch.arange(_NB, dtype=torch.int32, device=crops.device)
+    bins = torch.arange(_NB, dtype=torch.int32, device=dev)
     votes = mag[..., None] * ((1.0 - w1)[..., None] * (b0i[..., None] == bins)
                               + w1[..., None] * (b1i[..., None] == bins))  # [N,32,32,9]
 
-    wts = torch.from_numpy(_spatial_weights()).to(crops.device)  # [16,16,2,2]
+    wts = resident(_spatial_weights, device=dev)  # [16,16,2,2]
     block_hists = []
     # blocks scan x-outer and cells within a block likewise (cv2's layout)
     for bx in range(_NBLOCKS):
@@ -103,9 +102,9 @@ def hog_descriptors(crops: torch.Tensor) -> torch.Tensor:
     # L2-Hys with OpenCV's epsilons
     sz = blocks.shape[-1]
     s1 = torch.sqrt(torch.sum(blocks * blocks, dim=-1, keepdim=True))
-    blocks = torch.minimum(blocks / (s1 + _f32(sz * 0.1, s1)), _f32(0.2, s1))
+    blocks = torch.minimum(blocks / (s1 + const_f32(sz * 0.1, dev)), const_f32(0.2, dev))
     s2 = torch.sqrt(torch.sum(blocks * blocks, dim=-1, keepdim=True))
-    blocks = blocks / (s2 + _f32(1e-3, s2))
+    blocks = blocks / (s2 + const_f32(1e-3, dev))
     return blocks.reshape(blocks.shape[0], -1)
 
 

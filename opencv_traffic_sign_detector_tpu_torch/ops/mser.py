@@ -32,6 +32,7 @@ from ..config import MSERConfig
 from .ccl import propagate_min_keys
 from .mser_cuda import fused_level_sweep, packing_bits, plan_halo, sweep_plan
 from .prop_cuda import bbox_area, candidate_windows, flood_bbox
+from .resident import const_f32
 
 _WIN = 128
 # Roll-flood radius of the refine: two rounds of 48 passes, as the reference's
@@ -113,13 +114,12 @@ def _level_sweep(im2: torch.Tensor, cfg: MSERConfig, d_idx: int, num_levels: int
     keys0 = im * hw + idx
     plane_off = (torch.arange(b * p, device=dev) * hw).reshape(b, p, 1, 1)
 
-    def f32(v):
-        return torch.tensor(v, dtype=torch.float32, device=dev)
-
     # comparisons and products with config floats round them to f32 first,
     # as JAX's weak typing does
-    max_var, min_div = f32(cfg.max_variation), f32(cfg.min_diversity)
-    one, inf, c253, c254 = f32(1.0), f32(float("inf")), f32(253.0), f32(254.0)
+    max_var = const_f32(cfg.max_variation, dev)
+    min_div = const_f32(cfg.min_diversity, dev)
+    one, inf = const_f32(1.0, dev), const_f32(float("inf"), dev)
+    c253, c254 = const_f32(253.0, dev), const_f32(254.0, dev)
     keys = torch.full_like(keys0, big)
     # rings, oldest first: a_ring = A[t-d-1] .. A[t-1], v_ring = V[t-d-2], V[t-d-1]
     a_ring = [torch.zeros_like(keys0) for _ in range(d_idx + 1)]

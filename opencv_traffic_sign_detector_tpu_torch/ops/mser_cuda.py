@@ -33,6 +33,7 @@ import torch
 from ..config import MSERConfig
 from ..runtime import build as rt
 from .prop_cuda import axis_resolve, nb4
+from .resident import const_f32
 
 # The reference's per-strip VMEM pixel budget.  It fixes where the
 # reference cuts a frame into strips (and so which candidates it emits);
@@ -274,12 +275,10 @@ def _sweep_levels_plain(windows: torch.Tensor, p: SweepParams, num_levels: int):
     vring = torch.full((2, n, r, w), float("inf"), dtype=bf16, device=dev)
     lastemit = torch.zeros((n, r, w), dtype=bf16, device=dev)
 
-    def c(v):
-        return torch.tensor(v, dtype=f32, device=dev)
-
-    min_area, max_area = c(p.min_area), c(p.max_area)
-    max_var, min_div = c(p.max_variation), c(p.min_diversity)
-    one, zero, inf = c(1.0), c(0.0), c(float("inf"))
+    min_area, max_area = const_f32(p.min_area, dev), const_f32(p.max_area, dev)
+    max_var, min_div = const_f32(p.max_variation, dev), const_f32(p.min_diversity, dev)
+    one, zero, inf = const_f32(1.0, dev), const_f32(0.0, dev), const_f32(float("inf"), dev)
+    cap, c253, c254 = const_f32(65535.0, dev), const_f32(253.0, dev), const_f32(254.0, dev)
     mn, mx = torch.minimum, torch.maximum
 
     for t in range(num_levels):
@@ -305,7 +304,7 @@ def _sweep_levels_plain(windows: torch.Tensor, p: SweepParams, num_levels: int):
         anchor = mask & (keys == keys0)
         height = (ymax - ymin + 1).to(f32)
         bb = height * (height if p.extent_only else (xmax - xmin + 1).to(f32))
-        bb = mn(bb, c(65535.0))
+        bb = mn(bb, cap)
         a_cur = torch.where(anchor, bb, zero)
         keys = torch.where(anchor & (bb > max_area), -1, keys)
 
@@ -324,7 +323,7 @@ def _sweep_levels_plain(windows: torch.Tensor, p: SweepParams, num_levels: int):
         diverse = (last <= 0) | ((area_c - last) >= min_div * mx(area_c, one))
         cand = cand & diverse
         lastemit = torch.where(cand, area_c, last).to(bf16)
-        qv = torch.clamp(c(254.0) - torch.floor(v_c * c(253.0)), 1.0, 254.0)
+        qv = torch.clamp(c254 - torch.floor(v_c * c253), 1.0, 254.0)
         aring[t % nring] = a_cur.to(bf16)
         vring[s_v_new] = v_new.to(bf16)
         yield torch.where(cand, qv, zero)

@@ -107,8 +107,8 @@ def candidate_windows(planes: torch.Tensor, cand: torch.Tensor, win_h: int, win_
     rx = torch.arange(win_w, device=planes.device)
     wins = planes[plane[:, None, None], (y0[:, None] + ry)[:, :, None],
                   (x0[:, None] + rx)[:, None, :]]
-    inner = torch.zeros((win_h, win_w), dtype=torch.bool, device=planes.device)
-    inner[1:-1, 1:-1] = True
+    inner = (((ry > 0) & (ry < win_h - 1))[:, None]
+             & ((rx > 0) & (rx < win_w - 1))[None, :])
     mask = (wins.long() <= level[:, None, None]) & inner
     seed = (ry[None, :, None] == sy[:, None, None]) & (rx[None, None, :] == sx[:, None, None])
     return mask, seed

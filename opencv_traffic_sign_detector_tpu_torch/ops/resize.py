@@ -16,6 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .resident import const_f32, resident
+
 _CROP_WIN = 192
 
 
@@ -32,7 +34,7 @@ def _source_coords(boxes_xyxy: torch.Tensor, h: int, w: int, out_size: int,
 
     s = torch.arange(out_size, dtype=torch.float32, device=b.device) + 0.5
     if reciprocal:
-        inv = torch.tensor(np.float32(1.0) / np.float32(out_size), device=b.device)
+        inv = const_f32(float(np.float32(1.0) / np.float32(out_size)), b.device)
         step_x, step_y = cw[..., None] * inv, ch[..., None] * inv
     else:
         step_x, step_y = cw[..., None] / out_size, ch[..., None] / out_size
@@ -129,9 +131,13 @@ def crop_and_resize(image: torch.Tensor, boxes_xyxy: torch.Tensor,
     return out[..., 0] if squeeze else out
 
 
+def _whole_box(w: int, h: int) -> np.ndarray:
+    return np.array([0, 0, w, h], np.int32)
+
+
 def resize_batch(images: torch.Tensor, out_size: int) -> torch.Tensor:
     """Resize a stack [N, H, W(, C)] uint8 to [N, out_size, out_size(, C)]:
     :func:`crop_and_resize` of each whole image."""
     n, h, w = images.shape[:3]
-    boxes = torch.tensor([0, 0, w, h], dtype=torch.int32, device=images.device)
+    boxes = resident(_whole_box, w, h, device=images.device)
     return crop_and_resize(images, boxes.expand(n, 1, 4), out_size, reciprocal=False)[:, 0]

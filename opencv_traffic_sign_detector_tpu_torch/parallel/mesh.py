@@ -10,9 +10,9 @@ two nested levels:
   tests run a virtual 8-device CPU mesh).  A batch is split along dim 0,
   a chunk a shard, and every shard's work is enqueued (each under its own
   card as the current device, which the CUDA kernels' launches use) before
-  any result is read.  Cards overlap only as far as the host runs ahead of
-  them: the MSER path waits on its card inside a shard, so its shards run
-  nearly in turn (PERF.md, section 6);
+  any result is read.  No shard's dispatch waits for its card (its
+  constants and the replicated templates or classifier arrays stay on each
+  card), so cards overlap as far as one host thread enqueues ahead of them;
 * **ranks**: optionally a ``torch.distributed`` process group, one rank a
   process.  :func:`psum` sums the local shards onto the mesh's first
   device, then all-reduces over the group; :func:`pmean` divides by the
@@ -189,20 +189,37 @@ def to_host(mesh: Mesh, parts: Sequence[torch.Tensor]):
     return out, done
 
 
+def _replicas():
+    """-> ``on(dev, tensors)``: ``tensors`` copied to ``dev`` at the first
+    call with them, then the same copies while the caller passes the same
+    tensors (the templates or classifier arrays a batch reuses)."""
+    held: dict = {}
+
+    def on(dev, tensors: tuple) -> tuple:
+        given, copies = held.get(dev, ((), ()))
+        if len(given) != len(tensors) or any(a is not b for a, b in zip(given, tensors)):
+            copies = tuple(t.to(dev) for t in tensors)
+            held[dev] = (tensors, copies)
+        return copies
+
+    return on
+
+
 def sharded_detect_fn(mesh: Mesh, detect_batch_fn):
     """Run a per-batch detection fn on each shard.
 
     detect_batch_fn: (frames [b,H,W,3], red_t, blue_t) -> outputs of [b,...].
     Returned fn: (:func:`shard_batch`'s list, red_t, blue_t) -> a list of
-    each shard's outputs; the templates go to each shard's device.  No
-    collective: frames do not depend on each other.
+    each shard's outputs; the templates are copied to each shard's device
+    once.  No collective: frames do not depend on each other.
     """
+    on = _replicas()
 
     def run(shards, red, blue):
         outs = []
         for dev, frames in zip(mesh.devices, shards):
             with device_scope(dev):
-                outs.append(detect_batch_fn(frames, red.to(dev), blue.to(dev)))
+                outs.append(detect_batch_fn(frames, *on(dev, (red, blue))))
         return outs
 
     return run
@@ -210,17 +227,19 @@ def sharded_detect_fn(mesh: Mesh, detect_batch_fn):
 
 def sharded_recognize_fn(mesh: Mesh, cfg, features: str, clf_kind: str, knn_k: int = 4):
     """``recognize_batch`` on each shard, the classifier arrays (LDA head
-    stacks or the KNN train set) on each shard's device.  Returned fn:
-    (:func:`shard_batch`'s list, clf_arrays) -> a list of each shard's
-    (boxes, labels, scores, valid)."""
+    stacks or the KNN train set) copied to each shard's device once.
+    Returned fn: (:func:`shard_batch`'s list, clf_arrays) -> a list of each
+    shard's (boxes, labels, scores, valid)."""
     from ..models.rec_pipeline import recognize_batch
+
+    on = _replicas()
 
     def run(shards, clf_arrays):
         outs = []
         for dev, frames in zip(mesh.devices, shards):
             with device_scope(dev):
-                arrays = tuple(a.to(dev) for a in clf_arrays)
-                outs.append(recognize_batch(frames, arrays, cfg, features, clf_kind, knn_k))
+                outs.append(recognize_batch(frames, on(dev, tuple(clf_arrays)), cfg, features,
+                                            clf_kind, knn_k))
         return outs
 
     return run
