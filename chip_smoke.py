@@ -70,11 +70,20 @@ Phases:
    narrow tiles, unaligned widths and bases, flat and two-valued frames
    and the clip rule's corner cases (:func:`_k1_shapes`);
 5. slice 1: runs ``DetectionPipeline`` (batch 32, MSER_7_200_2000_1 at the
-   tuned ``--downscale 2`` point) for one warm-up and 10 timed batches from
-   host frames to detection records, with per-stage CUDA-event times
+   tuned ``--downscale 2`` point) for one warm-up batch, which captures the
+   dispatch into a CUDA graph (``runtime/graphs.py``; the launches recorded
+   at capture, a replay's, and the graph's kernel nodes read from its
+   ``debug_dump`` must hold K1 with its tail and K2-K4, :func:`_graph_report`,
+   :func:`_graph_kernel_names`), and 10 timed batches from
+   host frames to detection records, run eagerly with the stage timer,
+   with per-stage CUDA-event times
    (their sum is the device-side ms a batch, the yardstick between
    versions; frames/s on the host's clock is printed as median, min and
-   max), and requires K1 with its LUT tail and K2-K4 to have launched,
+   max), then 10 batches replayed (the main path: launch counts equal the
+   eager batches', each replay adding its capture's, and records equal;
+   frames/s), the replayed packed output equal to the eager dispatch's bit
+   for bit, one batch at a time and two in flight (:func:`_replay_vs_eager`),
+   and requires K1 with its LUT tail and K2-K4 to have launched,
    every frame to have proposals and K2's plan tables not to have been
    built (uploaded) in the timed batches; requires one ``enhance_contrast``
    call to launch K1 with its tail and K2 once each (launch counts), and
@@ -84,8 +93,10 @@ Phases:
    window of ``detect_batch`` calls and of ``DetectionPipeline.dispatch``
    calls (:func:`_require_no_sync`), and times the slice one batch at a
    time against two in flight (batch k+1 dispatched before batch k is
-   collected, as ``run_directory`` does), 24 batches each way in turns:
-   frames/s on the host's clock (:func:`_in_turns`);
+   collected, as ``run_directory`` does), 24 batches each way in turns,
+   graph replays against eager dispatches: frames/s on the host's clock
+   (:func:`_in_turns`), and the host's ms a dispatch spends enqueueing,
+   replay against eager (:func:`_enqueue_ms`);
 6. slice 2: the same for the ``--pixel_area_stability`` config (XLA sweep,
    pixel-count stability), requiring K1, K2 and K4 to launch, K3 not to
    launch and every frame to have proposals; then one batch of 8 of the
@@ -96,7 +107,8 @@ Phases:
    ``sweep_res_pipeline``), one warm-up and 3 timed batches each (K1-K4
    must launch), and the low-res refine with ``refine_scan_passes=0`` (K5
    on the refine must launch, K4 not); each configuration's dispatch
-   without a host sync, as in phase 5;
+   captured, replayed with the eager batches' launches and equal to the
+   eager dispatch bit for bit, and without a host sync, as in phase 5;
 7. slices vs plain: the tuned path on 2 frames, the pixel-area path on 2
    frames and the recall path on 1 frame on the CPU (plain versions) must
    give identical proposals, and the tuned path matching detections; each
@@ -131,7 +143,10 @@ Phases:
     recognizer's defaults (``--downscale 1``, pointer jumps, 384 regions),
     then ``RecognitionPipeline.run_directory`` over 16 test frames with
     ``artifacts/sign_classifier_r5_cnn/``; K1 through its LUT tail, K2, K4
-    and K5 must launch, K3 must not; K4 on the path's B x 384 windows and K5
+    and K5 must launch, K3 must not (the MSER dispatch replays a graph, which
+    must hold them, and its output equals the eager one's bit for bit, one
+    batch at a time and two in flight; a batch's ms replayed and eager); K4
+    on the path's B x 384 windows and K5
     at its ``[2B, 802, 1362]`` sweep call are held against their plain
     versions exactly and timed as in phase 3; one frame's proposals,
     boxes, labels and scores (1e-4) against the CPU path
@@ -162,10 +177,13 @@ Phases:
 16. scale-out (:func:`_scale_out_phases`): (a) ``DetectionPipeline(mesh=
     data_mesh())`` (every visible card) on the tuned slice at batch 32, a
     warm-up and 3 timed batches, records equal to the unsharded pipeline's,
-    K1 with its LUT tail, K2, K3 and K4 launched, device-side ms and
-    frames/s, its dispatch without a host sync, frames/s one batch at a
-    time and two in flight beside one card where there are more, and the
-    host's enqueue ms a shard (:func:`_scale_out_detection`; alone:
+    K1 with its LUT tail, K2, K3 and K4 launched (in each card's graph, and
+    as many times replayed as eager), device-side ms and
+    frames/s, replays equal to the eager dispatch bit for bit (one at a time
+    and two in flight), its dispatch without a host sync, frames/s one
+    batch at a time and two in flight, replayed and eager, beside one card
+    where there are more, and the host's enqueue ms a shard, replay against
+    eager (:func:`_scale_out_detection`; alone:
     :func:`scale_out_detection`); (b) ``distributed_train_step`` over 2
     shards on the card on the dry run's planted frames against 2 CPU
     shards (class counts equal, statistics within 1e-5, each fit within
@@ -198,7 +216,8 @@ Phases:
     at ``--frames 64 --cnn_iters 4 --fed_batches 2`` (every CNN scope at
     batch 128, the MSER scope, end to end and live quality on the tree:
     smoke values), its JSON line and peak memory printed, K1-K4 once a
-    ``detect_batch`` call and no launch in the CNN scopes; (c) ``--model
+    ``detect_batch`` call (a call recorded into a graph's capture launches
+    nothing and is not counted) and no launch in the CNN scopes; (c) ``--model
     mser --skip_e2e``, whose 1080p probe must launch K1-K4 once a batch,
     and the same with ``--scan_passes 2 --extent_only 1``;
     (d) the probe's records on 2 frames against the CPU path; (e) one
@@ -1694,14 +1713,32 @@ def _recognition_phases(rt, dev, work, smi: str, seed: int) -> tuple[list[dict],
         _require(counts[name] > 0, f"recognition validation: {name} never launched")
     pipe = rp.RecognitionPipeline(cfg=cfg, classifier=clf, device=dev)
     kept = {}
+    # the first batch is the eager warm-up that captures the graph: the kept
+    # calls are that run's
     with _record_nth(mser, "flood_bbox", 0, kept, "flood_bbox"), \
-            _record_nth(ccl, "propagate_rolls", 40, kept, "propagate_rolls"):
+            _record_nth(ccl, "propagate_rolls", 40, kept, "propagate_rolls"), _dumped_graphs():
         pipe.recognize_frames(first, files[:8])
     torch.cuda.synchronize()
+    want = ("tile_luts", "clahe_apply", "flood_bbox", "propagate_rolls")
+    _graph_report("recognition MSER", pipe._recognize, want)
+    _graph_kernel_names("recognition MSER", pipe._recognize, want)
     dets, counts = infer("recognition MSER", pipe)
-    for name in ("tile_luts", "clahe_apply", "flood_bbox", "propagate_rolls"):
+    for name in want:
         _require(counts[name] > 0, f"recognition MSER: {name} never launched")
     _require(counts["level_sweep"] == 0, "recognition MSER launched the fused sweep K3")
+
+    def eager(frames):
+        with torch.inference_mode():
+            return rp._pack(*rp.recognize_batch(rp.upload(frames, dev), pipe._arrays,
+                                                *pipe._spec())).cpu().numpy()
+
+    _replay_vs_eager("recognition MSER", pipe.dispatch, eager, first)
+    on_card = torch.from_numpy(first).to(dev)
+    replay_ms = _time_ms(lambda: pipe.collect(pipe.dispatch(on_card), files[:8]), runs=5)
+    eager_ms = _time_ms(lambda: eager(on_card), runs=5)
+    print(f"[recognition MSER batch ms] a batch of 8 from frames on the card to its packed result "
+          f"on the host, median of 5: graph replay {replay_ms:.2f} ms, eager {eager_ms:.2f} ms; "
+          f"{smi}")
     pallas_prop = "opencv_traffic_sign_detector_tpu/ops/pallas_prop.py"
     rows = []
     for name, kern, plain, src, replaces, a in [
@@ -2005,26 +2042,55 @@ def _lda_backward_error(coef, intercept, stats) -> tuple[float, float]:
     return eta.item(), ((intercept - want).abs().max() / want.abs().max()).item()
 
 
-def _enqueue_ms(det, pipe, host, names: list[str], batches: int = 5) -> dict[str, float]:
-    """Host ms a dispatch spends enqueueing each shard's ``detect_batch``
-    (``perf_counter`` around the call), the median over ``batches``
-    batches, each collected before the next: {device: ms}."""
-    spent = defaultdict(list)
-    orig = det.detect_batch
+def _enqueue_ms(pipe, host, names: list[str], batches: int = 5) -> dict:
+    """Host ms a dispatch spends on each shard (``perf_counter`` around the
+    graph helper's call: the copy of the shard's frames into its graph's
+    input and the replay; with the eager timer set, the upload and the eager
+    ``detect_batch``) and on the whole dispatch (the pinned copy of the
+    batch, every shard, the copies back), replay and eager in turns over
+    ``batches`` batches each, each collected before the next: {mode:
+    {device or "dispatch": "median (min, max)"}}."""
+    from opencv_traffic_sign_detector_tpu_torch.runtime import graphs
 
-    def timed(frames, *a, **kw):
+    spent = defaultdict(list)
+    orig = graphs.CapturedFn.__call__
+
+    def timed(self, device, x, *a, **kw):
         t0 = time.perf_counter()
-        out = orig(frames, *a, **kw)
-        spent[str(frames.device)].append((time.perf_counter() - t0) * 1e3)
+        out = orig(self, device, x, *a, **kw)
+        spent["eager" if kw.get("eager") else "replay", str(device)].append(
+            (time.perf_counter() - t0) * 1e3)
         return out
 
-    det.detect_batch = timed
+    graphs.CapturedFn.__call__ = timed
     try:
         for _ in range(batches):
-            pipe.collect(pipe.dispatch(host), names)
+            for mode, timer in (("replay", None), ("eager", _eager_timer)):
+                pipe.timer = timer
+                t0 = time.perf_counter()
+                pending = pipe.dispatch(host)
+                spent[mode, "dispatch"].append((time.perf_counter() - t0) * 1e3)
+                pipe.collect(pending, names)
     finally:
-        det.detect_batch = orig
-    return {k: round(statistics.median(v), 3) for k, v in spent.items()}
+        graphs.CapturedFn.__call__ = orig
+        pipe.timer = None
+    out = defaultdict(dict)
+    for (mode, dev), v in sorted(spent.items()):
+        out[mode][dev] = f"{statistics.median(v):.3f} ({min(v):.3f}, {max(v):.3f})"
+    return dict(out)
+
+
+def _eager_packed(pipe):
+    """-> ``eager(frames)``: ``pipe``'s dispatch run eagerly (the timer that
+    records nothing), its packed output."""
+    def eager(frames):
+        pipe.timer = _eager_timer
+        try:
+            return _packed(pipe.dispatch(frames))
+        finally:
+            pipe.timer = None
+
+    return eager
 
 
 def _scale_out_detection(rt, dev, smi: str, frames, templates, mcfg):
@@ -2048,8 +2114,13 @@ def _scale_out_detection(rt, dev, smi: str, frames, templates, mcfg):
     one = det.DetectionPipeline(cfg=pcfg, templates=templates, device=dev)
     want = one.detect_frames(host, names)
     pipe = det.DetectionPipeline(cfg=pcfg, templates=templates, mesh=cards)
-    pipe.detect_frames(host, names)  # warm-up batch
+    with _dumped_graphs():
+        pipe.detect_frames(host, names)  # warm-up batch: each card's graph captured
     torch.cuda.synchronize()
+    want_kernels = ("tile_luts", "clahe_apply", "level_sweep", "flood_bbox")
+    _graph_report("scale-out detection", pipe._detect.graphs, want_kernels)
+    _graph_kernel_names("scale-out detection", pipe._detect.graphs, want_kernels)
+    _eager_packed(pipe)(host)  # an eager batch first: the capture emptied the cache
 
     def timed():
         timer = CudaStageTimer()
@@ -2073,20 +2144,32 @@ def _scale_out_detection(rt, dev, smi: str, frames, templates, mcfg):
           f"min {batch / max(batch_s):.2f}, max {batch / min(batch_s):.2f}); {len(dets)} "
           f"detections, records equal to the unsharded pipeline's {dets == want}; {smi}")
     _require(dets == want, "sharded detection records differ from the unsharded pipeline's")
-    for name in ("tile_luts", "clahe_apply", "level_sweep", "flood_bbox"):
+    for name in want_kernels:
         _require(counts[name] > 0, f"scale-out detection: {name} never launched")
+    # the main path: each card's graph replayed, launches added at each replay
+    rdets, rcounts = _run_path(rt, "scale-out detection replay",
+                               lambda: [pipe.detect_frames(host, names) for _ in range(3)][-1])
+    _require(rdets == want, "replayed sharded detection records differ from the unsharded "
+             "pipeline's")
+    _require(rcounts == counts, f"scale-out detection: 3 replays launched {rcounts}, 3 eager "
+             f"batches {counts}")
+    _replay_vs_eager("scale-out detection", pipe.dispatch, _eager_packed(pipe), host)
     _require_no_sync("scale-out detection", lambda: pipe.dispatch(host))
-    pipes = {f"{cards.size} card(s)": pipe}
+    pipes = {f"{cards.size} card(s)": pipe,
+             f"{cards.size} card(s) eager": det.DetectionPipeline(
+                 cfg=pcfg, templates=templates, mesh=cards, timer=_eager_timer)}
     if cards.size > 1:
         pipes["1 card"] = one
+        pipes["1 card eager"] = det.DetectionPipeline(cfg=pcfg, templates=templates, device=dev,
+                                                      timer=_eager_timer)
     gaps = _in_turns(pipes, host, names)
     print(f"[scale-out in flight] batch {batch}, 24 batches each way in turns, host frames to "
-          "records on the host's clock: "
+          "records on the host's clock, graph replays against eager dispatches: "
           + "; ".join(f"{label}: one at a time {_fps(batch, gaps[label, False])}, two in flight "
-                      f"{_fps(batch, gaps[label, True])}" for label in pipes)
-          + f"; host enqueue ms a shard's detect_batch (median of 5) "
-            f"{_enqueue_ms(det, pipe, host, names)}; {smi}")
-    return counts, dets, pipe
+                      f"{_fps(batch, gaps[label, True])}" for label in pipes) + f"; {smi}")
+    print(f"[scale-out enqueue] host ms a shard a dispatch, median (min, max) of 5, graph "
+          f"replay against eager: {_enqueue_ms(pipe, host, names)}; {smi}")
+    return rcounts, dets, pipe
 
 
 def _scale_out_phases(rt, dev, smi: str, frames, signs, templates, mcfg,
@@ -2390,6 +2473,102 @@ def _require_no_sync(label: str, dispatch, iters: int = 2) -> None:
     _require(not sites, f"{label}: the dispatch makes the host wait for the card at {sites}")
 
 
+def _eager_timer(name: str):
+    """A stage timer that records nothing: a ``DetectionPipeline`` with a
+    timer runs its dispatch eagerly, not as a graph replay."""
+    return contextlib.nullcontext()
+
+
+def _packed(pending) -> "np.ndarray":
+    """A dispatch's packed result (``to_host``'s or ``RecognitionPipeline``'s
+    pending handle) once its copies have arrived."""
+    out, done = pending
+    for event in done if isinstance(done, list) else [done] if done is not None else []:
+        event.synchronize()
+    return out.numpy().copy()
+
+
+def _replay_vs_eager(label: str, dispatch, eager, host) -> None:
+    """The replayed dispatch's packed output against the eager one's, bit for
+    bit, on ``host`` and on its frames in reverse order (so that a slot read
+    from the wrong batch differs): each batch dispatched and collected in
+    turn, then two in flight in both orders (the second dispatched before the
+    first is collected).  ``dispatch(frames)`` -> pending handle (the graph
+    captured already), ``eager(frames)`` -> packed numpy."""
+    import numpy as np
+
+    batches = [host, np.ascontiguousarray(host[::-1])]
+    want = [eager(b) for b in batches]
+    _require(want[0].tobytes() != want[1].tobytes() or len(host) == 1,
+             f"{label}: the two batches give the same output, so the check cannot see a swap")
+    got = {"one at a time": [_packed(dispatch(b)) for b in batches]}
+    for order, (i, j) in (("two in flight", (0, 1)), ("two in flight, reversed", (1, 0))):
+        first, second = dispatch(batches[i]), dispatch(batches[j])
+        pair = {i: _packed(first), j: _packed(second)}
+        got[order] = [pair[0], pair[1]]
+    same = {k: all(g.tobytes() == w.tobytes() for g, w in zip(v, want)) for k, v in got.items()}
+    print(f"[{label} replay] the graph's packed output against the eager dispatch's, bit for "
+          f"bit, on 2 batches of {len(host)}: {same}")
+    _require(all(same.values()), f"{label}: the replayed dispatch differs from the eager one: "
+             f"{same}")
+
+
+def _graph_report(label: str, captured, want: tuple = ()) -> None:
+    """Each graph of a ``CapturedFn``: the launches its capture recorded (a
+    replay's), which must hold every kernel of ``want``, and the bytes its
+    capture reserved on its card for the card's graph pool."""
+    for (dev, shape, _, _), entry in captured.entries().items():
+        launched = {k: v for k, v in entry.launches.items() if v}
+        print(f"[{label} graph] {dev} input {shape}: kernels recorded at capture, a replay's "
+              f"launches {launched}; its capture reserved {entry.pool_bytes / 2**30:.3f} GiB "
+              f"for the card's graph pool ({torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB "
+              "reserved on the card)")
+        missing = [k for k in want if not launched.get(k)]
+        _require(not missing, f"{label}: the graph on {dev} holds no launch of {missing}")
+
+
+# the CUDA kernels each launch counter's wrapper launches
+_ROLLS = ("rolls_tile_kernel", "rolls_window_kernel", "rolls_resident_kernel",
+          "rolls_mask_kernel")
+GRAPH_KERNELS = {"tile_luts": ("tile_hist_kernel", "tile_lut_kernel"),
+                 "clahe_apply": ("clahe_apply_kernel",),
+                 "level_sweep": ("sweep_tile_kernel", "scan_band_kernel"),
+                 "flood_bbox": ("flood_bbox_kernel",),
+                 "propagate_rolls": _ROLLS, "propagate_rolls_refine": _ROLLS}
+
+
+@contextlib.contextmanager
+def _dumped_graphs():
+    """Context: graphs captured inside keep their ``cudaGraph_t``
+    (``keep_graph=True``: instantiated at the first replay), so that
+    :func:`_graph_kernel_names` can read the kernel nodes from it."""
+    orig = torch.cuda.CUDAGraph
+    torch.cuda.CUDAGraph = lambda: orig(keep_graph=True)
+    try:
+        yield
+    finally:
+        torch.cuda.CUDAGraph = orig
+
+
+def _graph_kernel_names(label: str, captured, want: tuple) -> None:
+    """The kernel nodes of each graph of ``captured`` (captured under
+    :func:`_dumped_graphs`), read from its ``debug_dump``: every counter of
+    ``want`` must have one of its kernels in the graph."""
+    from opencv_traffic_sign_detector_tpu_torch.runtime.build import BUILD_ROOT
+
+    path = BUILD_ROOT.parent / "chip_smoke_graph.dot"
+    for (dev, shape, _, _), entry in captured.entries().items():
+        entry.graph.debug_dump(str(path))
+        dot = path.read_text()
+        path.unlink()
+        nodes = {k: sum(dot.count(n) for n in names) for k, names in GRAPH_KERNELS.items()}
+        print(f"[{label} graph nodes] {dev} input {shape}: the port's kernels in the captured "
+              f"graph (debug_dump, {len(dot)} bytes) by counter "
+              f"{ {k: v for k, v in nodes.items() if v} }")
+        missing = [k for k in want if not nodes[k]]
+        _require(not missing, f"{label}: the graph on {dev} holds no kernel node of {missing}")
+
+
 def _batch_gaps(pipe, host, names: list[str], batches: int, in_flight: bool) -> list[float]:
     """Seconds between successive batches' records on the host's clock, over
     ``batches`` batches of ``host`` frames: each dispatched and collected in
@@ -2550,6 +2729,10 @@ def _bench_phases(rt, dev, smi: str, seed: int) -> tuple[list[dict], dict, int]:
         detect_batch, bench_cnn = det.detect_batch, bench_torch._bench_cnn
 
         def counted(frames, *a, **kw):
+            if torch.cuda.is_current_stream_capturing():
+                # a DetectionPipeline's capture records the call into its
+                # graph and launches nothing; its replays call no detect_batch
+                return detect_batch(frames, *a, **kw)
             before = rt.launch_counts()
             out = detect_batch(frames, *a, **kw)
             entry = per_shape[tuple(frames.shape[1:3])]
@@ -2946,14 +3129,24 @@ def main() -> int:
     _k1_shapes(clahe_cuda, lut_x, gen)
 
     # --- 5. slice 1 through DetectionPipeline -----------------------------
-    def run_slice(label, mcfg_, batch, timed):
-        """One warm-up batch, then ``timed`` timed batches of ``batch`` host
-        frames; prints frames/s, stage ms and proposals per frame."""
+    def run_slice(label, mcfg_, batch, timed, want):
+        """One warm-up batch, which captures the dispatch's graph (holding a
+        launch and a kernel node of each counter of ``want``), then
+        ``timed`` timed batches of ``batch`` host frames run eagerly with
+        the stage timer and ``timed`` replayed, each with the same launches;
+        prints frames/s, stage ms and proposals per frame; the replays'
+        output equals the eager one's bit for bit.  -> (proposals, valid,
+        records, the replays' launch counts)."""
         pipe = det.DetectionPipeline(cfg=PipelineConfig(mser=mcfg_, batch_size=batch),
                                      templates=templates, device=dev)
         host = frames[:batch]
-        pipe.detect_frames(host, names[:batch])  # warm-up batch
+        with _dumped_graphs():
+            pipe.detect_frames(host, names[:batch])  # warm-up batch: the graph captured
         torch.cuda.synchronize()
+        _graph_report(label, pipe._detect.graphs, want)
+        _graph_kernel_names(label, pipe._detect.graphs, want)
+        # an eager batch first: the capture emptied the allocator's cache
+        _eager_packed(pipe)(host)
 
         def timed_run():
             timer = CudaStageTimer()
@@ -2986,11 +3179,30 @@ def main() -> int:
         _require(all(np.isfinite(d.score) and 1 <= d.class_id <= 6 for d in dets),
                  f"{label}: malformed detection records")
         pipe.timer = None
+
+        def replayed():
+            batch_s = []
+            for _ in range(timed):
+                t0 = time.perf_counter()
+                rdets = pipe.detect_frames(host, names[:batch])
+                batch_s.append(time.perf_counter() - t0)
+            return rdets, batch_s
+
+        (rdets, batch_s), rcounts = _run_path(rt, f"{label} replay", replayed)
+        print(f"[{label} replay] {timed} batch(es) replayed: "
+              f"{batch / statistics.median(batch_s):.2f} frames/s on the host's clock (median; "
+              f"min {batch / max(batch_s):.2f}, max {batch / min(batch_s):.2f}); launches as the "
+              f"eager batches' {rcounts == counts}; records equal {rdets == dets}; {smi}")
+        _require(rcounts == counts, f"{label}: {timed} replays launched {rcounts}, {timed} eager "
+                 f"batches {counts}")
+        _require(rdets == dets, f"{label}: replayed records differ from the eager ones")
+        _replay_vs_eager(label, pipe.dispatch, _eager_packed(pipe), host)
         _require_no_sync(label, lambda: pipe.dispatch(host))
-        return props, pvalid, dets, counts
+        return props, pvalid, dets, rcounts
 
     batches = defaultdict(lambda: 1)  # batches of each kernel's path's run
-    props, pvalid, dets, counts = run_slice("slice", mcfg, 32, 10)
+    props, pvalid, dets, counts = run_slice(
+        "slice", mcfg, 32, 10, ("tile_luts", "clahe_apply", "level_sweep", "flood_bbox"))
     for name in ("tile_luts", "clahe_apply", "level_sweep", "flood_bbox"):
         rows[name]["launches"] = counts[name]
         batches[name] = 10
@@ -3002,14 +3214,19 @@ def main() -> int:
     batches["tile_histograms"] = 10
     _require_no_sync("slice detect_batch", lambda: det.detect_batch(
         frames_dev, red, blue, PipelineConfig(mser=mcfg)), 3)
-    flight = det.DetectionPipeline(cfg=PipelineConfig(mser=mcfg, batch_size=32),
-                                   templates=templates, device=dev)
-    flight.detect_frames(frames, names)  # warm-up batch
-    gaps = _in_turns({"slice": flight}, frames, names)
+    flight = {mode: det.DetectionPipeline(cfg=PipelineConfig(mser=mcfg, batch_size=32),
+                                          templates=templates, device=dev, timer=timer)
+              for mode, timer in (("replay", None), ("eager", _eager_timer))}
+    for pipe_ in flight.values():
+        pipe_.detect_frames(frames, names)  # warm-up batch
+    gaps = _in_turns(flight, frames, names)
     print(f"[slice in flight] batch 32 of 1360x800, tuned MSER_7_200_2000_1, 24 batches each way "
-          f"in turns, host frames to records on the host's clock: one batch at a time "
-          f"{_fps(32, gaps['slice', False])}; two in flight (batch k+1 dispatched before batch k "
-          f"is collected) {_fps(32, gaps['slice', True])}; {smi}")
+          f"in turns, host frames to records on the host's clock, graph replay against eager: "
+          + "; ".join(f"{mode}: one batch at a time {_fps(32, gaps[mode, False])}, two in flight "
+                      f"(batch k+1 dispatched before batch k is collected) "
+                      f"{_fps(32, gaps[mode, True])}" for mode in flight) + f"; {smi}")
+    print(f"[slice enqueue] host ms a dispatch of 32 frames, median (min, max) of 5, graph "
+          f"replay against eager: {_enqueue_ms(flight['replay'], frames, names)}; {smi}")
     del flight, gaps
     ours_names = ("tile_hist_kernel", "tile_lut_kernel", "clahe_apply_kernel")
     _, pre_counts = _run_path(rt, "slice preprocess", lambda: enhance_contrast(frames_dev))
@@ -3038,17 +3255,22 @@ def main() -> int:
     _require(fused < steps, "tile_luts launches no fewer kernels than the plain steps")
 
     # --- 6. slice 2: the XLA sweep paths ---------------------------------
-    pprops, ppvalid, _, counts = run_slice("slice2 pixel_area", pcfg, 32, 3)
+    pprops, ppvalid, _, counts = run_slice(
+        "slice2 pixel_area", pcfg, 32, 3,
+        ("tile_luts", "clahe_apply", "flood_bbox", "propagate_rolls"))
     for name in ("tile_luts", "clahe_apply", "flood_bbox", "propagate_rolls"):
         _require(counts[name] > 0, f"slice 2: {name} never launched")
     _require(counts["level_sweep"] == 0, "slice 2 launched the fused sweep K3")
     rows["propagate_rolls_pixel_area"]["launches"] = counts["propagate_rolls"]
     batches["propagate_rolls_pixel_area"] = 3
-    rprops, rpvalid, _, counts = run_slice("slice2 recall", rcfg, 8, 1)
+    rprops, rpvalid, _, counts = run_slice(
+        "slice2 recall", rcfg, 8, 1, ("tile_luts", "clahe_apply", "flood_bbox", "propagate_rolls"))
     rows["propagate_rolls"]["launches"] = counts["propagate_rolls"]
     _require(counts["propagate_rolls"] > 0 and counts["level_sweep"] == 0,
              "recall config: K5 never launched on the sweep, or K3 did")
-    _, _, _, counts = run_slice("slice2 roll refine", fcfg, 32, 1)
+    _, _, _, counts = run_slice(
+        "slice2 roll refine", fcfg, 32, 1,
+        ("tile_luts", "clahe_apply", "level_sweep", "propagate_rolls_refine"))
     rows["propagate_rolls_refine"]["launches"] = counts["propagate_rolls_refine"]
     _require(counts["propagate_rolls_refine"] > 0 and counts["flood_bbox"] == 0,
              "roll refine: K5 never launched on the refine, or K4 did")
@@ -3056,7 +3278,8 @@ def main() -> int:
     # --- 6b. slice 9: the sweep's knobs through DetectionPipeline ---------
     knob_runs = {}
     for label, cfg_ in knobs.items():
-        kp, kv, kdets, counts = run_slice(f"slice9 {label}", cfg_, 32, 3)
+        kp, kv, kdets, counts = run_slice(
+            f"slice9 {label}", cfg_, 32, 3, ("tile_luts", "clahe_apply", "level_sweep", "flood_bbox"))
         for name in ("tile_luts", "clahe_apply", "level_sweep", "flood_bbox"):
             _require(counts[name] > 0, f"slice 9 {label}: {name} never launched")
         knob_runs[label] = (cfg_, kp[:2].cpu(), kv[:2].cpu(),
@@ -3066,7 +3289,9 @@ def main() -> int:
                         "sweep_res": ("flood_bbox_sweep_res", "flood_bbox")}[label]
         rows[row]["launches"] = counts[counter]
         batches[row] = 3
-    _, _, _, counts = run_slice("slice9 sweep_res roll refine", xfcfg, 32, 1)
+    _, _, _, counts = run_slice(
+        "slice9 sweep_res roll refine", xfcfg, 32, 1,
+        ("tile_luts", "clahe_apply", "level_sweep", "propagate_rolls_refine"))
     rows["propagate_rolls_sweep_res"]["launches"] = counts["propagate_rolls_refine"]
     _require(counts["propagate_rolls_refine"] > 0 and counts["flood_bbox"] == 0,
              "low-res roll refine: K5 never launched on the refine, or K4 did")

@@ -45,15 +45,22 @@ def full_f32_matmuls() -> None:
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
+def pinned(frames, device) -> torch.Tensor:
+    """Frames (numpy or tensor) as a tensor that ``device`` can copy without
+    the host waiting: pinned where ``device`` is a card and the frames lie on
+    the host, else as they are."""
+    t = frames if isinstance(frames, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(frames))
+    if torch.device(device).type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory()
+    return t
+
+
 def upload(frames, device) -> torch.Tensor:
     """Host frames (numpy or tensor) -> ``device``: pinned and non-blocking
     to a card, so the host can go on while the copy runs."""
-    t = frames if isinstance(frames, torch.Tensor) else torch.from_numpy(
-        np.ascontiguousarray(frames))
     device = torch.device(device)
-    if device.type == "cuda" and t.device.type == "cpu":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
+    return pinned(frames, device).to(device, non_blocking=device.type == "cuda")
 
 
 def compact_first(final: torch.Tensor, d: int, *xs: torch.Tensor):
@@ -123,6 +130,14 @@ class DetectionPipeline:
     over the mesh's shards, every shard enqueued before any is read; the
     records come back in frame order, as without a mesh.  The batch size
     must divide by the mesh's size.
+
+    On a card each shard's batch replays one CUDA graph of
+    :func:`detect_batch` a card and frame shape, captured at the first batch
+    (``runtime/graphs.py``), as the reference runs its jitted
+    ``detect_batch``.  ``timer``, a stage timer (called with a stage name, it
+    returns a context manager, as CUDA events around each stage), makes the
+    dispatch run eagerly instead: events between the stages cannot be read
+    from inside a graph.  The kernels and outputs are the same either way.
     """
 
     def __init__(self, cfg: PipelineConfig, templates: MeanMaskTemplates,
@@ -147,14 +162,16 @@ class DetectionPipeline:
     def dispatch(self, frames: np.ndarray):
         """Enqueue one [B, H, W, 3] uint8 batch; returns a pending handle.
 
-        On a card each shard's upload is pinned and non-blocking, its packed
-        result is copied back into pinned memory without blocking, and an
-        event a shard marks its arrival, so the caller can decode and upload
-        the next batch meanwhile (:meth:`run_directory`).
+        On a card each shard's frames are pinned and copied without blocking
+        into its graph's input, its packed result is copied back into pinned
+        memory without blocking, and an event a shard marks its arrival, so
+        the caller can decode and upload the next batch meanwhile
+        (:meth:`run_directory`).
         """
-        from ..parallel.mesh import shard_batch, to_host
+        from ..parallel.mesh import host_shards, to_host
 
-        packed = self._detect(shard_batch(self.mesh, frames), self.red, self.blue)
+        packed = self._detect(host_shards(self.mesh, frames), self.red, self.blue,
+                              key=self.cfg, eager=self.timer is not None)
         return to_host(self.mesh, packed)
 
     def collect(self, pending, names: list[str]) -> list[GroundTruthBox]:

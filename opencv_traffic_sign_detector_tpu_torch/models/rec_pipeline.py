@@ -27,7 +27,8 @@ from ..ops.color import bgr_to_gray
 from ..ops.hog import gray_descriptors, hog_descriptors
 from ..ops.resident import const_f32
 from ..ops.resize import crop_and_resize
-from .detector import _pack, compact_first, full_f32_matmuls, upload
+from ..runtime.graphs import CapturedFn
+from .detector import _pack, compact_first, full_f32_matmuls, pinned, upload
 from .knn import knn_vote
 from .recognizer import SignClassifier, arbitrate_lda_heads, propose_batch
 
@@ -136,7 +137,9 @@ class RecognitionPipeline:
     sweep to the detector's low-threshold boxes and puts the pipeline on the
     detector's device; the classifier stack is the same.  On the card a
     batch is uploaded pinned and non-blocking and its packed result copied
-    back the same way, so the next batch is decoded meanwhile."""
+    back the same way, so the next batch is decoded meanwhile (two batches
+    in flight: the copy back is enqueued before the next batch's replay can
+    overwrite the graph's output, ``runtime/graphs.py``)."""
 
     cfg: PipelineConfig
     classifier: SignClassifier
@@ -145,6 +148,7 @@ class RecognitionPipeline:
 
     def __post_init__(self):
         self._device = self.cnn.device if self.cnn is not None else torch.device(self.device)
+        self._recognize = CapturedFn(self._recognize_packed)
         dev = self._device
         if self.classifier.config.classifier == "LDABAYES":
             self._kind = "LDABAYES"
@@ -158,16 +162,27 @@ class RecognitionPipeline:
                 knn.train_x.astype(np.float32), knn.train_y.astype(np.int64),
                 knn.classes.astype(np.int64)))
 
+    def _spec(self) -> tuple:
+        return (self.cfg, self.classifier.config.features, self._kind,
+                self.classifier.config.knn_neighbors)
+
+    def _recognize_packed(self, x, *arrays):
+        return _pack(*recognize_batch(x, arrays, *self._spec()))
+
     @torch.inference_mode()
     def dispatch(self, frames):
-        """Enqueue one [B, H, W, 3] uint8 batch; returns a pending handle."""
-        x = upload(frames, self._device)
-        spec = (self._arrays, self.cfg, self.classifier.config.features, self._kind,
-                self.classifier.config.knn_neighbors)
+        """Enqueue one [B, H, W, 3] uint8 batch; returns a pending handle.
+
+        With MSER proposals on a card the batch replays one CUDA graph of
+        :func:`recognize_batch` a card and frame shape, captured at the first
+        batch (``runtime/graphs.py``), as the reference jits it; the CNN
+        proposal source runs eagerly."""
         if self.cnn is not None:
-            packed = _pack(*recognize_batch_cnn(x, self.cnn, *spec))
+            packed = _pack(*recognize_batch_cnn(upload(frames, self._device), self.cnn,
+                                                self._arrays, *self._spec()))
         else:
-            packed = _pack(*recognize_batch(x, *spec))
+            packed = self._recognize(self._device, pinned(frames, self._device), *self._arrays,
+                                     key=self._spec())
         if self._device.type != "cuda":
             return packed, None
         out = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)

@@ -12,7 +12,9 @@ two nested levels:
   card as the current device, which the CUDA kernels' launches use) before
   any result is read.  No shard's dispatch waits for its card (its
   constants and the replicated templates or classifier arrays stay on each
-  card), so cards overlap as far as one host thread enqueues ahead of them;
+  card), and on a card detection and recognition replay one captured CUDA
+  graph a card (``runtime/graphs.py``), so one host thread enqueues a shard
+  in a copy and a graph launch and keeps every card busy;
 * **ranks**: optionally a ``torch.distributed`` process group, one rank a
   process.  :func:`psum` sums the local shards onto the mesh's first
   device, then all-reduces over the group; :func:`pmean` divides by the
@@ -28,15 +30,14 @@ counts (``eval/device_stats.py``) and the CNN gradients
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Sequence
 
-import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..models.detector import upload
+from ..models.detector import pinned, upload
+from ..runtime.graphs import CapturedFn, device_scope
 
 DATA_AXIS = "data"
 _BACKEND = {"cuda": "nccl", "cpu": "gloo"}
@@ -119,24 +120,21 @@ def data_mesh(n_devices: int | None = None, devices=None, device="cuda",
     return Mesh(devices, group)
 
 
-def device_scope(device: torch.device):
-    """Context with ``device`` as the current card (nothing for the CPU)."""
-    if device.type == "cuda":
-        return torch.cuda.device(device)
-    return contextlib.nullcontext()
+def host_shards(mesh: Mesh, array) -> list[torch.Tensor]:
+    """This rank's batch (numpy or tensor) split along dim 0, a chunk a
+    shard, where it lies: pinned on the host for a mesh of cards, so each
+    chunk's copy to its card does not block."""
+    t = pinned(array, mesh.devices[0])
+    if t.shape[0] % mesh.size:
+        raise ValueError(f"batch of {t.shape[0]} does not split over {mesh.size} shards")
+    return list(t.chunk(mesh.size))
 
 
 def shard_batch(mesh: Mesh, array) -> list[torch.Tensor]:
     """This rank's batch (numpy or tensor) split along dim 0, a chunk on
     each shard's device (pinned and non-blocking to a card)."""
-    t = array if isinstance(array, torch.Tensor) else torch.from_numpy(
-        np.ascontiguousarray(array))
-    if t.shape[0] % mesh.size:
-        raise ValueError(f"batch of {t.shape[0]} does not split over {mesh.size} shards")
-    if mesh.devices[0].type == "cuda" and t.device.type == "cpu":
-        t = t.pin_memory()
     out = []
-    for dev, chunk in zip(mesh.devices, t.chunk(mesh.size)):
+    for dev, chunk in zip(mesh.devices, host_shards(mesh, array)):
         with device_scope(dev):
             out.append(upload(chunk, dev))
     return out
@@ -209,39 +207,52 @@ def sharded_detect_fn(mesh: Mesh, detect_batch_fn):
     """Run a per-batch detection fn on each shard.
 
     detect_batch_fn: (frames [b,H,W,3], red_t, blue_t) -> outputs of [b,...].
-    Returned fn: (:func:`shard_batch`'s list, red_t, blue_t) -> a list of
+    Returned fn: (each shard's frames, from :func:`host_shards` or
+    :func:`shard_batch`, red_t, blue_t, ``key``, ``eager``) -> a list of
     each shard's outputs; the templates are copied to each shard's device
-    once.  No collective: frames do not depend on each other.
+    once.  On a card each shard replays one CUDA graph a shard, frame shape
+    and ``key`` (the config), captured at its first batch
+    (``runtime/graphs.py``), unless ``eager``; its outputs are the graph's,
+    valid until the next call: copy them out first (:func:`to_host`).  No
+    collective: frames do not depend on each other.  ``run.graphs`` holds
+    the captures.
     """
-    on = _replicas()
+    on, graphs = _replicas(), CapturedFn(detect_batch_fn)
 
-    def run(shards, red, blue):
+    def run(shards, red, blue, *, key=(), eager=False):
         outs = []
-        for dev, frames in zip(mesh.devices, shards):
+        for i, (dev, frames) in enumerate(zip(mesh.devices, shards)):
             with device_scope(dev):
-                outs.append(detect_batch_fn(frames, *on(dev, (red, blue))))
+                # a graph a shard: two shards on one card keep apart outputs
+                outs.append(graphs(dev, frames, *on(dev, (red, blue)), key=(i, key),
+                                   eager=eager))
         return outs
 
+    run.graphs = graphs
     return run
 
 
 def sharded_recognize_fn(mesh: Mesh, cfg, features: str, clf_kind: str, knn_k: int = 4):
     """``recognize_batch`` on each shard, the classifier arrays (LDA head
     stacks or the KNN train set) copied to each shard's device once.
-    Returned fn: (:func:`shard_batch`'s list, clf_arrays) -> a list of each
-    shard's (boxes, labels, scores, valid)."""
+    Returned fn: (each shard's frames, clf_arrays) -> a list of each shard's
+    (boxes, labels, scores, valid); on a card a replay of one CUDA graph a
+    shard and frame shape, whose outputs are valid until the next call, as
+    :func:`sharded_detect_fn`'s."""
     from ..models.rec_pipeline import recognize_batch
 
     on = _replicas()
+    graphs = CapturedFn(lambda frames, *arrays: recognize_batch(
+        frames, arrays, cfg, features, clf_kind, knn_k))
 
     def run(shards, clf_arrays):
         outs = []
-        for dev, frames in zip(mesh.devices, shards):
+        for i, (dev, frames) in enumerate(zip(mesh.devices, shards)):
             with device_scope(dev):
-                outs.append(recognize_batch(frames, on(dev, tuple(clf_arrays)), cfg, features,
-                                            clf_kind, knn_k))
+                outs.append(graphs(dev, frames, *on(dev, tuple(clf_arrays)), key=i))
         return outs
 
+    run.graphs = graphs
     return run
 
 

@@ -12,11 +12,14 @@ launches and :func:`check` raises when that is not 0.
 Nothing here runs for CPU tensors: the op wrappers take their plain PyTorch
 versions for tensors on the CPU and call :func:`library` only for CUDA
 tensors.  Each wrapper adds one to its entry of the launch counts where it
-launches its kernel, so a run can show that it went through the kernels.
+launches its kernel, so a run can show that it went through the kernels;
+inside a CUDA graph's capture the count goes to the graph's record, which
+each replay adds (:func:`recording_launches`, :func:`add_launches`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -59,6 +62,7 @@ _SIGNATURES = {
 }
 
 _launches = dict.fromkeys(KERNELS, 0)
+_sink = _launches  # where count_launch adds: the counts, or a capture's record
 _lib: ctypes.CDLL | None = None
 
 
@@ -159,7 +163,7 @@ def check(rc: int, kernel: str) -> None:
 
 
 def count_launch(kernel: str) -> None:
-    _launches[kernel] += 1
+    _sink[kernel] += 1
 
 
 def launch_counts() -> dict[str, int]:
@@ -169,6 +173,26 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for k in _launches:
         _launches[k] = 0
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Add ``counts`` to the launch counts: a CUDA graph's replay launches the
+    kernels that its capture recorded (``runtime/graphs.py``)."""
+    for k, v in counts.items():
+        _launches[k] += v
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Context for a CUDA graph's capture, which enqueues the kernels into the
+    graph and launches none: the wrappers' counts inside go into the dict it
+    yields, a replay's launches, and not into the launch counts."""
+    global _sink
+    _sink = dict.fromkeys(KERNELS, 0)
+    try:
+        yield _sink
+    finally:
+        _sink = _launches
 
 
 def uses_plain(*tensors: torch.Tensor) -> bool:

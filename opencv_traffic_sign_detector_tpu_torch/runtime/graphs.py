@@ -1,0 +1,196 @@
+"""A batch function captured once a card and input shape as a CUDA graph,
+then replayed for every batch.
+
+The reference jits its batch functions (``detect_batch``,
+``recognize_batch``): one compiled program a shape, dispatched once a batch,
+whose host pays the Python cost at compile time.  On a card the counterpart
+is a CUDA graph.  :class:`CapturedFn` wraps ``fn(frames, *consts)``:
+
+* **on the CPU**, or with ``eager=True``, it calls ``fn`` each time;
+* **on a card, at the first call with a key** (the card, the frames' shape
+  and dtype, and the caller's ``key``: the config that selects the work),
+  :func:`capture_graph` runs ``fn`` once eagerly on the card's capture
+  stream as a warm-up, which makes every first-use constant
+  (``ops/resident.py``, K2's plan tables) and each kernel's shared-memory
+  attribute, returns that run's outputs, and captures ``fn`` into a
+  ``torch.cuda.CUDAGraph`` that reads a static input buffer; every graph of
+  a card allocates from that card's one memory pool;
+* **at every later call** it copies the frames into the static input on
+  the card's current stream without blocking, replays the graph there and
+  returns the graph's static outputs.
+
+A capture that fails raises :class:`GraphCaptureError`, naming the site in
+the port that refused (a host sync, or a constant first made inside the
+capture): there is no eager retry.
+
+**Two batches in flight.**  Stream order is the whole argument.  A call
+enqueues the copy into the static input and the replay on the card's current
+stream; the caller enqueues its copy of the static outputs (to pinned host
+memory, ``parallel/mesh.py: to_host``) on that same stream before it calls
+again.  So the next call's copy into the input runs after the previous
+replay has read it, and the next replay after the previous outputs were
+copied out.  A caller that keeps outputs past its next call with the same
+key clones them first.  Graphs that share a card's pool are replayed on one
+stream, in turn, never at once.
+
+**Launch counts.**  A replay never calls the kernels' Python wrappers, so
+the launches recorded while a graph is captured (``runtime/build.py:
+recording_launches``) are the graph's launches a replay, and each replay
+adds them to the counts.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import gc
+import traceback
+from pathlib import Path
+
+import torch
+
+from . import build
+
+PACKAGE = Path(__file__).resolve().parents[1]
+
+# one memory pool and one capture stream a card: {device: (pool, stream)}
+_cards: dict = {}
+
+
+class GraphCaptureError(RuntimeError):
+    """A function could not be captured into a CUDA graph."""
+
+
+def _card(device: torch.device):
+    if device not in _cards:
+        with torch.cuda.device(device):
+            _cards[device] = (torch.cuda.graph_pool_handle(), torch.cuda.Stream(device))
+    return _cards[device]
+
+
+def device_scope(device: torch.device):
+    """Context with ``device`` as the current card (nothing off a card)."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def refusing_site(exc: BaseException) -> str:
+    """``file:line: source: message`` of the innermost frame of the package
+    outside ``runtime/`` (this helper, the kernels' loader) in ``exc``, or in
+    the exception it was raised while handling: the op that refused a
+    capture."""
+    seen = set()
+    while exc is not None and id(exc) not in seen:
+        seen.add(id(exc))
+        ours = [f for f in traceback.extract_tb(exc.__traceback__)
+                if Path(f.filename).resolve().is_relative_to(PACKAGE)
+                and not Path(f.filename).resolve().is_relative_to(PACKAGE / "runtime")]
+        if ours:
+            f = ours[-1]
+            where = Path(f.filename).resolve().relative_to(PACKAGE.parent)
+            return f"{where}:{f.lineno}: {f.line}: {type(exc).__name__}: {exc}"
+        exc = exc.__cause__ or exc.__context__
+    return "no frame of the package"
+
+
+def _on_stream(out, stream) -> None:
+    """Mark every tensor of ``out`` (nested tuples and lists) as used on
+    ``stream``, so the allocator does not hand out its memory before the
+    stream is done with it."""
+    if isinstance(out, torch.Tensor):
+        out.record_stream(stream)
+    elif isinstance(out, (tuple, list)):
+        for o in out:
+            _on_stream(o, stream)
+
+
+@dataclasses.dataclass
+class Captured:
+    """One captured graph: its static input and outputs, its launches a
+    replay, and the bytes its capture reserved on the card for the pool
+    (what the pool's free blocks did not cover)."""
+
+    graph: object
+    static: torch.Tensor
+    outputs: object
+    launches: dict
+    pool_bytes: int
+
+    def replay(self, x: torch.Tensor):
+        self.static.copy_(x, non_blocking=True)
+        self.graph.replay()
+        build.add_launches(self.launches)
+        return self.outputs
+
+
+def capture_graph(fn, device: torch.device, x: torch.Tensor, consts: tuple):
+    """Warm ``fn`` up on ``device`` with ``x`` and capture it.  -> (the
+    warm-up's outputs, :class:`Captured`).  Raises :class:`GraphCaptureError`
+    when the capture fails."""
+    if device.type != "cuda":
+        raise ValueError(f"a CUDA graph needs a CUDA device, not {device}")
+    pool, side = _card(device)
+    current = torch.cuda.current_stream(device)
+    static = torch.empty(x.shape, dtype=x.dtype, device=device)
+    static.copy_(x, non_blocking=True)
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        first = fn(static, *consts)
+    current.wait_stream(side)
+    _on_stream(first, current)
+    graph = torch.cuda.CUDAGraph()
+    # A graph freed during the capture (an earlier pipeline's, in a reference
+    # cycle) would destroy its executable graph, which the capture refuses:
+    # collect such garbage first and let no collection run inside.
+    gc.collect()
+    gc.disable()
+    try:
+        with build.recording_launches() as launches:
+            with torch.cuda.graph(graph, pool=pool, stream=side):
+                reserved = torch.cuda.memory_reserved(device)
+                outputs = fn(static, *consts)
+    except Exception as e:
+        del _cards[device]  # the failed capture leaves the pool unusable
+        raise GraphCaptureError(
+            f"capturing {getattr(fn, '__qualname__', fn)} on {device} for input "
+            f"{tuple(x.shape)} {x.dtype} failed at {refusing_site(e)}") from e
+    finally:
+        gc.enable()
+    return first, Captured(graph, static, outputs, dict(launches),
+                           torch.cuda.memory_reserved(device) - reserved)
+
+
+class CapturedFn:
+    """``fn(frames, *consts)`` replayed from one CUDA graph a card, input
+    shape and key; eager on the CPU.  ``capture`` is the capture step
+    (:func:`capture_graph`)."""
+
+    def __init__(self, fn, capture=capture_graph):
+        self.fn = fn
+        self._capture = capture
+        self._entries: dict = {}  # key -> (consts, Captured)
+
+    def __call__(self, device: torch.device, x: torch.Tensor, *consts, key=(),
+                 eager: bool = False):
+        """``fn`` of ``x`` (on the host, pinned, or on ``device``) on
+        ``device``.  On a card, a graph captures ``consts`` (tensors) by
+        address: other tensors than the last call's with this key make a
+        new capture."""
+        device = torch.device(device)
+        if eager or device.type == "cpu":
+            return self.fn(x.to(device, non_blocking=True), *consts)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        k = (device, tuple(x.shape), x.dtype, key)
+        held = self._entries.get(k)
+        # the static input is made, written and read in one mode
+        with torch.inference_mode(), device_scope(device):
+            if held is not None and len(held[0]) == len(consts) and all(
+                    a is b for a, b in zip(held[0], consts)):
+                return held[1].replay(x)
+            first, entry = self._capture(self.fn, device, x, consts)
+        self._entries[k] = (consts, entry)
+        return first
+
+    def entries(self) -> dict:
+        """{(device, shape, dtype, key): Captured} of the graphs held."""
+        return {k: held[1] for k, held in self._entries.items()}
