@@ -158,18 +158,28 @@ Phases:
 14. training (:func:`_train_phases`): ``models/cnn_train.py: train`` of the
     v3 BatchNorm twin at the default ``TrainConfig`` (batch 32, 320x320
     crops, bf16 convs) but ``warmup_steps=3``, 31 steps, on 64 synthetic
-    1360x800 frames with gt uploaded once; prints steps/s and crops/s on
-    the host's clock (median, min, max of the 30 steps after the first),
+    1360x800 frames with gt uploaded once, twice: eager with the stage
+    timer, then replayed from one CUDA graph a step (no timer, as users
+    run it); prints for each steps/s and crops/s on the host's clock
+    (median, min, max of the 30 steps after the first), the peak memory
+    allocated and the loss of the first and last 5 steps, for the eager run
     device ms a step by CUDA events split into sample+resize, targets,
-    forward+backward and optimizer, the peak memory allocated and the loss
-    of the first and last 5 steps; requires finite losses, a lower mean of
-    the last 5 than of the first 5, and well-formed records from the folded
-    net through ``CNNDetector`` on 8 frames; the step's device busy time
-    and launches by ``torch.profiler`` and the card's idle share
-    (:func:`_train_profile`); then two f32 steps of v3 and of ``slim`` on
-    the card and on the CPU from the same weights and draws
+    forward+backward and optimizer; requires finite losses and a lower mean
+    of the last 5 than of the first 5 in each run, the replayed run's 31
+    losses within 1e-2 relative of the eager run's, and well-formed records
+    from the replayed run's folded net through ``CNNDetector`` on 8 frames;
+    then the bf16 step eager and replayed in turns (:func:`_train_turns`:
+    steps/s, the host's ms a step, device busy time and launches by
+    ``torch.profiler`` and the card's idle share for each, the graph's nodes
+    by type beside the eager launch count, its pool bytes, and no host sync
+    in a window of replays); the card's captured AdamW against the CPU's
+    over 48 counts of a schedule (:func:`_adamw_card_vs_cpu`: every update
+    within 2e-5 relative); then for v3 and ``slim`` two f32 steps on the
+    card and on the CPU from the same weights and draws
     (:func:`_f32_step_vs_cpu`: the CPU tests' bounds, but gradients within
-    1e-3, and the parameters after the second update printed);
+    1e-3, and the parameters after the second update printed) and five f32
+    steps replayed against eager on the card (:func:`_train_replay_vs_eager`:
+    draws and crops equal, the rest within those bounds);
 15. calibration: ``quantize_v3`` of the shipped v3 checkpoint on 8 of those
     frames on the card and on the CPU (int8 kernels identical, the other
     arrays within 1e-5 relative), and the card's artifact through
@@ -1813,7 +1823,7 @@ def _f32_step_vs_cpu(ct, cd, arch: str, data: dict, dev, seed: int) -> None:
     card_data = {k: v.to(dev) for k, v in cpu_data.items()}
     for step in (7, 3):
         t0 = time.perf_counter()
-        count = cpu_step.count
+        count = int(cpu_step.count)
         draws = ct.sample_draws(ct.step_generator(seed, step, "cpu"), cfg.batch_size,
                                 len(data["frames"]), len(data["pos"]), cfg)
         crops = ct.crops_from_draws(draws, cpu_data, cfg)
@@ -1853,34 +1863,308 @@ def _f32_step_vs_cpu(ct, cd, arch: str, data: dict, dev, seed: int) -> None:
                  f"{arch}: the card's crops differ from the CPU's")
 
 
-def _train_profile(ct, cd, data: dict, dev, smi: str) -> None:
-    """The bf16 v3 step's device busy time and launches by ``torch.profiler``
-    (5 steps after 5 warm-up steps), beside its time on the host's clock
-    with no loss read (20 steps): the card's idle share."""
+def _copy_train_state(dst, src) -> None:
+    """Make ``dst``'s parameters, running statistics, AdamW state and count
+    ``src``'s, in place (two ``TrainStep`` of one model config)."""
+    with torch.no_grad():
+        for a, b in zip(dst.model.parameters(), src.model.parameters()):
+            a.copy_(b)
+            for k, v in src.opt.state[b].items():
+                dst.opt.state[a][k].copy_(v)
+        for a, b in zip(dst.model.buffers(), src.model.buffers()):
+            a.copy_(b)
+        dst.count.copy_(src.count)
+
+
+def _step_gaps(r: dict, e: dict, with_grads: bool) -> tuple[dict, bool]:
+    """The gaps of one step's snapshot ``r`` against ``e``
+    (:func:`_train_replay_vs_eager`): the loss and parts' largest relative
+    difference, the gradients' largest difference over their tensor's
+    largest magnitude (``with_grads``: a capture computes none), the
+    parameters' and statistics' largest differences; and whether every
+    value was equal."""
+    gaps = {"loss": max(abs(r["metrics"][k] - v) / abs(v) for k, v in e["metrics"].items()),
+            "params": max(_gap(a, b) for a, b in zip(r["params"], e["params"])),
+            "stats": max([0.0] + [_gap(a, b) for a, b in zip(r["stats"], e["stats"])])}
+    keys = ("params", "stats")
+    if with_grads:
+        gaps["grads"] = max(_gap(a, b) / max(b.abs().max().item(), 1e-30)
+                            for a, b in zip(r["grads"], e["grads"]))
+        keys += ("grads",)
+    equal = r["metrics"] == e["metrics"] and all(
+        torch.equal(a, b) for key in keys for a, b in zip(r[key], e[key]))
+    return gaps, equal
+
+
+def _train_replay_vs_eager(ct, cd, arch: str, data: dict, dev, seed: int) -> None:
+    """Five f32 steps of ``arch`` at :func:`_f32_step_vs_cpu`'s config (draws
+    of steps 7, 3, 5, 9, 1: counts 0-4, over the warm-up of 2 and into the
+    decay) from the same weights and data on the card, eager (a stage timer)
+    and replayed from one CUDA graph (its first step the capture's eager
+    warm-up), and a second eager side as a control.  Before each step after
+    the first the eager sides take the replayed side's parameters,
+    statistics and AdamW state, so that every step starts from one state:
+    f32 convolutions on the card need not sum in one order from run to run,
+    and Adam turns such a gradient's rounding into an update up to the
+    learning rate apart, which the next steps carry.  Held: each step's
+    draws and crops equal bit for bit (read through a spy on
+    ``crops_from_draws``: a replay rewrites the tensors the capture made);
+    the loss and its parts within 1e-5 relative, each gradient within 1e-3
+    of its largest magnitude (from the first replay on), the running
+    statistics within 1e-5 and the parameters after the count-0 update
+    equal, :func:`_f32_step_vs_cpu`'s bounds.  The largest differences are
+    printed, and the steps at which every value was equal, replay against
+    eager and eager against eager."""
+    import copy
+
+    cfg = ct.TrainConfig(batch_size=8, steps=10, warmup_steps=2, lr=1e-3, seed=seed)
+    make = ct.SignCenterNetV3Train if arch == "v3" else cd.SignCenterNet
+    model = cd.init_params(make(cd.CNNDetectorConfig(arch=arch, dtype="float32")), seed).to(dev)
+    card = {k: torch.from_numpy(v).to(dev) for k, v in data.items()}
+    # a dict each, the same tensors: the spy tells the sides apart by it
+    sides = {"eager": (ct.TrainStep(copy.deepcopy(model), cfg, timer=_eager_timer), dict(card)),
+             "control": (ct.TrainStep(copy.deepcopy(model), cfg, timer=_eager_timer), dict(card)),
+             "replay": (ct.TrainStep(model, cfg), dict(card))}
+    seen = defaultdict(list)
+    orig = ct.crops_from_draws
+
+    def spy(draws, d, c):
+        out = orig(draws, d, c)
+        seen[id(d)].append({**draws, "images": out[0], "boxes": out[1], "cls": out[2]})
+        return out
+
+    def snapshot(mode, metrics, first):
+        step_fn, d = sides[mode]
+        return {"metrics": {k: v.item() for k, v in metrics.items()},
+                "sampled": {k: v.cpu() for k, v in seen[id(d)][0 if first else -1].items()},
+                "grads": [p.grad.cpu() for p in step_fn.model.parameters()],
+                "params": [p.detach().cpu() for p in step_fn.model.parameters()],
+                "stats": [b.cpu() for b in step_fn.model.buffers()]}
+
+    t0 = time.perf_counter()
+    worst = defaultdict(float)
+    equal = {"replay": [], "control": []}
+    ct.crops_from_draws = spy
+    try:
+        for i, step in enumerate((7, 3, 5, 9, 1)):
+            if i:
+                for mode in ("eager", "control"):
+                    _copy_train_state(sides[mode][0], sides["replay"][0])
+            got = {mode: snapshot(mode, step_fn(d, step), mode == "replay" and i == 0)
+                   for mode, (step_fn, d) in sides.items()}
+            e = got["eager"]
+            _require(all(torch.equal(got["replay"]["sampled"][k], v)
+                         for k, v in e["sampled"].items()),
+                     f"{arch}: the replayed step's draws or crops of step {step} differ from the "
+                     "eager step's")
+            for mode in equal:
+                gaps, same = _step_gaps(got[mode], e, i > 0)
+                if same:
+                    equal[mode].append(step)
+                if mode == "replay":
+                    if i == 0:
+                        worst["params at count 0"] = gaps["params"]
+                    for k, v in gaps.items():
+                        worst[k] = max(worst[k], v)
+    finally:
+        ct.crops_from_draws = orig
+    print(f"[train replay vs eager] {arch} f32, batch {cfg.batch_size}, steps 7, 3, 5, 9, 1 "
+          f"(counts 0-4, warm-up {cfg.warmup_steps}), each step from one state, the replayed "
+          f"step against the eager one: draws and crops equal bit for bit; loss and parts max "
+          f"rel {worst['loss']:.3g} (bound 1e-5); grads max |diff| / max |grad| "
+          f"{worst['grads']:.3g} (bound 1e-3, replays only); parameters after the update max "
+          f"|diff| {worst['params']:.3g} (count 0: {worst['params at count 0']:.3g}, held "
+          f"equal); running statistics {worst['stats']:.3g} (bound 1e-5); the steps where every "
+          f"value was equal: replay against eager {equal['replay']}, eager against eager "
+          f"{equal['control']}; {time.perf_counter() - t0:.1f} s")
+    _require(worst["loss"] <= 1e-5 and worst["grads"] <= 1e-3 and worst["stats"] <= 1e-5
+             and worst["params at count 0"] == 0,
+             f"{arch}: the replayed f32 train step differs from the eager one")
+
+
+def _gap(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b|, infinite where either holds a NaN."""
+    d = (a - b).abs().max().item() if a.numel() else 0.0
+    return d if d == d else float("inf")
+
+
+def _adamw_card_vs_cpu(ct, graphs, dev, seed: int, smi: str) -> None:
+    """The card's AdamW as the training step runs it (``capturable_optimizer``
+    and ``adamw_update``, replayed from one CUDA graph) against the CPU's
+    ``make_optimizer`` (its rate ``learning_rate`` as a number), on the same
+    gradients made on the CPU from ``seed``: 48 counts of a 40-step schedule
+    with a warm-up of 10 (the warm-up, the cosine decay, and 8 counts past
+    its end, where the table clamps), at ``test_adamw_updates_equal_optax``'s
+    lr 0.5 and weight decay 0.1.  Both sides set the parameters back to
+    their small start values before each count, so that no update is lost in
+    its parameter's rounding as the parameters grow.  Held: count 0's update
+    0 on both sides, every later update within 2e-5 relative (1e-8
+    absolute) of the CPU's: the card forms ``1 - b**t`` in f32, as optax
+    does (up to 1.3e-5 from the float64 formula)."""
+    import numpy as np
+
+    cfg = ct.TrainConfig(lr=0.5, warmup_steps=10, steps=40, weight_decay=0.1)
+    counts = 48
+    rng = np.random.default_rng(seed + 18)
+    shapes = [(64,), (16, 3, 3, 8), (6,)]
+    start = [rng.normal(0, 0.01, s).astype(np.float32) for s in shapes]
+    grads = [[rng.normal(0, 1, s).astype(np.float32) for s in shapes] for _ in range(counts)]
+    t0 = time.perf_counter()
+    card = [torch.nn.Parameter(torch.from_numpy(p.copy()).to(dev)) for p in start]
+    card_start = [p.detach().clone() for p in card]
+    card_grads = [[torch.from_numpy(g).to(dev) for g in gs] for gs in grads]
+    table = ct.lr_table(cfg, dev)
+    count = torch.zeros((), dtype=torch.int64, device=dev)
+    lr = ct.lr_at(table, count)
+    opt = ct.capturable_optimizer(card, cfg, lr)
+    for p, g in zip(card, card_grads[0]):
+        p.grad = g.clone()
+
+    def update():
+        ct.adamw_update(opt, lr, table, count)
+
+    got = []
+    for c in range(counts):
+        if c == 0:
+            _, entry = graphs.capture_call(update, dev, (), "as the AdamW update")  # count 0
+        else:
+            with torch.no_grad():
+                for p, s, g in zip(card, card_start, card_grads[c]):
+                    p.copy_(s)
+                    p.grad.copy_(g)
+            entry.replay()
+        got.append([(p.detach() - s).cpu().numpy() for p, s in zip(card, card_start)])
+    cpu = [torch.nn.Parameter(torch.from_numpy(p.copy())) for p in start]
+    cpu_opt = ct.make_optimizer(cpu, cfg)
+    used, gap, held = 0.0, 0.0, True
+    for c in range(counts):
+        with torch.no_grad():
+            for p, s in zip(cpu, start):
+                p.copy_(torch.from_numpy(s))
+        for p, g in zip(cpu, grads[c]):
+            p.grad = torch.from_numpy(g)
+        cpu_opt.param_groups[0]["lr"] = ct.learning_rate(c, cfg)
+        cpu_opt.step()
+        for p, s, a in zip(cpu, start, got[c]):
+            want = (p.detach() - torch.from_numpy(s)).numpy()
+            if c == 0:
+                held &= not a.any() and not want.any()
+                continue
+            diff, size = np.abs(a - want), np.abs(want)
+            held &= bool(np.all(diff <= 2e-5 * size + 1e-8))
+            used = max(used, float(np.max(diff / (2e-5 * size + 1e-8))))
+            gap = max(gap, float(np.max(diff / np.maximum(size, 1e-2))))
+    print(f"[train adamw card vs cpu] the card's captured AdamW (capturable, its rate read from "
+          f"the device table, replayed) against the CPU's make_optimizer on the same gradients: "
+          f"{counts} counts of a {cfg.steps}-step schedule with a warm-up of {cfg.warmup_steps}, "
+          f"lr {table.max().item():g} down to {table[-1].item():.3g}, {len(shapes)} parameters "
+          f"({sum(int(np.prod(s)) for s in shapes)} values) set back to their start each count: "
+          f"count 0 updates 0 on both sides and every later update within 2e-5 relative (1e-8 "
+          f"absolute) {held}, the largest gap {used:.3g} of its bound; largest relative gap "
+          f"where an update is 1e-2 or more {gap:.3g}; count read back "
+          f"{int(count)}; {time.perf_counter() - t0:.1f} s; {smi}")
+    _require(held and int(count) == counts,
+             "the card's captured AdamW differs from the CPU's past count 0")
+
+
+# the CUDA driver's graph node types (CUgraphNodeType)
+_NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: "empty",
+               6: "wait event", 7: "event record", 10: "mem alloc", 11: "mem free"}
+
+
+def _graph_nodes(graph) -> dict[str, int]:
+    """The nodes of a graph captured with ``keep_graph=True``
+    (:func:`_dumped_graphs`) by type, read through the CUDA driver
+    (``cuGraphGetNodes``, ``cuGraphNodeGetType``)."""
+    import ctypes
+
+    lib = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    _require(lib.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    _require(lib.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    kinds: dict[str, int] = defaultdict(int)
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        _require(lib.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0,
+                 "cuGraphNodeGetType failed")
+        kinds[_NODE_TYPES.get(kind.value, str(kind.value))] += 1
+    return dict(kinds)
+
+
+def _train_turns(ct, cd, data: dict, dev, smi: str) -> None:
+    """The bf16 v3 step at the default ``TrainConfig``, eager (a stage timer
+    that records nothing) and replayed from one CUDA graph, each from the
+    same initial weights: steps/s on the host's clock and the host's ms a
+    step (the call's own time, no sync) in turns, eager, replay, replay,
+    eager, 20 steps each after a warm-up; the device busy time and launches
+    a step by ``torch.profiler`` (5 steps each) and the card's idle share
+    beside the steps' time; the graph's nodes (read through the CUDA driver)
+    beside the eager launch count, and the bytes its capture reserved for
+    its own pool; then a window of replays in which the host never waits
+    for the card."""
     from torch.profiler import ProfilerActivity, profile
 
-    step = ct.TrainStep(cd.init_params(ct.SignCenterNetV3Train(), 0).to(dev),
-                        ct.TrainConfig(warmup_steps=3, steps=31))
-    for s in range(5):
-        step(data, s)
-    torch.cuda.synchronize()
+    cfg = ct.TrainConfig(warmup_steps=3, steps=100)
+    steps = {mode: ct.TrainStep(cd.init_params(ct.SignCenterNetV3Train(), 0).to(dev), cfg,
+                                timer=_eager_timer if mode == "eager" else None)
+             for mode in ("eager", "replay")}
+    taken = dict.fromkeys(steps, 0)
+
+    def run(mode):
+        taken[mode] += 1
+        return steps[mode](data, taken[mode] - 1)
+
     t0 = time.perf_counter()
-    for s in range(5, 25):
-        step(data, s)
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) / 20 * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for s in range(25, 30):
-            step(data, s)
+    with _dumped_graphs():
+        run("replay")                      # the capture
+    capture_s = time.perf_counter() - t0
+    for mode in steps:
+        while taken[mode] < 5:
+            run(mode)
+    wall, host = defaultdict(list), defaultdict(list)
+    for mode in ("eager", "replay", "replay", "eager"):
         torch.cuda.synchronize()
-    ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(e.device_time for e in ev) / 5 / 1e3
-    top = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)[:6]
-    print(f"[train profile] a step: {len(ev) / 5:.0f} CUDA kernels and copies, busy {busy:.3f} ms "
-          f"(torch.profiler, 5 steps) of {wall:.3f} ms on the host's clock (20 steps, no loss "
-          f"read): the card idles {1 - busy / wall:.1%}; most device time: "
-          + ", ".join(f"{e.key[:48]} {e.device_time_total / 5 / 1e3:.3f}" for e in top)
-          + f" ms; {smi}")
+        t0 = time.perf_counter()
+        for _ in range(20):
+            t = time.perf_counter()
+            run(mode)
+            host[mode].append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        wall[mode].append((time.perf_counter() - t0) / 20 * 1e3)
+    busy, launches, top = {}, {}, {}
+    for mode in steps:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                run(mode)
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy[mode] = sum(e.device_time for e in ev) / 5 / 1e3
+        launches[mode] = len(ev) / 5
+        top[mode] = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)[:4]
+    entry = steps["replay"].captured
+    nodes = _graph_nodes(entry.graph)
+    for mode in steps:
+        ms = statistics.median(wall[mode])
+        print(f"[train {mode}] v3 bf16, batch {cfg.batch_size}, {len(wall[mode])} runs of 20 "
+              f"steps in turns (eager, replay, replay, eager): {1e3 / ms:.2f} steps/s (runs "
+              + ", ".join(f"{1e3 / w:.2f}" for w in wall[mode])
+              + f"); the host's ms a step {statistics.median(host[mode]):.3f} (min "
+              f"{min(host[mode]):.3f}, max {max(host[mode]):.3f}); busy {busy[mode]:.3f} ms a step "
+              f"(torch.profiler, 5 steps), {launches[mode]:.0f} CUDA kernels and copies a step: the "
+              f"card idles {1 - busy[mode] / ms:.1%} of {ms:.3f} ms; most device time: "
+              + ", ".join(f"{e.key[:40]} {e.device_time_total / 5 / 1e3:.3f}" for e in top[mode])
+              + f" ms; {smi}")
+    print(f"[train graph] the step's CUDA graph: nodes by type {nodes} "
+          f"({sum(nodes.values())} in all) beside {launches['eager']:.0f} eager CUDA kernels and "
+          f"copies a step; its capture reserved {entry.pool_bytes / 2**30:.3f} GiB for its own "
+          f"pool ({torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB reserved on the card); "
+          f"warm-up and capture {capture_s:.2f} s; replayed steps/s "
+          f"{statistics.median(wall['eager']) / statistics.median(wall['replay']):.2f}x the "
+          f"eager in this call")
+    _require(nodes.get("kernel", 0) > 0, "the training step's graph holds no kernel node")
+    _require_no_sync("train replay", lambda: run("replay"), iters=4)
 
 
 def _train_phases(rt, dev, smi: str, seed: int) -> dict:
@@ -1892,63 +2176,88 @@ def _train_phases(rt, dev, smi: str, seed: int) -> dict:
     from opencv_traffic_sign_detector_tpu_torch.models import cnn_detector as cd
     from opencv_traffic_sign_detector_tpu_torch.models import cnn_quant as cq
     from opencv_traffic_sign_detector_tpu_torch.models import cnn_train as ct
+    from opencv_traffic_sign_detector_tpu_torch.runtime import graphs
 
     # --- 14. training ------------------------------------------------------
-    t0 = time.perf_counter()
+    t0 = t_phase = time.perf_counter()
     frames, found = make_labelled_frames(64, 800, 1360, seed=seed + 14)
     data = ct.pack_dataset(frames, found)
     h, w = frames.shape[1:3]
     print(f"[train] synthetic train set {frames.shape} uint8 ({frames.nbytes / 1e6:.1f} MB), "
           f"{len(data['pos'])} sign boxes, made in {time.perf_counter() - t0:.1f} s")
     cfg = ct.TrainConfig(warmup_steps=3, steps=31, seed=seed)
-    timer = CudaStageTimer()
-    stamps, losses = [], []
-
-    def log(line: str) -> None:
-        # train() logs "step i: loss=..." after a synchronising read of the
-        # step's loss: with log_every=1 the stamps bracket whole steps
-        stamps.append(time.perf_counter())
-        losses.append(float(line.split("loss=")[1].split()[0]))
-
-    def run():
-        return ct.train(data, cd.CNNDetectorConfig(arch="v3"), cfg, log_every=1, log_fn=log,
-                        device=dev, timer=timer)
-
-    live = torch.cuda.memory_allocated(dev)        # what earlier phases still hold
-    torch.cuda.reset_peak_memory_stats(dev)
-    (net, _), counts = _run_path(rt, "training", run)
-    peak = torch.cuda.max_memory_allocated(dev)
-    step_s = np.diff(stamps)                    # steps 1..30: the first is a warm-up
-    split = {k: sum(s.elapsed_time(e) for s, e in v[1:]) / (len(v) - 1)
-             for k, v in timer.events.items()}
     b = cfg.batch_size
-    print(f"[train] v3 twin, TrainConfig batch {b}, crop {ct.CROP}, bf16 convs, BatchNorm f32, "
-          f"warm-up {cfg.warmup_steps} of {cfg.steps} steps: {1 / np.median(step_s):.2f} steps/s, "
-          f"{b / np.median(step_s):.1f} crops/s on the host's clock (median of {len(step_s)} "
-          f"steps after one warm-up step; min {1 / step_s.max():.2f}, max {1 / step_s.min():.2f} "
-          f"steps/s; a synchronised loss read a step); device ms a step by CUDA events: "
-          f"{sum(split.values()):.3f} = " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
-          + f"; peak memory allocated {peak / 2**20:.1f} MiB, {(peak - live) / 2**20:.1f} MiB "
-          f"above the {live / 2**20:.1f} MiB live before training; {smi}")
-    print(f"[train] loss, first 5 steps: {', '.join(f'{v:.4f}' for v in losses[:5])}; last 5: "
-          f"{', '.join(f'{v:.4f}' for v in losses[-5:])}")
-    _require(len(losses) == cfg.steps and np.isfinite(losses).all(), "non-finite training loss")
-    _require(np.mean(losses[-5:]) < np.mean(losses[:5]),
-             "the loss did not fall over the run's steps")
+    runs = {}
+    for mode in ("eager", "replay"):
+        # the stage timer makes the steps eager; without it a step replays
+        timer = CudaStageTimer() if mode == "eager" else None
+        stamps, losses = [], []
+
+        def log(line: str) -> None:
+            # train() logs "step i: loss=..." after a synchronising read of the
+            # step's loss: with log_every=1 the stamps bracket whole steps
+            stamps.append(time.perf_counter())
+            losses.append(float(line.split("loss=")[1].split()[0]))
+
+        def run():
+            return ct.train(data, cd.CNNDetectorConfig(arch="v3"), cfg, log_every=1, log_fn=log,
+                            device=dev, timer=timer)
+
+        live = torch.cuda.memory_allocated(dev)        # what earlier phases still hold
+        torch.cuda.reset_peak_memory_stats(dev)
+        label = "training" if mode == "replay" else "training, eager (the stage timer)"
+        (net, _), counts = _run_path(rt, label, run)
+        peak = torch.cuda.max_memory_allocated(dev)
+        step_s = np.diff(stamps)                    # steps 1..30: the first is a warm-up
+        runs[mode] = (net if mode == "replay" else None, losses, counts)
+        stages = ""
+        if timer is not None:
+            split = {k: sum(s.elapsed_time(e) for s, e in v[1:]) / (len(v) - 1)
+                     for k, v in timer.events.items()}
+            stages = (f"; device ms a step by CUDA events: {sum(split.values()):.3f} = "
+                      + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+        print(f"[train] {mode}: v3 twin, TrainConfig batch {b}, crop {ct.CROP}, bf16 convs, "
+              f"BatchNorm f32, warm-up {cfg.warmup_steps} of {cfg.steps} steps"
+              + (" replayed from one CUDA graph a step" if timer is None else
+                 " eager with the stage timer")
+              + f": {1 / np.median(step_s):.2f} steps/s, {b / np.median(step_s):.1f} crops/s on "
+              f"the host's clock (median of {len(step_s)} steps after the first, the capture's "
+              f"in a replay; min {1 / step_s.max():.2f}, max {1 / step_s.min():.2f} steps/s; a "
+              f"synchronised loss read a step){stages}; peak memory allocated "
+              f"{peak / 2**20:.1f} MiB, {(peak - live) / 2**20:.1f} MiB above the "
+              f"{live / 2**20:.1f} MiB live before training; {smi}")
+        print(f"[train] {mode}: loss, first 5 steps: {', '.join(f'{v:.4f}' for v in losses[:5])};"
+              f" last 5: {', '.join(f'{v:.4f}' for v in losses[-5:])}")
+        _require(len(losses) == cfg.steps and np.isfinite(losses).all(),
+                 f"non-finite training loss ({mode})")
+        _require(np.mean(losses[-5:]) < np.mean(losses[:5]),
+                 f"the loss did not fall over the run's steps ({mode})")
+        del net
+    net, losses, counts = runs["replay"]
+    eager_losses = np.asarray(runs["eager"][1])
+    curve = float(np.max(np.abs(np.asarray(losses) - eager_losses) / np.abs(eager_losses)))
+    print(f"[train] the replayed run's 31 losses against the eager run's: max relative "
+          f"difference {curve:.3g} (bound 1e-2), equal {losses == runs['eager'][1]}")
+    _require(curve <= 1e-2, "the replayed training run's losses differ from the eager run's")
     # a threshold under the heatmap's 0.01 prior, so that records come out
     # of a net 31 steps old
     det = cd.CNNDetector(net, cd.CNNDetectorConfig(arch="v3", score_threshold=0.005))
     names = [f"{i:05d}.jpg" for i in range(8)]
     dets = det.detect_frames(frames[:8], names, (h, w))
-    print(f"[train] the folded net through CNNDetector on 8 train frames at threshold 0.005: "
-          f"{len(dets)} detections")
+    print(f"[train] the replayed run's folded net through CNNDetector on 8 train frames at "
+          f"threshold 0.005: {len(dets)} detections")
     _require(_well_formed(dets, h, w), "the trained detector's records are malformed")
-    del net, det
-    _train_profile(ct, cd, ct.upload_dataset(data, dev), dev, smi)
+    del net, det, runs
+    torch.cuda.empty_cache()
+    _train_turns(ct, cd, ct.upload_dataset(data, dev), dev, smi)
+    torch.cuda.empty_cache()
+    _adamw_card_vs_cpu(ct, graphs, dev, seed, smi)
     sub = {k: v[:4] for k, v in data.items() if k != "pos"}
     sub["pos"] = data["pos"][data["pos"][:, 0] < 4]
     for arch in ("v3", "slim"):
         _f32_step_vs_cpu(ct, cd, arch, sub, dev, seed)
+        _train_replay_vs_eager(ct, cd, arch, sub, dev, seed)
+    print(f"[train] phase 14 in {time.perf_counter() - t_phase:.1f} s")
 
     # --- 15. calibration ---------------------------------------------------
     ck = "artifacts/cnn_detector/params.npz"
@@ -2464,7 +2773,7 @@ def _sync_sites(dispatch, iters: int) -> list[str]:
 
 
 def _require_no_sync(label: str, dispatch, iters: int = 2) -> None:
-    """Phases 5-6, 12-13 and 16a: a window of ``iters`` dispatches, after a
+    """Phases 5-6, 12-14 and 16a: a window of ``iters`` dispatches, after a
     warm-up, in which the host never waits for the card: every shape on
     these paths is static, as under the reference's ``jax.jit``."""
     sites = _sync_sites(dispatch, iters)
@@ -2474,8 +2783,8 @@ def _require_no_sync(label: str, dispatch, iters: int = 2) -> None:
 
 
 def _eager_timer(name: str):
-    """A stage timer that records nothing: a ``DetectionPipeline`` with a
-    timer runs its dispatch eagerly, not as a graph replay."""
+    """A stage timer that records nothing: a ``DetectionPipeline`` or a
+    ``TrainStep`` with a timer runs eagerly, not as a graph replay."""
     return contextlib.nullcontext()
 
 
@@ -2897,6 +3206,22 @@ def scale_out_detection(seed: int = 0) -> int:
     frames, _ = make_frames_with_boxes(32, 800, 1360, seed=seed)
     _scale_out_detection(rt, dev, smi, frames, MeanMaskTemplates.load("artifacts/mean_masks.npz"),
                          _tuned(MSERConfig.from_string("MSER_7_200_2000_1")))
+    return 0
+
+
+def train_phases(seed: int = 0) -> int:
+    """Phases 14-15 alone (training and calibration run none of the port's
+    kernels, so nothing is built)::
+
+        python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.train_phases())"
+
+    a failed check raises."""
+    _, smi = _device_phase()
+    from opencv_traffic_sign_detector_tpu_torch.runtime import build as rt
+
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    _train_phases(rt, dev, smi, seed)
     return 0
 
 

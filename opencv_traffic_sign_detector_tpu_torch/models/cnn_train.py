@@ -6,7 +6,9 @@ The whole training set is uploaded once; a step then draws its random
 values on the device from ``(seed, step)`` alone, cuts and augments its
 crops, renders CenterNet targets, and runs the forward pass, the backward
 pass and the AdamW update, so the host hands over a step counter and reads
-one scalar every ``log_every`` steps.
+one scalar every ``log_every`` steps.  On a card the step is one CUDA graph,
+captured at the first step and replayed for every later one, as the
+reference jits its whole step (:class:`TrainStep`).
 
 What the reference's numbers depend on, and this module keeps:
 
@@ -45,6 +47,7 @@ from ..data.gt import boxes_by_file, load_ground_truth
 from ..data.images import list_frame_files, load_image_bgr
 from ..ops.mser import stage_scope
 from ..ops.upscale import scale_translate_weights
+from ..runtime import graphs
 from .cnn_detector import (
     NUM_CLASSES,
     CNNDetectorConfig,
@@ -137,8 +140,11 @@ def shard_generator(seed: int, step: int, shard: int, device) -> torch.Generator
 
 
 def _seeded(entropy: tuple[int, ...], device) -> torch.Generator:
-    state = np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0]
-    return torch.Generator(device=device).manual_seed(int(state))
+    return torch.Generator(device=device).manual_seed(_seed_state(entropy))
+
+
+def _seed_state(entropy: tuple[int, ...]) -> int:
+    return int(np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0])
 
 
 def sample_draws(gen: torch.Generator, batch: int, n_frames: int, n_pos: int,
@@ -271,8 +277,10 @@ def make_targets(boxes: torch.Tensor, cls: torch.Tensor, grid_h: int, grid_w: in
     sigma2 = torch.clamp((2 * _gaussian_radius(w, h) + 1) / 6, min=1e-3) ** 2
     d2 = (gx - cells(icx.to(torch.float32))) ** 2 + (gy - cells(icy.to(torch.float32))) ** 2
     g = torch.where(cells(valid), torch.exp(-d2 / (2 * cells(sigma2))), 0.0)      # [B, M, H, W]
-    onehot = F.one_hot(torch.clamp(cls - 1, 0, NUM_CLASSES - 1).long(), NUM_CLASSES)
-    onehot = onehot.to(torch.float32) * valid[..., None]                           # [B, M, C]
+    # one_hot's own range checks read the class ids back on the CPU
+    onehot = (torch.clamp(cls - 1, 0, NUM_CLASSES - 1)[..., None]
+              == torch.arange(NUM_CLASSES, device=dev)).to(torch.float32)
+    onehot = onehot * valid[..., None]                                             # [B, M, C]
     hm = (g[..., None] * onehot[:, :, None, None, :]).amax(dim=1)
 
     cell = ((gy == cells(icy)) & (gx == cells(icx)) & cells(valid)).to(torch.float32)
@@ -420,12 +428,57 @@ def learning_rate(count: int, cfg: TrainConfig) -> float:
     return float(f32(peak) * (f32(1 - alpha) * cosine + f32(alpha)))
 
 
+def lr_table(cfg: TrainConfig, device) -> torch.Tensor:
+    """:func:`learning_rate` at every update count ``0..cfg.steps``, f32 on
+    ``device``, made once: a step reads its rate there (:func:`lr_at`), so
+    the host computes none.  A run no longer than its warm-up (which optax
+    refuses) never leaves it: its table ends before the count where the
+    decay would begin."""
+    last = cfg.steps if cfg.steps > cfg.warmup_steps else min(cfg.steps, cfg.warmup_steps - 1)
+    return torch.tensor([learning_rate(c, cfg) for c in range(last + 1)], dtype=torch.float32,
+                        device=device)
+
+
+def lr_at(table: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """The rate of ``table`` (:func:`lr_table`) at update ``count`` (a 0-d
+    int64 tensor on its device), its last past the end: a 0-d tensor, read
+    on the device."""
+    return torch.take(table, torch.clamp(count, max=table.numel() - 1))
+
+
 def make_optimizer(params, cfg: TrainConfig) -> torch.optim.AdamW:
     """optax ``adamw`` (betas 0.9/0.999, eps 1e-8, decoupled weight decay on
     every parameter); :class:`TrainStep` sets its learning rate before each
     update."""
     return torch.optim.AdamW(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8,
                              weight_decay=cfg.weight_decay)
+
+
+def capturable_optimizer(params, cfg: TrainConfig, lr: torch.Tensor) -> torch.optim.AdamW:
+    """:func:`make_optimizer`'s AdamW with ``capturable=True``: its update
+    counts, its bias corrections ``1 - b**t`` (in f32, as optax forms them)
+    and its learning rate ``lr`` (a 0-d tensor that :func:`adamw_update`
+    writes) stay on the card, so a CUDA graph holds the whole update.
+    PyTorch refuses ``capturable`` on the CPU, which keeps
+    :func:`make_optimizer`."""
+    return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=cfg.weight_decay, capturable=True)
+
+
+def adamw_update(opt: torch.optim.AdamW, lr: torch.Tensor, table: torch.Tensor,
+                 count: torch.Tensor) -> None:
+    """One AdamW update of ``opt``'s parameters from their gradients at
+    update ``count`` (a 0-d int64 tensor, advanced by one), its rate the
+    table's at ``count`` written into ``lr``.  A :func:`make_optimizer`
+    optimizer takes the rate as a number, which it reads back (on the CPU,
+    where that does not wait); a :func:`capturable_optimizer` reads ``lr``
+    on the card."""
+    lr.copy_(lr_at(table, count))
+    if not opt.defaults["capturable"]:
+        for group in opt.param_groups:
+            group["lr"] = lr.item()
+    opt.step()
+    count.add_(1)
 
 
 def crop_targets(boxes: torch.Tensor, cls: torch.Tensor, stride: int) -> tuple[torch.Tensor, ...]:
@@ -437,23 +490,69 @@ class TrainStep:
     """One training step a call: draws from ``(cfg.seed, step)``, crops,
     targets, the loss, its gradients and an AdamW update of ``model``'s
     parameters (and, for the twin, its running statistics).  The optimizer's
-    own update count (:attr:`count`, from 0) sets the learning rate; it is
-    independent of the ``step`` that seeds the draws.  ``timer``, when
-    given, brackets the stages ``sample+resize``, ``targets``,
-    ``forward+backward`` and ``optimizer`` (``timer(name)`` is a context)."""
+    own update count (:attr:`count`, a 0-d tensor on the device, from 0)
+    sets the learning rate (:func:`lr_table`); it is independent of the
+    ``step`` that seeds the draws.  ``timer``, when given, brackets the
+    stages ``sample+resize``, ``targets``, ``forward+backward`` and
+    ``optimizer`` (``timer(name)`` is a context).
 
-    def __init__(self, model: nn.Module, cfg: TrainConfig, timer=None):
+    The step's body holds no host state: the count, the rate and the
+    optimizer's state are device tensors, and the draws come from
+    :attr:`gen`, seeded before each step with ``(cfg.seed, step)``'s state
+    (on a card the graph registers it, so each replay draws from that seed).
+    So on a card (:attr:`GRAPH_DEVICES`) the first call runs the body once
+    eagerly on the card's capture stream (a real step, whose metrics it
+    returns) and captures it into one CUDA graph with a memory pool of its
+    own (``capture``, by default ``runtime/graphs.py: capture_call``); every
+    later call with the same model, optimizer and data tensors (by identity;
+    others make a new capture) seeds the generator, replays the graph and
+    returns its static metrics, which the next replay rewrites.  The graph
+    writes the gradients, which no parameter holds when it is captured, and
+    moves the twin's running statistics once a replay.  A capture that fails
+    raises ``GraphCaptureError``: there is no eager retry.  On the CPU, and
+    with a ``timer`` (events between the stages cannot be read inside a
+    graph), the body runs eagerly."""
+
+    GRAPH_DEVICES = ("cuda",)
+
+    def __init__(self, model: nn.Module, cfg: TrainConfig, timer=None, capture=None):
         self.model, self.cfg, self.timer = model.train(), cfg, timer
         params = list(model.parameters())
         for p in params:
             p.requires_grad_(True)
-        self.opt = make_optimizer(params, cfg)
-        self.count = 0
+        self.device = params[0].device
+        self.graphed = self.device.type in self.GRAPH_DEVICES
+        self.count = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.lr_table = lr_table(cfg, self.device)
+        self.lr = lr_at(self.lr_table, self.count)
+        self.opt = (capturable_optimizer(params, cfg, self.lr) if self.graphed
+                    else make_optimizer(params, cfg))
+        self.gen = torch.Generator(device=self.device)
+        self._capture = capture or graphs.capture_call
+        self._held = None  # (model, optimizer and data tensors, graphs.Captured)
 
     def __call__(self, data: dict[str, torch.Tensor], step: int) -> dict[str, torch.Tensor]:
+        self.gen.manual_seed(_seed_state((self.cfg.seed, step)))
+        if self.timer is not None or not self.graphed:
+            return self._body(data)
+        key = (self.model, self.opt, *data.values())
+        if self._held is not None and len(self._held[0]) == len(key) and all(
+                a is b for a, b in zip(self._held[0], key)):
+            return self._held[1].replay()
+        first, entry = self._capture(self._body, self.device, (data,), "as a training step",
+                                     generator=self.gen)
+        self._held = (key, entry)
+        return first
+
+    @property
+    def captured(self):
+        """The step's ``graphs.Captured`` graph, or ``None`` before the first
+        graphed step."""
+        return None if self._held is None else self._held[1]
+
+    def _body(self, data: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
         with stage_scope(self.timer, "sample+resize"):
-            gen = step_generator(self.cfg.seed, step, data["frames"].device)
-            draws = sample_draws(gen, self.cfg.batch_size, data["frames"].shape[0],
+            draws = sample_draws(self.gen, self.cfg.batch_size, data["frames"].shape[0],
                                  data["pos"].shape[0], self.cfg)
             crops = crops_from_draws(draws, data, self.cfg)
         return self.update(*crops)
@@ -471,10 +570,7 @@ class TrainStep:
             self.opt.zero_grad(set_to_none=True)
             loss.backward()
         with stage_scope(self.timer, "optimizer"):
-            for group in self.opt.param_groups:
-                group["lr"] = learning_rate(self.count, self.cfg)
-            self.opt.step()
-        self.count += 1
+            adamw_update(self.opt, self.lr, self.lr_table, self.count)
         return {"loss": loss.detach(), **{k: v.detach() for k, v in parts.items()}}
 
 
@@ -491,8 +587,9 @@ def train(data: dict[str, np.ndarray], model_cfg: CNNDetectorConfig | None = Non
     """A whole training run on ``device`` from :func:`pack_dataset`'s
     arrays, uploaded once.  ``arch="v3"`` trains the BatchNorm twin and
     returns the folded inference net, so callers are arch-agnostic.
-    ``timer`` times the steps' stages (:class:`TrainStep`).  -> (the
-    inference ``SignCenterNet``, the last step's metrics)."""
+    ``timer`` times the steps' stages, eagerly (:class:`TrainStep`; without
+    it a card replays one CUDA graph a step).  -> (the inference
+    ``SignCenterNet``, the last step's metrics)."""
     model_cfg = model_cfg or CNNDetectorConfig()
     cfg = cfg or TrainConfig()
     full_f32_matmuls()
@@ -507,6 +604,8 @@ def train(data: dict[str, np.ndarray], model_cfg: CNNDetectorConfig | None = Non
         if log_every and (step % log_every == 0 or step == cfg.steps - 1):
             # one scalar read: also paces the host ahead of the card
             log_fn(f"step {step}: " + " ".join(f"{k}={float(v):.4f}" for k, v in metrics.items()))
+    # a replay's metrics are its graph's outputs, which the next replay rewrites
+    metrics = {k: v.clone() for k, v in metrics.items()}
     model.eval()
     for p in model.parameters():
         p.requires_grad_(False)

@@ -23,6 +23,12 @@ A capture that fails raises :class:`GraphCaptureError`, naming the site in
 the port that refused (a host sync, or a constant first made inside the
 capture): there is no eager retry.
 
+:func:`capture_call` is the capture step itself, for a function of no
+static input: the CNN training step (``models/cnn_train.py: TrainStep``)
+captures its whole step with it, into a memory pool of the graph's own, and
+draws its crops from a generator of its own that the graph registers, whose
+seed at each replay the replay's draws follow.
+
 **Two batches in flight.**  Stream order is the whole argument.  A call
 enqueues the copy into the static input and the replay on the card's current
 stream; the caller enqueues its copy of the static outputs (to pinned host
@@ -93,51 +99,64 @@ def refusing_site(exc: BaseException) -> str:
 
 
 def _on_stream(out, stream) -> None:
-    """Mark every tensor of ``out`` (nested tuples and lists) as used on
-    ``stream``, so the allocator does not hand out its memory before the
+    """Mark every tensor of ``out`` (nested tuples, lists and dicts) as used
+    on ``stream``, so the allocator does not hand out its memory before the
     stream is done with it."""
     if isinstance(out, torch.Tensor):
         out.record_stream(stream)
-    elif isinstance(out, (tuple, list)):
-        for o in out:
+    elif isinstance(out, (tuple, list, dict)):
+        for o in out.values() if isinstance(out, dict) else out:
             _on_stream(o, stream)
+
+
+def _require_card(device: torch.device) -> None:
+    if device.type != "cuda":
+        raise ValueError(f"a CUDA graph needs a CUDA device, not {device}")
 
 
 @dataclasses.dataclass
 class Captured:
-    """One captured graph: its static input and outputs, its launches a
-    replay, and the bytes its capture reserved on the card for the pool
-    (what the pool's free blocks did not cover)."""
+    """One captured graph: its static input (``None`` for a function of no
+    input) and outputs, its launches a replay, and the bytes its capture
+    reserved on the card for its pool (what the pool's free blocks did not
+    cover)."""
 
     graph: object
-    static: torch.Tensor
+    static: torch.Tensor | None
     outputs: object
     launches: dict
     pool_bytes: int
 
-    def replay(self, x: torch.Tensor):
-        self.static.copy_(x, non_blocking=True)
+    def replay(self, x: torch.Tensor | None = None):
+        if self.static is not None:
+            self.static.copy_(x, non_blocking=True)
         self.graph.replay()
         build.add_launches(self.launches)
         return self.outputs
 
 
-def capture_graph(fn, device: torch.device, x: torch.Tensor, consts: tuple):
-    """Warm ``fn`` up on ``device`` with ``x`` and capture it.  -> (the
-    warm-up's outputs, :class:`Captured`).  Raises :class:`GraphCaptureError`
-    when the capture fails."""
-    if device.type != "cuda":
-        raise ValueError(f"a CUDA graph needs a CUDA device, not {device}")
-    pool, side = _card(device)
+def capture_call(fn, device: torch.device, args: tuple, what: str, pool=None,
+                 generator: torch.Generator | None = None):
+    """Warm ``fn(*args)`` up on ``device``'s capture stream, which makes its
+    first-use constants and the cuBLAS and cuDNN workspaces of that stream,
+    and capture it there into a CUDA graph that allocates from ``pool`` (by
+    default a pool of the graph's own) and draws from ``generator`` (a
+    generator of the card's own, registered with the graph: each replay
+    draws from the seed it holds then).  -> (the warm-up's outputs,
+    :class:`Captured` with no static input).  Raises
+    :class:`GraphCaptureError`, naming ``what`` and the refusing site, when
+    the capture fails."""
+    _require_card(device)
+    _, side = _card(device)
     current = torch.cuda.current_stream(device)
-    static = torch.empty(x.shape, dtype=x.dtype, device=device)
-    static.copy_(x, non_blocking=True)
     side.wait_stream(current)
     with torch.cuda.stream(side):
-        first = fn(static, *consts)
+        first = fn(*args)
     current.wait_stream(side)
     _on_stream(first, current)
     graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        graph.register_generator_state(generator)
     # A graph freed during the capture (an earlier pipeline's, in a reference
     # cycle) would destroy its executable graph, which the capture refuses:
     # collect such garbage first and let no collection run inside.
@@ -147,16 +166,30 @@ def capture_graph(fn, device: torch.device, x: torch.Tensor, consts: tuple):
         with build.recording_launches() as launches:
             with torch.cuda.graph(graph, pool=pool, stream=side):
                 reserved = torch.cuda.memory_reserved(device)
-                outputs = fn(static, *consts)
+                outputs = fn(*args)
     except Exception as e:
-        del _cards[device]  # the failed capture leaves the pool unusable
+        del _cards[device]  # the failed capture leaves the stream and pool unusable
         raise GraphCaptureError(
-            f"capturing {getattr(fn, '__qualname__', fn)} on {device} for input "
-            f"{tuple(x.shape)} {x.dtype} failed at {refusing_site(e)}") from e
+            f"capturing {getattr(fn, '__qualname__', fn)} on {device} {what} failed at "
+            f"{refusing_site(e)}") from e
     finally:
         gc.enable()
-    return first, Captured(graph, static, outputs, dict(launches),
+    return first, Captured(graph, None, outputs, dict(launches),
                            torch.cuda.memory_reserved(device) - reserved)
+
+
+def capture_graph(fn, device: torch.device, x: torch.Tensor, consts: tuple):
+    """Warm ``fn(static, *consts)`` up on ``device`` with ``x`` in a static
+    input and capture it into the card's pool (:func:`capture_call`).  ->
+    (the warm-up's outputs, :class:`Captured`)."""
+    _require_card(device)
+    pool, _ = _card(device)
+    static = torch.empty(x.shape, dtype=x.dtype, device=device)
+    static.copy_(x, non_blocking=True)
+    first, entry = capture_call(fn, device, (static, *consts),
+                                f"for input {tuple(x.shape)} {x.dtype}", pool)
+    entry.static = static
+    return first, entry
 
 
 class CapturedFn:
