@@ -223,10 +223,11 @@ def _bench_cnn(args, result: dict, device) -> None:
 
     def run(size: str, layout: str = "patches8", d=None) -> float:
         """Device-queue frames/s: ONE batch, uploaded before the window,
-        dispatched ``cnn_iters`` times; no copy and no sync inside the
-        window.  ``patches8`` is the serving layout of v3 (the loader
-        decodes into it); ``bgr`` plain frames; ``yuv420p`` patchified
-        4:2:0 planes."""
+        dispatched ``cnn_iters`` times; no copy from the host and no sync
+        inside the window (on a card each dispatch copies the batch into its
+        graph's input and replays the graph).  ``patches8`` is the serving
+        layout of v3 (the loader decodes into it); ``bgr`` plain frames;
+        ``yuv420p`` patchified 4:2:0 planes."""
         d = det if d is None else d
         frames = _load_frames(args.cnn_batch, size)
         if layout == "patches8" and d.cfg.arch == "v3":

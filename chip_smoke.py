@@ -119,11 +119,20 @@ Phases:
    bgr, patches8, yuv420 tight and yuv420p planes made with numpy,
    ``--upscale`` 1.6 and 1.412 fused, 1.3 two-stage, 0.9 dense downscale;
    int8 ``params_int8.npz``: bgr and 1.6; ``params_slim.npz`` and
-   ``params_v3.npz``: bgr), one warm-up and 3 timed batches each (1 for
-   the last two) from host arrays to
-   detection records; requires each route to take its branch, finite
-   outputs and well-formed records, patches8 outputs equal to bgr's and
-   yuv420p BGR patches equal to the patchified tight conversion;
+   ``params_v3.npz``: bgr), one warm-up batch, which captures the route's
+   CUDA graph (one capture; the route check reads the route functions
+   called at the capture; the graph's nodes by type and pool bytes,
+   :func:`_cnn_graph_report`), and 3 timed batches each (1 for the last
+   two), replayed (3 replays, no route function called), from host arrays
+   to detection records; requires each route to take its branch, finite
+   outputs and well-formed records, the replay equal to the eager dispatch
+   bit for bit, or within an eager-against-eager control, one batch at a
+   time and two in flight (:func:`_cnn_replay_vs_eager`), no host sync in
+   4 replays, patches8 outputs equal to bgr's and yuv420p BGR patches equal
+   to the patchified tight conversion; then float bgr at batch 32 and 8 and
+   int8 ``--upscale 1.6`` at batch 32 replayed against eager in turns
+   (:func:`_cnn_turns`: frames/s one at a time and two in flight, the
+   host's ms a dispatch, busy ms and idle share by ``torch.profiler``);
 9. CNN card vs CPU: each route on 1 frame (2 for float bgr) through the
    port's CPU path must give matching detections; the int8 stem
    activations agree within +-1 on a stated share, and the card's yuv BGR
@@ -138,6 +147,8 @@ Phases:
     write the same JSONL apart from ``latency_ms`` (:func:`_serve_phases`);
 11. the server, CNN: the same with ``--detector CNN`` on bgr and yuv420
     ingest, boxes inside the frame, against the CPU within the CNN bound;
+    in 10 and 11 every batch after the capture replays a graph (one capture,
+    two with yuv420 ingest: the warm-up is bgr);
 12. práctica 2, MSER proposals: ``run_validation`` (HOG_LDA_BAYES) on 12
     synthetic GTSDB-style train frames of 1360x800 with a gt.txt at the
     recognizer's defaults (``--downscale 1``, pointer jumps, 384 regions),
@@ -151,9 +162,14 @@ Phases:
     versions exactly and timed as in phase 3; one frame's proposals,
     boxes, labels and scores (1e-4) against the CPU path
     (:func:`_recognition_phases`);
-13. práctica 2, CNN proposals (the CLI's default source): mining,
-    validation and inference with the detector at threshold 0.10; frames/s
-    and the same comparison with the CPU path; in 12 and 13
+13. práctica 2, CNN proposals (the CLI's default source): mining (the
+    detector's dispatch: one capture, then replays), validation and
+    inference with the detector at threshold 0.10, where the first batch
+    captures the whole of ``recognize_batch_cnn`` as one graph and the
+    detector captures nothing more (its nodes and pool bytes printed), the
+    replay equal to the eager function one batch at a time and two in
+    flight, a batch's ms replayed and eager; frames/s and the same
+    comparison with the CPU path; in 12 and 13
     ``RecognitionPipeline.dispatch`` without a host sync, as in phase 5;
 14. training (:func:`_train_phases`): ``models/cnn_train.py: train`` of the
     v3 BatchNorm twin at the default ``TrainConfig`` (batch 32, 320x320
@@ -230,9 +246,14 @@ Phases:
     nothing and is not counted) and no launch in the CNN scopes; (c) ``--model
     mser --skip_e2e``, whose 1080p probe must launch K1-K4 once a batch,
     and the same with ``--scan_passes 2 --extent_only 1``;
+    the CNN scopes' graph captures (each input and reserved bytes) and
+    replays, and the card's peak memory;
     (d) the probe's records on 2 frames against the CPU path; (e) one
     window of 4 dispatches of each CNN device-queue route, and of the fed
-    scope, under ``torch.cuda.set_sync_debug_mode("warn")``: no host sync;
+    scope, under ``torch.cuda.set_sync_debug_mode("warn")``: no host sync,
+    each window replaying its route's graph; the device queue (patches8,
+    batch 128) replayed against eager in turns (frames/s, the host's ms a
+    dispatch) and the copy of its batch into the graph's input;
     (f) ``scripts/cnn_profile_torch.py --size gtsdb --batch 16`` and (g)
     ``scripts/quality_probe_torch.py --limit 4`` on the tree, and with
     ``--sweep_res 1``.  Templates
@@ -1341,9 +1362,10 @@ def _k1_shapes(cc, x: torch.Tensor, gen) -> None:
         _require(same and lib and all(luts), f"K1 {label}: differs from its plain version")
 
 
-def _cnn_phases(rt, dev, frames: "np.ndarray", names: list[str]) -> None:
-    """Phases 8-9: the CNN detector's routes on the card, then each against
-    the port's CPU path."""
+def _cnn_phases(rt, dev, frames: "np.ndarray", names: list[str], smi: str) -> None:
+    """Phases 8-9: the CNN detector's routes on the card, each captured into
+    a CUDA graph at its warm-up batch and replayed after it, then each
+    against the port's CPU path."""
     import numpy as np
 
     from opencv_traffic_sign_detector_tpu_torch.data.synthetic import bgr_to_yuv420
@@ -1378,18 +1400,30 @@ def _cnn_phases(rt, dev, frames: "np.ndarray", names: list[str]) -> None:
     route_fns = ("_detect", "_detect_upscaled", "_detect_fused_upscaled", "_detect_yuv_patches")
 
     def run(det, x, n=None):
-        if isinstance(x, tuple):
-            out = det.dispatch_yuv(*(p[:n] for p in x))
-        else:
-            out = det.dispatch(x[:n])
+        x = tuple(p[:n] for p in x) if isinstance(x, tuple) else x[:n]
+        out = _cnn_run(det, x)
         return out, det.collect(out, names[:len(out[0])], (h, w))
+
+    def spied(calls):
+        stack = contextlib.ExitStack()
+        for mod, attr in [*((cd, f) for f in route_fns), (cd, "yuv420_to_bgr"),
+                          (ups, "_upscale_axis"), (ups, "_dense_axis")]:
+            stack.enter_context(_recording(calls, mod, attr, lambda a, kw, k=attr: k))
+        return stack
 
     # --- 8. every route on the card --------------------------------------
     card, outs = {}, {}
     for label, ckpt, upscale, fmt, fn, shows, timed in routes:
         det = cq.load_detector(ck + ckpt, upscale=upscale, device=dev)
-        run(det, inputs[fmt])  # warm-up batch
+        # the warm-up batch captures the route's graph: its route functions
+        # run at the capture, and a replay runs none of them
+        calls = defaultdict(list)
+        with spied(calls), _dumped_graphs(), _graph_calls() as made:
+            run(det, inputs[fmt])
         torch.cuda.synchronize()
+        _require(len(made["captures"]) == 1 and not made["replays"],
+                 f"{label}: the warm-up made {made}, not one capture")
+        _cnn_graph_report(f"slice3 {label}", det.graphs)
 
         def timed_run():
             batch_s = []
@@ -1399,15 +1433,16 @@ def _cnn_phases(rt, dev, frames: "np.ndarray", names: list[str]) -> None:
                 batch_s.append(time.perf_counter() - t0)
             return out, dets, batch_s
 
-        calls = defaultdict(list)
-        with contextlib.ExitStack() as stack:
-            for mod, attr in [*((cd, f) for f in route_fns), (cd, "yuv420_to_bgr"),
-                              (ups, "_upscale_axis"), (ups, "_dense_axis")]:
-                stack.enter_context(_recording(calls, mod, attr, lambda a, kw, k=attr: k))
+        replay_calls = defaultdict(list)
+        with spied(replay_calls), _graph_calls() as made:
             (out, dets, batch_s), _ = _run_path(rt, f"slice3 {label}", timed_run)
+        _require(made["replays"] == timed and not made["captures"]
+                 and not any(replay_calls.values()),
+                 f"{label}: {timed} timed batches made {made}, route calls "
+                 f"{ {k: len(v) for k, v in replay_calls.items() if v} }; not {timed} replays")
         took = [f for f in route_fns if calls[f]]
         _require(fn in took and not set(took) - {fn, "_detect"},
-                 f"{label}: took {took}, expected {fn}")
+                 f"{label}: took {took} at the capture, expected {fn}")
         _require(bool(calls["yuv420_to_bgr"]) == (fmt == "yuv420"),
                  f"{label}: yuv420_to_bgr calls {len(calls['yuv420_to_bgr'])}")
         if isinstance(shows, tuple):
@@ -1417,7 +1452,7 @@ def _cnn_phases(rt, dev, frames: "np.ndarray", names: list[str]) -> None:
         elif shows:
             passes = [k for k in ("_upscale_axis", "_dense_axis") if calls[k]]
             _require(passes == [shows], f"{label}: resize passes {passes}")
-        del calls
+        del calls, replay_calls
         finite = all(torch.isfinite(t).all().item() for t in (out[0], out[2]))
         _require(finite and tuple(out[0].shape) == (b, det.cfg.max_detections, 4),
                  f"{label}: non-finite or misshapen outputs {tuple(out[0].shape)}")
@@ -1425,12 +1460,14 @@ def _cnn_phases(rt, dev, frames: "np.ndarray", names: list[str]) -> None:
                      and 0 <= d.y1 < d.y2 <= h - 1 for d in dets),
                  f"{label}: malformed detection records")
         fps = b / statistics.median(batch_s)
-        print(f"[slice3 {label}] batch {b} of {w}x{h}: {fps:.2f} frames/s (batch s "
-              f"{', '.join(f'{s:.4f}' for s in batch_s)}); route {fn}"
+        print(f"[slice3 {label}] batch {b} of {w}x{h}: {fps:.2f} frames/s replayed (batch s "
+              f"{', '.join(f'{s:.4f}' for s in batch_s)}); route {fn} at the capture"
               f"{f' ({shows})' if shows else ''}; detections {len(dets)}")
         card[label] = dets
         if label in ("float bgr", "float patches8"):
-            outs[label] = out
+            outs[label] = tuple(t.clone() for t in out)   # kept past later dispatches
+        _cnn_replay_vs_eager(f"slice3 {label}", det, inputs[fmt])
+        _require_no_sync(f"slice3 {label}", lambda: _cnn_run(det, inputs[fmt]), iters=4)
         del det, out
     same = all(torch.equal(a, c) for a, c in zip(outs["float bgr"], outs["float patches8"]))
     planes = [torch.from_numpy(p).to(dev) for p in inputs["yuv420"]]
@@ -1441,6 +1478,14 @@ def _cnn_phases(rt, dev, frames: "np.ndarray", names: list[str]) -> None:
           f"patches == patchified tight yuv420_to_bgr on {tuple(planes[0].shape)}: {yuv_same}")
     _require(same and yuv_same, "an identity between the CNN routes failed")
     del outs
+
+    # --- 8b. replayed against eager in turns: float bgr at batch 32 and at
+    # the server's batch 8, int8 at --upscale 1.6
+    for label, ckpt, upscale, n in [("float bgr", "params.npz", 1.0, b),
+                                    ("float bgr", "params.npz", 1.0, 8),
+                                    ("int8 up1.6", "params_int8.npz", 1.6, b)]:
+        _cnn_turns(label, cq.load_detector(ck + ckpt, upscale=upscale, device=dev),
+                   frames[:n], names[:n], smi)
 
     # --- 9. each route against the port's CPU path -----------------------
     for label, ckpt, upscale, fmt, *_ in routes:
@@ -1592,7 +1637,8 @@ def _serve_phases(rt, dev, frames, work, smi: str) -> dict:
                                   "--input_format", "yuv420"])]
     paths = {}
     for label, argv in runs:
-        lines, report, counts, wall = _serve(rt, label, watch, work / "card.jsonl", argv)
+        with _graph_calls() as made:
+            lines, report, counts, wall = _serve(rt, label, watch, work / "card.jsonl", argv)
         _require([r["file"] for r in lines] == names,
                  f"{label}: {len(lines)} JSONL lines for {len(names)} frames")
         dets = _jsonl_records(lines)
@@ -1614,6 +1660,15 @@ def _serve_phases(rt, dev, frames, work, smi: str) -> dict:
                 _require(counts[name] > 0, f"{label}: {name} never launched")
         else:
             _require(not any(counts.values()), f"{label} launched {counts}")
+        # every batch replays a graph: the warm-up's bgr batch captures one,
+        # the CNN's yuv420 ingest's first batch another (without the native
+        # loader the yuv420 ingest decodes to bgr frames)
+        planes = "yuv420" in argv and loader.available()
+        print(f"[{label} graphs] {len(made['captures'])} capture(s) {made['captures']}, "
+              f"{made['replays']} replay(s) for {batches} batches")
+        _require(len(made["captures"]) + made["replays"] == batches
+                 and len(made["captures"]) == (2 if planes else 1),
+                 f"{label}: {batches} batches made {made}")
         # --- against the port's CPU server on 2 of the frames
         t0 = time.perf_counter()
         cpu, _, _, _ = _serve(rt, f"{label} on the CPU", few, work / "cpu.jsonl",
@@ -1660,6 +1715,7 @@ def _recognition_phases(rt, dev, work, smi: str, seed: int) -> tuple[list[dict],
     from opencv_traffic_sign_detector_tpu_torch.models import rec_pipeline as rp
     from opencv_traffic_sign_detector_tpu_torch.models import recognizer as rec
     from opencv_traffic_sign_detector_tpu_torch.models.cnn_detector import CNNDetector
+    from opencv_traffic_sign_detector_tpu_torch.models.detector import upload
     from opencv_traffic_sign_detector_tpu_torch.ops import ccl, mser, prop_cuda
 
     t0 = time.perf_counter()
@@ -1739,7 +1795,7 @@ def _recognition_phases(rt, dev, work, smi: str, seed: int) -> tuple[list[dict],
 
     def eager(frames):
         with torch.inference_mode():
-            return rp._pack(*rp.recognize_batch(rp.upload(frames, dev), pipe._arrays,
+            return rp._pack(*rp.recognize_batch(upload(frames, dev), pipe._arrays,
                                                 *pipe._spec())).cpu().numpy()
 
     _replay_vs_eager("recognition MSER", pipe.dispatch, eager, first)
@@ -1779,13 +1835,42 @@ def _recognition_phases(rt, dev, work, smi: str, seed: int) -> tuple[list[dict],
 
     cnn = detector(dev)
     t0 = time.perf_counter()
-    props = rec.extract_train_proposals_cnn(train, cnn)
+    with _graph_calls() as made:
+        props = rec.extract_train_proposals_cnn(train, cnn)
     print(f"[recognition CNN mining] {sum(len(b) for b, _ in props.values())} proposals over "
-          f"12 frames in {time.perf_counter() - t0:.2f} s")
+          f"12 frames in {time.perf_counter() - t0:.2f} s; the detector's dispatch at batch 8 "
+          f"(the last batch padded to 8): {len(made['captures'])} graph capture(s) "
+          f"{made['captures']}, {made['replays']} replay(s)")
+    _require(len(made["captures"]) == 1 and made["replays"] == 1,
+             f"CNN mining of 2 batches of one shape made {made}")
     validate("recognition validation, CNN proposals", proposals=props, proposal_positives=True)
-    dets, counts = infer("recognition CNN", rp.RecognitionPipeline(cfg=cfg, classifier=clf,
-                                                                   cnn=cnn))
+    pipe = rp.RecognitionPipeline(cfg=cfg, classifier=clf, cnn=cnn)
+    held = len(cnn.graphs.entries())
+    # the first batch captures recognize_batch_cnn whole: one graph, and the
+    # detector's route runs inside that capture, not as a graph of its own
+    with _dumped_graphs(), _graph_calls() as made:
+        pipe.recognize_frames(first, files[:8])
+    torch.cuda.synchronize()
+    _require(len(made["captures"]) == 1 and len(cnn.graphs.entries()) == held
+             and len(pipe._recognize_cnn.entries()) == 1 and not pipe._recognize.entries(),
+             f"recognition CNN: the first batch made {made}, detector graphs "
+             f"{len(cnn.graphs.entries())} (held {held})")
+    _cnn_graph_report("recognition CNN", pipe._recognize_cnn)
+    dets, counts = infer("recognition CNN", pipe)
     _require(not any(counts.values()), f"recognition CNN launched {counts}")
+
+    def eager_cnn(frames):
+        with torch.inference_mode():
+            return rp._pack(*rp.recognize_batch_cnn(upload(frames, dev), cnn, pipe._arrays,
+                                                    *pipe._spec())).cpu().numpy()
+
+    _replay_vs_eager("recognition CNN", pipe.dispatch, eager_cnn, first, control=True)
+    on_card = torch.from_numpy(first).to(dev)
+    replay_ms = _time_ms(lambda: pipe.collect(pipe.dispatch(on_card), files[:8]), runs=5)
+    eager_ms = _time_ms(lambda: eager_cnn(on_card), runs=5)
+    print(f"[recognition CNN batch ms] a batch of 8 from frames on the card to its packed result "
+          f"on the host, median of 5: graph replay {replay_ms:.2f} ms, eager {eager_ms:.2f} ms; "
+          f"{smi}")
     vs_cpu("recognition CNN", dets,
            rp.RecognitionPipeline(cfg=cfg, classifier=clf, cnn=detector("cpu")))
     return rows, paths
@@ -2797,29 +2882,171 @@ def _packed(pending) -> "np.ndarray":
     return out.numpy().copy()
 
 
-def _replay_vs_eager(label: str, dispatch, eager, host) -> None:
+def _replay_vs_eager(label: str, dispatch, eager, host, control: bool = False) -> None:
     """The replayed dispatch's packed output against the eager one's, bit for
     bit, on ``host`` and on its frames in reverse order (so that a slot read
     from the wrong batch differs): each batch dispatched and collected in
     turn, then two in flight in both orders (the second dispatched before the
     first is collected).  ``dispatch(frames)`` -> pending handle (the graph
-    captured already), ``eager(frames)`` -> packed numpy."""
+    captured already), ``eager(frames)`` -> packed numpy; ``host`` is an
+    array of frames or a tuple of planes.  With ``control`` each batch runs
+    eagerly twice: where the two differ (the card does not sum in one order
+    run to run), the replay is held to that eager-against-eager gap, which
+    is printed, and not to bit equality."""
     import numpy as np
 
-    batches = [host, np.ascontiguousarray(host[::-1])]
+    planes = host if isinstance(host, tuple) else (host,)
+    rev = tuple(np.ascontiguousarray(p[::-1]) for p in planes)
+    batches = [host, rev if isinstance(host, tuple) else rev[0]]
+    n = len(planes[0])
     want = [eager(b) for b in batches]
-    _require(want[0].tobytes() != want[1].tobytes() or len(host) == 1,
+    _require(want[0].tobytes() != want[1].tobytes() or n == 1,
              f"{label}: the two batches give the same output, so the check cannot see a swap")
+    bound = [0.0, 0.0]
+    if control:
+        bound = [float(np.abs(eager(b) - w).max()) for b, w in zip(batches, want)]
+        print(f"[{label} eager vs eager] the largest gap between two eager dispatches of each "
+              f"batch, the replay's bound: {bound}")
     got = {"one at a time": [_packed(dispatch(b)) for b in batches]}
     for order, (i, j) in (("two in flight", (0, 1)), ("two in flight, reversed", (1, 0))):
         first, second = dispatch(batches[i]), dispatch(batches[j])
         pair = {i: _packed(first), j: _packed(second)}
         got[order] = [pair[0], pair[1]]
-    same = {k: all(g.tobytes() == w.tobytes() for g, w in zip(v, want)) for k, v in got.items()}
-    print(f"[{label} replay] the graph's packed output against the eager dispatch's, bit for "
-          f"bit, on 2 batches of {len(host)}: {same}")
+    same = {k: all(g.tobytes() == w.tobytes() if not b else float(np.abs(g - w).max()) <= b
+                   for g, w, b in zip(v, want, bound)) for k, v in got.items()}
+    print(f"[{label} replay] the graph's packed output against the eager dispatch's, "
+          f"{'within the eager control' if any(bound) else 'bit for bit'}, on 2 batches of "
+          f"{n}: {same}")
     _require(all(same.values()), f"{label}: the replayed dispatch differs from the eager one: "
              f"{same}")
+
+
+def _cnn_run(det, x):
+    """``det``'s dispatch of frames or patches8, or of a tuple of planes."""
+    return det.dispatch_yuv(*x) if isinstance(x, tuple) else det.dispatch(x)
+
+
+def _cnn_eager(det):
+    """A copy of ``det`` that runs its routes eagerly; it shares ``det``'s
+    net and graphs and captures nothing."""
+    import copy
+
+    eager = copy.copy(det)
+    eager.eager = True
+    return eager
+
+
+def _cnn_pending(out):
+    """A CNN dispatch's outputs packed as ``models/detector.py: _pack`` packs
+    them and copied to pinned host memory on the current stream, before any
+    later dispatch can rewrite them: a pending handle for :func:`_packed`."""
+    from opencv_traffic_sign_detector_tpu_torch.models.detector import _pack
+
+    packed = _pack(*out)
+    host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+    host.copy_(packed, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+    return host, done
+
+
+def _cnn_replay_vs_eager(label: str, det, host) -> None:
+    """:func:`_replay_vs_eager` of a CNN detector's dispatch, with the
+    eager-against-eager control."""
+    eager = _cnn_eager(det)
+    _replay_vs_eager(label, lambda b: _cnn_pending(_cnn_run(det, b)),
+                     lambda b: _packed(_cnn_pending(_cnn_run(eager, b))), host, control=True)
+
+
+def _graph_calls():
+    """Context: counts the graph captures (``graphs.capture_call``) and
+    replays (``graphs.Captured.replay``) made inside it, in the dict it
+    yields, with each capture's input and reserved bytes."""
+    from opencv_traffic_sign_detector_tpu_torch.runtime import graphs
+
+    seen = {"captures": [], "replays": 0}
+    capture, replay = graphs.capture_call, graphs.Captured.replay
+
+    def counted_capture(fn, device, args, what, *a, **kw):
+        first, entry = capture(fn, device, args, what, *a, **kw)
+        seen["captures"].append((what, entry.pool_bytes))
+        return first, entry
+
+    def counted_replay(self, *a, **kw):
+        seen["replays"] += 1
+        return replay(self, *a, **kw)
+
+    @contextlib.contextmanager
+    def ctx():
+        graphs.capture_call, graphs.Captured.replay = counted_capture, counted_replay
+        try:
+            yield seen
+        finally:
+            graphs.capture_call, graphs.Captured.replay = capture, replay
+
+    return ctx()
+
+
+def _cnn_graph_report(label: str, det_graphs) -> None:
+    """Each CNN graph of a ``CapturedFn`` (captured under
+    :func:`_dumped_graphs`): its route, input, nodes by type
+    (:func:`_graph_nodes`) and the bytes its capture reserved in the card's
+    pool."""
+    for (dev, shape, _, key), entry in det_graphs.entries().items():
+        nodes = _graph_nodes(entry.graph)
+        route = getattr(key, "name", None) or getattr(key[-1], "name", key)
+        print(f"[{label} graph] {dev} route {route}, input {shape}: nodes by type {nodes} "
+              f"({sum(nodes.values())} in all); its capture reserved "
+              f"{entry.pool_bytes / 2**30:.3f} GiB for the card's graph pool "
+              f"({torch.cuda.memory_reserved(dev) / 2**30:.2f} GiB reserved on the card)")
+        _require(nodes.get("kernel", 0) > 0, f"{label}: the graph holds no kernel node")
+
+
+def _cnn_turns(label: str, det, host, names: list[str], smi: str) -> None:
+    """One CNN operating point replayed against eager in one call, through
+    the server's dispatch/collect (``serve_detection_torch.py: _CNNPipe``,
+    whose dispatch copies the outputs out before the next one): frames/s one
+    batch at a time and two in flight in turns (:func:`_in_turns`); the
+    host's ms a dispatch (``perf_counter`` around ``dispatch``, each batch
+    collected before the next), 5 batches each way in turns; and the card's
+    busy ms a batch by ``torch.profiler`` over 5 batches one at a time, its
+    idle share of those batches' wall time."""
+    import serve_detection_torch as serve
+    from torch.profiler import ProfilerActivity, profile
+
+    pipes = {"replay": serve._CNNPipe(det), "eager": serve._CNNPipe(_cnn_eager(det))}
+    for pipe in pipes.values():
+        pipe.collect(pipe.dispatch(host), names)     # the replay's graph captured
+    b = len(names)
+    gaps = _in_turns(pipes, host, names)
+    spent = defaultdict(list)
+    for _ in range(5):
+        for mode, pipe in pipes.items():
+            t0 = time.perf_counter()
+            out = pipe.dispatch(host)
+            spent[mode].append((time.perf_counter() - t0) * 1e3)
+            pipe.collect(out, names)
+    idle = {}
+    for mode, pipe in pipes.items():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(5):
+                pipe.collect(pipe.dispatch(host), names)
+            wall = (time.perf_counter() - t0) / 5 * 1e3
+        ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.device_time for e in ev) / 5 / 1e3
+        idle[mode] = (f"busy {busy:.3f} ms of {wall:.3f} ms a batch, {len(ev) / 5:.0f} CUDA "
+                      f"kernels and copies a batch: idle {1 - busy / wall:.1%}")
+    print(f"[cnn turns {label}] batch {b}, host frames to records through the server's "
+          f"dispatch/collect, graph replay against eager in turns: "
+          + "; ".join(f"{mode}: one batch at a time {_fps(b, gaps[mode, False])}, two in flight "
+                      f"{_fps(b, gaps[mode, True])}" for mode in pipes) + f"; {smi}")
+    print(f"[cnn enqueue {label}] host ms a dispatch of {b} frames, median (min, max) of 5 in "
+          f"turns: " + "; ".join(f"{mode} {statistics.median(v):.3f} ({min(v):.3f}, "
+                                 f"{max(v):.3f})" for mode, v in spent.items()) + f"; {smi}")
+    print(f"[cnn idle {label}] torch.profiler, 5 batches one at a time: "
+          + "; ".join(f"{mode} {v}" for mode, v in idle.items()) + f"; {smi}")
 
 
 def _graph_report(label: str, captured, want: tuple = ()) -> None:
@@ -3034,7 +3261,7 @@ def _bench_phases(rt, dev, smi: str, seed: int) -> tuple[list[dict], dict, int]:
         # --- 17b-c. bench_torch.main: every scope, then the MSER one with
         # the 1080p probe; launches counted a detect_batch call, by shape
         per_shape = defaultdict(lambda: [0, defaultdict(int)])
-        cnn_counts = {}
+        cnn_counts, cnn_graphs = {}, []
         detect_batch, bench_cnn = det.detect_batch, bench_torch._bench_cnn
 
         def counted(frames, *a, **kw):
@@ -3052,9 +3279,21 @@ def _bench_phases(rt, dev, smi: str, seed: int) -> tuple[list[dict], dict, int]:
 
         def cnn_scopes(*a):
             rt.reset_launch_counts()
-            bench_cnn(*a)
+            with _graph_calls() as made:
+                bench_cnn(*a)
             torch.cuda.synchronize()
             cnn_counts.update(rt.launch_counts())
+            # printed after the bench, whose standard output is its JSON line
+            cnn_graphs.append(
+                f"[bench graphs] the CNN scopes: {len(made['captures'])} graph captures, each "
+                "input and the GiB it reserved in the card's pool: "
+                + "; ".join(f"{what.removeprefix('for input ')} {b / 2**30:.3f}"
+                            for what, b in made["captures"])
+                + f"; {made['replays']} replays; {torch.cuda.memory_reserved() / 2**30:.2f} GiB "
+                f"reserved on the card, peak {torch.cuda.max_memory_reserved() / 2**30:.2f}")
+            _require(made["captures"] and made["replays"] > len(made["captures"]),
+                     f"the CNN scopes made {len(made['captures'])} captures and "
+                     f"{made['replays']} replays")
 
         def bench(argv):
             per_shape.clear()
@@ -3070,7 +3309,9 @@ def _bench_phases(rt, dev, smi: str, seed: int) -> tuple[list[dict], dict, int]:
             lines = out.getvalue().splitlines()
             _require(rc == 0 and len(lines) == 1, f"bench_torch.py {argv}: rc {rc}, {lines}")
             print(f"[bench] bench_torch.py {' '.join(argv)} in {time.perf_counter() - t0:.1f} s, "
-                  f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated; its line "
+                  f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated, "
+                  f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB reserved of the card's "
+                  f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}; its line "
                   f"(quality keys are smoke values on 16 synthetic frames): {lines[0]}")
             result = json.loads(lines[0])
             _require(result["device"] == torch.cuda.get_device_name(0),
@@ -3085,6 +3326,7 @@ def _bench_phases(rt, dev, smi: str, seed: int) -> tuple[list[dict], dict, int]:
 
         argv = ["--frames", "64", "--cnn_iters", "4", "--fed_batches", "2"]
         result = bench(argv)
+        print(*cnn_graphs, sep="\n")
         print(f"[bench launches] the CNN scopes: {cnn_counts}")
         _require(cnn_counts and not any(cnn_counts.values()),
                  f"the CNN scopes launched {cnn_counts}")
@@ -3140,7 +3382,7 @@ def _bench_phases(rt, dev, smi: str, seed: int) -> tuple[list[dict], dict, int]:
         up_f, up_q = copy.copy(fdet), copy.copy(qdet)
         up_f.upscale = up_q.upscale = 1.6
         host = [bench_torch._pinned((frames[i * 16:(i + 1) * 16],), dev) for i in range(2)]
-        sites = {}
+        sites, made = {}, {}
         for label, fn in [
             ("float patches8", lambda: fdet.dispatch(p8)), ("float bgr", lambda: fdet.dispatch(bgr)),
             ("float yuv420p", lambda: fdet.dispatch_yuv(*yuv)),
@@ -3149,9 +3391,52 @@ def _bench_phases(rt, dev, smi: str, seed: int) -> tuple[list[dict], dict, int]:
             ("float bgr 1.6", lambda: up_f.dispatch(bgr)),
             ("fed bgr", lambda: bench_torch._fed(fdet.dispatch, host, dev)),
         ]:
-            sites[label] = _sync_sites(fn, 4)
-        print(f"[bench sync] host syncs in a window of 4 dispatches (sync debug mode): {sites}")
+            # the window's warm-up captures the route's graph (or replays it)
+            with _graph_calls() as calls:
+                sites[label] = _sync_sites(fn, 4)
+            made[label] = (len(calls["captures"]), calls["replays"])
+        print(f"[bench sync] host syncs in a window of 4 dispatches (sync debug mode): {sites}; "
+              f"graph (captures, replays) with the warm-up: {made}")
         _require(not any(sites.values()), f"the device-queue windows sync the host: {sites}")
+        # a window and its warm-up: 5 dispatches, the fed one 10 (2 batches a call)
+        _require(all(c <= 1 and c + r == (10 if k == "fed bgr" else 5)
+                     for k, (c, r) in made.items()),
+                 f"a device-queue window did not replay its graph: {made}")
+        del bgr, p8, yuv, up_f, up_q, host
+
+        # the bench's device queue (patches8, batch 128) replayed against
+        # eager in turns, and the copy into the graph's input
+        frames = bench_torch._load_frames(128, "gtsdb")
+        p8 = torch.from_numpy(np.ascontiguousarray(
+            frames.reshape(128, 100, 8, 170, 24).transpose(0, 1, 3, 2, 4)
+            .reshape(128, 100, 170, 192))).to(dev)
+        del frames
+        queue = {"replay": fdet, "eager": _cnn_eager(fdet)}
+        for d in queue.values():
+            d.dispatch(p8)
+        rates, host_ms = defaultdict(list), defaultdict(list)
+        for mode in ("replay", "eager", "eager", "replay", "replay", "eager"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(4):
+                t = time.perf_counter()
+                queue[mode].dispatch(p8)
+                host_ms[mode].append((time.perf_counter() - t) * 1e3)
+            torch.cuda.synchronize()
+            rates[mode].append(4 * 128 / (time.perf_counter() - t0))
+        entry = fdet.graphs.entries()[(dev, tuple(p8.shape), p8.dtype, fdet.route(p8))]
+        with torch.inference_mode():  # the static input is an inference tensor
+            copy_ms = _time_ms(lambda: entry.static.copy_(p8))
+        print(f"[bench device queue] patches8 at batch 128, windows of 4 dispatches of one batch "
+              f"on the card, in turns: " + "; ".join(
+                  f"{mode} {statistics.median(v):.3f} frames/s (windows "
+                  f"{', '.join(f'{r:.3f}' for r in v)}), host ms a dispatch "
+                  f"{statistics.median(host_ms[mode]):.3f} ({min(host_ms[mode]):.3f}, "
+                  f"{max(host_ms[mode]):.3f})" for mode, v in rates.items())
+              + f"; the copy of the batch ({p8.numel() / 1e6:.1f} MB) into the graph's input "
+              f"{copy_ms:.4f} ms (CUDA events, median of 10); its capture reserved "
+              f"{entry.pool_bytes / 2**30:.3f} GiB; {smi}")
+        del p8, entry, queue, fdet, qdet
 
         # --- 17f-g. the profile twin and one quality twin -----------------------
         for label, main_fn, argv in [
@@ -3222,6 +3507,24 @@ def train_phases(seed: int = 0) -> int:
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
     _train_phases(rt, dev, smi, seed)
+    return 0
+
+
+def cnn_phases(seed: int = 0) -> int:
+    """Phases 8-9 alone (the CNN routes run none of the port's kernels, so
+    nothing is built)::
+
+        python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.cnn_phases())"
+
+    on phase 5's 32 frames; a failed check raises."""
+    _, smi = _device_phase()
+    from opencv_traffic_sign_detector_tpu_torch.data.synthetic import make_frames_with_boxes
+    from opencv_traffic_sign_detector_tpu_torch.runtime import build as rt
+
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    frames, _ = make_frames_with_boxes(32, 800, 1360, seed=seed)
+    _cnn_phases(rt, dev, frames, [f"{i:05d}.jpg" for i in range(len(frames))], smi)
     return 0
 
 
@@ -3674,7 +3977,7 @@ def main() -> int:
     # --- 8-9. slice 3: the CNN detector ----------------------------------
     del props, pvalid, pprops, ppvalid, rprops, rpvalid, frames_dev
     torch.cuda.empty_cache()
-    _cnn_phases(rt, dev, frames, names)
+    _cnn_phases(rt, dev, frames, names, smi)
 
     # --- 10-13. the server and práctica 2 --------------------------------
     work = rt.BUILD_ROOT.parent / "chip_smoke"

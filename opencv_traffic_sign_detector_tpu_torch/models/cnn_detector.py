@@ -45,7 +45,8 @@ from ..ops.fused_upscale import FusedUpscalePlan, find_plan, fused_upscale_stem
 from ..ops.resident import resident, scalar
 from ..ops.upscale import upscale_bilinear_u8
 from ..ops.yuv import patchify_yuv_planes, yuv420_patches_to_bgr_patches8, yuv420_to_bgr
-from .detector import full_f32_matmuls, upload
+from ..runtime.graphs import CapturedFn
+from .detector import full_f32_matmuls, pinned
 
 STRIDE = 8
 NUM_CLASSES = 6
@@ -591,6 +592,58 @@ def _detect_yuv_patches(net, y_p, cb_p, cr_p, k, thresh, stride):
     return _detect(net, yuv420_patches_to_bgr_patches8(y_p, cb_p, cr_p), k, thresh, stride)
 
 
+@dataclass(frozen=True)
+class Route:
+    """What a detection route bakes into its program: the reference's static
+    jit arguments, and the key of a dispatch's CUDA graph.
+
+    ``name``: ``native``, ``upscaled`` (two-stage), ``fused`` (the folded
+    upscale+stem) or ``yuv_patches``; ``yuv``: tight 4:2:0 planes converted
+    on the device first; the net, by identity; the decode's ``k``,
+    ``thresh`` (a resident scalar) and ``stride``; the arch and compute
+    dtype; ``upscale`` with the fused ``plan`` or the two-stage ``size``;
+    the input's ``layout`` (ndim, last dimension)."""
+
+    name: str
+    yuv: bool
+    net: object
+    arch: str
+    k: int
+    thresh: float
+    stride: int
+    dtype: str
+    upscale: float
+    plan: FusedUpscalePlan | None
+    size: tuple[int, int] | None
+    layout: tuple[int, int]
+
+
+def run_route(route: Route, x, *tensors):
+    """``route`` on a batch on the net's device: frames or patches8, or the
+    three 4:2:0 planes as a tuple.  The function a dispatch's graph
+    captures; ``tensors`` are the net's (:func:`net_tensors`), which the
+    route reads through the net and the graph by address."""
+    net, k, thresh, stride = route.net, route.k, route.thresh, route.stride
+    if route.name == "yuv_patches":
+        return _detect_yuv_patches(net, *x, k, thresh, stride)
+    if route.yuv:
+        x = yuv420_to_bgr(*x)
+    if route.name == "fused":
+        return _detect_fused_upscaled(net, x, k, thresh, stride, route.plan)
+    if route.name == "upscaled":
+        return _detect_upscaled(net, x, k, thresh, stride, *route.size)
+    return _detect(net, x, k, thresh, stride)
+
+
+def net_tensors(net) -> tuple:
+    """The tensors a route reads of ``net``: a module's parameters and
+    buffers, or the int8 net's ``q`` arrays.  A dispatch passes them to its
+    graph as constants, held by identity: a replaced one makes a new
+    capture."""
+    q = getattr(net, "q", None)
+    return tuple(q.values()) if q is not None else (*net.parameters(), *net.buffers())
+
+
 def unmatched_detections(ref: list[GroundTruthBox], got: list[GroundTruthBox],
                          score_tol: float, threshold: float,
                          box_tol: int = 1) -> list[GroundTruthBox]:
@@ -637,12 +690,26 @@ class _HostCopy:
 class CNNDetector:
     """Batched full-frame detector over saved weights, with the reference's
     dispatch/collect contract: ``dispatch`` enqueues a batch on the device
-    and returns its outputs, ``collect`` turns them into records."""
+    and returns its outputs, ``collect`` turns them into records.
+
+    On a card each dispatch replays one CUDA graph of its route
+    (``runtime/graphs.py: CapturedFn``), as the reference runs one jitted
+    program a route: captured at the first batch of each card, input shape
+    and :class:`Route` (which holds the net, the threshold and ``upscale``,
+    so a ``copy.copy`` with another ``upscale`` or a replaced ``cfg`` makes
+    its own graph in the one :class:`CapturedFn` they share), with the net's
+    tensors as constants.  The graphs share the card's memory pool with the
+    MSER dispatches' and are replayed in turn on the current stream.
+    :attr:`eager` set on a detector (or on the class) runs the routes
+    eagerly instead (comparisons, profiler traces); the CPU always does."""
+
+    eager = False
 
     def __init__(self, net, cfg: CNNDetectorConfig | None = None, upscale: float = 1.0):
         self.cfg = cfg or net.cfg
         self.net = net
         self.upscale = float(upscale)
+        self.graphs = CapturedFn(run_route, keyed=True)
 
     @property
     def device(self) -> torch.device:
@@ -664,45 +731,71 @@ class CNNDetector:
         save_params(path, self.net, arch=self.cfg.arch,
                     score_threshold=self.cfg.score_threshold)
 
-    def _detect_frames(self, x: torch.Tensor):
-        """Route a device batch of frames (or native patches8)."""
-        cfg, k, thr = self.cfg, self.cfg.max_detections, self.cfg.score_threshold
-        if self.upscale != 1.0:
-            if x.shape[-1] != 3:
+    def route(self, x) -> Route:
+        """The route of this operating point for ``x`` (an array or tensor,
+        only its shape read): frames [B,H,W,3] or patches8 [B,H/8,W/8,192],
+        or a tuple of 4:2:0 planes, tight (Y [B,H,W]) or patchified (Y
+        [B,H/8,W/8,64])."""
+        yuv = isinstance(x, tuple)
+        shape = tuple((x[0] if yuv else x).shape)
+        cfg, ndim = self.cfg, len(shape)
+        name, plan, size = "native", None, None
+        if yuv and ndim == 4:
+            if self.upscale != 1.0 or cfg.arch != "v3":
+                raise ValueError(
+                    "patchified yuv planes need the v3 arch at native "
+                    "resolution (use tight planes for --upscale or other "
+                    "arches)")
+            name = "yuv_patches"
+        elif self.upscale != 1.0:
+            if not yuv and shape[-1] != 3:
                 raise ValueError(
                     "upscaled inference needs [B,H,W,3] frames; the "
                     "patches8 layout is pre-patchified at native "
                     "resolution (use --input_format bgr or yuv420)")
-            plan = self._fused_plan(x.shape[1], x.shape[2])
+            plan = self._fused_plan(shape[1], shape[2])
             if plan is not None:
-                return _detect_fused_upscaled(self.net, x, k, thr, cfg.stride, plan)
-            th, tw = upscaled_hw(x.shape[1], x.shape[2], self.upscale, cfg.stride)
-            return _detect_upscaled(self.net, x, k, thr, cfg.stride, th, tw)
-        return _detect(self.net, x, k, thr, cfg.stride)
+                name = "fused"
+            else:
+                name, size = "upscaled", upscaled_hw(shape[1], shape[2], self.upscale, cfg.stride)
+        return Route(name, yuv and ndim == 3, self.net, cfg.arch, cfg.max_detections,
+                     cfg.score_threshold, cfg.stride, cfg.dtype, self.upscale, plan, size,
+                     (ndim, int(shape[-1])))
+
+    def detect(self, x):
+        """The route, eagerly, of a batch already on the net's device: a
+        tensor of frames or patches8, or the three 4:2:0 planes as a tuple.
+        The entry a caller's own capture runs (``models/rec_pipeline.py:
+        recognize_batch_cnn``): a graph cannot be captured inside another's
+        capture."""
+        return run_route(self.route(x), x)
+
+    def _dispatch(self, x):
+        full_f32_matmuls()
+        route, dev = self.route(x), self.device
+        x = tuple(pinned(p, dev) for p in x) if isinstance(x, tuple) else pinned(x, dev)
+        return self.graphs(dev, x, *net_tensors(self.net), key=route, eager=self.eager)
 
     @torch.inference_mode()
     def dispatch(self, frames):
         """frames uint8 [B,H,W,3] BGR with H,W multiples of 16, or (v3,
-        native resolution) patches8 [B,H/8,W/8,192]; numpy or tensor."""
-        full_f32_matmuls()
-        return self._detect_frames(upload(frames, self.device))
+        native resolution) patches8 [B,H/8,W/8,192]; numpy, pinned or on
+        the card.  -> (boxes, cls, scores, valid) on the device.
+
+        On a card these are the graph's static outputs: the next dispatch
+        with the same route and shape rewrites them.  Every caller in the
+        package reads them, or copies them to pinned memory on the same
+        stream (:class:`_HostCopy`), before it dispatches again; a caller
+        that keeps outputs past its next call clones them."""
+        return self._dispatch(frames)
 
     @torch.inference_mode()
     def dispatch_yuv(self, y, cb, cr):
         """Raw 4:2:0 planes, converted on the device.  Two layouts, keyed on
         ndim: tight planes y [B,H,W], cb/cr [B,H/2,W/2]; or patchified planes
-        (v3 at native resolution) y [B,H/8,W/8,64], cb/cr [B,H/8,W/8,16]."""
-        full_f32_matmuls()
-        y, cb, cr = (upload(p, self.device) for p in (y, cb, cr))
-        if y.dim() == 4 and self.upscale == 1.0 and self.cfg.arch == "v3":
-            return _detect_yuv_patches(self.net, y, cb, cr, self.cfg.max_detections,
-                                       self.cfg.score_threshold, self.cfg.stride)
-        if y.dim() == 4:
-            raise ValueError(
-                "patchified yuv planes need the v3 arch at native "
-                "resolution (use tight planes for --upscale or other "
-                "arches)")
-        return self._detect_frames(yuv420_to_bgr(y, cb, cr))
+        (v3 at native resolution) y [B,H/8,W/8,64], cb/cr [B,H/8,W/8,16].
+        Outputs as :meth:`dispatch`'s."""
+        return self._dispatch((y, cb, cr))
 
     def collect(self, handles, filenames: list[str],
                 orig_hw: tuple[int, int] | None = None) -> list[GroundTruthBox]:

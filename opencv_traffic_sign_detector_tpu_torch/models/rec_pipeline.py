@@ -28,7 +28,8 @@ from ..ops.hog import gray_descriptors, hog_descriptors
 from ..ops.resident import const_f32
 from ..ops.resize import crop_and_resize
 from ..runtime.graphs import CapturedFn
-from .detector import _pack, compact_first, full_f32_matmuls, pinned, upload
+from .cnn_detector import net_tensors
+from .detector import _pack, compact_first, full_f32_matmuls, pinned
 from .knn import knn_vote
 from .recognizer import SignClassifier, arbitrate_lda_heads, propose_batch
 
@@ -120,9 +121,11 @@ def grow_boxes_xyxy(boxes: torch.Tensor, valid: torch.Tensor, grow: float, frame
 def recognize_batch_cnn(frames: torch.Tensor, cnn, clf_arrays, cfg: PipelineConfig,
                         features: str, clf_kind: str, knn_k: int = 4):
     """CNN proposals -> grown 32x32 crops -> descriptors -> classifier, with
-    the outputs of :func:`recognize_batch`."""
+    the outputs of :func:`recognize_batch`.  The detector's route runs
+    eagerly (``CNNDetector.detect``), so that a capture of this whole
+    function holds it, as the reference's one jit holds the forward."""
     full_f32_matmuls()
-    pboxes, _, _, pvalid = cnn.dispatch(frames)
+    pboxes, _, _, pvalid = cnn.detect(frames)
     grow = (cfg.rec_grows or (RECOG_GROW,))[0]
     boxes, keep = grow_boxes_xyxy(pboxes, pvalid, grow, frames.shape[1:3])
     gray_crops = bgr_to_gray(crop_and_resize(frames, boxes, RECOG_CROP))
@@ -136,10 +139,11 @@ class RecognitionPipeline:
     ``cnn`` (a ``CNNDetector``) switches the proposal source from the MSER
     sweep to the detector's low-threshold boxes and puts the pipeline on the
     detector's device; the classifier stack is the same.  On the card a
-    batch is uploaded pinned and non-blocking and its packed result copied
-    back the same way, so the next batch is decoded meanwhile (two batches
-    in flight: the copy back is enqueued before the next batch's replay can
-    overwrite the graph's output, ``runtime/graphs.py``)."""
+    batch is copied from pinned memory without blocking and its packed
+    result copied back the same way, so the next batch is decoded meanwhile
+    (two batches in flight: the copy back is enqueued before the next
+    batch's replay can overwrite the graph's output, ``runtime/graphs.py``).
+    """
 
     cfg: PipelineConfig
     classifier: SignClassifier
@@ -149,6 +153,7 @@ class RecognitionPipeline:
     def __post_init__(self):
         self._device = self.cnn.device if self.cnn is not None else torch.device(self.device)
         self._recognize = CapturedFn(self._recognize_packed)
+        self._recognize_cnn = CapturedFn(self._recognize_cnn_packed)
         dev = self._device
         if self.classifier.config.classifier == "LDABAYES":
             self._kind = "LDABAYES"
@@ -169,20 +174,29 @@ class RecognitionPipeline:
     def _recognize_packed(self, x, *arrays):
         return _pack(*recognize_batch(x, arrays, *self._spec()))
 
+    def _recognize_cnn_packed(self, x, *consts):
+        # consts: the classifier arrays, then the detector's net tensors
+        arrays = consts[:len(self._arrays)]
+        return _pack(*recognize_batch_cnn(x, self.cnn, arrays, *self._spec()))
+
     @torch.inference_mode()
     def dispatch(self, frames):
         """Enqueue one [B, H, W, 3] uint8 batch; returns a pending handle.
 
-        With MSER proposals on a card the batch replays one CUDA graph of
-        :func:`recognize_batch` a card and frame shape, captured at the first
-        batch (``runtime/graphs.py``), as the reference jits it; the CNN
-        proposal source runs eagerly."""
+        On a card the batch replays one CUDA graph a card and frame shape,
+        captured at the first batch (``runtime/graphs.py``), as the reference
+        jits each: of :func:`recognize_batch` with MSER proposals, or of the
+        whole :func:`recognize_batch_cnn` (the detector's forward and decode,
+        the crops, the features and the classifier) with CNN proposals, keyed
+        also by the detector's route (its net, threshold and ``upscale``)
+        and holding its net's tensors as constants."""
+        x = pinned(frames, self._device)
         if self.cnn is not None:
-            packed = _pack(*recognize_batch_cnn(upload(frames, self._device), self.cnn,
-                                                self._arrays, *self._spec()))
+            packed = self._recognize_cnn(
+                self._device, x, *self._arrays, *net_tensors(self.cnn.net),
+                key=(self._spec(), self.cnn.route(x)))
         else:
-            packed = self._recognize(self._device, pinned(frames, self._device), *self._arrays,
-                                     key=self._spec())
+            packed = self._recognize(self._device, x, *self._arrays, key=self._spec())
         if self._device.type != "cuda":
             return packed, None
         out = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)

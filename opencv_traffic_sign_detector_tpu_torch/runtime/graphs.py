@@ -4,20 +4,28 @@ then replayed for every batch.
 The reference jits its batch functions (``detect_batch``,
 ``recognize_batch``): one compiled program a shape, dispatched once a batch,
 whose host pays the Python cost at compile time.  On a card the counterpart
-is a CUDA graph.  :class:`CapturedFn` wraps ``fn(frames, *consts)``:
+is a CUDA graph.  :class:`CapturedFn` wraps ``fn(frames, *consts)``, where
+``frames`` is one tensor or a tuple of tensors (the three 4:2:0 planes of
+the CNN's yuv routes):
 
 * **on the CPU**, or with ``eager=True``, it calls ``fn`` each time;
-* **on a card, at the first call with a key** (the card, the frames' shape
+* **on a card, at the first call with a key** (the card, each input's shape
   and dtype, and the caller's ``key``: the config that selects the work),
   :func:`capture_graph` runs ``fn`` once eagerly on the card's capture
   stream as a warm-up, which makes every first-use constant
   (``ops/resident.py``, K2's plan tables) and each kernel's shared-memory
   attribute, returns that run's outputs, and captures ``fn`` into a
-  ``torch.cuda.CUDAGraph`` that reads a static input buffer; every graph of
-  a card allocates from that card's one memory pool;
-* **at every later call** it copies the frames into the static input on
-  the card's current stream without blocking, replays the graph there and
-  returns the graph's static outputs.
+  ``torch.cuda.CUDAGraph`` that reads a static input buffer an input; every
+  graph of a card allocates from that card's one memory pool;
+* **at every later call** it copies each input into its static buffer on
+  the card's current stream without blocking (from pinned host memory, or
+  from the card), replays the graph there and returns the graph's static
+  outputs.
+
+A ``keyed`` function takes the key first, ``fn(key, frames, *consts)``, as a
+jitted function takes its static arguments: the CNN's routes read their
+baked values (route, threshold, upscale plan) from it, so copies of one
+detector that differ in them share one :class:`CapturedFn`.
 
 A capture that fails raises :class:`GraphCaptureError`, naming the site in
 the port that refused (a host sync, or a constant first made inside the
@@ -49,6 +57,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import traceback
 from pathlib import Path
@@ -109,6 +118,19 @@ def _on_stream(out, stream) -> None:
             _on_stream(o, stream)
 
 
+def _inputs(x) -> tuple:
+    """``x``, a tensor or a tuple of tensors, as a tuple."""
+    return x if isinstance(x, tuple) else (x,)
+
+
+def _signature(x) -> tuple:
+    """(shape, dtype) of a tensor input, or (the shapes, the dtypes) of a
+    tuple of them."""
+    if isinstance(x, tuple):
+        return tuple(tuple(t.shape) for t in x), tuple(t.dtype for t in x)
+    return tuple(x.shape), x.dtype
+
+
 def _require_card(device: torch.device) -> None:
     if device.type != "cuda":
         raise ValueError(f"a CUDA graph needs a CUDA device, not {device}")
@@ -116,20 +138,21 @@ def _require_card(device: torch.device) -> None:
 
 @dataclasses.dataclass
 class Captured:
-    """One captured graph: its static input (``None`` for a function of no
-    input) and outputs, its launches a replay, and the bytes its capture
-    reserved on the card for its pool (what the pool's free blocks did not
-    cover)."""
+    """One captured graph: its static input (a tensor, a tuple of them, or
+    ``None`` for a function of no input) and outputs, its launches a replay,
+    and the bytes its capture reserved on the card for its pool (what the
+    pool's free blocks did not cover)."""
 
     graph: object
-    static: torch.Tensor | None
+    static: torch.Tensor | tuple | None
     outputs: object
     launches: dict
     pool_bytes: int
 
-    def replay(self, x: torch.Tensor | None = None):
+    def replay(self, x=None):
         if self.static is not None:
-            self.static.copy_(x, non_blocking=True)
+            for s, t in zip(_inputs(self.static), _inputs(x), strict=True):
+                s.copy_(t, non_blocking=True)
         self.graph.replay()
         build.add_launches(self.launches)
         return self.outputs
@@ -169,61 +192,71 @@ def capture_call(fn, device: torch.device, args: tuple, what: str, pool=None,
                 outputs = fn(*args)
     except Exception as e:
         del _cards[device]  # the failed capture leaves the stream and pool unusable
+        name = getattr(getattr(fn, "func", fn), "__qualname__", fn)  # a keyed fn's partial
         raise GraphCaptureError(
-            f"capturing {getattr(fn, '__qualname__', fn)} on {device} {what} failed at "
-            f"{refusing_site(e)}") from e
+            f"capturing {name} on {device} {what} failed at {refusing_site(e)}") from e
     finally:
         gc.enable()
     return first, Captured(graph, None, outputs, dict(launches),
                            torch.cuda.memory_reserved(device) - reserved)
 
 
-def capture_graph(fn, device: torch.device, x: torch.Tensor, consts: tuple):
-    """Warm ``fn(static, *consts)`` up on ``device`` with ``x`` in a static
-    input and capture it into the card's pool (:func:`capture_call`).  ->
-    (the warm-up's outputs, :class:`Captured`)."""
+def capture_graph(fn, device: torch.device, x, consts: tuple):
+    """Warm ``fn(static, *consts)`` up on ``device`` with ``x`` (a tensor, or
+    a tuple of tensors) in a static input of the same structure and capture
+    it into the card's pool (:func:`capture_call`).  -> (the warm-up's
+    outputs, :class:`Captured`)."""
     _require_card(device)
     pool, _ = _card(device)
-    static = torch.empty(x.shape, dtype=x.dtype, device=device)
-    static.copy_(x, non_blocking=True)
+    statics = tuple(torch.empty(t.shape, dtype=t.dtype, device=device) for t in _inputs(x))
+    for s, t in zip(statics, _inputs(x)):
+        s.copy_(t, non_blocking=True)
+    static = statics if isinstance(x, tuple) else statics[0]
+    shapes, dtypes = _signature(x)
     first, entry = capture_call(fn, device, (static, *consts),
-                                f"for input {tuple(x.shape)} {x.dtype}", pool)
+                                f"for input {shapes} {dtypes}", pool)
     entry.static = static
     return first, entry
 
 
 class CapturedFn:
     """``fn(frames, *consts)`` replayed from one CUDA graph a card, input
-    shape and key; eager on the CPU.  ``capture`` is the capture step
-    (:func:`capture_graph`)."""
+    shape and key; eager on the CPU (:attr:`EAGER_DEVICES`).  ``capture`` is
+    the capture step (:func:`capture_graph`); ``keyed``: ``fn`` takes the
+    call's ``key`` first."""
 
-    def __init__(self, fn, capture=capture_graph):
+    EAGER_DEVICES = ("cpu",)
+
+    def __init__(self, fn, capture=capture_graph, keyed: bool = False):
         self.fn = fn
         self._capture = capture
+        self.keyed = keyed
         self._entries: dict = {}  # key -> (consts, Captured)
 
-    def __call__(self, device: torch.device, x: torch.Tensor, *consts, key=(),
-                 eager: bool = False):
-        """``fn`` of ``x`` (on the host, pinned, or on ``device``) on
-        ``device``.  On a card, a graph captures ``consts`` (tensors) by
-        address: other tensors than the last call's with this key make a
-        new capture."""
+    def __call__(self, device: torch.device, x, *consts, key=(), eager: bool = False):
+        """``fn`` of ``x`` (a tensor or a tuple of tensors, on the host,
+        pinned, or on ``device``) on ``device``.  On a card, a graph captures
+        ``consts`` (tensors) by address: other tensors than the last call's
+        with this key make a new capture."""
         device = torch.device(device)
-        if eager or device.type == "cpu":
-            return self.fn(x.to(device, non_blocking=True), *consts)
+        fn = functools.partial(self.fn, key) if self.keyed else self.fn
+        if eager or device.type in self.EAGER_DEVICES:
+            moved = tuple(t.to(device, non_blocking=True) for t in _inputs(x))
+            return fn(moved if isinstance(x, tuple) else moved[0], *consts)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
-        k = (device, tuple(x.shape), x.dtype, key)
+        k = (device, *_signature(x), key)
         held = self._entries.get(k)
         # the static input is made, written and read in one mode
         with torch.inference_mode(), device_scope(device):
             if held is not None and len(held[0]) == len(consts) and all(
                     a is b for a, b in zip(held[0], consts)):
                 return held[1].replay(x)
-            first, entry = self._capture(self.fn, device, x, consts)
+            first, entry = self._capture(fn, device, x, consts)
         self._entries[k] = (consts, entry)
         return first
 
     def entries(self) -> dict:
-        """{(device, shape, dtype, key): Captured} of the graphs held."""
+        """{(device, shape, dtype, key): Captured} of the graphs held (a
+        tuple input's shapes and dtypes)."""
         return {k: held[1] for k, held in self._entries.items()}

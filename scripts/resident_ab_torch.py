@@ -9,8 +9,10 @@ dispatch needs on the card at every call (a blocking copy, so the host
 waits for the card each dispatch: the code before ``ops/resident.py``), B
 makes each once (``ops/resident.py``).  The bench's flags pass through;
 the default is ``--model cnn --frames 32 --skip_e2e``.  ``--data_root``
-points the bench at a GTSDB-style tree (``bench_torch.DET_DATA``).
-Without a visible card it exits 2.
+points the bench at a GTSDB-style tree (``bench_torch.DET_DATA``).  The CNN
+dispatches run eagerly (``CNNDetector.eager``): a graph replay makes no
+constant, and A's blocking copies cannot be captured.  Without a visible
+card it exits 2.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     import bench_torch
+    from opencv_traffic_sign_detector_tpu_torch.models.cnn_detector import CNNDetector
     from opencv_traffic_sign_detector_tpu_torch.ops import resident as res
     from opencv_traffic_sign_detector_tpu_torch.runtime.build import missing_card
 
@@ -43,6 +46,7 @@ def main(argv: list[str] | None = None) -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip())
     made_once = res._resident
+    CNNDetector.eager = True
     try:
         for label in ("A", "B", "B", "A"):
             res._resident = made_once.__wrapped__ if label == "A" else made_once
@@ -55,6 +59,7 @@ def main(argv: list[str] | None = None) -> int:
             print(label, out.getvalue().strip(), flush=True)
     finally:
         res._resident = made_once
+        CNNDetector.eager = False
     return 0
 
 
