@@ -218,8 +218,10 @@ Phases:
     planes (``[8,98,98]``, 8 passes, the resident form) as a kernel row
     measured as in phase 3, its launches those of the step (78 a shard); (c) ``sharded_recognize_fn`` with (b)'s heads against the
     unsharded ``recognize_batch`` (boxes, labels, valid equal); (d) the
-    SPMD CNN step on the tiny config for 2 steps (finite losses, moving
-    parameters), its first step at f32 against the CPU mesh on the same
+    SPMD CNN step on the tiny config for 2 steps, a capture a shard and a
+    replay (finite losses, moving parameters, every shard's replica and
+    AdamW state equal to the first's), its first step at f32 against the
+    CPU mesh on the same
     crops of labelled frames (loss 1e-5, gradients 1e-3 of their largest,
     parameters equal after the count-0 update; on the noise frames
     printed); (e) sharded v3 inference with the head-bias
@@ -227,9 +229,15 @@ Phases:
     5e-3 of the unsharded run); (f) ``distributed_statistics`` of (a)'s
     detections against the frames' drawn signs equal to the host engine;
     (g) (b) and (f) again through a one-rank NCCL process group (a
-    ``FileStore`` under ``build/``), so the all-reduce runs on the card;
-    (h) one MSER batch under ``profiler_trace``, whose trace must name the
-    tiled sweep kernel;
+    ``FileStore`` under ``build/``), so the all-reduce runs on the card,
+    and the graphed SPMD CNN step over the cards through it, its losses
+    equal to the same shards' without the group
+    (:func:`_spmd_group_losses`); (h) one MSER batch under
+    ``profiler_trace``, whose trace must name the tiled sweep kernel; (i)
+    the SPMD CNN step at the reference's training width (the published
+    ``slim``, batch 32 crops a shard) over every card, one card and 2
+    shards, eager against replayed (:func:`_scale_out_training`; with (g)'s
+    CNN step alone: :func:`scale_out_training`);
 17. the bench and the tool twins (:func:`_bench_phases`), on a
     ``write_gt_dir`` tree of 16 labelled 1360x800 frames with template
     crops under ``build/`` as the bench's data root: (a) K1 with and
@@ -2682,10 +2690,10 @@ def _scale_out_phases(rt, dev, smi: str, frames, signs, templates, mcfg,
     model = cd.init_params(cd.SignCenterNet(tiny), seed).to(two.devices[0])
     before = [p.detach().clone() for p in model.parameters()]
     step = pcnn.make_spmd_cnn_train_step(two, tiny, tcfg)
-    opt = ct.make_optimizer(model.parameters(), tcfg)
     sharded = pcnn.put_sharded_cnn_dataset(two, data)
-    losses = [step(model, opt, sharded, s)["loss"].item() for s in range(tcfg.steps)]
+    losses = [step(model, sharded, s)["loss"].item() for s in range(tcfg.steps)]
     moved = max((p - b).abs().max().item() for p, b in zip(model.parameters(), before))
+    replica_gap = _replica_gap(step)
 
     f32 = dataclasses.replace(tiny, dtype="float32")
 
@@ -2701,11 +2709,9 @@ def _scale_out_phases(rt, dev, smi: str, frames, signs, templates, mcfg,
                                                      d["frames"].shape[0], d["pos"].shape[0],
                                                      tcfg), d, tcfg)
                  for i, d in enumerate(cpu_data)]
-        got_cpu = pcnn.make_spmd_cnn_train_step(cpu2, f32, tcfg).update(
-            cpu_model, ct.make_optimizer(cpu_model.parameters(), tcfg), crops)
+        got_cpu = pcnn.make_spmd_cnn_train_step(cpu2, f32, tcfg).update(cpu_model, crops)
         got_card = pcnn.make_spmd_cnn_train_step(two, f32, tcfg).update(
-            card_model, ct.make_optimizer(card_model.parameters(), tcfg),
-            [tuple(c.to(d) for c in cr) for d, cr in zip(two.devices, crops)])
+            card_model, [tuple(c.to(d) for c in cr) for d, cr in zip(two.devices, crops)])
         loss_rel = (abs(got_card["loss"].item() - got_cpu["loss"].item())
                     / abs(got_cpu["loss"].item()))
         grad_rel = {name: _max_rel(c.grad, a.grad) for (name, a), c in
@@ -2720,15 +2726,17 @@ def _scale_out_phases(rt, dev, smi: str, frames, signs, templates, mcfg,
                   pcnn.shard_cnn_dataset(ct.pack_dataset(lab_frames, lab_found), 2)),
               "noise": first_step_vs_cpu(data)}
     print(f"[scale-out cnn step] the SPMD step over 2 shards, tiny slim at bf16, "
-          f"{tcfg.steps} steps on the dry run's noise frames: losses "
-          f"{', '.join(f'{v:.4f}' for v in losses)}, parameters moved up to {moved:.3g}; the "
+          f"{tcfg.steps} steps on the dry run's noise frames (a capture a shard, then a replay: "
+          f"{step.captured is not None}): losses {', '.join(f'{v:.4f}' for v in losses)}, "
+          f"parameters moved up to {moved:.3g}, replicas' largest difference {replica_gap:.3g}; the "
           "first step at f32 over 2 shards, card against 2 CPU shards on the CPU's crops: "
           + "; ".join(f"{k} frames: loss rel {lr:.3g}, grads max |diff| / max {g:.3g} at {w}, "
                       f"parameters equal after the count-0 update {same}"
                       for k, (lr, g, w, same) in checks.items())
           + " (held on the labelled frames: loss 1e-5, grads 1e-3, phase 14's bounds; on "
           "noise the norms' f32 fast variance cancels further, printed only)")
-    _require(bool(np.isfinite(losses).all()) and moved > 0, "the SPMD CNN step did not train")
+    _require(bool(np.isfinite(losses).all()) and moved > 0 and step.captured is not None
+             and replica_gap == 0, "the SPMD CNN step did not train, replay or keep its replicas")
     loss_rel, grad_rel, _, param_same = checks["labelled"]
     _require(loss_rel <= 1e-5 and grad_rel <= 1e-3 and param_same,
              "the card's SPMD CNN step differs from the CPU mesh's")
@@ -2794,12 +2802,8 @@ def _scale_out_phases(rt, dev, smi: str, frames, signs, templates, mcfg,
     _require(stats_cards == want_counts and stats_two == want_counts,
              "device statistics differ from the host engine's")
 
-    # --- 16g. the reduction through a one-rank NCCL group ------------------
-    store_path = rt.BUILD_ROOT.parent / "chip_smoke_nccl_store"
-    store_path.unlink(missing_ok=True)
-    dist.init_process_group("nccl", store=dist.FileStore(str(store_path), 1), rank=0,
-                            world_size=1)
-    try:
+    # --- 16g. the reductions through a one-rank NCCL group -----------------
+    with _one_rank_nccl(rt):
         grouped = pm.data_mesh()
         _require(grouped.group is not None and dist.get_backend(grouped.group) == "nccl",
                  "the cards' mesh did not take the NCCL group")
@@ -2814,9 +2818,7 @@ def _scale_out_phases(rt, dev, smi: str, frames, signs, templates, mcfg,
               f"statistics {g_fit[0]:.3g}, {g_fit[1]:.3g} (bounds 1e-5)")
         _require(psum_ok and stats_nccl == want_counts and torch.equal(gcounts.cpu(), ccounts)
                  and max(g_fit) <= 1e-5, "the NCCL reduction differs")
-    finally:
-        dist.destroy_process_group()
-        store_path.unlink(missing_ok=True)
+        _spmd_group_losses(grouped, seed)
 
     # --- 16h. one MSER batch under profiler_trace ---------------------------
     # the profiler can drop a trace's records (_cuda_trace): up to 3 traces
@@ -2834,8 +2836,216 @@ def _scale_out_phases(rt, dev, smi: str, frames, signs, templates, mcfg,
           f"{sum(t.stat().st_size for t in traces)} bytes, names the tiled sweep kernel {named}")
     _require(len(traces) == 1 and named, "the profiler trace is missing or misses the sweep")
     shutil.rmtree(trace_dir, ignore_errors=True)
+
+    # --- 16i. the SPMD CNN step at the reference's training width -----------
+    del pipe
+    torch.cuda.empty_cache()
+    _scale_out_training(dev, smi, seed)
     print(f"[scale-out] phase 16 in {time.perf_counter() - t_phase:.1f} s; {smi}")
     return paths, row
+
+
+@contextlib.contextmanager
+def _one_rank_nccl(rt):
+    """Context: a one-rank NCCL process group (a ``FileStore`` under
+    ``build/``), so that a mesh of the cards all-reduces on the card."""
+    import torch.distributed as dist
+
+    store_path = rt.BUILD_ROOT.parent / "chip_smoke_nccl_store"
+    store_path.unlink(missing_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(str(store_path), 1), rank=0,
+                            world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        store_path.unlink(missing_ok=True)
+
+
+def _spmd_group_losses(grouped, seed: int) -> None:
+    """Phase 16g's SPMD CNN step: the dry run's tiny slim at bf16, batch 2 a
+    shard, 3 steps (the capture's warm-up and 2 replays) over ``grouped``,
+    the cards' mesh in a one-rank NCCL group, whose mean all-reduces over
+    NCCL between the shards' replays, against the same shards without a
+    group: the losses equal bit for bit."""
+    import numpy as np
+
+    from opencv_traffic_sign_detector_tpu_torch.data.synthetic import make_labelled_frames
+    from opencv_traffic_sign_detector_tpu_torch.models import cnn_detector as cd
+    from opencv_traffic_sign_detector_tpu_torch.models import cnn_train as ct
+    from opencv_traffic_sign_detector_tpu_torch.parallel import cnn as pcnn
+    from opencv_traffic_sign_detector_tpu_torch.parallel import mesh as pm
+
+    tiny = cd.CNNDetectorConfig(arch="slim", stem_features=16, mid_features=24,
+                                deep_features=32, head_features=24)
+    cfg = ct.TrainConfig(batch_size=2, steps=3, warmup_steps=1, seed=seed)
+    frames, found = make_labelled_frames(2 * grouped.shards, 480, 640, seed=seed + 16)
+    data = pcnn.shard_cnn_dataset(ct.pack_dataset(frames, found), grouped.shards)
+
+    def losses(m):
+        model = cd.init_params(cd.SignCenterNet(tiny), seed).to(m.devices[0])
+        step = pcnn.make_spmd_cnn_train_step(m, tiny, cfg)
+        sharded = pcnn.put_sharded_cnn_dataset(m, data)
+        out = [step(model, sharded, s)["loss"].item() for s in range(cfg.steps)]
+        return out, step.captured is not None, _replica_gap(step)
+
+    got, graphed, gap = losses(grouped)
+    want, _, _ = losses(pm.Mesh(grouped.devices))
+    print(f"[scale-out nccl cnn step] the SPMD CNN step over the cards' mesh in the one-rank "
+          f"NCCL group ({grouped.shards} shard(s)), tiny slim bf16, batch {cfg.batch_size} a "
+          f"shard, {cfg.steps} steps (a capture, then replays: {graphed}): losses "
+          f"{', '.join(f'{v:.6f}' for v in got)}; without the group "
+          f"{', '.join(f'{v:.6f}' for v in want)}; equal {got == want}; replicas' largest "
+          f"difference {gap:.3g}")
+    _require(graphed and got == want and bool(np.isfinite(got).all()) and gap == 0,
+             "the graphed SPMD CNN step through the NCCL group differs from the mesh without it")
+
+
+def _replica_gap(step) -> float:
+    """The largest |difference| between any shard's parameters, AdamW
+    moments, AdamW counts and update count and the first shard's, after an
+    SPMD step (infinite where one holds a NaN)."""
+    def state(s):
+        return ([p.detach() for p in s.params]
+                + [s.opt.state[p][k] for p in s.params for k in ("exp_avg", "exp_avg_sq", "step")]
+                + [s.count])
+
+    first, *rest = step._shards
+    want = state(first)
+    return max([0.0] + [_gap(a.to(first.device).double(), b.double())
+                        for s in rest for a, b in zip(state(s), want)])
+
+
+def _scale_out_training(dev, smi: str, seed: int) -> None:
+    """Phase 16i: the SPMD CNN step at the reference's training width, the
+    ``slim`` ``SignCenterNet`` at its published widths (64/96/128/96, bf16)
+    with phase 14's ``TrainConfig`` (batch 32 crops a shard, 320x320, lr
+    2.5e-4, 31 steps, warm-up 3) on phase 14's 64 synthetic 1360x800 frames
+    (seed 14), split by ``shard_cnn_dataset`` over every visible card, then
+    over 1 card where there are more, then over 2 shards (two cards, or two
+    shards on one).  On each mesh, from one set of weights, the eager body
+    (a stage timer that records nothing) and the replayed graphs side by
+    side: 8 steps each, their losses equal bit for bit and, after every
+    step, every shard's parameters, AdamW moments and counts equal the
+    first shard's; the replayed run on to step 31 (finite losses, the last
+    5 below the first 5); then in turns (eager, replay, replay, eager, 10
+    steps each) steps/s and crops/s over all shards and the host's ms a
+    step; the card busy time a step by ``torch.profiler`` and each card's
+    idle share; the graphs' nodes and pool bytes a shard; no host sync in a
+    window of 4 replays."""
+    import copy
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from opencv_traffic_sign_detector_tpu_torch.data.synthetic import make_labelled_frames
+    from opencv_traffic_sign_detector_tpu_torch.models import cnn_detector as cd
+    from opencv_traffic_sign_detector_tpu_torch.models import cnn_train as ct
+    from opencv_traffic_sign_detector_tpu_torch.parallel import cnn as pcnn
+    from opencv_traffic_sign_detector_tpu_torch.parallel import mesh as pm
+
+    t_phase = time.perf_counter()
+    frames, found = make_labelled_frames(64, 800, 1360, seed=seed + 14)
+    packed = ct.pack_dataset(frames, found)
+    del frames
+    mcfg = cd.CNNDetectorConfig(arch="slim")
+    cfg = ct.TrainConfig(warmup_steps=3, steps=31, seed=seed)
+    cards = pm.data_mesh()
+    meshes = [cards] + ([pm.data_mesh(1)] if cards.size > 1 else [])
+    meshes.append(pm.data_mesh(devices=[cards.devices[i % cards.size] for i in range(2)]))
+    start = cd.init_params(cd.SignCenterNet(mcfg), seed)
+    print(f"[spmd train] slim {mcfg.stem_features}/{mcfg.mid_features}/{mcfg.deep_features}/"
+          f"{mcfg.head_features} {mcfg.dtype}, {sum(p.numel() for p in start.parameters())} "
+          f"parameters; {len(packed['frames'])} frames of 1360x800, {len(packed['pos'])} sign "
+          f"boxes, made in {time.perf_counter() - t_phase:.1f} s")
+    for mesh in meshes:
+        t0 = time.perf_counter()
+        label = f"{mesh.shards} shard(s) on {sorted({str(d) for d in mesh.devices})}"
+        crops = cfg.batch_size * mesh.shards
+        data = pcnn.put_sharded_cnn_dataset(mesh, pcnn.shard_cnn_dataset(packed, mesh.shards))
+        sides = {mode: pcnn.SPMDTrainStep(mesh, mcfg, cfg,
+                                          timer=_eager_timer if mode == "eager" else None)
+                 for mode in ("eager", "replay")}
+        models = {mode: copy.deepcopy(start).to(mesh.devices[0]) for mode in sides}
+        taken = dict.fromkeys(sides, 0)
+
+        def run(mode):
+            taken[mode] += 1
+            return sides[mode](models[mode], data, taken[mode] - 1)
+
+        losses, gaps = defaultdict(list), defaultdict(float)
+        with _dumped_graphs():
+            for _ in range(8):
+                for mode in sides:
+                    losses[mode].append(run(mode)["loss"].item())
+                    gaps[mode] = max(gaps[mode], _replica_gap(sides[mode]))
+        same = losses["replay"] == losses["eager"]
+        while taken["replay"] < cfg.steps:
+            losses["replay"].append(run("replay")["loss"].item())
+            gaps["replay"] = max(gaps["replay"], _replica_gap(sides["replay"]))
+        curve = losses["replay"]
+        print(f"[spmd train {label}] 8 steps eager and replayed side by side from one set of "
+              f"weights: bf16 losses equal bit for bit {same} "
+              f"({', '.join(f'{v:.6f}' for v in losses['eager'])}); the replayed run to step "
+              f"{cfg.steps}: first 5 {', '.join(f'{v:.4f}' for v in curve[:5])}, last 5 "
+              f"{', '.join(f'{v:.4f}' for v in curve[-5:])}; replicas' largest difference after "
+              f"every step (parameters, AdamW moments and counts against the first shard's): "
+              f"eager {gaps['eager']:.3g}, replay {gaps['replay']:.3g}")
+        _require(same, f"{label}: the replayed SPMD step's losses differ from the eager body's")
+        _require(gaps["eager"] == 0 and gaps["replay"] == 0,
+                 f"{label}: a shard's replica or AdamW state differs from the first shard's")
+        _require(bool(np.isfinite(curve).all()) and np.mean(curve[-5:]) < np.mean(curve[:5]),
+                 f"{label}: the replayed SPMD run's loss did not fall")
+
+        wall, host = defaultdict(list), defaultdict(list)
+        for mode in ("eager", "replay", "replay", "eager"):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(10):
+                t = time.perf_counter()
+                run(mode)
+                host[mode].append((time.perf_counter() - t) * 1e3)
+            torch.cuda.synchronize()
+            wall[mode].append((time.perf_counter() - t1) / 10 * 1e3)
+        busy = {}
+        for mode in sides:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    run(mode)
+                torch.cuda.synchronize()
+            per_card = defaultdict(float)
+            for e in prof.events():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    per_card[getattr(e, "device_index", 0)] += e.device_time / 5 / 1e3
+            busy[mode] = dict(sorted(per_card.items()))
+        local, updates = sides["replay"].captured
+        nodes = [(_graph_nodes(a.graph), _graph_nodes(b.graph)) for a, b in zip(local, updates)]
+        pools = [(a.pool_bytes, b.pool_bytes) for a, b in zip(local, updates)]
+        for mode in sides:
+            ms = statistics.median(wall[mode])
+            print(f"[spmd train {label}] {mode}: {1e3 / ms:.2f} steps/s, {crops * 1e3 / ms:.1f} "
+                  f"crops/s over {mesh.shards} shard(s) of {cfg.batch_size} (median of runs "
+                  + ", ".join(f"{1e3 / w:.2f}" for w in wall[mode])
+                  + f" steps/s, 10 steps each in turns: eager, replay, replay, eager); the host's "
+                  f"ms a step {statistics.median(host[mode]):.3f} (min {min(host[mode]):.3f}, max "
+                  f"{max(host[mode]):.3f}); busy ms a step by card (torch.profiler, 5 steps) "
+                  + ", ".join(f"cuda:{d} {b:.3f} (idle {1 - b / ms:.1%})"
+                              for d, b in busy[mode].items())
+                  + f" of {ms:.3f} ms; {smi}")
+        print(f"[spmd train {label} graphs] a shard's local and update graphs: nodes by type "
+              + "; ".join(f"shard {i} {a} ({sum(a.values())}), {b} ({sum(b.values())})"
+                          for i, (a, b) in enumerate(nodes))
+              + "; pool bytes reserved by their captures "
+              + ", ".join(f"shard {i} {a / 2**30:.3f} + {b / 2**30:.3f} GiB"
+                          for i, (a, b) in enumerate(pools))
+              + f"; replayed steps/s {statistics.median(wall['eager']) / statistics.median(wall['replay']):.2f}x "
+              f"the eager in this call; {time.perf_counter() - t0:.1f} s")
+        _require(all(a.get("kernel", 0) > 0 and b.get("kernel", 0) > 0 for a, b in nodes),
+                 f"{label}: a shard's graph holds no kernel node")
+        _require_no_sync(f"spmd train {label} replay", lambda: run("replay"), iters=4)
+        del sides, models, data
+        torch.cuda.empty_cache()
+    print(f"[spmd train] phase 16i in {time.perf_counter() - t_phase:.1f} s; {smi}")
 
 
 def _sync_sites(dispatch, iters: int) -> list[str]:
@@ -3491,6 +3701,26 @@ def scale_out_detection(seed: int = 0) -> int:
     frames, _ = make_frames_with_boxes(32, 800, 1360, seed=seed)
     _scale_out_detection(rt, dev, smi, frames, MeanMaskTemplates.load("artifacts/mean_masks.npz"),
                          _tuned(MSERConfig.from_string("MSER_7_200_2000_1")))
+    return 0
+
+
+def scale_out_training(seed: int = 0) -> int:
+    """Phase 16i and 16g's SPMD CNN step through a one-rank NCCL group,
+    alone, for a machine of several cards (training runs none of the port's
+    kernels, so nothing is built)::
+
+        python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.scale_out_training())"
+
+    a failed check raises."""
+    _, smi = _device_phase()
+    from opencv_traffic_sign_detector_tpu_torch.parallel import mesh as pm
+    from opencv_traffic_sign_detector_tpu_torch.runtime import build as rt
+
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    _scale_out_training(dev, smi, seed)
+    with _one_rank_nccl(rt):
+        _spmd_group_losses(pm.data_mesh(), seed)
     return 0
 
 

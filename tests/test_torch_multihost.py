@@ -207,10 +207,9 @@ def _cnn_step(mesh, alone) -> None:
     runs = []
     for m in (mesh, alone):
         model = cd.init_params(cd.SignCenterNet(model_cfg), 0)
-        opt = ct.make_optimizer(model.parameters(), cfg)
         step = make_spmd_cnn_train_step(m, model_cfg, cfg)
         sharded = put_sharded_cnn_dataset(m, data)
-        losses = [step(model, opt, sharded, s)["loss"].item() for s in range(2)]
+        losses = [step(model, sharded, s)["loss"].item() for s in range(2)]
         runs.append((losses, cd.flat_params(model)))
     (losses, params), (want_losses, want_params) = runs
     np.testing.assert_allclose(losses, want_losses, rtol=1e-6)

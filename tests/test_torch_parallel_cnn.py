@@ -153,15 +153,14 @@ def test_spmd_step_matches_reference_on_its_draws(kind, grad_bound):
     opt_state = tx.init(params)
     mesh = tmesh.data_mesh(2, device="cpu")
     step = tpc.make_spmd_cnn_train_step(mesh, model.cfg, CFG)
-    opt = tct.make_optimizer(model.parameters(), CFG)
     before = tcd.flat_params(model)
     for s in (0, 1):
         crops = [_ref_shard_crops(shard_data[i], s, i) for i in range(2)]
         loss, parts, grads = _ref_mean_grads(jcfg, params, crops)
         updates, opt_state = tx.update(grads, opt_state, params)
         params = optax.apply_updates(params, updates)
-        got = step.update(model, opt, [tuple(torch.from_numpy(np.array(x)) for x in c)
-                                       for c in crops])
+        got = step.update(model, [tuple(torch.from_numpy(np.array(x)) for x in c)
+                                  for c in crops])
         np.testing.assert_allclose(got["loss"].item(), loss, rtol=1e-5)
         for k in parts:
             np.testing.assert_allclose(got[k].item(), parts[k], rtol=1e-5, err_msg=k)
@@ -200,7 +199,7 @@ def test_spmd_step_matches_reference_jitted_step():
                            CFG)
         crops.append(tct.crops_from_draws(draws, shard, CFG))
     before = tcd.flat_params(model)
-    got = step.update(model, tct.make_optimizer(model.parameters(), CFG), crops)
+    got = step.update(model, crops)
     np.testing.assert_allclose(got["loss"].item(), float(metrics["loss"]), rtol=1e-4)
     after = tcd.flat_params(model)
     for k, v in _flat(new_params).items():
@@ -222,9 +221,8 @@ def test_spmd_step_draws_from_seed_step_and_shard():
     mesh = tmesh.data_mesh(2, device="cpu")
     data = tpc.put_sharded_cnn_dataset(mesh, tpc.shard_cnn_dataset(_toy_data(4), 2))
     step = tpc.make_spmd_cnn_train_step(mesh, model.cfg, cfg)
-    opt = tct.make_optimizer(model.parameters(), cfg)
     before = tcd.flat_params(model)
-    losses = [step(model, opt, data, s)["loss"].item() for s in range(2)]
+    losses = [step(model, data, s)["loss"].item() for s in range(2)]
     assert np.isfinite(losses).all()
     after = tcd.flat_params(model)
     assert max(np.abs(after[k] - before[k]).max() for k in before) > 0
