@@ -23,8 +23,12 @@ Scopes, timed on the host's clock around work that ends in
   before the window; batch i+1's copy runs on a side stream while batch i
   computes.
 * MSER (``mser_fps``, or ``value`` with ``--model mser``): ``detect_batch``
-  on uploaded batches after 3 warm-ups, each batch synchronised; the 1080p
-  probe (``fps_1080p``) likewise.
+  in the form the product runs it (``DetectionPipeline``): on a card one
+  CUDA graph a frame shape, keyed by the config (``runtime/graphs.py:
+  CapturedFn``), captured at the first of 3 warm-ups and replayed on the
+  uploaded batches, each batch synchronised; the 1080p probe
+  (``fps_1080p``) likewise, its warm-up the capture.  On the CPU each call
+  runs ``detect_batch``.
 * End to end (``e2e_fps``) and live quality (``*_test``, ``*_1080p``):
   ``run_directory`` over ``DET_DATA``'s test frames, scored with the parity
   stats and PASCAL AP, when the frames are there.
@@ -49,6 +53,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from opencv_traffic_sign_detector_tpu_torch.models import detector
 from opencv_traffic_sign_detector_tpu_torch.models.detector import upload
 from opencv_traffic_sign_detector_tpu_torch.ops.upscale import resize_bilinear_u8
 
@@ -88,6 +93,12 @@ def _load_frames(n: int, size: str) -> np.ndarray:
         pad_w = 1920 - frames.shape[2]
         frames = np.pad(frames, [(0, 0), (0, pad_h), (0, pad_w), (0, 0)], mode="reflect")
     return frames
+
+
+def _detect(cfg, frames: torch.Tensor, red: torch.Tensor, blue: torch.Tensor):
+    """``detect_batch`` under ``cfg``, the function the MSER scopes capture
+    (looked up at each call)."""
+    return detector.detect_batch(frames, red, blue, cfg)
 
 
 def _weights_fingerprint(path: str) -> str:
@@ -418,13 +429,13 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
 
     from opencv_traffic_sign_detector_tpu_torch.config import MSERConfig, PipelineConfig
-    from opencv_traffic_sign_detector_tpu_torch.models.detector import detect_batch
     from opencv_traffic_sign_detector_tpu_torch.models.mean_masks import (
         MeanMaskTemplates,
         templates_to_torch,
         train_mean_masks,
     )
     from opencv_traffic_sign_detector_tpu_torch.runtime.build import missing_card
+    from opencv_traffic_sign_detector_tpu_torch.runtime.graphs import CapturedFn
 
     device = args.device
     why = missing_card(device)
@@ -467,13 +478,17 @@ def main(argv=None) -> int:
     red, blue = templates_to_torch(templates, device)
     batches = [upload(frames[i * args.batch:(i + 1) * args.batch], device)
                for i in range(n_batches)]
+    mser = CapturedFn(_detect, keyed=True)
 
-    for _ in range(3):  # warm-up
-        detect_batch(batches[0], red, blue, cfg)
+    def detect(b: torch.Tensor):
+        return mser(device, b, red, blue, key=cfg)
+
+    for _ in range(3):  # warm-up; the first captures the graph
+        detect(batches[0])
         _sync(device)
     t0 = time.perf_counter()
     for b in batches:
-        detect_batch(b, red, blue, cfg)
+        detect(b)
         _sync(device)
     fps = (n_batches * args.batch) / (time.perf_counter() - t0)
 
@@ -528,12 +543,12 @@ def main(argv=None) -> int:
     if not args.skip_1080p and args.size == "gtsdb":
         hd = _load_frames(2 * args.batch, "1080p")
         hd_batches = [upload(hd[i * args.batch:(i + 1) * args.batch], device) for i in range(2)]
-        detect_batch(hd_batches[0], red, blue, cfg)  # warm-up
+        detect(hd_batches[0])  # warm-up: the 1088x1920 graph captured
         _sync(device)
         t0 = time.perf_counter()
         for _ in range(2):
             for b in hd_batches:
-                detect_batch(b, red, blue, cfg)
+                detect(b)
                 _sync(device)
         result["fps_1080p"] = round(4 * args.batch / (time.perf_counter() - t0), 3)
 

@@ -249,13 +249,20 @@ Phases:
     1`` runs it) on that strip; (b) ``bench_torch.main``
     at ``--frames 64 --cnn_iters 4 --fed_batches 2`` (every CNN scope at
     batch 128, the MSER scope, end to end and live quality on the tree:
-    smoke values), its JSON line and peak memory printed, K1-K4 once a
-    ``detect_batch`` call (a call recorded into a graph's capture launches
-    nothing and is not counted) and no launch in the CNN scopes; (c) ``--model
-    mser --skip_e2e``, whose 1080p probe must launch K1-K4 once a batch,
-    and the same with ``--scan_passes 2 --extent_only 1``;
-    the CNN scopes' graph captures (each input and reserved bytes) and
-    replays, and the card's peak memory;
+    smoke values), its JSON line and peak memory printed; the MSER scope
+    replays the graph the product runs (``bench_torch._detect`` through
+    ``CapturedFn``): one capture at its first warm-up and 4 replays (2
+    warm-ups, 2 timed batches), each replay adding K1-K4 once to the counts
+    (``Captured.replay``, counted by frame shape), and no launch in the CNN
+    scopes; (c) ``--model mser --skip_e2e`` replayed, eagerly
+    (``CapturedFn.EAGER_DEVICES`` holding the card), eagerly and replayed in
+    turns: ``mser_fps`` and ``fps_1080p`` each way, the probe one capture
+    and 4 replays of K1-K4 once each; the same with ``--scan_passes 2
+    --extent_only 1``; the scope's graph at 1360x800 and 1088x1920
+    replayed against ``detect_batch`` eagerly, bit for bit, one batch at a
+    time and two in flight (:func:`_replay_vs_eager`); the CNN scopes'
+    graph captures (each input and reserved bytes) and replays, and the
+    card's peak memory;
     (d) the probe's records on 2 frames against the CPU path; (e) one
     window of 4 dispatches of each CNN device-queue route, and of the fed
     scope, under ``torch.cuda.set_sync_debug_mode("warn")``: no host sync,
@@ -265,7 +272,19 @@ Phases:
     (f) ``scripts/cnn_profile_torch.py --size gtsdb --batch 16`` and (g)
     ``scripts/quality_probe_torch.py --limit 4`` on the tree, and with
     ``--sweep_res 1``.  Templates
-    the bench trains at the repository root are removed at the end.
+    the bench trains at the repository root are removed at the end;
+18. graph memory (:func:`_graph_memory`; alone: :func:`graph_memory`): one
+    process meets 8 MSER frame sizes at batch 32 (:data:`GRAPH_SIZES`,
+    640x480 to 1920x1088) through one ``DetectionPipeline``, the 12 CNN
+    routes of phase 8 at batch 32 (phase 17's float and int8 nets, with
+    graphs of their own) and the first size again: after each, the
+    captures and their reserved bytes, ``memory_reserved`` split by pool
+    (``torch.cuda.memory_snapshot``), the bytes in use by ``mem_get_info`` and the
+    card's graph account against its budget (``runtime/graphs.py``);
+    requires a capture at each new key and no eager call, reserved after
+    the 8th size within 10% of the 4th, at or under the budget plus the
+    largest MSER graph after every step, and the first size evicted,
+    captured again and replayed equal to eager bit for bit.
 
 Then one JSON line with the kernel table (each kernel's launches on its
 path's run, max abs error, ms, plain ms, bound ms and what bounds it, the
@@ -279,6 +298,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import os
@@ -290,6 +310,7 @@ import sys
 import tempfile
 import time
 import warnings
+import weakref
 from collections import defaultdict
 
 import torch
@@ -1370,13 +1391,47 @@ def _k1_shapes(cc, x: torch.Tensor, gen) -> None:
         _require(same and lib and all(luts), f"K1 {label}: differs from its plain version")
 
 
+# the CNN detector's routes (phases 8-9 and the graph memory phase): label,
+# checkpoint, --upscale, input, route function, what the route must show (the
+# fused plan's t/a, or the resize pass), timed batches
+CNN_ROUTES = [
+    ("float bgr", "params.npz", 1.0, "bgr", "_detect", None, 3),
+    ("float patches8", "params.npz", 1.0, "patches8", "_detect", None, 3),
+    ("float yuv420", "params.npz", 1.0, "yuv420", "_detect", None, 3),
+    ("float yuv420p", "params.npz", 1.0, "yuv420p", "_detect_yuv_patches", None, 3),
+    ("float up1.6", "params.npz", 1.6, "bgr", "_detect_fused_upscaled", (8, 5), 3),
+    ("float up1.412", "params.npz", 1.412, "bgr", "_detect_fused_upscaled", (24, 17), 3),
+    ("float up1.3", "params.npz", 1.3, "bgr", "_detect_upscaled", "_upscale_axis", 3),
+    ("float up0.9", "params.npz", 0.9, "bgr", "_detect_upscaled", "_dense_axis", 3),
+    ("int8 bgr", "params_int8.npz", 1.0, "bgr", "_detect", None, 3),
+    ("int8 up1.6", "params_int8.npz", 1.6, "bgr", "_detect_fused_upscaled", (8, 5), 3),
+    ("slim bgr", "params_slim.npz", 1.0, "bgr", "_detect", None, 1),
+    ("v3 params_v3 bgr", "params_v3.npz", 1.0, "bgr", "_detect", None, 1),
+]
+
+
+def _cnn_inputs(frames: "np.ndarray") -> dict:
+    """BGR frames as each CNN route's input: bgr, patches8, tight yuv420
+    planes and patchified yuv420p planes, made with numpy."""
+    import numpy as np
+
+    from opencv_traffic_sign_detector_tpu_torch.data.synthetic import bgr_to_yuv420
+    from opencv_traffic_sign_detector_tpu_torch.ops import yuv as tyuv
+
+    b, h, w, _ = frames.shape
+    patches = frames.reshape(b, h // 8, 8, w // 8, 24).transpose(0, 1, 3, 2, 4)
+    inputs = {"bgr": frames, "patches8": np.ascontiguousarray(patches.reshape(
+        b, h // 8, w // 8, 192)), "yuv420": bgr_to_yuv420(frames)}
+    inputs["yuv420p"] = tyuv.patchify_yuv_planes(*inputs["yuv420"])
+    return inputs
+
+
 def _cnn_phases(rt, dev, frames: "np.ndarray", names: list[str], smi: str) -> None:
     """Phases 8-9: the CNN detector's routes on the card, each captured into
     a CUDA graph at its warm-up batch and replayed after it, then each
     against the port's CPU path."""
     import numpy as np
 
-    from opencv_traffic_sign_detector_tpu_torch.data.synthetic import bgr_to_yuv420
     from opencv_traffic_sign_detector_tpu_torch.models import cnn_detector as cd
     from opencv_traffic_sign_detector_tpu_torch.models import cnn_quant as cq
     from opencv_traffic_sign_detector_tpu_torch.ops import upscale as ups
@@ -1385,26 +1440,8 @@ def _cnn_phases(rt, dev, frames: "np.ndarray", names: list[str], smi: str) -> No
 
     ck = "artifacts/cnn_detector/"
     b, h, w, _ = frames.shape
-    patches = frames.reshape(b, h // 8, 8, w // 8, 24).transpose(0, 1, 3, 2, 4)
-    inputs = {"bgr": frames, "patches8": np.ascontiguousarray(patches.reshape(
-        b, h // 8, w // 8, 192)), "yuv420": bgr_to_yuv420(frames)}
-    inputs["yuv420p"] = tyuv.patchify_yuv_planes(*inputs["yuv420"])
-    # label, checkpoint, --upscale, input, route function, what the route
-    # must show (the fused plan's t/a, or the resize pass), timed batches
-    routes = [
-        ("float bgr", "params.npz", 1.0, "bgr", "_detect", None, 3),
-        ("float patches8", "params.npz", 1.0, "patches8", "_detect", None, 3),
-        ("float yuv420", "params.npz", 1.0, "yuv420", "_detect", None, 3),
-        ("float yuv420p", "params.npz", 1.0, "yuv420p", "_detect_yuv_patches", None, 3),
-        ("float up1.6", "params.npz", 1.6, "bgr", "_detect_fused_upscaled", (8, 5), 3),
-        ("float up1.412", "params.npz", 1.412, "bgr", "_detect_fused_upscaled", (24, 17), 3),
-        ("float up1.3", "params.npz", 1.3, "bgr", "_detect_upscaled", "_upscale_axis", 3),
-        ("float up0.9", "params.npz", 0.9, "bgr", "_detect_upscaled", "_dense_axis", 3),
-        ("int8 bgr", "params_int8.npz", 1.0, "bgr", "_detect", None, 3),
-        ("int8 up1.6", "params_int8.npz", 1.6, "bgr", "_detect_fused_upscaled", (8, 5), 3),
-        ("slim bgr", "params_slim.npz", 1.0, "bgr", "_detect", None, 1),
-        ("v3 params_v3 bgr", "params_v3.npz", 1.0, "bgr", "_detect", None, 1),
-    ]
+    inputs = _cnn_inputs(frames)
+    routes = CNN_ROUTES
     route_fns = ("_detect", "_detect_upscaled", "_detect_fused_upscaled", "_detect_yuv_patches")
 
     def run(det, x, n=None):
@@ -3365,10 +3402,11 @@ def _same_detections(card, cpu) -> bool:
         for a, b in zip(card, cpu))
 
 
-def _bench_phases(rt, dev, smi: str, seed: int) -> tuple[list[dict], dict, int]:
+def _bench_phases(rt, dev, smi: str, seed: int) -> tuple[list[dict], dict, int, dict]:
     """Phase 17: the bench twin and the tool twins on the card.  -> (the
     kernel rows at the 1080p probe's shapes, {path: (launch counts,
-    batches)}, the probe's batches)."""
+    batches)}, the probe's batches, its float and int8 CNN detectors by
+    checkpoint, with graphs of their own)."""
     import copy
 
     import numpy as np
@@ -3388,6 +3426,7 @@ def _bench_phases(rt, dev, smi: str, seed: int) -> tuple[list[dict], dict, int]:
     )
     from opencv_traffic_sign_detector_tpu_torch.ops import clahe_cuda, mser, mser_cuda, prop_cuda
     from opencv_traffic_sign_detector_tpu_torch.ops.yuv import patchify_yuv_planes
+    from opencv_traffic_sign_detector_tpu_torch.runtime import graphs
 
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
     import cnn_profile_torch
@@ -3469,22 +3508,32 @@ def _bench_phases(rt, dev, smi: str, seed: int) -> tuple[list[dict], dict, int]:
         torch.cuda.empty_cache()
 
         # --- 17b-c. bench_torch.main: every scope, then the MSER one with
-        # the 1080p probe; launches counted a detect_batch call, by shape
-        per_shape = defaultdict(lambda: [0, defaultdict(int)])
+        # the 1080p probe; the MSER scopes' graphs counted by frame shape:
+        # captures, replays and the launches each replay adds
+        per_shape = defaultdict(lambda: [0, 0, defaultdict(int)])  # captures, replays, launches
         cnn_counts, cnn_graphs = {}, []
-        detect_batch, bench_cnn = det.detect_batch, bench_torch._bench_cnn
+        bench_cnn = bench_torch._bench_cnn
+        capture, replay = graphs.capture_call, graphs.Captured.replay
+        eager_devices = graphs.CapturedFn.EAGER_DEVICES
+        scope_graphs = {}  # the MSER scopes' graphs: {id: weak reference}
 
-        def counted(frames, *a, **kw):
-            if torch.cuda.is_current_stream_capturing():
-                # a DetectionPipeline's capture records the call into its
-                # graph and launches nothing; its replays call no detect_batch
-                return detect_batch(frames, *a, **kw)
+        def counted_capture(fn, device, args, *a, **kw):
+            first, entry = capture(fn, device, args, *a, **kw)
+            if getattr(fn, "func", None) is bench_torch._detect:
+                scope_graphs[id(entry)] = weakref.ref(entry)
+                per_shape[tuple(args[0].shape[1:3])][0] += 1
+            return first, entry
+
+        def counted_replay(self, *a, **kw):
+            ref = scope_graphs.get(id(self))
+            if ref is None or ref() is not self:
+                return replay(self, *a, **kw)
             before = rt.launch_counts()
-            out = detect_batch(frames, *a, **kw)
-            entry = per_shape[tuple(frames.shape[1:3])]
-            entry[0] += 1
+            out = replay(self, *a, **kw)
+            entry = per_shape[tuple(self.static.shape[1:3])]
+            entry[1] += 1
             for k, v in rt.launch_counts().items():
-                entry[1][k] += v - before[k]
+                entry[2][k] += v - before[k]
             return out
 
         def cnn_scopes(*a):
@@ -3505,20 +3554,32 @@ def _bench_phases(rt, dev, smi: str, seed: int) -> tuple[list[dict], dict, int]:
                      f"the CNN scopes made {len(made['captures'])} captures and "
                      f"{made['replays']} replays")
 
-        def bench(argv):
+        def bench(argv, eager=False):
+            """One run of the bench: its JSON line.  The MSER scopes' graphs
+            must be one capture a shape, replayed at every later call (2
+            more warm-ups and 2 timed batches at 1360x800, 4 at the probe's
+            1088x1920), each replay launching K1 with its tail and K2-K4
+            once; ``eager`` runs them eagerly instead (no check)."""
             per_shape.clear()
+            scope_graphs.clear()
             out = io.StringIO()
             torch.cuda.reset_peak_memory_stats()
-            det.detect_batch, bench_torch._bench_cnn = counted, cnn_scopes
+            bench_torch._bench_cnn = cnn_scopes
+            graphs.capture_call, graphs.Captured.replay = counted_capture, counted_replay
+            if eager:
+                graphs.CapturedFn.EAGER_DEVICES = ("cpu", "cuda")
             t0 = time.perf_counter()
             try:
                 with contextlib.redirect_stdout(out):
                     rc = bench_torch.main(argv)
             finally:
-                det.detect_batch, bench_torch._bench_cnn = detect_batch, bench_cnn
+                bench_torch._bench_cnn = bench_cnn
+                graphs.capture_call, graphs.Captured.replay = capture, replay
+                graphs.CapturedFn.EAGER_DEVICES = eager_devices
             lines = out.getvalue().splitlines()
             _require(rc == 0 and len(lines) == 1, f"bench_torch.py {argv}: rc {rc}, {lines}")
-            print(f"[bench] bench_torch.py {' '.join(argv)} in {time.perf_counter() - t0:.1f} s, "
+            print(f"[bench] bench_torch.py {' '.join(argv)}{' eagerly' if eager else ''} in "
+                  f"{time.perf_counter() - t0:.1f} s, "
                   f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated, "
                   f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB reserved of the card's "
                   f"{torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}; its line "
@@ -3526,12 +3587,21 @@ def _bench_phases(rt, dev, smi: str, seed: int) -> tuple[list[dict], dict, int]:
             result = json.loads(lines[0])
             _require(result["device"] == torch.cuda.get_device_name(0),
                      f"bench device {result['device']}")
-            for (h, w), (n, counts) in sorted(per_shape.items()):
-                print(f"[bench launches] detect_batch on {h}x{w}: {n} batches, "
-                      + ", ".join(f"{k} {v / n:g}" for k, v in counts.items() if v) + " a batch")
+            if eager:
+                _require(not per_shape, f"the eager bench captured or replayed {dict(per_shape)}")
+                return result
+            want = {(800, 1360): 4, (1088, 1920): 4}
+            _require(set(per_shape) <= set(want) and (800, 1360) in per_shape,
+                     f"the MSER scopes' graphs by shape: {sorted(per_shape)}")
+            for (h, w), (caps, n, counts) in sorted(per_shape.items()):
+                print(f"[bench launches] the MSER scope's graph at {h}x{w}: {caps} capture(s), "
+                      f"{n} replays, " + ", ".join(f"{k} {v / n:g}" for k, v in counts.items()
+                                                   if v) + " a replay")
+                _require(caps == 1 and n == want[h, w], f"bench MSER at {h}x{w}: {caps} "
+                         f"captures and {n} replays, not 1 and {want[h, w]}")
                 for k in ("tile_luts", "clahe_apply", "level_sweep", "flood_bbox"):
                     _require(counts[k] == n, f"bench MSER at {h}x{w}: {k} {counts[k]} launches "
-                             f"in {n} batches")
+                             f"in {n} replays")
             return result
 
         argv = ["--frames", "64", "--cnn_iters", "4", "--fed_batches", "2"]
@@ -3545,17 +3615,38 @@ def _bench_phases(rt, dev, smi: str, seed: int) -> tuple[list[dict], dict, int]:
                  f"quality keys {quality}")
         _require(all(result[k] > 0 for k in result if k.endswith("fps") or k == "value"),
                  "a bench rate is not positive")
-        paths = {"bench MSER (gtsdb)": (dict(per_shape[(800, 1360)][1]),
-                                        per_shape[(800, 1360)][0])}
-        bench(["--model", "mser", "--frames", "64", "--skip_e2e"])
-        n_hd, hd_counts = per_shape[(1088, 1920)]
-        _require(n_hd == 5, f"the 1080p probe ran {n_hd} batches")
+        paths = {"bench MSER (gtsdb)": (dict(per_shape[(800, 1360)][2]),
+                                        per_shape[(800, 1360)][1])}
+        # the MSER scope and the probe replayed and eager in turns
+        mser_argv = ["--model", "mser", "--frames", "64", "--skip_e2e"]
+        rates = defaultdict(list)
+        for mode in ("replay", "eager", "eager", "replay"):
+            line = bench(mser_argv, eager=mode == "eager")
+            rates[mode].append((line["value"], line["fps_1080p"]))
+            if mode == "replay":
+                _, n_hd, hd_counts = per_shape[(1088, 1920)]
+        _require((800, 1360) in per_shape and (1088, 1920) in per_shape,
+                 f"the probe's graphs: {sorted(per_shape)}")
+        print("[bench mser] bench_torch.py --model mser --frames 64 --skip_e2e, in turns: "
+              + "; ".join(f"{mode}: mser_fps {', '.join(str(v[0]) for v in r)}, fps_1080p "
+                          f"{', '.join(str(v[1]) for v in r)}" for mode, r in rates.items())
+              + f"; {smi}")
         paths["bench 1080p probe"] = (dict(hd_counts), n_hd)
         # the sweep's scan-pass and extent-only bodies together, both shapes
-        bench(["--model", "mser", "--frames", "64", "--skip_e2e", "--scan_passes", "2",
-               "--extent_only", "1"])
-        n_scan, scan_counts = per_shape[(1088, 1920)]
-        _require(n_scan == 5, f"the 1080p probe with the scan-pass body ran {n_scan} batches")
+        bench(mser_argv + ["--scan_passes", "2", "--extent_only", "1"])
+        _, _, scan_counts = per_shape[(1088, 1920)]
+        # the scope's graph replayed against eager, bit for bit, at both shapes
+        scope = graphs.CapturedFn(bench_torch._detect, keyed=True)
+        for label, host in [("1360x800", bench_torch._load_frames(cfg.batch_size, "gtsdb")),
+                            ("1088x1920", hd[:cfg.batch_size])]:
+            scope(dev, torch.from_numpy(host).to(dev), red, blue, key=cfg)  # the capture
+            _replay_vs_eager(
+                f"bench MSER scope {label}",
+                lambda b: _cnn_pending(scope(dev, torch.from_numpy(b).to(dev), red, blue,
+                                             key=cfg)),
+                lambda b: _packed(_cnn_pending(bench_torch._detect(
+                    cfg, torch.from_numpy(b).to(dev), red, blue))), host)
+        del scope
         for row in rows:
             row["launches"] = hd_counts[row["name"].removesuffix("_1080p")]
         by_row = {row["name"]: row for row in rows}
@@ -3646,6 +3737,11 @@ def _bench_phases(rt, dev, smi: str, seed: int) -> tuple[list[dict], dict, int]:
               + f"; the copy of the batch ({p8.numel() / 1e6:.1f} MB) into the graph's input "
               f"{copy_ms:.4f} ms (CUDA events, median of 10); its capture reserved "
               f"{entry.pool_bytes / 2**30:.3f} GiB; {smi}")
+        # the detectors' nets for the graph memory phase, with graphs of their own
+        detectors = {}
+        for ckpt, d in (("params.npz", fdet), ("params_int8.npz", qdet)):
+            detectors[ckpt] = copy.copy(d)
+            detectors[ckpt].graphs = graphs.CapturedFn(d.graphs.fn, keyed=True)
         del p8, entry, queue, fdet, qdet
 
         # --- 17f-g. the profile twin and one quality twin -----------------------
@@ -3672,7 +3768,161 @@ def _bench_phases(rt, dev, smi: str, seed: int) -> tuple[list[dict], dict, int]:
             os.unlink(cache)
         shutil.rmtree(work, ignore_errors=True)
     print(f"[bench] phase 17 in {time.perf_counter() - t_phase:.1f} s; {smi}")
-    return rows, paths, n_hd
+    return rows, paths, n_hd, detectors
+
+
+# the graph memory phase's MSER frame sizes (height, width), in the order it
+# runs them: GTSDB's, then VGA up to the bench's 1080p probe; each a whole
+# number of CLAHE tiles and one strip of the fused sweep at --downscale 2
+GRAPH_SIZES = ((800, 1360), (480, 640), (600, 800), (720, 1280), (768, 1024), (896, 1600),
+               (1024, 1280), (1088, 1920))
+
+
+def _by_pool(dev) -> dict:
+    """Bytes reserved and allocated on ``dev`` by memory pool, from
+    ``torch.cuda.memory_snapshot()``'s segments: {pool id: [reserved,
+    allocated]}, (0, 0) the general cache, any other a graph's pool."""
+    out = defaultdict(lambda: [0, 0])
+    for seg in torch.cuda.memory_snapshot():
+        if seg["device"] == dev.index:
+            pool = tuple(seg.get("segment_pool_id", (0, 0)))
+            out[pool][0] += seg["total_size"]
+            out[pool][1] += seg["allocated_size"]
+    return out
+
+
+def _graph_memory(dev, smi: str, seed: int, detectors: dict | None = None) -> None:
+    """The graph memory phase: one process that meets many shapes and
+    routes, as a server or a benchmark of several scopes does.
+    ``DetectionPipeline`` at batch 32 over the 8 frame sizes of
+    :data:`GRAPH_SIZES` one after another (a capture and a replay each),
+    then the 12 CNN routes of :data:`CNN_ROUTES` at batch 32 on 1360x800
+    (``detectors``: the float and int8 detectors by checkpoint, loaded when
+    not given; every detector kept alive), then the first size again, its
+    replay against eager bit for bit.  After each step: the captures it
+    made and the bytes each reserved, ``memory_reserved`` and its split by
+    pool (:func:`_by_pool`: the general cache, the graphs' pools), and the
+    bytes the card's graph account holds against its budget
+    (``runtime/graphs.py``).  Requires one capture a new shape or route and
+    no eager fallback, ``memory_reserved`` after the eighth size within
+    10% of its value after the fourth and at or under the budget plus the
+    largest MSER graph after every step, and the first size dropped from
+    the account by then and captured again."""
+    import copy
+
+    import numpy as np
+
+    from opencv_traffic_sign_detector_tpu_torch.config import MSERConfig, PipelineConfig
+    from opencv_traffic_sign_detector_tpu_torch.data.synthetic import make_frames_with_boxes
+    from opencv_traffic_sign_detector_tpu_torch.models import cnn_quant as cq
+    from opencv_traffic_sign_detector_tpu_torch.models import detector as det
+    from opencv_traffic_sign_detector_tpu_torch.models.mean_masks import MeanMaskTemplates
+    from opencv_traffic_sign_detector_tpu_torch.runtime import graphs
+
+    t_phase = time.perf_counter()
+    gib = 2 ** 30
+    total = torch.cuda.get_device_properties(dev).total_memory
+    budget = graphs.budget_bytes(dev)
+    hmax, wmax = max(GRAPH_SIZES)
+    base, _ = make_frames_with_boxes(8, hmax, wmax, seed=seed + 21)
+
+    def batch(h, w):
+        return np.ascontiguousarray(np.tile(base[:, :h, :w], (4, 1, 1, 1)))
+
+    cfg = PipelineConfig(mser=_tuned(MSERConfig.from_string("MSER_7_200_2000_1")), batch_size=32)
+    pipe = det.DetectionPipeline(cfg=cfg, templates=MeanMaskTemplates.load(
+        "artifacts/mean_masks.npz"), device=dev)
+    names = [f"{i:05d}.jpg" for i in range(32)]
+    gc.collect()  # the graphs of earlier phases' dropped pipelines and detectors
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    print(f"[graph memory] start: {torch.cuda.memory_reserved(dev) / gib:.3f} GiB reserved of "
+          f"the card's {total / gib:.2f}; the graph budget {budget / gib:.3f} GiB "
+          f"({graphs.GRAPH_MEMORY_SHARE:g} of the card); {smi}")
+    curve = []  # (label, GiB reserved after the step, each capture's GiB)
+
+    def step(label, run):
+        with _graph_calls() as made:
+            try:
+                run()
+                torch.cuda.synchronize()
+            except torch.cuda.OutOfMemoryError:
+                print(f"[graph memory] {label}: out of memory after {len(curve)} steps, "
+                      f"{torch.cuda.memory_reserved(dev) / gib:.3f} GiB reserved; {smi}")
+                raise
+        caps = [b / gib for _, b in made["captures"]]
+        reserved = torch.cuda.memory_reserved(dev) / gib
+        free, _ = torch.cuda.mem_get_info(dev)
+        pools = _by_pool(dev)
+        general = pools.pop((0, 0), [0, 0])
+        print(f"[graph memory] {len(curve) + 1:2d} {label}: {len(caps)} capture(s) reserving "
+              f"{', '.join(f'{c:.3f}' for c in caps) or '-'} GiB, {made['replays']} replay(s); "
+              f"reserved {reserved:.3f} GiB (peak {torch.cuda.max_memory_reserved(dev) / gib:.3f}):"
+              f" general cache {general[0] / gib:.3f} ({general[1] / gib:.3f} allocated), "
+              f"{len(pools)} graph pool(s) {sum(p[0] for p in pools.values()) / gib:.3f} "
+              f"({sum(p[1] for p in pools.values()) / gib:.3f} allocated); mem_get_info "
+              f"{(total - free) / gib:.3f} GiB in use; the account holds "
+              f"{graphs.held_bytes(dev) / gib:.3f} GiB of {budget / gib:.3f}")
+        # two calls: a capture (where the key is new) and a replay, never eager
+        _require(len(caps) + made["replays"] == 2 and len(caps) <= 1,
+                 f"graph memory {label}: {len(caps)} captures and {made['replays']} replays "
+                 "in 2 calls")
+        curve.append((label, reserved, caps))
+        return caps
+
+    for h, w in GRAPH_SIZES:
+        host = batch(h, w)
+        caps = step(f"MSER {w}x{h}", lambda: [pipe.detect_frames(host, names) for _ in range(2)])
+        _require(len(caps) == 1, f"graph memory: {len(caps)} captures at {w}x{h}, not 1")
+    inputs = _cnn_inputs(batch(800, 1360))
+    loaded = dict(detectors or {})
+    kept = []
+    for label, ckpt, upscale, fmt, *_ in CNN_ROUTES:
+        if ckpt not in loaded:
+            loaded[ckpt] = cq.load_detector("artifacts/cnn_detector/" + ckpt, device=dev)
+        d = copy.copy(loaded[ckpt])  # a copy shares its detector's graphs
+        d.upscale = upscale
+        kept.append(d)
+        x = inputs[fmt]
+        caps = step(f"CNN {label}", lambda: [_cnn_run(d, x) for _ in range(2)])
+        _require(len(caps) == 1, f"graph memory: {len(caps)} captures for CNN {label}, not 1")
+    h, w = GRAPH_SIZES[0]
+    host = batch(h, w)
+    again = step(f"MSER {w}x{h} again", lambda: [pipe.detect_frames(host, names)
+                                               for _ in range(2)])
+    _replay_vs_eager(f"graph memory {w}x{h} again", pipe.dispatch, _eager_packed(pipe), host)
+    mser = [r for _, r, _ in curve[:len(GRAPH_SIZES)]]
+    graph = max(c for _, _, caps in curve[:len(GRAPH_SIZES)] for c in caps)
+    top = max(r for _, r, _ in curve)
+    print(f"[graph memory] reserved after the 4th size {mser[3]:.3f} GiB, after the 8th "
+          f"{mser[7]:.3f} ({mser[7] / mser[3]:.3f}x); the most after a step {top:.3f}, peak "
+          f"{torch.cuda.max_memory_reserved(dev) / gib:.3f}; the largest MSER graph "
+          f"{graph:.3f}; the first size captured again: {len(again) == 1}; "
+          f"{time.perf_counter() - t_phase:.1f} s; {smi}")
+    del kept, loaded, pipe
+    _require(mser[7] <= 1.1 * mser[3], f"graph memory: {mser[7]:.3f} GiB reserved after the 8th "
+             f"size against {mser[3]:.3f} after the 4th")
+    _require(top <= budget / gib + graph, f"graph memory: {top:.3f} GiB reserved, over the "
+             f"budget {budget / gib:.3f} plus one MSER graph {graph:.3f}")
+    _require(len(again) == 1, "graph memory: the first size was never evicted")
+
+
+def graph_memory(seed: int = 0) -> int:
+    """The graph memory phase alone::
+
+        python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.graph_memory())"
+
+    builds the kernels and runs :func:`_graph_memory`; a failed check
+    raises."""
+    _, smi = _device_phase()
+    from opencv_traffic_sign_detector_tpu_torch.runtime import build as rt
+
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    rt.library()
+    _graph_memory(dev, smi, seed)
+    return 0
 
 
 def _tuned(base):
@@ -4235,11 +4485,15 @@ def main() -> int:
 
     # --- 17. the bench and the tool twins ---------------------------------
     torch.cuda.empty_cache()
-    bench_rows, bench_paths, hd_batches = _bench_phases(rt, dev, smi, args.seed)
+    bench_rows, bench_paths, hd_batches, detectors = _bench_phases(rt, dev, smi, args.seed)
     paths.update(bench_paths)
     for row in bench_rows:
         table.append(row)
         batches[row["name"]] = hd_batches
+
+    # --- 18. the graph memory phase ------------------------------------------
+    _graph_memory(dev, smi, args.seed, detectors)
+    del detectors
     for label, (counts, n) in paths.items():
         print(f"[launches a batch] {label}: "
               + ", ".join(f"{k} {v / n:g}" for k, v in counts.items() if v) + f" ({n} batches)")

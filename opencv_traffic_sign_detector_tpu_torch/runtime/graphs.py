@@ -22,6 +22,24 @@ the CNN's yuv routes):
   from the card), replays the graph there and returns the graph's static
   outputs.
 
+**Memory.**  Every graph of a card allocates from one pool: a capture takes
+the free blocks the earlier ones left (their intermediates), so a card meets
+many shapes and configs with about one workspace (one pool of 8.504 GiB held
+8 MSER frame sizes and 12 CNN routes at batch 32 on an H100).  What each held
+graph keeps on its own is its static input and its outputs.  One account a
+card (:class:`_Card`) holds every :class:`CapturedFn` entry there, least
+recently used first, with those bytes, and the bytes each pool's captures
+reserved; at a miss, before the warm-up, :func:`_make_room` waits for the
+card and drops the least recently used entries (of any :class:`CapturedFn`
+on the card, never the caller's last one) until the account fits
+:data:`GRAPH_MEMORY_SHARE` of the card.  A pool is given back only when no
+held graph is in it, so when evicting the rest is not enough the card's
+later captures go to a new pool, and the old one is freed with its last
+graph.  A capture that does not fit even then still captures.  An evicted
+key captures again at its next call.  The training steps' graphs
+(:func:`capture_call`) are not in the account: one graph each, in a pool of
+its own.
+
 A ``keyed`` function takes the key first, ``fn(key, frames, *consts)``, as a
 jitted function takes its static arguments: the CNN's routes read their
 baked values (route, threshold, upscale plan) from it, so copies of one
@@ -55,11 +73,14 @@ adds them to the counts.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import functools
 import gc
+import math
 import traceback
+import weakref
 from pathlib import Path
 
 import torch
@@ -68,19 +89,129 @@ from . import build
 
 PACKAGE = Path(__file__).resolve().parents[1]
 
-# one memory pool and one capture stream a card: {device: (pool, stream)}
-_cards: dict = {}
+# The share of a card's memory that the graphs CapturedFn holds there may
+# keep between calls: their pools and each graph's static input and outputs.
+GRAPH_MEMORY_SHARE = 1 / 8
 
 
 class GraphCaptureError(RuntimeError):
     """A function could not be captured into a CUDA graph."""
 
 
-def _card(device: torch.device):
+class _Card:
+    """A card's capture stream, the pool its next capture goes to, and its
+    account: ``pools``, the bytes the captures into each pool reserved, and
+    ``held``, {(owner, key): (pool, bytes of its static input and outputs)}
+    of every :class:`CapturedFn` entry on the card, least recently used
+    first."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = self.pool = None
+        self.pools: dict = {}
+        self.held: collections.OrderedDict = collections.OrderedDict()
+
+    def side_stream(self):
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(self.device)
+        return self.stream
+
+    def graph_pool(self):
+        """The pool for the next capture: a new one where no held graph is
+        in the last (a pool whose graphs are all gone may be given back)."""
+        if self.pool not in {pool for pool, _ in self.held.values()}:
+            self.pool = torch.cuda.graph_pool_handle()
+        return self.pool
+
+    def held_bytes(self) -> int:
+        return sum(self.pools.values()) + sum(b for _, b in self.held.values())
+
+
+# one capture stream, graph pool and account a card: {device: _Card}
+_cards: dict = {}
+
+
+def _card(device: torch.device) -> _Card:
     if device not in _cards:
-        with torch.cuda.device(device):
-            _cards[device] = (torch.cuda.graph_pool_handle(), torch.cuda.Stream(device))
+        _cards[device] = _Card(device)
     return _cards[device]
+
+
+def budget_bytes(device: torch.device) -> float:
+    """:data:`GRAPH_MEMORY_SHARE` of the card's memory (no bound off a card)."""
+    if device.type != "cuda":
+        return math.inf
+    return GRAPH_MEMORY_SHARE * torch.cuda.get_device_properties(device).total_memory
+
+
+def held_bytes(device: torch.device) -> int:
+    """The bytes the card's account holds: its graphs' pools and their
+    static inputs and outputs."""
+    card = _card(torch.device(device))
+    _prune(card)
+    return card.held_bytes()
+
+
+def _nbytes(x) -> int:
+    """Bytes of every tensor in ``x`` (nested tuples, lists and dicts)."""
+    if isinstance(x, torch.Tensor):
+        return x.numel() * x.element_size()
+    if isinstance(x, (tuple, list, dict)):
+        return sum(_nbytes(o) for o in (x.values() if isinstance(x, dict) else x))
+    return 0
+
+
+def _hold(device: torch.device, record: tuple, entry) -> None:
+    """Enter a new capture in its card's account, the most recently used."""
+    card = _card(device)
+    pool = getattr(entry, "pool", None)
+    card.pools[pool] = card.pools.get(pool, 0) + getattr(entry, "pool_bytes", 0)
+    card.held.pop(record, None)
+    card.held[record] = (pool, _nbytes(getattr(entry, "static", None))
+                         + _nbytes(getattr(entry, "outputs", None)))
+
+
+def _evict(card: _Card, record: tuple) -> None:
+    """Drop one entry from its owner and the account; a pool no held graph
+    is in leaves the account (the allocator frees it with its graphs)."""
+    pool, _ = card.held.pop(record)
+    owner = record[0]()
+    if owner is not None:
+        owner._entries.pop(record[1], None)
+    if pool not in {p for p, _ in card.held.values()}:
+        card.pools.pop(pool, None)
+
+
+def _prune(card: _Card) -> None:
+    """Drop the records of functions that are gone (their graphs with them)."""
+    for record in [r for r in card.held if r[0]() is None]:
+        _evict(card, record)
+
+
+def _make_room(device: torch.device, spare: tuple) -> None:
+    """At a miss, before the warm-up and outside any capture: drop the
+    card's least recently used entries but ``spare`` (the caller's last,
+    whose outputs the caller may still read) until the account fits the
+    budget, after every queued replay and copy on the card is done; where
+    that is not enough, the card's later captures go to a new pool."""
+    card = _card(device)
+    _prune(card)
+    budget = budget_bytes(device)
+    if card.held_bytes() <= budget:
+        return
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize(device)
+    for record in list(card.held):
+        if card.held_bytes() <= budget:
+            break
+        if record != spare:
+            _evict(card, record)
+    gc.collect()
+    if card.held_bytes() > budget:
+        card.pool = None
+    if on_card:
+        torch.cuda.empty_cache()
 
 
 def device_scope(device: torch.device):
@@ -140,14 +271,16 @@ def _require_card(device: torch.device) -> None:
 class Captured:
     """One captured graph: its static input (a tensor, a tuple of them, or
     ``None`` for a function of no input) and outputs, its launches a replay,
-    and the bytes its capture reserved on the card for its pool (what the
-    pool's free blocks did not cover)."""
+    the bytes its capture reserved on the card for its pool (what the pool's
+    free blocks did not cover), and that pool (``None``: a pool of its
+    own)."""
 
     graph: object
     static: torch.Tensor | tuple | None
     outputs: object
     launches: dict
     pool_bytes: int
+    pool: tuple | None = None
 
     def replay(self, x=None):
         if self.static is not None:
@@ -170,7 +303,7 @@ def capture_call(fn, device: torch.device, args: tuple, what: str, pool=None,
     :class:`GraphCaptureError`, naming ``what`` and the refusing site, when
     the capture fails."""
     _require_card(device)
-    _, side = _card(device)
+    side = _card(device).side_stream()
     current = torch.cuda.current_stream(device)
     side.wait_stream(current)
     with torch.cuda.stream(side):
@@ -191,7 +324,8 @@ def capture_call(fn, device: torch.device, args: tuple, what: str, pool=None,
                 reserved = torch.cuda.memory_reserved(device)
                 outputs = fn(*args)
     except Exception as e:
-        del _cards[device]  # the failed capture leaves the stream and pool unusable
+        card = _card(device)  # the failed capture leaves the stream and pool unusable
+        card.stream = card.pool = None
         name = getattr(getattr(fn, "func", fn), "__qualname__", fn)  # a keyed fn's partial
         raise GraphCaptureError(
             f"capturing {name} on {device} {what} failed at {refusing_site(e)}") from e
@@ -207,7 +341,7 @@ def capture_graph(fn, device: torch.device, x, consts: tuple):
     it into the card's pool (:func:`capture_call`).  -> (the warm-up's
     outputs, :class:`Captured`)."""
     _require_card(device)
-    pool, _ = _card(device)
+    pool = _card(device).graph_pool()
     statics = tuple(torch.empty(t.shape, dtype=t.dtype, device=device) for t in _inputs(x))
     for s, t in zip(statics, _inputs(x)):
         s.copy_(t, non_blocking=True)
@@ -215,7 +349,7 @@ def capture_graph(fn, device: torch.device, x, consts: tuple):
     shapes, dtypes = _signature(x)
     first, entry = capture_call(fn, device, (static, *consts),
                                 f"for input {shapes} {dtypes}", pool)
-    entry.static = static
+    entry.static, entry.pool = static, pool
     return first, entry
 
 
@@ -232,6 +366,8 @@ class CapturedFn:
         self._capture = capture
         self.keyed = keyed
         self._entries: dict = {}  # key -> (consts, Captured)
+        self._ref = weakref.ref(self)  # its records in the cards' accounts
+        self._last: dict = {}  # device -> the key of its last call there
 
     def __call__(self, device: torch.device, x, *consts, key=(), eager: bool = False):
         """``fn`` of ``x`` (a tensor or a tuple of tensors, on the host,
@@ -247,13 +383,17 @@ class CapturedFn:
             device = torch.device("cuda", torch.cuda.current_device())
         k = (device, *_signature(x), key)
         held = self._entries.get(k)
+        spare, self._last[device] = (self._ref, self._last.get(device)), k
         # the static input is made, written and read in one mode
         with torch.inference_mode(), device_scope(device):
             if held is not None and len(held[0]) == len(consts) and all(
                     a is b for a, b in zip(held[0], consts)):
+                _card(device).held.move_to_end((self._ref, k))
                 return held[1].replay(x)
+            _make_room(device, spare)
             first, entry = self._capture(fn, device, x, consts)
         self._entries[k] = (consts, entry)
+        _hold(device, (self._ref, k), entry)
         return first
 
     def entries(self) -> dict:

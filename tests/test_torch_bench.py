@@ -214,6 +214,42 @@ def test_mser_scope_equal_reference(templates, flags, small_tree, tmp_path, monk
         np.testing.assert_array_equal(a["blue"], b["blue"])
 
 
+def test_mser_scope_and_probe_replay_one_graph_a_shape(tmp_path, monkeypatch):
+    """``--model mser`` with the probe through ``CapturedFn``'s card path
+    (the CPU taken for a card, a stand-in capture step): one capture a frame
+    shape, keyed by the PipelineConfig, at the scope's first warm-up and at
+    the probe's warm-up, and a replay at every later call, each calling
+    ``detect_batch`` with the scope's frames and templates."""
+    from test_torch_graphs import StandIn
+
+    from opencv_traffic_sign_detector_tpu_torch.config import PipelineConfig
+    from opencv_traffic_sign_detector_tpu_torch.runtime import graphs
+
+    _point_both(monkeypatch, str(tmp_path / "absent"), tmp_path)
+    calls, made = [], []
+    _spy_detect_batch(monkeypatch, tdet, calls, False)
+
+    class OnTheCard(graphs.CapturedFn):
+        EAGER_DEVICES = ()
+
+        def __init__(self, fn, capture=None, keyed=False):
+            made.append(self)
+            super().__init__(fn, capture=step, keyed=keyed)
+
+    step = StandIn()
+    monkeypatch.setattr(graphs, "CapturedFn", OnTheCard)
+    rc, lines = _run(bench_torch.main, MSER_ARGS + ["--frames", "4", "--device", "cpu"])
+    assert rc == 0 and set(_json_line(lines)) >= {"value", "fps_1080p", "device"}
+    assert len(made) == 1
+    assert [c[1] for c in step.captures] == [(2, 800, 1360, 3), (2, 1088, 1920, 3)]
+    # the scope: 3 warm-ups (1 capture, 2 replays) and 2 timed batches; the
+    # probe: its warm-up (the capture) and 4 timed batches
+    assert step.replays == 2 + 2 + 4 and len(calls) == 10
+    keys = {k[3] for k in made[0].entries()}
+    assert len(keys) == 1 and isinstance(keys.pop(), PipelineConfig)
+    assert [c[0][0] for c in calls] == [(2, 800, 1360, 3)] * 5 + [(2, 1088, 1920, 3)] * 5
+
+
 def _spy_cnn(monkeypatch, det_cls, quant_cls, methods, calls: list, jax_side: bool):
     """Spies on the CNN detectors' dispatches: each call's route, detector
     (arch, upscale, int8 or float) and inputs, in order; empty outputs."""
