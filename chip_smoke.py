@@ -3402,6 +3402,215 @@ def _same_detections(card, cpu) -> bool:
         for a, b in zip(card, cpu))
 
 
+# phase 17h: each stage's launches a replay, recorded at its capture (K1 runs
+# inside tile_luts' launch)
+STAGE_LAUNCHES = {
+    "total": ("tile_luts", "clahe_apply", "level_sweep", "flood_bbox"),
+    "pre": ("tile_luts", "clahe_apply"),
+    "downs_pad": (),
+    "sweep": ("level_sweep",),
+    "msr": ("level_sweep", "flood_bbox"),
+    "post": (),
+}
+
+
+def _nested_equal(a, b) -> bool:
+    """Tensors, or nested tuples of them, equal bit for bit."""
+    if isinstance(a, torch.Tensor):
+        return a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+    return len(a) == len(b) and all(_nested_equal(x, y) for x, y in zip(a, b))
+
+
+def _clone(x):
+    return x.clone() if isinstance(x, torch.Tensor) else tuple(_clone(o) for o in x)
+
+
+def _stage_replays(sp, dev, frames, red, blue, cfg) -> None:
+    """Each stage of ``scripts/stage_profile_torch.py`` captured and replayed
+    once on ``frames`` (each input a replayed upstream stage's output, cloned
+    before the next replay), against its eager call on that input, bit for
+    bit; then ``post(frames, *msr(pre(frames)))``, compacted, against
+    ``total``'s replay."""
+    from opencv_traffic_sign_detector_tpu_torch.models.detector import compact_first
+
+    g = sp.stage_graphs()
+    replayed, same = {}, {}
+    with torch.inference_mode():
+        for name, x, consts in [("total", frames, (red, blue)), ("pre", frames, ()),
+                                ("downs_pad", "pre", ()), ("sweep", "downs_pad", ()),
+                                ("msr", "pre", ()), ("post", "msr", (red, blue))]:
+            if name == "post":
+                x = (frames, *replayed["msr"])
+            elif isinstance(x, str):
+                x = replayed[x]
+            g[name](dev, x, *consts, key=cfg)  # the capture
+            replayed[name] = _clone(g[name](dev, x, *consts, key=cfg))
+            same[name] = _nested_equal(replayed[name], getattr(sp, name)(cfg, x, *consts))
+        boxes, types, scores, valid = replayed["post"]
+        composed = _nested_equal(compact_first(valid, cfg.max_detections, boxes, types, scores),
+                                 replayed["total"])
+    print(f"[stage profile replay] {tuple(frames.shape[1:3])}, batch {len(frames)}: each stage's "
+          f"replay against its eager call, bit for bit: {same}; post(frames, *msr(pre(frames))) "
+          f"replayed and compacted against total's replay: {composed}")
+    _require(all(same.values()) and composed,
+             f"stage profile replays: {same}, composed {composed}")
+
+
+def _stage_profile_phases(rt, dev, smi: str) -> dict:
+    """Phase 17h: ``scripts/stage_profile_torch.py`` at 1360x800 and 1088x1920
+    (batch 16), each stage one capture and 20 replays, with its launches; the
+    eager stage split on the same frames; each stage's replay against eager
+    and the stages composed against ``total``; then the two CNN rate probes,
+    ``scripts/mxu_peak_torch.py`` and ``scripts/int8_probe_torch.py``, with
+    the probe's int8 conv on the card against an int32 sum on the CPU on one
+    output tile.  -> {path: (launch counts, calls of every stage)}."""
+    import numpy as np
+
+    import bench_torch
+    import int8_probe_torch
+    import mxu_peak_torch
+    import stage_profile_torch as sp
+    from opencv_traffic_sign_detector_tpu_torch.models import detector as det
+    from opencv_traffic_sign_detector_tpu_torch.models.mean_masks import (
+        MeanMaskTemplates,
+        templates_to_torch,
+    )
+    from opencv_traffic_sign_detector_tpu_torch.runtime import graphs
+
+    stage_of = {getattr(sp, name): name for name in STAGE_LAUNCHES}
+    capture, replay, evict = graphs.capture_call, graphs.Captured.replay, graphs._evict
+    made = {}  # id(Captured) -> (weak reference, stage)
+    counts = defaultdict(lambda: [0, 0, {}])  # stage -> [captures, replays, launches a replay]
+    evicted = defaultdict(int)
+
+    def counted_capture(fn, device, args, *a, **kw):
+        first, entry = capture(fn, device, args, *a, **kw)
+        name = stage_of.get(getattr(fn, "func", None))
+        if name is not None:
+            made[id(entry)] = (weakref.ref(entry), name)
+            counts[name][0] += 1
+            counts[name][2] = dict(entry.launches)
+        return first, entry
+
+    def counted_replay(self, *a, **kw):
+        held = made.get(id(self))
+        if held is not None and held[0]() is self:
+            counts[held[1]][1] += 1
+        return replay(self, *a, **kw)
+
+    def counted_evict(card, record):
+        owner = record[0]()  # None: a function that is gone, pruned, not evicted
+        if owner is not None:
+            evicted[stage_of.get(owner.fn, "another phase's graph")] += 1
+        return evict(card, record)
+
+    def twin(label: str, main_fn, argv: list[str]) -> list[str]:
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = main_fn(argv)
+        lines = out.getvalue().splitlines()
+        for line in lines:
+            print(f"[{label}] {line}")
+        print(f"[{label}] {' '.join(argv)}: {time.perf_counter() - t0:.1f} s; {smi}")
+        _require(rc == 0, f"{label} {argv} exited {rc}")
+        return lines
+
+    t_phase = time.perf_counter()
+    paths = {}
+    for size, argv in (("gtsdb", []), ("1080p", ["--size", "1080p"])):
+        counts.clear()
+        made.clear()
+        evicted.clear()
+        rt.reset_launch_counts()
+        graphs.capture_call, graphs.Captured.replay = counted_capture, counted_replay
+        graphs._evict = counted_evict
+        try:
+            twin("stage_profile_torch", sp.main, argv)
+        finally:
+            graphs.capture_call, graphs.Captured.replay, graphs._evict = capture, replay, evict
+        torch.cuda.synchronize()
+        launched = rt.launch_counts()
+        print(f"[stage profile graphs] {size}: " + "; ".join(
+            f"{name} {caps} capture(s), {n} replays, "
+            + (", ".join(f"{k} {v}" for k, v in rec.items() if v) or "no kernel") + " a replay"
+            for name, (caps, n, rec) in counts.items())
+            + f"; evicted at its misses: {dict(evicted) or 'none'}; the run's launches "
+            f"{ {k: v for k, v in launched.items() if v} }")
+        want_launches = defaultdict(int)
+        for name in STAGE_LAUNCHES:
+            caps, n, rec = counts[name]
+            _require(caps == 1 and n == 20, f"stage profile {size}: {name} made {caps} captures "
+                     f"and {n} replays, not 1 and 20")
+            _require({k for k, v in rec.items() if v} == set(STAGE_LAUNCHES[name])
+                     and all(rec[k] == 1 for k in STAGE_LAUNCHES[name]),
+                     f"stage profile {size}: {name} records {rec}, not {STAGE_LAUNCHES[name]} once")
+            for k in STAGE_LAUNCHES[name]:
+                want_launches[k] += 21  # the warm-up and 20 replays
+        _require({k: v for k, v in launched.items() if v} == dict(want_launches),
+                 f"stage profile {size}: launches {launched}, not {dict(want_launches)}")
+        paths[f"stage profile {size} (the six stages a call)"] = (launched, 21)
+
+        # the eager stage split (CUDA events between the stages) on the same frames
+        cfg = sp.stage_config()
+        frames = torch.from_numpy(bench_torch._load_frames(cfg.batch_size, size)).to(dev)
+        red, blue = templates_to_torch(MeanMaskTemplates.load(
+            os.path.join(os.path.dirname(os.path.abspath(__file__)), "artifacts",
+                         "mean_masks.npz")), dev)
+        with torch.inference_mode():
+            det.detect_batch(frames, red, blue, cfg)
+            timer = CudaStageTimer()
+            for _ in range(10):
+                det.detect_batch(frames, red, blue, cfg, timer)
+            split = timer.per_batch_ms(10)
+        print(f"[stage profile eager] {size}, batch {cfg.batch_size}, the same frames, "
+              "detect_batch eager with the stage timer, CUDA-event ms a batch, mean of 10: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+              + f"; sum {sum(split.values()):.3f}; {smi}")
+        if size == "gtsdb":
+            _stage_replays(sp, dev, frames, red, blue, cfg)
+        del frames
+        torch.cuda.empty_cache()
+
+    # the rate probes: no form may fail on the card
+    lines = twin("mxu_peak_torch", mxu_peak_torch.main, [])
+    _require(len(lines) == 7, f"mxu_peak_torch printed {lines}")
+    kept = {}
+    draws = int8_probe_torch.draws
+
+    def kept_draws(*a, **kw):
+        kept.update(draws(*a, **kw))
+        return kept
+
+    int8_probe_torch.draws = kept_draws
+    try:
+        lines = twin("int8_probe_torch", int8_probe_torch.main, [])
+    finally:
+        int8_probe_torch.draws = draws
+    _require(len(lines) == 6 and not any("FAILED" in ln for ln in lines),
+             f"int8_probe_torch printed {lines}")
+    # one output tile of the int8 conv, the last frame's bottom-right 8x8
+    # corner (the SAME padding on two edges), all 128 channels, against
+    # the same sum in int32 numpy on the CPU
+    x, k = kept["x_i"], kept["k_i"]
+    with torch.inference_mode():
+        y = int8_probe_torch.conv_int8(x, k)
+    b, h, w, _ = x.shape
+    tile = y[b - 1, h - 8:, w - 8:].cpu().numpy()
+    xs = np.pad(x[b - 1, h - 9:, w - 9:].cpu().numpy().astype(np.int32), ((0, 1), (0, 1), (0, 0)))
+    ks = k.cpu().numpy().astype(np.int32)
+    want = sum(xs[ky:ky + 8, kx:kx + 8] @ ks[ky, kx] for ky in range(3) for kx in range(3))
+    print(f"[int8_probe_torch tile] conv int8 on the card, output [{b - 1}, {h - 8}:{h}, "
+          f"{w - 8}:{w}, :] against int32 numpy: equal {np.array_equal(tile, want)}, "
+          f"|sum| up to {int(np.abs(want).max())}")
+    _require(np.array_equal(tile, want), "int8_probe_torch: the card's int8 conv differs from "
+             "the CPU's int32 sum")
+    del kept, x, k, y
+    torch.cuda.empty_cache()
+    print(f"[stage profile] phase 17h in {time.perf_counter() - t_phase:.1f} s; {smi}")
+    return paths
+
+
 def _bench_phases(rt, dev, smi: str, seed: int) -> tuple[list[dict], dict, int, dict]:
     """Phase 17: the bench twin and the tool twins on the card.  -> (the
     kernel rows at the 1080p probe's shapes, {path: (launch counts,
@@ -3762,6 +3971,10 @@ def _bench_phases(rt, dev, smi: str, seed: int) -> tuple[list[dict], dict, int, 
             print(f"[{label}] {' '.join(argv)}: {time.perf_counter() - t0:.1f} s; {smi}")
         for tag in ("chip_smoke", "chip_smoke_res"):
             os.unlink(os.path.join(tempfile.gettempdir(), f"probe_{tag}.txt"))
+
+        # --- 17h. the stage profile twin and the two CNN rate probes --------------
+        torch.cuda.empty_cache()
+        paths.update(_stage_profile_phases(rt, dev, smi))
     finally:
         bench_torch.DET_DATA, quality_probe_torch.DET = saved
         if not had_cache and os.path.exists(cache):
@@ -3922,6 +4135,37 @@ def graph_memory(seed: int = 0) -> int:
     torch.cuda.set_device(dev)
     rt.library()
     _graph_memory(dev, smi, seed)
+    return 0
+
+
+def stage_profile(seed: int = 0) -> int:
+    """Phase 17h alone::
+
+        python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.stage_profile())"
+
+    builds the kernels and runs :func:`_stage_profile_phases` on phase 17's
+    synthetic frames; a failed check raises."""
+    _, smi = _device_phase()
+    import bench_torch
+    from opencv_traffic_sign_detector_tpu_torch.data.synthetic import write_gt_dir
+    from opencv_traffic_sign_detector_tpu_torch.runtime import build as rt
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    rt.library()
+    work = rt.BUILD_ROOT.parent / "chip_smoke_bench"
+    shutil.rmtree(work, ignore_errors=True)
+    write_gt_dir(str(work / "test_alumnos_jpg"), 16, 800, 1360, seed=seed + 17)
+    saved, bench_torch.DET_DATA = bench_torch.DET_DATA, str(work)
+    try:
+        paths = _stage_profile_phases(rt, dev, smi)
+    finally:
+        bench_torch.DET_DATA = saved
+        shutil.rmtree(work, ignore_errors=True)
+    for label, (counts, n) in paths.items():
+        print(f"[launches a batch] {label}: "
+              + ", ".join(f"{k} {v / n:g}" for k, v in counts.items() if v) + f" ({n} batches)")
     return 0
 
 
