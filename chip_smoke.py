@@ -271,7 +271,15 @@ Phases:
     dispatch) and the copy of its batch into the graph's input;
     (f) ``scripts/cnn_profile_torch.py --size gtsdb --batch 16`` and (g)
     ``scripts/quality_probe_torch.py --limit 4`` on the tree, and with
-    ``--sweep_res 1``.  Templates
+    ``--sweep_res 1``; (h) the stage profile twin and the two CNN rate
+    probes (:func:`_stage_profile_phases`; alone: :func:`stage_profile`);
+    (i) ``scripts/cnn_variants_torch.py`` for its nine variants at 1080p and
+    GTSDB's size, batch 16 (one capture and 12 replays each, the last replay
+    equal to the eager forward bit for bit), each variant's card forward
+    against the CPU's (:data:`VARIANT_BOUND`), product mode for six archs,
+    and ``scripts/tpu_microbench_torch.py`` for its nine cases, each equal
+    to the CPU on the same inputs (:func:`_probe_phases`; alone:
+    :func:`tool_probes`).  Templates
     the bench trains at the repository root are removed at the end;
 18. graph memory (:func:`_graph_memory`; alone: :func:`graph_memory`): one
     process meets 8 MSER frame sizes at batch 32 (:data:`GRAPH_SIZES`,
@@ -3456,6 +3464,22 @@ def _stage_replays(sp, dev, frames, red, blue, cfg) -> None:
              f"stage profile replays: {same}, composed {composed}")
 
 
+def _run_twin(label: str, main_fn, argv: list[str], smi: str) -> list[str]:
+    """``main_fn(argv)`` with its lines printed under ``label``, then its
+    wall time beside the card's name and power limit; a non-zero exit
+    raises."""
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = main_fn(argv)
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        print(f"[{label}] {line}")
+    print(f"[{label}] {' '.join(argv)}: {time.perf_counter() - t0:.1f} s; {smi}")
+    _require(rc == 0, f"{label} {argv} exited {rc}")
+    return lines
+
+
 def _stage_profile_phases(rt, dev, smi: str) -> dict:
     """Phase 17h: ``scripts/stage_profile_torch.py`` at 1360x800 and 1088x1920
     (batch 16), each stage one capture and 20 replays, with its launches; the
@@ -3505,16 +3529,7 @@ def _stage_profile_phases(rt, dev, smi: str) -> dict:
         return evict(card, record)
 
     def twin(label: str, main_fn, argv: list[str]) -> list[str]:
-        out = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            rc = main_fn(argv)
-        lines = out.getvalue().splitlines()
-        for line in lines:
-            print(f"[{label}] {line}")
-        print(f"[{label}] {' '.join(argv)}: {time.perf_counter() - t0:.1f} s; {smi}")
-        _require(rc == 0, f"{label} {argv} exited {rc}")
-        return lines
+        return _run_twin(label, main_fn, argv, smi)
 
     t_phase = time.perf_counter()
     paths = {}
@@ -3609,6 +3624,144 @@ def _stage_profile_phases(rt, dev, smi: str) -> dict:
     torch.cuda.empty_cache()
     print(f"[stage profile] phase 17h in {time.perf_counter() - t_phase:.1f} s; {smi}")
     return paths
+
+
+# phase 17i: the archs product mode times, and the CPU tests' bound on a
+# variant's heads, card against CPU (a share of the CPU's largest |value|)
+PRODUCT_ARCHS = ("base", "slim", "v2wide", "v2s16", "v2s16wide", "v3")
+VARIANT_BOUND = 0.03
+
+
+def _probe_phases(dev, smi: str) -> None:
+    """Phase 17i: ``scripts/cnn_variants_torch.py`` for every variant at its
+    defaults (batch 16, 1080p, 12 iterations) and at ``--size gtsdb``, each
+    one capture and 12 replays, the last replay against the eager forward
+    on the card bit for bit; each variant's forward at batch 2 of 128x192
+    on the card against the CPU's with the same weights; product mode for
+    :data:`PRODUCT_ARCHS` (one capture of ``run_route`` and 12 replays
+    each); then ``scripts/tpu_microbench_torch.py`` for every case, one
+    capture and its replays, the last replay's result against the case on
+    the CPU on the same inputs (top_k: values equal, and ``x[idx]`` equal
+    to them), and a replay of each case timed on the card's clock."""
+    import numpy as np
+
+    import cnn_variants_torch as cv
+    import tpu_microbench_torch as tmb
+    from opencv_traffic_sign_detector_tpu_torch.models import cnn_detector as cd
+    from opencv_traffic_sign_detector_tpu_torch.models.detector import full_f32_matmuls
+    from opencv_traffic_sign_detector_tpu_torch.runtime import graphs
+
+    full_f32_matmuls()
+    ours = (cv.forward, tmb.run_case, cd.run_route)
+    capture, replay, evict = graphs.capture_call, graphs.Captured.replay, graphs._evict
+    made = []  # (the captured function, Captured) of this phase's functions
+    replays = defaultdict(int)  # id(Captured) -> replays
+    evicted = []
+
+    def counted_capture(fn, device, args, *a, **kw):
+        first, entry = capture(fn, device, args, *a, **kw)
+        if getattr(fn, "func", None) in ours:
+            made.append((fn, entry))
+        return first, entry
+
+    def counted_replay(self, *a, **kw):
+        replays[id(self)] += 1
+        return replay(self, *a, **kw)
+
+    def counted_evict(card, record):
+        owner = record[0]()  # None: a function that is gone, pruned, not evicted
+        if owner is not None and owner.fn in ours:
+            evicted.append(owner.fn.__name__)
+        return evict(card, record)
+
+    def run(label: str, main_fn, argv: list[str], want_replays: int):
+        """The twin's lines and its one (function, Captured), which replayed
+        ``want_replays`` times."""
+        made.clear()
+        replays.clear()
+        lines = _run_twin(label, main_fn, argv, smi)
+        _require(len(made) == 1 and replays[id(made[0][1])] == want_replays,
+                 f"{label} {argv}: {len(made)} captures, "
+                 f"{[replays[id(e)] for _, e in made]} replays, not 1 and {want_replays}")
+        return lines, made.pop()
+
+    t_phase = time.perf_counter()
+    graphs.capture_call, graphs.Captured.replay, graphs._evict = (
+        counted_capture, counted_replay, counted_evict)
+    try:
+        same = {}
+        for size in ("1080p", "gtsdb"):
+            for name in cv.VARIANTS:
+                _, (fn, entry) = run("cnn_variants_torch", cv.main,
+                                     ["--variant", name, "--size", size], 12)
+                with torch.inference_mode():
+                    eager = fn.args[0](entry.static)  # the variant's module
+                same[f"{name} {size}"] = _nested_equal(
+                    tuple(entry.outputs[k] for k in eager), tuple(eager.values()))
+                del fn, entry, eager
+        print(f"[cnn variants graphs] every variant at 1080p and gtsdb, batch 16: one capture "
+              f"and 12 replays; the last replay against the eager forward, bit for bit: {same}")
+        _require(all(same.values()), f"cnn variants: replays differ from eager: {same}")
+
+        small = np.random.default_rng(0).integers(0, 256, (2, 128, 192, 3), np.uint8)
+        gaps = {}
+        for name in cv.VARIANTS:
+            m = cd.init_params(cv.make_variant(name))
+            with torch.inference_mode():
+                cpu = m(torch.from_numpy(small))
+                card = m.to(dev)(torch.from_numpy(small).to(dev))
+            gaps[name] = max((card[k].cpu() - cpu[k]).abs().max().item()
+                             / cpu[k].abs().max().item() for k in cpu)
+        print(f"[cnn variants card vs cpu] batch 2 of 128x192, the same fresh weights, each "
+              f"variant's largest head gap as a share of the CPU's largest |value| (bound "
+              f"{VARIANT_BOUND}): " + ", ".join(f"{k} {v:.5f}" for k, v in gaps.items()))
+        _require(max(gaps.values()) <= VARIANT_BOUND, f"cnn variants card vs cpu: {gaps}")
+
+        for arch in PRODUCT_ARCHS:
+            run("cnn_variants_torch", cv.main, ["--variant", "product", "--arch", arch], 12)
+
+        results, card_ms = {}, {}
+        bench = tmb.bench
+        for case in tmb.CASES:
+            kept = {}
+
+            def kept_bench(fn, *a, **kw):
+                t = bench(fn, *a, **kw)
+                kept["out"] = _clone(fn(*a))  # one more replay
+                return t
+
+            tmb.bench = kept_bench
+            try:
+                _, (_, entry) = run("tpu_microbench_torch", tmb.main, [case],
+                                    (2 if case == "top_k" else 5) + 1)
+            finally:
+                tmb.bench = bench
+            # the card's time of a replay: one between CUDA events, and queued
+            # behind a spin (the host's cost a call left out)
+            card_ms[case] = (_time_ms(lambda: entry.replay(())),
+                             _queued_ms(lambda: entry.replay(())))
+            del entry
+            x = tmb.inputs(case, "cpu")
+            want, got = tmb.CASES[case](*x), kept.pop("out")
+            if case == "top_k":
+                values, idx = (t.cpu() for t in got)
+                results[case] = bool(torch.equal(values, want.values)
+                                     and torch.equal(x[0][idx], values))
+            else:
+                results[case] = bool(np.array_equal(got.cpu().numpy(), want.numpy()))
+        print(f"[tpu microbench card vs cpu] every case one capture and its replays, the last "
+              f"replay against the CPU on the same inputs, exact (top_k: values, and x[idx] "
+              f"against them): {results}")
+        _require(all(results.values()), f"tpu microbench card vs cpu: {results}")
+        print("[tpu microbench card clock] ms a replay, one between CUDA events (median of 10) "
+              "and queued: " + ", ".join(f"{k} {a:.4f} ({b:.4f})" for k, (a, b) in card_ms.items())
+              + f"; {smi}")
+    finally:
+        graphs.capture_call, graphs.Captured.replay, graphs._evict = capture, replay, evict
+    _require(not evicted, f"phase 17i: its graphs evicted at a miss: {evicted}")
+    torch.cuda.empty_cache()
+    print(f"[probes] phase 17i in {time.perf_counter() - t_phase:.1f} s; no graph of the phase "
+          f"evicted; {smi}")
 
 
 def _bench_phases(rt, dev, smi: str, seed: int) -> tuple[list[dict], dict, int, dict]:
@@ -3961,20 +4114,16 @@ def _bench_phases(rt, dev, smi: str, seed: int) -> tuple[list[dict], dict, int, 
             ("quality_probe_torch", quality_probe_torch.main, ["--limit", "4", "--sweep_res",
                                                                "1", "--tag", "chip_smoke_res"]),
         ]:
-            out = io.StringIO()
-            t0 = time.perf_counter()
-            with contextlib.redirect_stdout(out):
-                rc = main_fn(argv)
-            _require(rc == 0, f"{label} {argv} exited {rc}")
-            for line in out.getvalue().splitlines():
-                print(f"[{label}] {line}")
-            print(f"[{label}] {' '.join(argv)}: {time.perf_counter() - t0:.1f} s; {smi}")
+            _run_twin(label, main_fn, argv, smi)
         for tag in ("chip_smoke", "chip_smoke_res"):
             os.unlink(os.path.join(tempfile.gettempdir(), f"probe_{tag}.txt"))
 
         # --- 17h. the stage profile twin and the two CNN rate probes --------------
         torch.cuda.empty_cache()
         paths.update(_stage_profile_phases(rt, dev, smi))
+
+        # --- 17i. the CNN variant timer and the primitive microbench -------------
+        _probe_phases(dev, smi)
     finally:
         bench_torch.DET_DATA, quality_probe_torch.DET = saved
         if not had_cache and os.path.exists(cache):
@@ -4166,6 +4315,21 @@ def stage_profile(seed: int = 0) -> int:
     for label, (counts, n) in paths.items():
         print(f"[launches a batch] {label}: "
               + ", ".join(f"{k} {v / n:g}" for k, v in counts.items() if v) + f" ({n} batches)")
+    return 0
+
+
+def tool_probes() -> int:
+    """Phase 17i alone (the CNN variants and the microbench run none of the
+    port's kernels, so nothing is built)::
+
+        python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.tool_probes())"
+
+    a failed check raises."""
+    _, smi = _device_phase()
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    _probe_phases(dev, smi)
     return 0
 
 

@@ -218,6 +218,18 @@ def missing_card(device: str) -> str | None:
     return None
 
 
+def card_line(device) -> str:
+    """The first card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them, the
+    line a time on the card is printed beside; ``device <device>`` off a
+    card."""
+    if torch.device(device).type != "cuda":
+        return f"device {device}"
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
 def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
                  ndim: int) -> None:
     """Raise unless ``t`` has the dtype and rank a kernel takes and is

@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import argparse
 import os
-import subprocess
 import sys
 import time
 
@@ -104,7 +103,7 @@ def main(argv: list[str] | None = None) -> int:
                     help="torch device; cuda exits 2 when no card is visible")
     args = ap.parse_args(argv)
 
-    from opencv_traffic_sign_detector_tpu_torch.runtime.build import missing_card
+    from opencv_traffic_sign_detector_tpu_torch.runtime.build import card_line, missing_card
 
     why = missing_card(args.device)
     if why:
@@ -112,9 +111,7 @@ def main(argv: list[str] | None = None) -> int:
         return 2
     device = torch.device(args.device)
     if device.type == "cuda":
-        print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                              "--format=csv,noheader"], capture_output=True, text=True,
-                             check=True, timeout=60).stdout.strip().splitlines()[0])
+        print(card_line(device))
     else:
         print([str(device)])
     d = draws(device)

@@ -33,7 +33,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
-import subprocess
 import sys
 import time
 
@@ -170,15 +169,6 @@ def timeit(fn, x, device, iters: int = 20):
     return (time.perf_counter() - t0) / iters, out
 
 
-def card_line(device) -> str:
-    """The card's name and power limit as nvidia-smi gives them."""
-    if device.type != "cuda":
-        return f"device {device}"
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True, timeout=60).stdout.strip().splitlines()[0]
-
-
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser()
     p.add_argument("--batch", type=int, default=16)
@@ -192,7 +182,7 @@ def main(argv: list[str] | None = None) -> int:
                    help="torch device; cuda exits 2 when no card is visible")
     args = p.parse_args(argv)
 
-    from opencv_traffic_sign_detector_tpu_torch.runtime.build import missing_card
+    from opencv_traffic_sign_detector_tpu_torch.runtime.build import card_line, missing_card
 
     why = missing_card(args.device)
     if why:

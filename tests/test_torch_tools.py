@@ -14,7 +14,8 @@ these frames.  Paths the originals hard-code (the reference's data root,
 loader functions both twins import.  The profile twin's FLOP model is held
 against the GFLOP line ``scripts/cnn_profile.py --size gtsdb --batch 1``
 prints for each arch.  Every twin has the original's parser defaults (but
-``--device``; ``scripts/int8_probe.py`` has no parser) and, as
+``--device``; ``scripts/int8_probe.py`` and ``scripts/tpu_microbench.py``
+have no parser) and, as
 ``scripts/resident_ab_torch.py``, exits 2 without a card.
 """
 
@@ -55,6 +56,8 @@ import cnn_profile  # noqa: E402
 import cnn_profile_torch  # noqa: E402
 import cnn_threshold_sweep  # noqa: E402
 import cnn_threshold_sweep_torch  # noqa: E402
+import cnn_variants  # noqa: E402
+import cnn_variants_torch  # noqa: E402
 import int8_probe_torch  # noqa: E402
 import mxu_peak  # noqa: E402
 import mxu_peak_torch  # noqa: E402
@@ -69,6 +72,7 @@ import rec_test_run_torch  # noqa: E402
 import resident_ab_torch  # noqa: E402
 import stage_profile  # noqa: E402
 import stage_profile_torch  # noqa: E402
+import tpu_microbench_torch  # noqa: E402
 
 # the suite runs several test processes side by side: one intra-op
 # thread each keeps torch from oversubscribing the cores
@@ -80,6 +84,7 @@ TWINS = {  # original -> twin
     parity_subset: parity_subset_torch, proposal_recall: proposal_recall_torch,
     quality_probe: quality_probe_torch, rec_test_run: rec_test_run_torch,
     stage_profile: stage_profile_torch, mxu_peak: mxu_peak_torch,
+    cnn_variants: cnn_variants_torch,
 }
 
 
@@ -315,8 +320,8 @@ def test_parser_defaults_equal_reference(original, monkeypatch):
         original.main, monkeypatch)
 
 
-@pytest.mark.parametrize("twin", [bench_torch, resident_ab_torch, int8_probe_torch]
-                         + list(TWINS.values()),
+@pytest.mark.parametrize("twin", [bench_torch, resident_ab_torch, int8_probe_torch,
+                                  tpu_microbench_torch] + list(TWINS.values()),
                          ids=lambda m: m.__name__)
 def test_twin_exits_2_without_a_card(twin, monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
