@@ -97,6 +97,15 @@ Phases:
    graph replays against eager dispatches: frames/s on the host's clock
    (:func:`_in_turns`), and the host's ms a dispatch spends enqueueing,
    replay against eager (:func:`_enqueue_ms`);
+5b. the tracer (:func:`_trace_phase`; alone: :func:`trace_phase`, which
+    also runs it on 32 frames of 1088x1920): the stamp kernel in stream
+    order on the host's clock, outside the launch counts; the tuned slice's
+    capture and 8 replays one in flight, each replay's stamps resolved in
+    ``collect`` with every stage of ``detect_batch`` inside its host spans,
+    the stages within 3% of the graph's stamps; the tracer off captures anew
+    and records nothing; under ``torch.profiler`` the stamp that opens
+    ``sweep`` within 0.1 ms of its kernels; the card's gaps between batches
+    by host span, and the clock's drift;
 6. slice 2: the same for the ``--pixel_area_stability`` config (XLA sweep,
    pixel-count stability), requiring K1, K2 and K4 to launch, K3 not to
    launch and every frame to have proposals; then one batch of 8 of the
@@ -304,11 +313,13 @@ import of JAX, flax, optax or of the reference package.
 from __future__ import annotations
 
 import argparse
+import bisect
 import contextlib
 import dataclasses
 import gc
 import io
 import json
+import math
 import os
 import re
 import shutil
@@ -667,6 +678,12 @@ class CudaStageTimer:
         torch.cuda.synchronize()
         return {k: sum(s.elapsed_time(e) for s, e in v) / batches
                 for k, v in self.events.items()}
+
+
+def _stage_sum(ms: dict[str, float]) -> float:
+    """A stage timer's ms a batch over its outer stages: a ``classify.*``
+    stage lies inside ``classify``."""
+    return sum(v for k, v in ms.items() if "." not in k)
 
 
 def _time_ms(fn, runs: int = 10) -> float:
@@ -2584,7 +2601,7 @@ def _scale_out_detection(rt, dev, smi: str, frames, templates, mcfg):
     print(f"[scale-out detection] DetectionPipeline(mesh=data_mesh()) over {cards.size} card "
           f"shard(s), batch {batch} of {frames.shape[2]}x{frames.shape[1]}, tuned "
           f"MSER_7_200_2000_1: device side "
-          f"{sum(stage_ms.values()):.3f} ms a batch summed over its shards (CUDA events on "
+          f"{_stage_sum(stage_ms):.3f} ms a batch summed over its shards (CUDA events on "
           "each shard's card, mean of 3 after a warm-up; "
           + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items())
           + f"), {batch / statistics.median(batch_s):.2f} frames/s on the host's clock (median; "
@@ -3131,7 +3148,7 @@ def _eager_timer(name: str):
 def _packed(pending) -> "np.ndarray":
     """A dispatch's packed result (``to_host``'s or ``RecognitionPipeline``'s
     pending handle) once its copies have arrived."""
-    out, done = pending
+    out, done = pending[:2]
     for event in done if isinstance(done, list) else [done] if done is not None else []:
         event.synchronize()
     return out.numpy().copy()
@@ -3247,7 +3264,7 @@ def _cnn_graph_report(label: str, det_graphs) -> None:
     :func:`_dumped_graphs`): its route, input, nodes by type
     (:func:`_graph_nodes`) and the bytes its capture reserved in the card's
     pool."""
-    for (dev, shape, _, key), entry in det_graphs.entries().items():
+    for (dev, shape, _, key, _), entry in det_graphs.entries().items():
         nodes = _graph_nodes(entry.graph)
         route = getattr(key, "name", None) or getattr(key[-1], "name", key)
         print(f"[{label} graph] {dev} route {route}, input {shape}: nodes by type {nodes} "
@@ -3308,7 +3325,7 @@ def _graph_report(label: str, captured, want: tuple = ()) -> None:
     """Each graph of a ``CapturedFn``: the launches its capture recorded (a
     replay's), which must hold every kernel of ``want``, and the bytes its
     capture reserved on its card for the card's graph pool."""
-    for (dev, shape, _, _), entry in captured.entries().items():
+    for (dev, shape, *_), entry in captured.entries().items():
         launched = {k: v for k, v in entry.launches.items() if v}
         print(f"[{label} graph] {dev} input {shape}: kernels recorded at capture, a replay's "
               f"launches {launched}; its capture reserved {entry.pool_bytes / 2**30:.3f} GiB "
@@ -3348,7 +3365,7 @@ def _graph_kernel_names(label: str, captured, want: tuple) -> None:
     from opencv_traffic_sign_detector_tpu_torch.runtime.build import BUILD_ROOT
 
     path = BUILD_ROOT.parent / "chip_smoke_graph.dot"
-    for (dev, shape, _, _), entry in captured.entries().items():
+    for (dev, shape, *_), entry in captured.entries().items():
         entry.graph.debug_dump(str(path))
         dot = path.read_text()
         path.unlink()
@@ -3581,7 +3598,7 @@ def _stage_profile_phases(rt, dev, smi: str) -> dict:
         print(f"[stage profile eager] {size}, batch {cfg.batch_size}, the same frames, "
               "detect_batch eager with the stage timer, CUDA-event ms a batch, mean of 10: "
               + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
-              + f"; sum {sum(split.values()):.3f}; {smi}")
+              + f"; sum {_stage_sum(split):.3f}; {smi}")
         if size == "gtsdb":
             _stage_replays(sp, dev, frames, red, blue, cfg)
         del frames
@@ -4087,7 +4104,7 @@ def _bench_phases(rt, dev, smi: str, seed: int) -> tuple[list[dict], dict, int, 
                 host_ms[mode].append((time.perf_counter() - t) * 1e3)
             torch.cuda.synchronize()
             rates[mode].append(4 * 128 / (time.perf_counter() - t0))
-        entry = fdet.graphs.entries()[(dev, tuple(p8.shape), p8.dtype, fdet.route(p8))]
+        entry = fdet.graphs.entries()[(dev, tuple(p8.shape), p8.dtype, fdet.route(p8), False)]
         with torch.inference_mode():  # the static input is an inference tensor
             copy_ms = _time_ms(lambda: entry.static.copy_(p8))
         print(f"[bench device queue] patches8 at batch 128, windows of 4 dispatches of one batch "
@@ -4131,6 +4148,198 @@ def _bench_phases(rt, dev, smi: str, seed: int) -> tuple[list[dict], dict, int, 
         shutil.rmtree(work, ignore_errors=True)
     print(f"[bench] phase 17 in {time.perf_counter() - t_phase:.1f} s; {smi}")
     return rows, paths, n_hd, detectors
+
+
+# phase 5b: the stages of detect_batch that the tracer stamps, in order of entry
+TRACE_STAGES = ("preprocess", "sweep", "topk", "refine", "classify", "classify.crops",
+                "classify.dedup", "classify.scores")
+
+
+def _trace_phase(rt, dev, smi: str, frames, names: list[str], templates, mcfg,
+                 batches: int = 8) -> None:
+    """Phase 5b: the tracer (``runtime/trace.py``) on the card.  The stamp
+    kernel (``csrc/stamp.cu``): four stamps with spins between them rise in
+    stream order, fall between the host's reads around them once mapped onto
+    the host's clock, and leave the launch counts alone.  Then the tuned
+    slice through ``DetectionPipeline`` on ``frames``: its capture, then
+    ``batches`` replays with one batch in flight, as the benchmark runs them.
+    Every batch's stamps resolve in ``collect`` with every stage of
+    ``detect_batch`` (the three ``classify.*`` inside ``classify``), each
+    replay's stamps inside its host spans (``h2d`` after its ``replay``
+    began, ``end`` before its ``wait`` ended), its outer stages within 3% of
+    the graph's stamps and the ``classify.*`` within 3% of ``classify``, and
+    its launches the graph's and the counts' own.  The tracer off captures
+    anew, records nothing and answers alike.  Under ``torch.profiler`` the
+    stamp that opens ``sweep``, mapped onto the host's clock, lies within 0.1
+    ms of its stamp kernel and of the first kernel after it in the trace, once
+    the profiler's own error at the batch's frames' copy is taken out.
+    Then the card's gaps between batches by host span, and the clock's drift
+    over the phase."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from opencv_traffic_sign_detector_tpu_torch.config import PipelineConfig
+    from opencv_traffic_sign_detector_tpu_torch.models import detector as det
+    from opencv_traffic_sign_detector_tpu_torch.runtime import trace
+
+    tracer = trace.TRACER
+    size = "x".join(map(str, frames.shape[1:3]))
+    t_phase = time.perf_counter()
+    offset, err = tracer.calibrate(dev)
+    before = rt.launch_counts()
+    stamps = trace.Stamps(dev)
+    t0 = time.perf_counter_ns()
+    for slot in range(4):
+        stamps.write(slot)
+        torch.cuda._sleep(200_000)
+    torch.cuda.synchronize(dev)
+    t1 = time.perf_counter_ns()
+    got = [v + offset for v in stamps.buf[:4].tolist()]
+    steps = [(b - a) / 1e3 for a, b in zip(got, got[1:])]
+    print(f"[trace stamp] clock offset {offset} ns, error {err} ns; four stamps with spins of "
+          f"200k cycles between: steps {steps} us, the first {(got[0] - t0) / 1e3:.3f} us after "
+          f"the host's read before them, the last {(t1 - got[-1]) / 1e3:.3f} us before its read "
+          f"after; {smi}")
+    _require(all(x > 0 for x in steps) and t0 - err <= got[0] and got[-1] <= t1 + err,
+             f"trace stamp: stamps {got} outside the host's reads {t0}, {t1} (error {err})")
+    _require(rt.launch_counts() == before, "trace stamp: the stamp kernel moved the launch counts")
+
+    pipe = det.DetectionPipeline(cfg=PipelineConfig(mser=mcfg, batch_size=len(frames)),
+                                 templates=templates, device=dev)
+    tracer.reset()
+    want = pipe.detect_frames(frames, names)  # the capture, stamped
+    rt.reset_launch_counts()
+    pending, answers = pipe.dispatch(frames), []
+    for k in range(batches):
+        nxt = pipe.dispatch(frames) if k + 1 < batches else None
+        answers.append(pipe.collect(pending, names))
+        pending = nxt
+    torch.cuda.synchronize()
+    counts = rt.launch_counts()
+    ring = list(tracer.batches)
+    ((_, (_, entry, entry_stamps)),) = pipe._detect.graphs._entries.items()
+    entered = [n for n, kind in entry_stamps.marks if kind == trace.ENTER]
+    _require(len(ring) == batches + 1 and ring[0].captured
+             and not any(b.captured for b in ring[1:]),
+             f"trace {size}: {len(ring)} batches, captured {[b.captured for b in ring]}")
+    _require(all(b.devices and not b.pending for b in ring),
+             f"trace {size}: a batch's stamps did not resolve in collect")
+    _require(all(a == want for a in answers), f"trace {size}: a replay's records differ")
+    _require(set(entered) == set(TRACE_STAGES)
+             and [n for n in entered if n.startswith("classify")] == list(TRACE_STAGES[4:]),
+             f"trace {size}: the graph stamps the stages {entered}")
+    _require(all(b.launches == sum(entry.launches.values()) for b in ring)
+             and counts == {k: v * batches for k, v in entry.launches.items()},
+             f"trace {size}: launches {counts}, a batch's {[b.launches for b in ring]}")
+    for b in ring[1:]:
+        d = b.devices[0]
+        spans = {s.name: s for s in b.spans}
+        outer = sum(v for k, v in d.stages_ns.items() if "." not in k)
+        inner = sum(v for k, v in d.stages_ns.items() if k.startswith("classify."))
+        graph, classify = d.end_ns - d.first_ns, d.stages_ns["classify"]
+        _require(spans["replay"].start_ns - err <= d.h2d_ns
+                 and d.end_ns <= spans["wait"].end_ns + err,
+                 f"trace {size}: batch {b.id}'s stamps fall outside its host spans")
+        _require(0.97 * graph <= outer <= graph and 0.97 * classify <= inner <= classify,
+                 f"trace {size}: batch {b.id}: stages {outer} of the graph's {graph} ns, "
+                 f"classify.* {inner} of {classify}")
+    mean = {k: statistics.mean(b.devices[0].stages_ns[k] for b in ring[1:]) / 1e6
+            for k in TRACE_STAGES}
+    h2d = statistics.mean((b.devices[0].first_ns - b.devices[0].h2d_ns) / 1e6 for b in ring[1:])
+    graph = statistics.mean((b.devices[0].end_ns - b.devices[0].first_ns) / 1e6 for b in ring[1:])
+    gaps = [(b.devices[0].h2d_ns - a.devices[0].end_ns) / 1e6
+            for a, b in zip(ring[1:], ring[2:])]
+    print(f"[trace replay] {size}, batch {len(frames)}, {batches} replays one in flight: ms a "
+          f"batch by the graph's stamps " + ", ".join(f"{k} {v:.3f}" for k, v in mean.items())
+          + f"; h2d {h2d:.3f}, graph {graph:.3f}, device gap {statistics.mean(gaps):.3f} (max "
+          f"{max(gaps):.3f}); {len(entry_stamps.marks)} stamps a batch, stages entered "
+          f"{entered}; launches a replay {sum(entry.launches.values())}; graph bytes held "
+          f"{ring[0].held_bytes}; {smi}")
+
+    trace.enable(False)
+    try:
+        held, kept = len(pipe._detect.graphs.entries()), len(tracer.batches)
+        off = [pipe.detect_frames(frames, names) for _ in range(2)]  # a capture, a replay
+    finally:
+        trace.enable(True)
+    _require(len(pipe._detect.graphs.entries()) == held + 1 and len(tracer.batches) == kept
+             and all(a == want for a in off),
+             f"trace {size}: with the tracer off {len(pipe._detect.graphs.entries())} graphs, "
+             f"{len(tracer.batches)} batches recorded (before {held}, {kept})")
+
+    # The profiler places the card's timeline against its host's with an error
+    # of its own (24-800 us on an H100), which in some traces moves by tens of
+    # microseconds a batch, most over its first batches, and it drops records
+    # on the card (see _cuda_trace).  So each batch's error is read from its
+    # own frames' copy (the large host-to-card copy that follows its h2d stamp)
+    # and taken out, from the fifth batch of the trace on; a batch whose copy's
+    # record was dropped is left out; up to 3 traces, the clock calibrated
+    # before each.
+    loop, settle, rows = 12, 4, []
+    for attempt in range(3):
+        last = tracer.batches[-1].id
+        tracer.calibrate(dev)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            pending = pipe.dispatch(frames)
+            for k in range(loop):
+                nxt = pipe.dispatch(frames) if k + 1 < loop else None
+                pipe.collect(pending, names)
+                pending = nxt
+            torch.cuda.synchronize()
+        traced = [b for b in tracer.batches if b.id > last]
+        events = prof.events()
+        host = sorted((e for e in events if e.name == "tsd.dispatch"
+                       and e.device_type != DeviceType.CUDA), key=lambda e: e.time_range.start)
+        on_card = [e for e in events if e.device_type == DeviceType.CUDA]
+        ranges = [e for e in on_card if e.name.startswith("tsd.")]
+        kernels = sorted((e for e in on_card if not e.name.startswith("tsd.")
+                          and not getattr(e, "is_user_annotation", False)),
+                         key=lambda e: e.time_range.start)
+        stamp_ev = [e for e in kernels if "stamp_kernel" in e.name]
+        work = [e for e in kernels if "stamp_kernel" not in e.name and "Memcpy" not in e.name]
+        copies = [e.time_range.start for e in kernels if "Memcpy HtoD" in e.name
+                  and e.time_range.end - e.time_range.start > 500]
+        _require(len(host) == len(traced) == loop, f"trace {size}: {len(host)} tsd.dispatch "
+                 f"ranges for {len(traced)} batches")
+        # the profiler's microseconds against perf_counter_ns, by the dispatch spans
+        shift = statistics.median(e.time_range.start * 1e3 - b.start_ns
+                                  for e, b in zip(host, traced))
+        at = [e.time_range.start for e in stamp_ev]
+        starts = [e.time_range.start for e in work]
+        for b in traced[settle:]:
+            d = b.devices[0]
+            h2d = (d.h2d_ns + shift) / 1e3
+            skew = min((c - h2d for c in copies), key=abs, default=math.inf)
+            if abs(skew) > 5000:
+                continue  # the record of its copy was dropped
+            p = (d.opened_ns["sweep"] + shift) / 1e3 + skew
+            i = min(range(len(at)), key=lambda j: abs(at[j] - p))
+            k = bisect.bisect_left(starts, at[i])
+            rows.append((p - at[i], starts[k] - p if k < len(work) else math.inf, skew))
+        print(f"[trace profiler] {size}, trace {attempt + 1}: {len(host)} tsd.dispatch ranges for "
+              f"{len(traced)} batches; {len(ranges)} tsd.* ranges on the card's timeline (user "
+              f"annotations: {sum(bool(getattr(e, 'is_user_annotation', None)) for e in ranges)}); "
+              f"{len(stamp_ev)} stamp kernels kept of {loop * len(entry_stamps.marks)}; "
+              f"{len(rows)} batches from the fifth with their copy's record")
+        if rows:
+            break
+    print(f"[trace clock] {size}: the stamp that opens sweep, on the host's clock, against the "
+          f"profiler's trace once the profiler's own error at the batch's copy is taken out, us "
+          f"(to its stamp kernel, to the first kernel after it; that error): "
+          + "; ".join(f"{a:.1f}, {b:.1f}; {e:.1f}" for a, b, e in rows)
+          + f"; the clock's error {tracer.clocks[dev][1]} ns; {smi}")
+    _require(rows, f"trace {size}: the profiler dropped every batch's copy in 3 traces")
+    _require(all(abs(a) < 100 and abs(b) < 100 for a, b, _ in rows),
+             f"trace {size}: the sweep's stamp lies over 0.1 ms from its kernels: {rows}")
+
+    labels = defaultdict(list)
+    for label, a, b in trace.label_gaps(ring + traced):
+        labels[label].append((b - a) / 1e6)
+    again, _ = tracer.calibrate(dev)
+    print(f"[trace gaps] {size}: the card's gaps between batches by host span, ms: "
+          + "; ".join(f"{k} {len(v)} gaps, {sum(v):.3f} in all, longest {max(v):.3f}"
+                      for k, v in labels.items())
+          + f"; clock offset moved {again - offset} ns over {time.perf_counter() - t_phase:.1f} s")
 
 
 # the graph memory phase's MSER frame sizes (height, width), in the order it
@@ -4338,6 +4547,30 @@ def _tuned(base):
     ``--downscale 2`` point."""
     return dataclasses.replace(base, downscale=2, ccl_iters=2, level_step=9, ccl_jumps=0,
                                max_regions=128)
+
+
+def trace_phase(seed: int = 0) -> int:
+    """Phase 5b alone::
+
+        python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.trace_phase())"
+
+    builds the kernels and runs :func:`_trace_phase` on phase 5's 32 frames
+    and on 32 frames of 1088x1920; a failed check raises."""
+    _, smi = _device_phase()
+    from opencv_traffic_sign_detector_tpu_torch.config import MSERConfig
+    from opencv_traffic_sign_detector_tpu_torch.data.synthetic import make_frames_with_boxes
+    from opencv_traffic_sign_detector_tpu_torch.models.mean_masks import MeanMaskTemplates
+    from opencv_traffic_sign_detector_tpu_torch.runtime import build as rt
+
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    rt.library()
+    templates = MeanMaskTemplates.load("artifacts/mean_masks.npz")
+    mcfg = _tuned(MSERConfig.from_string("MSER_7_200_2000_1"))
+    for h, w in ((800, 1360), (1088, 1920)):
+        frames, _ = make_frames_with_boxes(32, h, w, seed=seed)
+        _trace_phase(rt, dev, smi, frames, [f"{i:05d}.jpg" for i in range(32)], templates, mcfg)
+    return 0
 
 
 def scale_out_detection(seed: int = 0) -> int:
@@ -4685,7 +4918,7 @@ def main() -> int:
         print(f"[{label}] batch {batch} of 1360x800, {timed} timed batch(es): {fps:.2f} frames/s "
               f"on the host's clock (median; min {batch / max(batch_s):.2f}, max "
               f"{batch / min(batch_s):.2f}; batch s {', '.join(f'{s:.4f}' for s in batch_s)}); "
-              f"device side {sum(stage_ms.values()):.3f} ms per batch, the sum of the stages' "
+              f"device side {_stage_sum(stage_ms):.3f} ms per batch, the sum of the stages' "
               "CUDA-event ms: "
               + ", ".join(f"{k} {v:.3f}" for k, v in stage_ms.items())
               + f"; proposals/frame min {per_frame.min()} mean {per_frame.mean():.2f}; "
@@ -4769,6 +5002,9 @@ def main() -> int:
     print(f"[slice preprocess] histograms to LUTs of {tuple(lx.shape)}: K1 and the plain steps "
           f"{steps} CUDA kernels and copies, tile_luts {fused} (the fullest of 3 traces each)")
     _require(fused < steps, "tile_luts launches no fewer kernels than the plain steps")
+
+    # --- 5b. the tracer on the card -----------------------------------------
+    _trace_phase(rt, dev, smi, frames, names, templates, mcfg)
 
     # --- 6. slice 2: the XLA sweep paths ---------------------------------
     pprops, ppvalid, _, counts = run_slice(

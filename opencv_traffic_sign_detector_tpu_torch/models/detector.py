@@ -32,6 +32,7 @@ from ..ops.geometry import filter_and_grow_boxes
 from ..ops.mser import mser_regions, stage_scope
 from ..ops.preprocess import enhance_contrast
 from ..ops.resize import crop_and_resize
+from ..runtime.trace import TRACER
 from .mean_masks import MeanMaskTemplates, mask_correlation_classify, templates_to_torch
 
 
@@ -91,21 +92,25 @@ def detect_batch(frames: torch.Tensor, red_templates: torch.Tensor,
 
     Returns (boxes int32 [B, D, 4] xyxy, types int32 [B, D], scores f32
     [B, D], valid bool [B, D]) with D = cfg.max_detections.  ``timer``, when
-    given, is called with a stage name and returns a context manager.
+    given, is called with a stage name and returns a context manager; the
+    ``classify.*`` stages lie inside ``classify``.
     """
     full_f32_matmuls()
     with stage_scope(timer, "preprocess"):
         gray = enhance_contrast(frames)
     props, pvalid = mser_regions(gray, cfg.mser, timer)
     with stage_scope(timer, "classify"):
-        boxes, keep = filter_and_grow_boxes(props, pvalid, DETECT_GROW)
-        crops = crop_and_resize(frames, boxes, DETECT_CROP)
-        crops, boxes, keep = dedup_by_histogram(crops, boxes, keep, DEDUP_HIST_TOL)
-        crops, boxes, keep = dedup_by_coords(crops, boxes, keep, DEDUP_COORD_TOL)
-        types, scores, accept = mask_correlation_classify(
-            crops, red_templates, blue_templates, cfg.mask_corr_tol,
-            fine_scores=cfg.fine_scores)
-        out = compact_first(keep & accept, cfg.max_detections, boxes, types, scores)
+        with stage_scope(timer, "classify.crops"):
+            boxes, keep = filter_and_grow_boxes(props, pvalid, DETECT_GROW)
+            crops = crop_and_resize(frames, boxes, DETECT_CROP)
+        with stage_scope(timer, "classify.dedup"):
+            crops, boxes, keep = dedup_by_histogram(crops, boxes, keep, DEDUP_HIST_TOL)
+            crops, boxes, keep = dedup_by_coords(crops, boxes, keep, DEDUP_COORD_TOL)
+        with stage_scope(timer, "classify.scores"):
+            types, scores, accept = mask_correlation_classify(
+                crops, red_templates, blue_templates, cfg.mask_corr_tol,
+                fine_scores=cfg.fine_scores)
+            out = compact_first(keep & accept, cfg.max_detections, boxes, types, scores)
     return out
 
 
@@ -160,7 +165,9 @@ class DetectionPipeline:
         return _pack(*detect_batch(frames, red, blue, self.cfg, self.timer))
 
     def dispatch(self, frames: np.ndarray):
-        """Enqueue one [B, H, W, 3] uint8 batch; returns a pending handle.
+        """Enqueue one [B, H, W, 3] uint8 batch; returns a pending handle
+        (the packed result's host tensor, the events that mark its arrival,
+        and the tracer's batch, ``runtime/trace.py``, or None with it off).
 
         On a card each shard's frames are pinned and copied without blocking
         into its graph's input, its packed result is copied back into pinned
@@ -170,27 +177,36 @@ class DetectionPipeline:
         """
         from ..parallel.mesh import host_shards, to_host
 
-        packed = self._detect(host_shards(self.mesh, frames), self.red, self.blue,
-                              key=self.cfg, eager=self.timer is not None)
-        return to_host(self.mesh, packed)
+        with TRACER.dispatch() as batch:
+            with TRACER.span("pin"):
+                shards = host_shards(self.mesh, frames)
+            packed = self._detect(shards, self.red, self.blue, key=self.cfg,
+                                  eager=self.timer is not None)
+            with TRACER.span("to_host"):
+                out, done = to_host(self.mesh, packed)
+        return out, done, batch
 
     def collect(self, pending, names: list[str]) -> list[GroundTruthBox]:
         """Wait for a dispatched batch and unpad it into detection records."""
-        out, done = pending
-        for event in done:
-            event.synchronize()
-        packed = out.numpy()
-        boxes = packed[..., :4].astype(np.int64)
-        types = packed[..., 4].astype(np.int64)
-        scores = packed[..., 5]
-        valid = packed[..., 6] > 0.5
-        dets: list[GroundTruthBox] = []
-        for b in range(len(names)):
-            for i in np.nonzero(valid[b])[0]:
-                x1, y1, x2, y2 = (int(v) for v in boxes[b, i])
-                dets.append(GroundTruthBox(
-                    filename=names[b], x1=x1, y1=y1, x2=x2, y2=y2,
-                    class_id=int(types[b, i]), score=float(scores[b, i])))
+        out, done, batch = pending
+        with TRACER.collect(batch):
+            with TRACER.span("wait"):
+                for event in done:
+                    event.synchronize()
+            TRACER.resolve(batch)
+            with TRACER.span("unpack"):
+                packed = out.numpy()
+                boxes = packed[..., :4].astype(np.int64)
+                types = packed[..., 4].astype(np.int64)
+                scores = packed[..., 5]
+                valid = packed[..., 6] > 0.5
+                dets: list[GroundTruthBox] = []
+                for b in range(len(names)):
+                    for i in np.nonzero(valid[b])[0]:
+                        x1, y1, x2, y2 = (int(v) for v in boxes[b, i])
+                        dets.append(GroundTruthBox(
+                            filename=names[b], x1=x1, y1=y1, x2=x2, y2=y2,
+                            class_id=int(types[b, i]), score=float(scores[b, i])))
         return dets
 
     def detect_frames(self, frames: np.ndarray, names: list[str]) -> list[GroundTruthBox]:

@@ -29,6 +29,7 @@ from contextlib import nullcontext
 import torch
 
 from ..config import MSERConfig
+from ..runtime.trace import TRACER
 from .ccl import propagate_min_keys
 from .mser_cuda import fused_level_sweep, packing_bits, plan_halo, sweep_plan
 from .prop_cuda import bbox_area, candidate_windows, flood_bbox
@@ -42,7 +43,12 @@ _IDX_BITS = 40
 
 
 def stage_scope(timer, name: str):
-    """``timer(name)`` when a stage timer is given, else a no-op context."""
+    """``timer(name)`` when a stage timer is given, else a no-op context;
+    inside a traced call (``runtime/trace.py``) also a device stamp at the
+    stage's entry and exit."""
+    stamps = TRACER.armed()
+    if stamps is not None:
+        return stamps.scope(name, timer)
     return timer(name) if timer is not None else nullcontext()
 
 

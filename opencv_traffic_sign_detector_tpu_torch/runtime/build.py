@@ -59,6 +59,7 @@ _SIGNATURES = {
     "tsd_propagate_scan": [_V, _V, _V] + [_I] * 5 + [_V],
     "tsd_propagate_rolls": [_V] * 4 + [_I] * 8 + [_V],
     "tsd_propagate_rolls_form": [_I, _I],
+    "tsd_stamp": [_V, _I, _V],
 }
 
 _launches = dict.fromkeys(KERNELS, 0)

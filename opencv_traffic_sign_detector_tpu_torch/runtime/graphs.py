@@ -69,6 +69,12 @@ stream, in turn, never at once.
 the launches recorded while a graph is captured (``runtime/build.py:
 recording_launches``) are the graph's launches a replay, and each replay
 adds them to the counts.
+
+**Tracing.**  Inside a batch of the tracer (``runtime/trace.py``) a call is
+a ``replay``, ``capture`` or ``eager`` span, gives the batch its counters,
+and stamps its stages: a capture then takes the stamp kernels into the
+graph.  Whether the call is traced is part of the key, so a graph with
+stamps is never replayed untraced, nor one without them traced.
 """
 
 from __future__ import annotations
@@ -86,6 +92,7 @@ from pathlib import Path
 import torch
 
 from . import build
+from .trace import TRACER
 
 PACKAGE = Path(__file__).resolve().parents[1]
 
@@ -262,6 +269,11 @@ def _signature(x) -> tuple:
     return tuple(x.shape), x.dtype
 
 
+def _launches(entry) -> int:
+    """A replay's launches of the port's kernels, recorded at its capture."""
+    return sum(getattr(entry, "launches", {}).values())
+
+
 def _require_card(device: torch.device) -> None:
     if device.type != "cuda":
         raise ValueError(f"a CUDA graph needs a CUDA device, not {device}")
@@ -365,7 +377,7 @@ class CapturedFn:
         self.fn = fn
         self._capture = capture
         self.keyed = keyed
-        self._entries: dict = {}  # key -> (consts, Captured)
+        self._entries: dict = {}  # key -> (consts, Captured, its Stamps or None)
         self._ref = weakref.ref(self)  # its records in the cards' accounts
         self._last: dict = {}  # device -> the key of its last call there
 
@@ -376,27 +388,47 @@ class CapturedFn:
         with this key make a new capture."""
         device = torch.device(device)
         fn = functools.partial(self.fn, key) if self.keyed else self.fn
+        traced = TRACER.tracing()
         if eager or device.type in self.EAGER_DEVICES:
-            moved = tuple(t.to(device, non_blocking=True) for t in _inputs(x))
-            return fn(moved if isinstance(x, tuple) else moved[0], *consts)
+            with TRACER.span("eager"):
+                stamps = None
+                if traced:
+                    fn, stamps = TRACER.stamped(fn, device)
+                moved = tuple(t.to(device, non_blocking=True) for t in _inputs(x))
+                out = fn(moved if isinstance(x, tuple) else moved[0], *consts)
+                TRACER.record(stamps)
+            return out
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
-        k = (device, *_signature(x), key)
+        k = (device, *_signature(x), key, traced)
         held = self._entries.get(k)
         spare, self._last[device] = (self._ref, self._last.get(device)), k
         # the static input is made, written and read in one mode
         with torch.inference_mode(), device_scope(device):
             if held is not None and len(held[0]) == len(consts) and all(
                     a is b for a, b in zip(held[0], consts)):
-                _card(device).held.move_to_end((self._ref, k))
-                return held[1].replay(x)
-            _make_room(device, spare)
-            first, entry = self._capture(fn, device, x, consts)
-        self._entries[k] = (consts, entry)
-        _hold(device, (self._ref, k), entry)
+                with TRACER.span("replay"):
+                    _card(device).held.move_to_end((self._ref, k))
+                    _, entry, stamps = held
+                    if stamps is not None:
+                        stamps.write(0)
+                    out = entry.replay(x)
+                    TRACER.record(stamps, launches=_launches(entry))
+                return out
+            with TRACER.span("capture"):
+                _make_room(device, spare)
+                stamps = None
+                if traced:
+                    fn, stamps = TRACER.stamped(fn, device)
+                first, entry = self._capture(fn, device, x, consts)
+                self._entries[k] = (consts, entry, stamps)
+                _hold(device, (self._ref, k), entry)
+                TRACER.record(stamps, captured=True, launches=_launches(entry),
+                              held_bytes=held_bytes(device))
         return first
 
     def entries(self) -> dict:
-        """{(device, shape, dtype, key): Captured} of the graphs held (a
-        tuple input's shapes and dtypes)."""
+        """{(device, shape, dtype, key, traced): Captured} of the graphs held
+        (a tuple input's shapes and dtypes; ``traced``: captured with the
+        tracer's stamps)."""
         return {k: held[1] for k, held in self._entries.items()}

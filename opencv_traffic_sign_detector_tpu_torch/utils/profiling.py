@@ -64,7 +64,11 @@ def profiler_trace(log_dir: str | None):
     """Capture a ``torch.profiler`` trace of the host and, where a card is
     visible, of the card into ``log_dir`` (a ``*.pt.trace.json`` file that
     TensorBoard's profiler plugin and chrome://tracing read) when
-    ``log_dir`` is set; no-op otherwise."""
+    ``log_dir`` is set; no-op otherwise.  The trace also carries the port's
+    own spans (``runtime/trace.py``) as ``tsd.*`` ranges (``tsd.dispatch``,
+    ``tsd.pin``, ``tsd.replay``, ``tsd.collect``, ``tsd.wait``, ...), each
+    nested under its caller's ranges, and the stamp kernel's launches beside
+    the card's other kernels."""
     if not log_dir:
         yield
         return

@@ -305,7 +305,8 @@ def test_three_planes_key_an_entry_by_every_shape_and_dtype(inputs, card_path):
     y, cb, cr = inputs["yuv420"]
     for _ in range(2):
         det.dispatch_yuv(y, cb, cr)
-    ((device, shapes, dtypes, route),) = det.graphs.entries()
+    ((device, shapes, dtypes, route, traced),) = det.graphs.entries()
+    assert not traced  # no batch of the tracer is open
     assert shapes == (y.shape, cb.shape, cr.shape) and dtypes == (torch.uint8,) * 3
     assert step.captures[0][1] == (shapes, dtypes) and step.replays == 1
     det.dispatch_yuv(y[:1], cb[:1], cr[:1])   # other shapes: another entry
