@@ -15,7 +15,8 @@ Phases:
    which their bounds count;
 3. kernels: captures the inputs that the paths hand each kernel on
    synthetic 1360x800 frames (K1 with and without its LUT tail, K2-K4, K7
-   on the tuned main path at batch 32; K6 on that path's refine windows;
+   and the crop kernel on the tuned main path at batch 32; K6 on that
+   path's refine windows;
    K5 on the XLA sweep of the recall config at batch 8 (48 passes a call)
    and of the pixel-area config at batch 32 (8 passes a call), and on the
    roll-flood refine of the tuned config with ``refine_scan_passes=0`` at
@@ -37,7 +38,9 @@ Phases:
    refine's shapes (``sweep_res_pipeline``: 4096 windows of 64x64 over the
    small stack; K5 with ``refine_scan_passes=0``, in its 64-px register
    form); one more line each times K5's two register-form calls where no
-   window comes to rest and all 96 passes run (:func:`_k5_all_passes`);
+   window comes to rest and all 96 passes run (:func:`_k5_all_passes`),
+   and one the crop kernel's launch alone, its coordinates made before
+   (:func:`_crop_kernel_alone`);
 4. identities: K7's per-level maps folded into ``max((qv << lbits) | t)``
    equal K3's output on the tuned single-strip windows (the two outputs of
    one tiled kernel), and the bbox and area of ``K6(seed map, mask) == 0``
@@ -68,12 +71,18 @@ Phases:
    on one run along a whole row and column (:func:`_k6_shapes`); K1 and its
    LUT tail at 1, 4 and 8 tiles,
    narrow tiles, unaligned widths and bases, flat and two-valued frames
-   and the clip rule's corner cases (:func:`_k1_shapes`);
+   and the clip rule's corner cases (:func:`_k1_shapes`); the crop kernel
+   at C 1 and 3, out_size 1, 25, 32 and 64, both step roundings, boxes over
+   192 px, on and past the frame's edges and of sides 0 and 1, frames of
+   192x192 to 1088x1920, whole images, and 2**20 random boxes
+   (:func:`_crop_shapes`; alone with phase 3's crop lines:
+   :func:`crop_phase`);
 5. slice 1: runs ``DetectionPipeline`` (batch 32, MSER_7_200_2000_1 at the
    tuned ``--downscale 2`` point) for one warm-up batch, which captures the
    dispatch into a CUDA graph (``runtime/graphs.py``; the launches recorded
    at capture, a replay's, and the graph's kernel nodes read from its
-   ``debug_dump`` must hold K1 with its tail and K2-K4, :func:`_graph_report`,
+   ``debug_dump`` must hold K1 with its tail, K2-K4 and the crop kernel,
+   which must launch once a replay, :func:`_graph_report`,
    :func:`_graph_kernel_names`), and 10 timed batches from
    host frames to detection records, run eagerly with the stage timer,
    with per-stage CUDA-event times
@@ -177,8 +186,8 @@ Phases:
     captures the whole of ``recognize_batch_cnn`` as one graph and the
     detector captures nothing more (its nodes and pool bytes printed), the
     replay equal to the eager function one batch at a time and two in
-    flight, a batch's ms replayed and eager; frames/s and the same
-    comparison with the CPU path; in 12 and 13
+    flight, a batch's ms replayed and eager, the crop kernel its only
+    launch; frames/s and the same comparison with the CPU path; in 12 and 13
     ``RecognitionPipeline.dispatch`` without a host sync, as in phase 5;
 14. training (:func:`_train_phases`): ``models/cnn_train.py: train`` of the
     v3 BatchNorm twin at the default ``TrainConfig`` (batch 32, 320x320
@@ -390,6 +399,11 @@ FLOOD_OPS = {"mask": 1, "pack": 1, "row": 14, "col": 4, "reduce": 3}
 # a change that lets a form stop at a fixed point is the design's work, not
 # the function's: the passes counted are those the data needs instead.
 ROLLS_OPS = 3
+# The crop kernel per output byte (a sample's channel): the conversions of
+# its four taps, the row pass at its two tap columns (a product and an FMA
+# each), the column pass (a product and an FMA), a rint, two clamps and the
+# conversion out; its weights are a row's or a column's, not a byte's.
+CROP_OPS = 14
 # Earlier designs at the tuned path's shapes, one call between events, as
 # recorded on NVIDIA H100 80GB HBM3, 700.00 W (PERF.md section 6): K3 per
 # pass (an init, each pass and an emit a launch, state in device memory;
@@ -531,6 +545,16 @@ def _bound(name: str, args: tuple, out: torch.Tensor,
         int_ops = x.numel() + ROLLS_OPS * per_plane * total
     elif name == "propagate_scan":
         int_ops = x.numel() * (1 + SCAN_OPS * (2 * args[3] + 1))
+    elif name == "crop_resize":
+        # the kernel's inputs, the window origins and sample coordinates and
+        # the distinct image bytes its taps read, not the boxes or the frames
+        from opencv_traffic_sign_detector_tpu_torch.ops import resize
+
+        image, boxes, out_size, reciprocal = args
+        coords = resize._window_coords(boxes, *image.shape[1:3], out_size, reciprocal)
+        nbytes = (sum(t.numel() * t.element_size() for t in coords) + _crop_tap_bytes(image, coords)
+                  + out.numel() * out.element_size())
+        int_ops, f32_ops = 0, CROP_OPS * out.numel()
     else:
         raise KeyError(name)
     t_bytes = nbytes / HBM_BYTES_S * 1e3
@@ -559,7 +583,46 @@ NO_LIBRARY = {
     "flood_bbox_recognition": "as at the detection path",
     "propagate_rolls_recognition": "as at the recall config's call",
     "propagate_rolls_lda": "as at the recall config's call",
+    "crop_resize": "no call samples per-box bilinear crops on OpenCV's INTER_LINEAR grid",
 }
+
+
+def _crop_tap_bytes(image: torch.Tensor, coords) -> int:
+    """Distinct bytes of ``image`` that the crop kernel's samples read: at
+    each sample's window rows floor(rel) and floor(rel) + 1 (the second only
+    inside the window) by its two such columns, every channel."""
+    from opencv_traffic_sign_detector_tpu_torch.ops import resize
+
+    b, h, w, c = image.shape
+    wy0, wx0, rel_y, rel_x = coords
+
+    def taps(origin, rel):  # [B, N, 2S]: the taps' frame rows (or columns)
+        k = rel.floor().long()
+        return origin[..., None] + torch.cat([k, (k + 1).clamp(max=resize._CROP_WIN - 1)], -1)
+
+    ys, xs = taps(wy0, rel_y), taps(wx0, rel_x)
+    hit = torch.zeros((b, h, w), dtype=torch.bool, device=image.device)
+    frame = torch.arange(b, device=image.device)[:, None, None, None]
+    hit[frame, ys[..., :, None], xs[..., None, :]] = True
+    return int(hit.sum()) * c
+
+
+def _crop_kernel_alone(rs, a: tuple, label: str, smi: str) -> None:
+    """The crop kernel's own ms at one call's inputs, its coordinates made
+    once before (the wrapper's ms add the ~25 small operators that make
+    them): one launch between events, and queued behind a spin."""
+    image, boxes, s, rec = a
+    b, h, w, c = image.shape
+    coords = [t.contiguous() for t in rs._window_coords(boxes, h, w, s, rec)]
+    out = torch.empty((b, boxes.shape[1], s, s, c), dtype=torch.uint8, device=image.device)
+
+    def launch():
+        rs._launch_crop(image, coords, out)
+
+    launch()
+    _require(torch.equal(out, rs.crop_resize_window(*a)), f"{label}: the bare launch differs")
+    print(f"[kernel] {label} alone, coordinates made before: {_time_ms(launch):.4f} ms (queued "
+          f"behind a spin {_queued_ms(launch):.4f} ms); {smi}")
 
 
 def _k1_library(x: torch.Tensor, tiles: int = 8):
@@ -1416,6 +1479,218 @@ def _k1_shapes(cc, x: torch.Tensor, gen) -> None:
         _require(same and lib and all(luts), f"K1 {label}: differs from its plain version")
 
 
+def _crop_boxes(b: int, n: int, h: int, w: int, gen, big: bool = False) -> torch.Tensor:
+    """[b, n, 4] int32 boxes (x1, y1, x2, y2) from ``gen``: origins from 40
+    px before a frame's edge to past its far edge, sides mostly of the
+    detection path's 0-170 px, some of 0-2 px and some over the window's 192
+    (``big``: all of 193-700 px), each side drawn on its own."""
+    dev = gen.device
+
+    def side(shape):
+        if big:
+            return torch.randint(193, 701, shape, generator=gen, device=dev)
+        r = torch.rand(shape, generator=gen, device=dev)
+        return torch.where(r < 0.1, torch.randint(0, 3, shape, generator=gen, device=dev),
+                           torch.where(r < 0.85, torch.randint(0, 171, shape, generator=gen,
+                                                               device=dev),
+                                       torch.randint(171, 401, shape, generator=gen, device=dev)))
+
+    x1 = torch.randint(-40, w + 8, (b, n), generator=gen, device=dev)
+    y1 = torch.randint(-40, h + 8, (b, n), generator=gen, device=dev)
+    return torch.stack([x1, y1, x1 + side((b, n)), y1 + side((b, n))], -1).to(torch.int32)
+
+
+def _edge_boxes(b: int, h: int, w: int, dev) -> torch.Tensor:
+    """[b, 24, 4] boxes on and past all four edges of an h x w frame, the
+    whole frame, and widths and heights of 0 and 1."""
+    cases = [(-5, -5, 30, 40), (w - 30, h - 20, w + 10, h + 5), (0, h - 1, 25, h),
+             (w - 1, 0, w, 25), (w - 1, h - 1, w, h), (0, 0, w, h), (-50, -50, w + 50, h + 50),
+             (0, 0, 1, 1), (0, 0, 0, 0), (17, 23, 17, 23), (17, 23, 18, 24), (17, 23, 18, 80),
+             (17, 23, 80, 24), (17, 23, 17, 80), (17, 23, 80, 23), (w + 3, 10, w + 40, 50),
+             (10, h + 3, 50, h + 40), (-40, 10, -2, 50), (10, -40, 50, -2), (w - 192, 0, w, 192),
+             (0, h - 192, 193, h), (w - 200, h - 200, w, h), (w // 2, 0, w // 2 + 1, h),
+             (0, h // 2, w, h // 2 + 1)]
+    return torch.tensor(cases, dtype=torch.int32, device=dev)[None].expand(b, -1, -1).contiguous()
+
+
+def _crop_shapes(rs, dev, gen, seed: int) -> None:
+    """Phase 4, the crop kernel beyond the main path's call, each case exact
+    against its plain version (``ops/resize.py: crop_resize_window_plain``,
+    the hat-weight products, on the same CUDA tensors): C 1 and 3, out_size
+    25 and 32 with both step roundings (``reciprocal``), and the kernel's 1
+    and 64; boxes over 192 px (the window's edge clamp); boxes on and past
+    all four frame edges, widths and heights of 0 and 1; frames of 192x192
+    (one window), 800x1360 and 1088x1920; whole images of a zero-padded
+    buffer, as the template trainer and recognition's training crops call
+    it, one box a frame; the squeezed [B, H, W] call through
+    ``crop_and_resize``; then 2**20 random boxes and frames from 8 seeds
+    (``8 * seed`` on) at the main path's call shape (32 frames x 128 boxes),
+    at both frame sizes."""
+
+    def frames(b, h, w, c):
+        return torch.randint(0, 256, (b, h, w, c), generator=gen, device=dev, dtype=torch.uint8)
+
+    def check(label, img, boxes, s, rec):
+        got = rs.crop_resize_window(img, boxes, s, rec)
+        want = rs.crop_resize_window_plain(img, boxes, s, rec)
+        bad = got != want
+        print(f"[kernel crop_resize {label}] frames {tuple(img.shape)}, boxes "
+              f"{tuple(boxes.shape)}, out_size {s}, reciprocal {rec}: equals plain "
+              f"{not bad.any().item()} ({int(bad.sum())} of {bad.numel()} values differ)")
+        _require(not bad.any().item(), f"crop_resize {label}: differs from its plain version")
+
+    main = frames(8, 800, 1360, 3)
+    boxes = torch.cat([_crop_boxes(8, 104, 800, 1360, gen), _edge_boxes(8, 800, 1360, dev)], 1)
+    for c in (1, 3):
+        img = main if c == 3 else main[..., :1].contiguous()
+        for s in (25, 32):
+            for rec in (True, False):
+                check(f"C {c}", img, boxes, s, rec)
+    for s in (1, 64):
+        check(f"out_size {s}", main, boxes, s, True)
+    check("boxes over 192 px", main, _crop_boxes(8, 128, 800, 1360, gen, big=True), 25, True)
+    for h, w in ((192, 192), (192, 1000), (1088, 1920)):
+        img = frames(4, h, w, 3)
+        boxes = torch.cat([_crop_boxes(4, 104, h, w, gen), _edge_boxes(4, h, w, dev)], 1)
+        check(f"{h}x{w}", img, boxes, 25, True)
+        check(f"{h}x{w}, C 1", img[..., :1].contiguous(), boxes, 32, False)
+    # whole images of a zero-padded buffer, one box a frame (the template
+    # trainer's and recognition's training crops), sides up to 300 px
+    side = torch.randint(1, 301, (40, 1, 2), generator=gen, device=dev)
+    whole = torch.cat([torch.zeros_like(side), side], -1).to(torch.int32)
+    buf = frames(40, 320, 320, 3)
+    check("whole images", buf, whole, 25, False)
+    check("whole images, C 1", buf[..., :1].contiguous(), whole, 32, False)
+    gray = buf[..., 0].contiguous()
+    same = torch.equal(rs.crop_and_resize(gray, whole, 32, reciprocal=False),
+                       rs.crop_resize_window_plain(gray[..., None], whole, 32, False)[..., 0])
+    print(f"[kernel crop_resize squeezed] crop_and_resize of {tuple(gray.shape)} equals plain "
+          f"{same}")
+    _require(same, "crop_resize through crop_and_resize of [B, H, W] differs from plain")
+    bad = total = 0
+    for k in range(8):
+        gen = torch.Generator(device=dev).manual_seed(8 * seed + k)
+        h, w = (800, 1360) if k % 2 == 0 else (1088, 1920)
+        img = frames(32, h, w, 3)
+        for _ in range(32):
+            boxes = _crop_boxes(32, 128, h, w, gen)
+            got = rs.crop_resize_window(img, boxes, 25)
+            bad += int((got != rs.crop_resize_window_plain(img, boxes, 25)).sum())
+            total += boxes.shape[0] * boxes.shape[1]
+    print(f"[kernel crop_resize random] {total} random boxes at 800x1360 and 1088x1920, 32 x 128 "
+          f"a call, seeds {8 * seed} to {8 * seed + 7}: {bad} values differ from plain")
+    _require(bad == 0, "crop_resize: random boxes differ from the plain version")
+
+
+def _cublas_version() -> str:
+    """cuBLASLt's version as the process loaded it (torch's own copy), or
+    ``unknown``."""
+    import ctypes
+
+    try:
+        return str(ctypes.CDLL("libcublasLt.so.12").cublasLtGetVersion())
+    except (OSError, AttributeError):
+        return "unknown"
+
+
+def _crop_callers(rs, dev, seed: int) -> None:
+    """Phase 4, the crop kernel at the calls of its other callers, each
+    recorded from the caller's own code, as phase 3 records the detection
+    path's, and held exact against its plain version on the same CUDA
+    tensors: recognition's MSER proposals (``models/recognizer.py:
+    propose_batch``, 8 frames of 1360x800, main_recognition.py's MSER
+    defaults, out_size 32), recognition's CNN crops
+    (``models/rec_pipeline.py: recognize_batch_cnn``, 8 frames),
+    ``parallel/train.py: _propose_and_label`` (a shard's 4 frames of
+    1360x800), the template trainer (``models/mean_masks.py:
+    _resize_crops_25``: 1, 37 and 300 crops of 16 to 250 px, so that the
+    padded buffer holds a window) and the recognizer trainer's positives
+    (``models/recognizer.py: build_training_data``: the gray buffer, C 1,
+    out_size 32, divided, 96 ground-truth boxes of 16 to 250 px).  Where
+    the buffer holds no 192-px window (signs under 161 px) these callers
+    take the gather path and the kernel is not run."""
+    import numpy as np
+
+    from opencv_traffic_sign_detector_tpu_torch.config import MSERConfig, PipelineConfig
+    from opencv_traffic_sign_detector_tpu_torch.data.synthetic import (
+        make_frames_with_boxes,
+        make_sign_crop,
+        write_gt_dir,
+    )
+    from opencv_traffic_sign_detector_tpu_torch.models import mean_masks
+    from opencv_traffic_sign_detector_tpu_torch.models import rec_pipeline as rp
+    from opencv_traffic_sign_detector_tpu_torch.models import recognizer as rec
+    from opencv_traffic_sign_detector_tpu_torch.models.cnn_detector import CNNDetector
+    from opencv_traffic_sign_detector_tpu_torch.parallel import train as ptrain
+    from opencv_traffic_sign_detector_tpu_torch.runtime import build as rt
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed + 27)
+    frames, _ = make_frames_with_boxes(8, 800, 1360, seed=seed + 27)
+    on_card = torch.from_numpy(frames).to(dev)
+    mcfg = MSERConfig.from_string("MSER_7_200_2000_1")  # main_recognition.py's defaults
+    cnn = CNNDetector.load("artifacts/cnn_detector/params.npz", device=dev)
+    cnn.cfg = dataclasses.replace(cnn.cfg, score_threshold=0.10)
+    pipe = rp.RecognitionPipeline(cfg=PipelineConfig(mser=mcfg), classifier=rec.SignClassifier.load(
+        "artifacts/sign_classifier_r5_cnn"), cnn=cnn)
+    corner = rng.integers(0, 500, (4, 4, 2))
+    gt_boxes = np.concatenate([corner, corner + rng.integers(16, 251, (4, 4, 2))], -1)
+    gt_boxes = torch.from_numpy(gt_boxes.astype(np.int32)).to(dev)
+    gt_types = torch.from_numpy(rng.integers(1, 7, (4, 4)).astype(np.int32)).to(dev)
+
+    def crops(n):
+        return [make_sign_crop(1 + i % 6, size=int(rng.integers(8, 243)), seed=seed + i)
+                for i in range(n)] + [make_sign_crop(1, size=242, seed=seed)]
+
+    work = rt.BUILD_ROOT.parent / "chip_smoke_crops"
+    shutil.rmtree(work, ignore_errors=True)
+    train = str(work / "train")
+    write_gt_dir(train, 12, 800, 1360, seed=seed + 27)
+    with open(os.path.join(train, "gt.txt")) as f:  # the same frames and classes, larger boxes
+        lines = [ln.split(";") for ln in f.read().split()]
+    lines = (lines * (-(-96 // len(lines))))[:96]
+    with open(os.path.join(train, "gt.txt"), "w") as f:
+        for name, *_, cls in lines:
+            side = rng.integers(16, 251, 2)
+            x, y = rng.integers(0, 1360 - side[0]), rng.integers(0, 800 - side[1])
+            f.write(f"{name};{x};{y};{x + side[0]};{y + side[1]};{cls}\n")
+    callers = [
+        ("recognition MSER proposals", lambda: rec.propose_batch(on_card, mcfg)),
+        ("recognition CNN", lambda: rp.recognize_batch_cnn(on_card, cnn, pipe._arrays,
+                                                           *pipe._spec())),
+        ("parallel train shard", lambda: ptrain._propose_and_label(
+            on_card[:4], gt_boxes, gt_types, mcfg, 1.15, 32)),
+        ("template trainer, 1 crop", lambda: mean_masks._resize_crops_25(crops(0), dev)),
+        ("template trainer, 37 crops", lambda: mean_masks._resize_crops_25(crops(36), dev)),
+        ("template trainer, 300 crops", lambda: mean_masks._resize_crops_25(crops(299), dev)),
+        ("recognizer trainer positives", lambda: rec.build_training_data(
+            train, mser_cfg=mcfg, proposals={}, device=dev)),
+    ]
+    try:
+        for label, run in callers:
+            calls = defaultdict(list)
+            with torch.inference_mode():
+                with _recording(calls, rs, "crop_resize_window", lambda a, kw: "crop_resize"):
+                    run()
+                _require(len(calls["crop_resize"]) == 1, f"crop_resize {label}: "
+                         f"{len(calls['crop_resize'])} calls of the window path, not 1")
+                (img, boxes, s, *rest), kw = calls["crop_resize"][0]
+                got = rs.crop_resize_window(img, boxes, s, *rest, **kw)
+                bad = got != rs.crop_resize_window_plain(img, boxes, s, *rest, **kw)
+            print(f"[kernel crop_resize caller] {label}: frames {tuple(img.shape)}, boxes "
+                  f"{tuple(boxes.shape)}, out_size {s}, reciprocal "
+                  f"{(rest or [kw.get('reciprocal', True)])[0]}: equals "
+                  f"plain {not bad.any().item()} ({int(bad.sum())} of {bad.numel()} values "
+                  f"differ)")
+            _require(not bad.any().item(), f"crop_resize {label}: differs from its plain "
+                     "version")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"[kernel crop_resize callers] {len(callers)} callers in "
+          f"{time.perf_counter() - t0:.1f} s; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}, cuBLASLt {_cublas_version()}")
+
+
 # the CNN detector's routes (phases 8-9 and the graph memory phase): label,
 # checkpoint, --upscale, input, route function, what the route must show (the
 # fused plan's t/a, or the resize pass), timed batches
@@ -1927,7 +2202,11 @@ def _recognition_phases(rt, dev, work, smi: str, seed: int) -> tuple[list[dict],
              f"{len(cnn.graphs.entries())} (held {held})")
     _cnn_graph_report("recognition CNN", pipe._recognize_cnn)
     dets, counts = infer("recognition CNN", pipe)
-    _require(not any(counts.values()), f"recognition CNN launched {counts}")
+    # the CNN's proposals run none of the port's kernels; their crops run the
+    # crop kernel
+    _require(counts["crop_resize"] > 0 and not any(v for k, v in counts.items()
+                                                   if k != "crop_resize"),
+             f"recognition CNN launched {counts}, not the crop kernel alone")
 
     def eager_cnn(frames):
         with torch.inference_mode():
@@ -3342,7 +3621,8 @@ GRAPH_KERNELS = {"tile_luts": ("tile_hist_kernel", "tile_lut_kernel"),
                  "clahe_apply": ("clahe_apply_kernel",),
                  "level_sweep": ("sweep_tile_kernel", "scan_band_kernel"),
                  "flood_bbox": ("flood_bbox_kernel",),
-                 "propagate_rolls": _ROLLS, "propagate_rolls_refine": _ROLLS}
+                 "propagate_rolls": _ROLLS, "propagate_rolls_refine": _ROLLS,
+                 "crop_resize": ("crop_resize_kernel",)}
 
 
 @contextlib.contextmanager
@@ -3430,12 +3710,12 @@ def _same_detections(card, cpu) -> bool:
 # phase 17h: each stage's launches a replay, recorded at its capture (K1 runs
 # inside tile_luts' launch)
 STAGE_LAUNCHES = {
-    "total": ("tile_luts", "clahe_apply", "level_sweep", "flood_bbox"),
+    "total": ("tile_luts", "clahe_apply", "level_sweep", "flood_bbox", "crop_resize"),
     "pre": ("tile_luts", "clahe_apply"),
     "downs_pad": (),
     "sweep": ("level_sweep",),
     "msr": ("level_sweep", "flood_bbox"),
-    "post": (),
+    "post": ("crop_resize",),
 }
 
 
@@ -4375,10 +4655,19 @@ def _graph_memory(dev, smi: str, seed: int, detectors: dict | None = None) -> No
     pool (:func:`_by_pool`: the general cache, the graphs' pools), and the
     bytes the card's graph account holds against its budget
     (``runtime/graphs.py``).  Requires one capture a new shape or route and
-    no eager fallback, ``memory_reserved`` after the eighth size within
-    10% of its value after the fourth and at or under the budget plus the
-    largest MSER graph after every step, and the first size dropped from
-    the account by then and captured again."""
+    no eager fallback, the graphs' pools after the eighth size within 10%
+    of their bytes after the fourth (the sizes share one pool), and
+    ``memory_reserved`` after the eighth size, less the static inputs and
+    outputs (outside the pools) the account took on since the fourth,
+    within 10% of its value after the fourth, ``memory_reserved`` at or
+    under the budget plus the largest MSER graph after every step, and the
+    first size captured again
+    where the account passed the budget before a later miss (dropped as
+    the least recently used), else replayed.  Then, under a budget one
+    byte short of what the account holds, a new size's miss must drop the
+    least recently used MSER size, which captures again on its next batch,
+    its replay against eager bit for bit (the crop kernel's graphs leave
+    the phase's 20 graphs under the card's budget)."""
     import copy
 
     import numpy as np
@@ -4412,6 +4701,9 @@ def _graph_memory(dev, smi: str, seed: int, detectors: dict | None = None) -> No
           f"the card's {total / gib:.2f}; the graph budget {budget / gib:.3f} GiB "
           f"({graphs.GRAPH_MEMORY_SHARE:g} of the card); {smi}")
     curve = []  # (label, GiB reserved after the step, each capture's GiB)
+    held_after = []  # the account's bytes after each step
+    statics_after = []  # GiB of the account's static inputs and outputs after each step
+    pooled_after = []  # GiB the graphs' pools reserve after each step
 
     def step(label, run):
         with _graph_calls() as made:
@@ -4440,6 +4732,9 @@ def _graph_memory(dev, smi: str, seed: int, detectors: dict | None = None) -> No
                  f"graph memory {label}: {len(caps)} captures and {made['replays']} replays "
                  "in 2 calls")
         curve.append((label, reserved, caps))
+        held_after.append(graphs.held_bytes(dev))
+        statics_after.append(sum(b for _, b in graphs._card(dev).held.values()) / gib)
+        pooled_after.append(sum(p[0] for p in pools.values()) / gib)
         return caps
 
     for h, w in GRAPH_SIZES:
@@ -4458,25 +4753,63 @@ def _graph_memory(dev, smi: str, seed: int, detectors: dict | None = None) -> No
         x = inputs[fmt]
         caps = step(f"CNN {label}", lambda: [_cnn_run(d, x) for _ in range(2)])
         _require(len(caps) == 1, f"graph memory: {len(caps)} captures for CNN {label}, not 1")
+    # every step before the last was followed by a miss, which evicts where
+    # the account is over the budget
+    over = any(b > budget for b in held_after[:-1])
     h, w = GRAPH_SIZES[0]
     host = batch(h, w)
     again = step(f"MSER {w}x{h} again", lambda: [pipe.detect_frames(host, names)
                                                for _ in range(2)])
     _replay_vs_eager(f"graph memory {w}x{h} again", pipe.dispatch, _eager_packed(pipe), host)
+    # a budget one byte short of the account: the next miss drops the least
+    # recently used entry, an MSER size, which captures again on its next batch
+    shapes = lambda: {key[1] for key in pipe._detect.graphs.entries()}  # noqa: E731
+    held, before = graphs.held_bytes(dev), shapes()
+    budget_bytes = graphs.budget_bytes
+    graphs.budget_bytes = lambda device: held - 1
+    try:
+        new = batch(544, 960)
+        short = step("MSER 960x544, the budget 1 byte short",
+                     lambda: [pipe.detect_frames(new, names) for _ in range(2)])
+        dropped = sorted(before - shapes())
+        print(f"[graph memory] under a budget of {(held - 1) / gib:.3f} GiB the miss at 960x544 "
+              f"dropped the MSER graphs of {dropped}")
+        _require(len(short) == 1 and dropped, "graph memory: a miss over the budget dropped no "
+                 "MSER graph")
+        h2, w2 = dropped[0][1:3]
+        back = batch(h2, w2)
+        recaptured = step(f"MSER {w2}x{h2} after its eviction",
+                          lambda: [pipe.detect_frames(back, names) for _ in range(2)])
+        _replay_vs_eager(f"graph memory {w2}x{h2} after its eviction", pipe.dispatch,
+                         _eager_packed(pipe), back)
+    finally:
+        graphs.budget_bytes = budget_bytes
+    _require(len(recaptured) == 1, f"graph memory: the evicted {w2}x{h2} did not capture again")
     mser = [r for _, r, _ in curve[:len(GRAPH_SIZES)]]
     graph = max(c for _, _, caps in curve[:len(GRAPH_SIZES)] for c in caps)
     top = max(r for _, r, _ in curve)
+    # sizes 5-8's static inputs and outputs, which live outside the pools
+    statics = statics_after[7] - statics_after[3]
+    pooled = pooled_after[:len(GRAPH_SIZES)]
     print(f"[graph memory] reserved after the 4th size {mser[3]:.3f} GiB, after the 8th "
-          f"{mser[7]:.3f} ({mser[7] / mser[3]:.3f}x); the most after a step {top:.3f}, peak "
+          f"{mser[7]:.3f}, {statics:.3f} of it the static inputs and outputs of sizes 5-8 "
+          f"({(mser[7] - statics) / mser[3]:.3f}x without them); the graphs' pools after the "
+          f"4th {pooled[3]:.3f} GiB, after the 8th {pooled[7]:.3f} "
+          f"({pooled[7] / pooled[3]:.3f}x); the most after a step {top:.3f}, peak "
           f"{torch.cuda.max_memory_reserved(dev) / gib:.3f}; the largest MSER graph "
-          f"{graph:.3f}; the first size captured again: {len(again) == 1}; "
+          f"{graph:.3f}; the account over the budget before a miss: {over}; the first size "
+          f"captured again: {len(again) == 1}; "
           f"{time.perf_counter() - t_phase:.1f} s; {smi}")
     del kept, loaded, pipe
-    _require(mser[7] <= 1.1 * mser[3], f"graph memory: {mser[7]:.3f} GiB reserved after the 8th "
-             f"size against {mser[3]:.3f} after the 4th")
+    _require(pooled[7] <= 1.1 * pooled[3], f"graph memory: the graphs' pools reserve "
+             f"{pooled[7]:.3f} GiB after the 8th size against {pooled[3]:.3f} after the 4th")
+    _require(mser[7] - statics <= 1.1 * mser[3], f"graph memory: {mser[7]:.3f} GiB reserved "
+             f"after the 8th size, {statics:.3f} of it static inputs and outputs, against "
+             f"{mser[3]:.3f} after the 4th")
     _require(top <= budget / gib + graph, f"graph memory: {top:.3f} GiB reserved, over the "
              f"budget {budget / gib:.3f} plus one MSER graph {graph:.3f}")
-    _require(len(again) == 1, "graph memory: the first size was never evicted")
+    _require(len(again) == int(over), f"graph memory: the first size made {len(again)} "
+             f"captures on its return, the account {'over' if over else 'within'} the budget")
 
 
 def graph_memory(seed: int = 0) -> int:
@@ -4570,6 +4903,46 @@ def trace_phase(seed: int = 0) -> int:
     for h, w in ((800, 1360), (1088, 1920)):
         frames, _ = make_frames_with_boxes(32, h, w, seed=seed)
         _trace_phase(rt, dev, smi, frames, [f"{i:05d}.jpg" for i in range(32)], templates, mcfg)
+    return 0
+
+
+def crop_phase(seed: int = 0) -> int:
+    """The crop kernel's lines of phases 3 and 4 alone::
+
+        python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.crop_phase())"
+
+    builds the kernels, holds the crop kernel against its plain version at
+    the call the tuned main path makes on phase 5's 32 frames and on 32
+    frames of 1088x1920 (exact, timed, bounded), then :func:`_crop_shapes`;
+    a failed check raises."""
+    _, smi = _device_phase()
+    from opencv_traffic_sign_detector_tpu_torch.config import MSERConfig, PipelineConfig
+    from opencv_traffic_sign_detector_tpu_torch.data.synthetic import make_frames_with_boxes
+    from opencv_traffic_sign_detector_tpu_torch.models import detector as det
+    from opencv_traffic_sign_detector_tpu_torch.models.mean_masks import (
+        MeanMaskTemplates,
+        templates_to_torch,
+    )
+    from opencv_traffic_sign_detector_tpu_torch.ops import resize
+    from opencv_traffic_sign_detector_tpu_torch.runtime import build as rt
+
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    rt.library()
+    red, blue = templates_to_torch(MeanMaskTemplates.load("artifacts/mean_masks.npz"), dev)
+    cfg = PipelineConfig(mser=_tuned(MSERConfig.from_string("MSER_7_200_2000_1")))
+    for h, w, tag in ((800, 1360, ""), (1088, 1920, "_1080p")):
+        frames, _ = make_frames_with_boxes(32, h, w, seed=seed)
+        calls = defaultdict(list)
+        with _recording(calls, resize, "crop_resize_window", lambda a, kw: "crop_resize"):
+            det.detect_batch(torch.from_numpy(frames).to(dev), red, blue, cfg)
+        a, kw = calls["crop_resize"][0]
+        _measure(f"crop_resize{tag}", resize.crop_resize_window, resize.crop_resize_window_plain,
+                 a, kw, "csrc/crop_resize.cu", "none", smi, kind="crop_resize")
+        _crop_kernel_alone(resize, a, f"crop_resize{tag}", smi)
+        del calls, a
+    _crop_shapes(resize, dev, torch.Generator(device=dev).manual_seed(seed), seed)
+    _crop_callers(resize, dev, seed)
     return 0
 
 
@@ -4673,6 +5046,7 @@ def main() -> int:
         mser,
         mser_cuda,
         prop_cuda,
+        resize,
     )
     from opencv_traffic_sign_detector_tpu_torch.ops.clahe import clahe_equalize
     from opencv_traffic_sign_detector_tpu_torch.ops.preprocess import enhance_contrast
@@ -4759,6 +5133,10 @@ def main() -> int:
         ("level_sweep_full", mser_cuda, "fused_level_sweep_full",
          "fused_level_sweep_full_plain", "csrc/mser_sweep.cu",
          "opencv_traffic_sign_detector_tpu/ops/mser_pallas.py:569"),
+        # the crops' window path, which the JAX package leaves to XLA
+        ("crop_resize", resize, "crop_resize_window", "crop_resize_window_plain",
+         "csrc/crop_resize.cu", "none: opencv_traffic_sign_detector_tpu/ops/resize.py's "
+         "window path, left to XLA"),
     ]
     calls = defaultdict(list)
     by_name = lambda name: lambda a, kw: name  # noqa: E731
@@ -4772,6 +5150,7 @@ def main() -> int:
             (mser, "flood_bbox", by_name("flood_bbox")),
             (mser, "fused_level_sweep", by_name("sweep_input")),
             (ccl, "propagate_rolls", lambda a, kw: a[4]),
+            (resize, "crop_resize_window", by_name("crop_resize")),
         ]:
             stack.enter_context(_recording(calls, target, attr, key))
         det.detect_batch(frames_dev, red, blue, PipelineConfig(mser=mcfg))
@@ -4787,7 +5166,8 @@ def main() -> int:
         det.detect_batch(frames_dev, red, blue, PipelineConfig(mser=xfcfg))
     torch.cuda.synchronize()
 
-    inputs = {k: calls[k][0] for k in ("tile_luts", "clahe_apply", "level_sweep", "flood_bbox")}
+    inputs = {k: calls[k][0] for k in ("tile_luts", "clahe_apply", "level_sweep", "flood_bbox",
+                                       "crop_resize")}
     lut_x, _, _, lut_tiles = inputs["tile_luts"][0]
     inputs["tile_histograms"] = ((lut_x, lut_tiles), {})
     sweep_rolls = calls["propagate_rolls"]  # one call per level of the recall sweep
@@ -4809,6 +5189,7 @@ def main() -> int:
         a, kw = inputs[name]
         table.append(_measure(name, getattr(mod, fn), getattr(mod, plain_fn), a, kw, src,
                               replaces, smi))
+    _crop_kernel_alone(resize, inputs["crop_resize"][0], "crop_resize", smi)
     # K4 and K5 at the low-res refine's shapes: 4096 windows of 64x64 over
     # the small stack
     k4_res = res_calls["flood_bbox"][0]
@@ -4876,6 +5257,8 @@ def main() -> int:
     _k5_shapes(prop_cuda, rt, gen)
     _k6_shapes(prop_cuda, gen)
     _k1_shapes(clahe_cuda, lut_x, gen)
+    _crop_shapes(resize, dev, gen, args.seed)
+    _crop_callers(resize, dev, args.seed)
 
     # --- 5. slice 1 through DetectionPipeline -----------------------------
     def run_slice(label, mcfg_, batch, timed, want):
@@ -4950,12 +5333,15 @@ def main() -> int:
         return props, pvalid, dets, rcounts
 
     batches = defaultdict(lambda: 1)  # batches of each kernel's path's run
-    props, pvalid, dets, counts = run_slice(
-        "slice", mcfg, 32, 10, ("tile_luts", "clahe_apply", "level_sweep", "flood_bbox"))
-    for name in ("tile_luts", "clahe_apply", "level_sweep", "flood_bbox"):
+    slice_kernels = ("tile_luts", "clahe_apply", "level_sweep", "flood_bbox", "crop_resize")
+    props, pvalid, dets, counts = run_slice("slice", mcfg, 32, 10, slice_kernels)
+    for name in slice_kernels:
         rows[name]["launches"] = counts[name]
         batches[name] = 10
         _require(counts[name] > 0, f"slice 1: {name} never launched")
+    _require(counts["crop_resize"] == 10,
+             f"slice 1: the crop kernel launched {counts['crop_resize']} times in 10 replays, not "
+             "once a replay")
     # K1's kernel runs on this path only inside tile_luts (the same launch,
     # the tail in it): the tile_histograms wrapper itself is not called
     _require(counts["tile_histograms"] == 0, "slice 1 called K1 without its LUT tail")

@@ -8,7 +8,9 @@ bilinear hat-weight matrix products (boxes from the detection path are at
 most ~167 px), and four corner gathers per output pixel for frames smaller
 than the window or ``exact=True``.  The window products sum in another
 order than the reference, so outputs may differ by 1 count where the
-sample sits at an exact .5 boundary.
+sample sits at an exact .5 boundary.  On the card the window path is one
+kernel (``csrc/crop_resize.cu``) that reads only each sample's non-zero
+taps and equals the products bit for bit; on the CPU it is the products.
 """
 
 from __future__ import annotations
@@ -16,9 +18,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..runtime import build as rt
 from .resident import const_f32, resident
 
 _CROP_WIN = 192
+# The kernel's limits (csrc/crop_resize.cu): channels and the largest out_size
+CROP_CHANNELS = (1, 3)
+CROP_MAX_OUT = 64
 
 
 def _source_coords(boxes_xyxy: torch.Tensor, h: int, w: int, out_size: int,
@@ -47,9 +53,14 @@ def _source_coords(boxes_xyxy: torch.Tensor, h: int, w: int, out_size: int,
     return sy, sx, y1, x1
 
 
+def _to_u8(x: torch.Tensor) -> torch.Tensor:
+    """Round half to even, clamp to 0..255 and narrow to uint8."""
+    return torch.round(x).clamp(0, 255).to(torch.uint8)
+
+
 def _crop_resize_gather(image: torch.Tensor, boxes_xyxy: torch.Tensor,
                         out_size: int, reciprocal: bool) -> torch.Tensor:
-    """Four bilinear corner gathers per output pixel."""
+    """Four bilinear corner gathers per output pixel, as uint8 crops."""
     bsz, h, w, c = image.shape
     sy, sx, _, _ = _source_coords(boxes_xyxy, h, w, out_size, reciprocal)
     x0 = torch.floor(sx)
@@ -72,20 +83,37 @@ def _crop_resize_gather(image: torch.Tensor, boxes_xyxy: torch.Tensor,
     fy2 = fy[..., :, None, None]
     top = p00 * (1 - fx2) + p01 * fx2
     bot = p10 * (1 - fx2) + p11 * fx2
-    return torch.round(top * (1 - fy2) + bot * fy2)
+    return _to_u8(top * (1 - fy2) + bot * fy2)
 
 
-def _crop_resize_window(image: torch.Tensor, boxes_xyxy: torch.Tensor,
-                        out_size: int, reciprocal: bool) -> torch.Tensor:
-    """Per-box window slice + bilinear hat-weight matrix products."""
-    bsz, h, w, c = image.shape
-    n = boxes_xyxy.shape[1]
+def _window_coords(boxes_xyxy: torch.Tensor, h: int, w: int, out_size: int,
+                   reciprocal: bool):
+    """Each box's window origin (wy0, wx0) [B, N] int64 and its samples'
+    coordinates in the window (rel_y, rel_x) [B, N, S] f32, clamped to it."""
     win = _CROP_WIN
     sy, sx, y1, x1 = _source_coords(boxes_xyxy, h, w, out_size, reciprocal)
     wy0 = torch.clamp(y1.to(torch.int32), 0, h - win).long()
     wx0 = torch.clamp(x1.to(torch.int32), 0, w - win).long()
     rel_y = torch.clamp(sy - wy0[..., None].to(torch.float32), 0.0, win - 1.0)
     rel_x = torch.clamp(sx - wx0[..., None].to(torch.float32), 0.0, win - 1.0)
+    return wy0, wx0, rel_y, rel_x
+
+
+def _hat_weights(rel: torch.Tensor) -> torch.Tensor:
+    """Bilinear hat weights of each sample over the window's rows (or
+    columns): [..., S] -> [..., S, 192]."""
+    grid = torch.arange(_CROP_WIN, device=rel.device).to(torch.float32)
+    return torch.clamp(1.0 - torch.abs(rel[..., None] - grid), min=0.0)
+
+
+def crop_resize_window_plain(image: torch.Tensor, boxes_xyxy: torch.Tensor, out_size: int,
+                             reciprocal: bool = True) -> torch.Tensor:
+    """The window path in plain PyTorch: per-box window slice and bilinear
+    hat-weight matrix products, as uint8 crops."""
+    bsz, h, w, c = image.shape
+    n = boxes_xyxy.shape[1]
+    win = _CROP_WIN
+    wy0, wx0, rel_y, rel_x = _window_coords(boxes_xyxy, h, w, out_size, reciprocal)
 
     ar = torch.arange(win, device=image.device)
     frame = torch.arange(bsz, device=image.device)[:, None, None, None]
@@ -93,14 +121,54 @@ def _crop_resize_window(image: torch.Tensor, boxes_xyxy: torch.Tensor,
     cols = (wx0[..., None] + ar)[..., None, :]
     wins = image[frame, rows, cols].to(torch.float32)  # [B, N, win, win, C]
 
-    grid = ar.to(torch.float32)
-    ry = torch.clamp(1.0 - torch.abs(rel_y[..., None] - grid), min=0.0)
-    rx = torch.clamp(1.0 - torch.abs(rel_x[..., None] - grid), min=0.0)
+    ry, rx = _hat_weights(rel_y), _hat_weights(rel_x)
     m = bsz * n
     tmp = torch.bmm(ry.reshape(m, out_size, win), wins.reshape(m, win, win * c))
     tmp = tmp.reshape(m, out_size, win, c)
     out = torch.matmul(rx.reshape(m, 1, out_size, win), tmp)  # [M, S, S, C]
-    return torch.round(out).reshape(bsz, n, out_size, out_size, c)
+    return _to_u8(out).reshape(bsz, n, out_size, out_size, c)
+
+
+def _launch_crop(image: torch.Tensor, coords, out: torch.Tensor) -> None:
+    """One launch of the kernel on the current stream: image [B, H, W, C]
+    uint8, ``coords`` :func:`_window_coords`' four tensors, contiguous,
+    into ``out`` [B, N, S, S, C] uint8."""
+    bsz, h, w, c = image.shape
+    n, s = out.shape[1], out.shape[2]
+    rc = rt.library().tsd_crop_resize(
+        image.data_ptr(), *(t.data_ptr() for t in coords), out.data_ptr(), bsz, n, h, w, c, s,
+        rt.stream_ptr(image.device))
+    rt.check(rc, "crop_resize")
+
+
+def crop_resize_window(image: torch.Tensor, boxes_xyxy: torch.Tensor, out_size: int,
+                       reciprocal: bool = True) -> torch.Tensor:
+    """The window path: image [B, H, W, C] uint8 (H, W >= 192), boxes
+    [B, N, 4] -> [B, N, S, S, C] uint8.
+
+    CPU tensors take :func:`crop_resize_window_plain`.  CUDA tensors take
+    the kernel (``csrc/crop_resize.cu``), which reads each sample's at most
+    two rows by two columns of non-zero weight and sums them in the order
+    cuBLAS's kernels for the two products do, so it equals them bit for
+    bit; the sample coordinates are :func:`_window_coords`'.  The kernel takes C = 1 or 3,
+    ``out_size`` up to 64 and a contiguous image.
+    """
+    if rt.uses_plain(image, boxes_xyxy):
+        return crop_resize_window_plain(image, boxes_xyxy, out_size, reciprocal)
+    rt.check_tensor(image, "image", torch.uint8, 4)
+    bsz, h, w, c = image.shape
+    n = boxes_xyxy.shape[1]
+    if c not in CROP_CHANNELS:
+        raise ValueError(f"the kernel takes {CROP_CHANNELS} channels, got {c}")
+    if not 1 <= out_size <= CROP_MAX_OUT:
+        raise ValueError(f"the kernel takes out_size 1 to {CROP_MAX_OUT}, got {out_size}")
+    if min(h, w) < _CROP_WIN:
+        raise ValueError(f"frame {h}x{w} holds no {_CROP_WIN}-px window")
+    coords = [t.contiguous() for t in _window_coords(boxes_xyxy, h, w, out_size, reciprocal)]
+    out = torch.empty((bsz, n, out_size, out_size, c), dtype=torch.uint8, device=image.device)
+    _launch_crop(image, coords, out)
+    rt.count_launch("crop_resize")
+    return out
 
 
 def crop_and_resize(image: torch.Tensor, boxes_xyxy: torch.Tensor,
@@ -118,16 +186,20 @@ def crop_and_resize(image: torch.Tensor, boxes_xyxy: torch.Tensor,
     multiplies by the f32 reciprocal of ``out_size`` (True); its template
     trainer runs eagerly and divides (False).  Either way the sample grid
     equals the reference's bit for bit.
+
+    On a card the window path is :func:`crop_resize_window`'s kernel, which
+    takes a contiguous uint8 image of 1 or 3 channels and ``out_size`` up
+    to 64 and raises for anything else; the gather path and the CPU take
+    any channel count and size.
     """
     squeeze = image.dim() == 3
     if squeeze:
         image = image[..., None]
     h, w = image.shape[1], image.shape[2]
     if not exact and h >= _CROP_WIN and w >= _CROP_WIN:
-        out = _crop_resize_window(image, boxes_xyxy, out_size, reciprocal)
+        out = crop_resize_window(image, boxes_xyxy, out_size, reciprocal)
     else:
         out = _crop_resize_gather(image, boxes_xyxy, out_size, reciprocal)
-    out = out.clamp(0, 255).to(torch.uint8)
     return out[..., 0] if squeeze else out
 
 

@@ -42,10 +42,11 @@ NVCC_FLAGS = (
 
 # Launch counters, one per kernel wrapper.  K5 counts its two call sites
 # apart: the XLA level sweep (propagate_rolls) and the roll-flood refine
-# (propagate_rolls_refine).  tile_luts is K1 with the LUT tail.
+# (propagate_rolls_refine).  tile_luts is K1 with the LUT tail.  crop_resize
+# is the crops' window path (csrc/crop_resize.cu), which replaces no TPU kernel.
 KERNELS = ("tile_histograms", "tile_luts", "clahe_apply", "level_sweep", "flood_bbox",
            "propagate_rolls", "propagate_rolls_refine", "propagate_scan",
-           "level_sweep_full")
+           "level_sweep_full", "crop_resize")
 
 _V, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -60,6 +61,7 @@ _SIGNATURES = {
     "tsd_propagate_rolls": [_V] * 4 + [_I] * 8 + [_V],
     "tsd_propagate_rolls_form": [_I, _I],
     "tsd_stamp": [_V, _I, _V],
+    "tsd_crop_resize": [_V] * 6 + [_I] * 6 + [_V],
 }
 
 _launches = dict.fromkeys(KERNELS, 0)
