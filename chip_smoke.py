@@ -2040,8 +2040,10 @@ def _recognition_phases(rt, dev, work, smi: str, seed: int) -> tuple[list[dict],
     recognizer's default config: --downscale 1, pointer jumps, 384 regions)
     and HOG_LDA_BAYES; then ``RecognitionPipeline.run_directory`` over a
     test directory with ``artifacts/sign_classifier_r5_cnn/`` (K1 through
-    its LUT tail, K2, K4 and K5 must launch), K4 and K5 held against their
-    plain versions at the inputs this path gives them; then the CNN proposal
+    its LUT tail, K2, K4 and K5 must launch), its graph captured traced
+    against one captured untraced (the same packed output, bit for bit, and
+    K5's two launches a level), K4 and K5 held against their plain versions
+    at the inputs this path gives them; then the CNN proposal
     source (the CLI's default) for mining, validation and inference; each
     against the port's CPU path on one frame.  -> (the two kernel rows,
     {path: (launch counts, batches)})."""
@@ -2062,6 +2064,7 @@ def _recognition_phases(rt, dev, work, smi: str, seed: int) -> tuple[list[dict],
     from opencv_traffic_sign_detector_tpu_torch.models.cnn_detector import CNNDetector
     from opencv_traffic_sign_detector_tpu_torch.models.detector import upload
     from opencv_traffic_sign_detector_tpu_torch.ops import ccl, mser, prop_cuda
+    from opencv_traffic_sign_detector_tpu_torch.runtime import trace
 
     t0 = time.perf_counter()
     train, test = str(work / "rec_train"), str(work / "rec_test")
@@ -2133,6 +2136,28 @@ def _recognition_phases(rt, dev, work, smi: str, seed: int) -> tuple[list[dict],
     want = ("tile_luts", "clahe_apply", "flood_bbox", "propagate_rolls")
     _graph_report("recognition MSER", pipe._recognize, want)
     _graph_kernel_names("recognition MSER", pipe._recognize, want)
+    # the graph captured traced (its stamps, runtime/trace.py) against one
+    # captured with the tracer off: the same packed output bit for bit, and
+    # the same launches a replay, K5's at the level sweep among them (two
+    # rounds a level)
+    traced = _packed(pipe.dispatch(first))
+    trace.enable(False)
+    try:
+        pipe.dispatch(first)  # the untraced graph's capture
+        untraced = _packed(pipe.dispatch(first))
+    finally:
+        trace.enable(True)
+    launches = {key[-1]: entry.launches for key, entry in pipe._recognize.entries().items()}
+    k5 = {on: launches[on].get("propagate_rolls") for on in (True, False)}
+    levels = len(range(0, 256 + 2 * mcfg.delta + 1, mcfg.delta))
+    same = traced.tobytes() == untraced.tobytes()
+    print(f"[recognition MSER trace] the traced graph's packed output against the untraced "
+          f"graph's, bit for bit: {same}; K5 launches a replay (propagate_rolls), traced "
+          f"{k5[True]}, untraced {k5[False]} ({levels} levels, 2 rounds each); the launches "
+          f"a replay alike: {launches[True] == launches[False]}")
+    _require(same and launches[True] == launches[False] and k5[True] == 2 * levels,
+             f"recognition MSER: traced {k5[True]} K5 launches against untraced {k5[False]} "
+             f"(want {2 * levels}), outputs equal {same}")
     dets, counts = infer("recognition MSER", pipe)
     for name in want:
         _require(counts[name] > 0, f"recognition MSER: {name} never launched")

@@ -127,6 +127,22 @@ def _pack(boxes, types, scores, valid) -> torch.Tensor:
                       scores[..., None], valid[..., None].to(torch.float32)], dim=-1)
 
 
+def unpack(packed: np.ndarray, names: list[str]) -> list[GroundTruthBox]:
+    """A host copy of :func:`_pack`'s [B, D, 7] -> each frame's valid slots
+    as records, frame ``b`` named ``names[b]``."""
+    boxes = packed[..., :4].astype(np.int64)
+    types = packed[..., 4].astype(np.int64)
+    scores = packed[..., 5]
+    valid = packed[..., 6] > 0.5
+    dets: list[GroundTruthBox] = []
+    for b in range(len(names)):
+        for i in np.nonzero(valid[b])[0]:
+            x1, y1, x2, y2 = (int(v) for v in boxes[b, i])
+            dets.append(GroundTruthBox(filename=names[b], x1=x1, y1=y1, x2=x2, y2=y2,
+                                       class_id=int(types[b, i]), score=float(scores[b, i])))
+    return dets
+
+
 class DetectionPipeline:
     """Host-facing detector: owns the templates on the device and runs
     batches through :func:`detect_batch`, one batch in flight.
@@ -195,19 +211,7 @@ class DetectionPipeline:
                     event.synchronize()
             TRACER.resolve(batch)
             with TRACER.span("unpack"):
-                packed = out.numpy()
-                boxes = packed[..., :4].astype(np.int64)
-                types = packed[..., 4].astype(np.int64)
-                scores = packed[..., 5]
-                valid = packed[..., 6] > 0.5
-                dets: list[GroundTruthBox] = []
-                for b in range(len(names)):
-                    for i in np.nonzero(valid[b])[0]:
-                        x1, y1, x2, y2 = (int(v) for v in boxes[b, i])
-                        dets.append(GroundTruthBox(
-                            filename=names[b], x1=x1, y1=y1, x2=x2, y2=y2,
-                            class_id=int(types[b, i]), score=float(scores[b, i])))
-        return dets
+                return unpack(out.numpy(), names)
 
     def detect_frames(self, frames: np.ndarray, names: list[str]) -> list[GroundTruthBox]:
         """Run a [B, H, W, 3] uint8 batch; unpad into detection records."""

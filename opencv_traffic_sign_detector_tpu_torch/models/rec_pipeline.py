@@ -25,13 +25,15 @@ from ..data.images import list_frame_files
 from ..data.prefetch import batched_frames
 from ..ops.color import bgr_to_gray
 from ..ops.hog import gray_descriptors, hog_descriptors
+from ..ops.mser import stage_scope
 from ..ops.resident import const_f32
 from ..ops.resize import crop_and_resize
 from ..runtime.graphs import CapturedFn
+from ..runtime.trace import TRACER
 from .cnn_detector import net_tensors
-from .detector import _pack, compact_first, full_f32_matmuls, pinned
+from .detector import _pack, compact_first, full_f32_matmuls, pinned, unpack
 from .knn import knn_vote
-from .recognizer import SignClassifier, arbitrate_lda_heads, propose_batch
+from .recognizer import SignClassifier, arbitrate_lda_heads, crop_proposals, mser_proposals
 
 
 def _stack_heads(clf: SignClassifier) -> tuple[np.ndarray, np.ndarray]:
@@ -69,25 +71,36 @@ def _classify(boxes, gray_crops, keep, clf_arrays, cfg: PipelineConfig, features
               clf_kind: str, knn_k: int):
     """[B, N] proposals with their gray crops -> the first
     ``cfg.max_detections`` sign slots a frame: (boxes, labels, scores,
-    valid)."""
+    valid).  Traced, all of it is the stage ``classify.scores``: the
+    descriptors ``rec.hog``, the classifier with the compaction
+    ``rec.heads``."""
     b, n = keep.shape
-    flat = gray_crops.reshape(b * n, RECOG_CROP, RECOG_CROP)
-    feats = hog_descriptors(flat) if features == "HOG" else gray_descriptors(flat)
-    if clf_kind == "LDABAYES":
-        labels, conf = classify_crops_lda(feats, *clf_arrays, cfg.no_sign_tol, cfg.sign_margin)
-    else:
-        labels, conf = classify_crops_knn(feats, *clf_arrays, knn_k)
-    labels, conf = labels.reshape(b, n), conf.reshape(b, n)
-    return compact_first(keep & (labels > 0), cfg.max_detections, boxes, labels, conf)
+    with stage_scope(None, "classify.scores"):
+        with stage_scope(None, "rec.hog"):
+            flat = gray_crops.reshape(b * n, RECOG_CROP, RECOG_CROP)
+            feats = hog_descriptors(flat) if features == "HOG" else gray_descriptors(flat)
+        with stage_scope(None, "rec.heads"):
+            if clf_kind == "LDABAYES":
+                labels, conf = classify_crops_lda(feats, *clf_arrays, cfg.no_sign_tol,
+                                                  cfg.sign_margin)
+            else:
+                labels, conf = classify_crops_knn(feats, *clf_arrays, knn_k)
+            labels, conf = labels.reshape(b, n), conf.reshape(b, n)
+            return compact_first(keep & (labels > 0), cfg.max_detections, boxes, labels, conf)
 
 
 def recognize_batch(frames: torch.Tensor, clf_arrays, cfg: PipelineConfig, features: str,
                     clf_kind: str, knn_k: int = 4):
     """[B, H, W, 3] uint8 -> (boxes [B, D, 4] xyxy, labels [B, D],
-    scores [B, D], valid [B, D]) from MSER proposals."""
+    scores [B, D], valid [B, D]) from MSER proposals.  Traced, the crops,
+    their dedup and the classifier are the stage ``classify``, as in
+    ``detect_batch``."""
     full_f32_matmuls()
-    boxes, gray_crops, keep = propose_batch(frames, cfg.mser, cfg.rec_grows or (RECOG_GROW,))
-    return _classify(boxes, gray_crops, keep, clf_arrays, cfg, features, clf_kind, knn_k)
+    props, pvalid = mser_proposals(frames, cfg.mser)
+    with stage_scope(None, "classify"):
+        boxes, gray_crops, keep = crop_proposals(frames, props, pvalid,
+                                                 cfg.rec_grows or (RECOG_GROW,))
+        return _classify(boxes, gray_crops, keep, clf_arrays, cfg, features, clf_kind, knn_k)
 
 
 def recognize_frame(bgr: torch.Tensor, clf_arrays, cfg: PipelineConfig, features: str,
@@ -189,39 +202,42 @@ class RecognitionPipeline:
         whole :func:`recognize_batch_cnn` (the detector's forward and decode,
         the crops, the features and the classifier) with CNN proposals, keyed
         also by the detector's route (its net, threshold and ``upscale``)
-        and holding its net's tensors as constants."""
-        x = pinned(frames, self._device)
-        if self.cnn is not None:
-            packed = self._recognize_cnn(
-                self._device, x, *self._arrays, *net_tensors(self.cnn.net),
-                key=(self._spec(), self.cnn.route(x)))
-        else:
-            packed = self._recognize(self._device, x, *self._arrays, key=self._spec())
-        if self._device.type != "cuda":
-            return packed, None
-        out = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-        out.copy_(packed, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        return out, done
+        and holding its net's tensors as constants.
+
+        The handle is (the packed result, the event that marks its arrival
+        or None off a card, the tracer's batch or None with it off).  Traced
+        (``runtime/trace.py``), the dispatch opens a batch with the spans of
+        ``DetectionPipeline.dispatch``: ``pin``, the call's ``replay``,
+        ``capture`` or ``eager``, and ``to_host``."""
+        with TRACER.dispatch() as batch:
+            with TRACER.span("pin"):
+                x = pinned(frames, self._device)
+            if self.cnn is not None:
+                packed = self._recognize_cnn(
+                    self._device, x, *self._arrays, *net_tensors(self.cnn.net),
+                    key=(self._spec(), self.cnn.route(x)))
+            else:
+                packed = self._recognize(self._device, x, *self._arrays, key=self._spec())
+            with TRACER.span("to_host"):
+                if self._device.type != "cuda":
+                    return packed, None, batch
+                out = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+                out.copy_(packed, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+        return out, done, batch
 
     def collect(self, pending, names: list[str]) -> list[GroundTruthBox]:
-        """Wait for a dispatched batch and unpad it into records."""
-        out, done = pending
-        if done is not None:
-            done.synchronize()
-        packed = out.numpy()
-        boxes = packed[..., :4].astype(np.int64)
-        labels = packed[..., 4].astype(np.int64)
-        scores, valid = packed[..., 5], packed[..., 6] > 0.5
-        dets: list[GroundTruthBox] = []
-        for b in range(len(names)):
-            for i in np.nonzero(valid[b])[0]:
-                x1, y1, x2, y2 = (int(v) for v in boxes[b, i])
-                dets.append(GroundTruthBox(filename=names[b], x1=x1, y1=y1, x2=x2, y2=y2,
-                                           class_id=int(labels[b, i]),
-                                           score=float(scores[b, i])))
-        return dets
+        """Wait for a dispatched batch and unpad it into records (the spans
+        ``collect`` ⊃ ``wait``, ``unpack`` of its traced batch)."""
+        out, done, batch = pending
+        with TRACER.collect(batch):
+            with TRACER.span("wait"):
+                if done is not None:
+                    done.synchronize()
+            TRACER.resolve(batch)
+            with TRACER.span("unpack"):
+                return unpack(out.numpy(), names)
 
     def recognize_frames(self, frames, names: list[str]) -> list[GroundTruthBox]:
         return self.collect(self.dispatch(frames), names)

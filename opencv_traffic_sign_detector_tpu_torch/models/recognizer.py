@@ -47,7 +47,7 @@ from ..ops.color import bgr_to_gray
 from ..ops.dedup import dedup_by_coords, dedup_by_histogram
 from ..ops.geometry import filter_and_grow_boxes, iou_matrix
 from ..ops.hog import gray_descriptors, hog_descriptors
-from ..ops.mser import mser_regions
+from ..ops.mser import mser_regions, stage_scope
 from ..ops.preprocess import enhance_contrast
 from ..ops.resident import const_f32
 from ..ops.resize import crop_and_resize
@@ -66,17 +66,41 @@ def propose_batch(frames: torch.Tensor, cfg: MSERConfig,
                   grows: tuple[float, ...] = (RECOG_GROW,)):
     """[B, H, W, 3] uint8 -> (boxes [B, N, 4] xyxy, gray crops [B, N, 32, 32],
     valid [B, N]): MSER proposals grown by each factor of ``grows`` (their
-    union), cropped, deduplicated.  The reference jits this, so the crops'
-    sample step multiplies by the reciprocal of the crop size."""
-    gray = enhance_contrast(frames)
-    props, pvalid = mser_regions(gray, cfg)
-    per_grow = [filter_and_grow_boxes(props, pvalid, g) for g in grows]
-    boxes = torch.cat([b for b, _ in per_grow], dim=1)
-    keep = torch.cat([k for _, k in per_grow], dim=1)
-    crops = crop_and_resize(frames, boxes, RECOG_CROP)
-    crops, boxes, keep = dedup_by_histogram(crops, boxes, keep, DEDUP_HIST_TOL)
-    crops, boxes, keep = dedup_by_coords(crops, boxes, keep, DEDUP_COORD_TOL)
-    return boxes, bgr_to_gray(crops), keep
+    union), cropped, deduplicated: :func:`crop_proposals` of
+    :func:`mser_proposals`."""
+    return crop_proposals(frames, *mser_proposals(frames, cfg), grows)
+
+
+def mser_proposals(frames: torch.Tensor, cfg: MSERConfig):
+    """[B, H, W, 3] uint8 -> the MSER regions of the contrast-enhanced gray
+    frames, (boxes [B, N, 4], valid [B, N]).  Inside a traced call
+    (``runtime/trace.py``) the stages ``preprocess`` and ``mser_regions``'
+    own are stamped."""
+    with stage_scope(None, "preprocess"):
+        gray = enhance_contrast(frames)
+    return mser_regions(gray, cfg)
+
+
+def crop_proposals(frames: torch.Tensor, props: torch.Tensor, pvalid: torch.Tensor,
+                   grows: tuple[float, ...]):
+    """The regions ``props`` [B, N, 4] grown by each factor of ``grows``,
+    cropped from ``frames``, deduplicated -> (boxes, gray crops [B, N', 32,
+    32], valid).  The reference jits this, so the crops' sample step
+    multiplies by the reciprocal of the crop size.  Traced, the stages are
+    the main path's: ``classify.crops``, ``classify.dedup``, and
+    ``classify.scores`` ⊃ ``rec.hog`` (the crops' gray, the descriptors'
+    first step)."""
+    with stage_scope(None, "classify.crops"):
+        per_grow = [filter_and_grow_boxes(props, pvalid, g) for g in grows]
+        boxes = torch.cat([b for b, _ in per_grow], dim=1)
+        keep = torch.cat([k for _, k in per_grow], dim=1)
+        crops = crop_and_resize(frames, boxes, RECOG_CROP)
+    with stage_scope(None, "classify.dedup"):
+        crops, boxes, keep = dedup_by_histogram(crops, boxes, keep, DEDUP_HIST_TOL)
+        crops, boxes, keep = dedup_by_coords(crops, boxes, keep, DEDUP_COORD_TOL)
+    with stage_scope(None, "classify.scores"), stage_scope(None, "rec.hog"):
+        gray_crops = bgr_to_gray(crops)
+    return boxes, gray_crops, keep
 
 
 def _load_cache(cache_path: str | None, tag: str, files: list[str]):

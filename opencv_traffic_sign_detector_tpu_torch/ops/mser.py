@@ -100,6 +100,37 @@ def pooled_topk_packed(cmap: torch.Tensor, cfg: MSERConfig, num_levels: int,
     return seeds, level_vals.long(), pol_idx, valid
 
 
+def _anchor_counts(keys: torch.Tensor, mask: torch.Tensor, idx: torch.Tensor,
+                   plane_off: torch.Tensor) -> torch.Tensor:
+    """Each component's pixel count at its anchor pixel, 0 elsewhere.
+
+    keys: [B, 2, H, W] int32 propagated min keys (anchor = key % (H*W)),
+    mask: [B, 2, H, W] bool, idx: [H, W] int32 flat indices, plane_off:
+    [B, 2, 1, 1] int64 plane offsets.  -> [B, 2, H, W] int32.
+
+    A row's run of one component adds its length once, at the run's last
+    pixel; every other pixel adds 0 to its own slot.  One atomic add a
+    pixel to the anchor would serialise a large component's adds on one
+    address, so that a frame's time followed the size of its largest
+    components (PERF.md).  The reference's shared dump slot for the
+    background would do so for most pixels (5.8x slower on an H100).
+    """
+    b, p, h, w = mask.shape
+    hw = h * w
+    anchor = torch.where(mask, keys % hw, idx)
+    last = torch.ones_like(mask)
+    last[..., :-1] = anchor[..., :-1] != anchor[..., 1:]
+    col = torch.arange(w, dtype=torch.int32, device=mask.device)
+    start = torch.zeros_like(anchor)
+    start[..., 1:] = torch.where(last[..., :-1], col[1:], 0)
+    start = torch.cummax(start, dim=-1).values
+    run = torch.where(last & mask, col - start + 1, 0)
+    slot = torch.where(last, anchor, idx) + plane_off
+    counts = torch.zeros(b * p * hw, dtype=torch.int32, device=mask.device)
+    counts.index_add_(0, slot.reshape(-1), run.reshape(-1))
+    return counts.reshape(b, p, h, w)
+
+
 def _level_sweep(im2: torch.Tensor, cfg: MSERConfig, d_idx: int, num_levels: int):
     """The XLA level sweep with pixel-count stability.
 
@@ -108,7 +139,8 @@ def _level_sweep(im2: torch.Tensor, cfg: MSERConfig, d_idx: int, num_levels: int
     quantized stability (higher = more stable) at each component's anchor
     pixel, for level ``t*step - (d_idx+1)*step``.  Counterpart of the
     reference's ``_level_sweep`` (its ``[L, 2, H*W]`` output, one level at a
-    time).
+    time).  Inside a traced call each level's propagation (K5 and its
+    pointer jumps) is the stage ``sweep.ccl``, within the caller's ``sweep``.
     """
     b, p, h, w = im2.shape
     hw = h * w
@@ -135,16 +167,11 @@ def _level_sweep(im2: torch.Tensor, cfg: MSERConfig, d_idx: int, num_levels: int
     for t in range(num_levels):
         mask = im <= t * s
         keys_in = torch.where(mask, torch.minimum(keys, keys0), big)
-        keys = propagate_min_keys(keys_in, mask, big, num_rolls=cfg.ccl_iters,
-                                  num_jumps=cfg.ccl_jumps, edges_safe=True)
-        # area counts at anchor pixels.  Background pixels add 0 to their
-        # own slot: the reference's shared dump slot would serialise most
-        # of the atomic adds on one address per plane (5.8x slower on an
-        # H100, PERF.md)
-        slot = torch.where(mask, keys % hw, idx) + plane_off
-        counts = torch.zeros(b * p * hw, dtype=torch.int32, device=dev)
-        counts.index_add_(0, slot.reshape(-1), mask.reshape(-1).to(torch.int32))
-        a_cur = counts.reshape(b, p, h, w).clamp(max=65535)  # the reference's uint16
+        with stage_scope(None, "sweep.ccl"):
+            keys = propagate_min_keys(keys_in, mask, big, num_rolls=cfg.ccl_iters,
+                                      num_jumps=cfg.ccl_jumps, edges_safe=True)
+        # area counts at anchor pixels, clamped to the reference's uint16
+        a_cur = _anchor_counts(keys, mask, idx, plane_off).clamp(max=65535)
 
         # V[t-d] on the seed chain.  The divisor is a tensor, so this is a
         # true division under jit too (no reciprocal rewrite).

@@ -351,7 +351,7 @@ def test_recognition_captures_one_function_holding_the_forward(kind, card_path, 
     inside.clear()
     names = ["a.jpg", "b.jpg"]
     for _ in range(3):
-        out, done = pipe.dispatch(x.numpy())
+        out, done, _ = pipe.dispatch(x.numpy())
         assert done is None and torch.equal(out, want)
     # the forward ran inside the capture (the warm-up) and at each replay
     assert inside == [True, False, False]

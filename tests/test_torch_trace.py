@@ -338,3 +338,101 @@ def test_label_gaps_names_the_innermost_host_span_at_each_gaps_midpoint():
     # a midpoint past its last-begun span's end goes to the parent that covers it
     b2.spans[1].end_ns = 199
     assert trace.label_gaps([b2, b3])[0][0] == "dispatch"
+
+
+# the stages of recognize_batch (the level-by-level sweep) in order of entry:
+# the polarity stack, then each level's sweep with its propagation inside,
+# and the level's top-k merge; then classify with the main path's sub-stages,
+# the descriptors entering classify.scores ⊃ rec.hog twice (the crops' gray,
+# then HOG)
+REC_STAGES = {"preprocess", "sweep", "sweep.ccl", "topk", "refine", "classify",
+              "classify.crops", "classify.dedup", "classify.scores", "rec.hog", "rec.heads"}
+# each stamped stage's parent, None at the top
+REC_PARENT = {"sweep.ccl": "sweep", "classify.crops": "classify", "classify.dedup": "classify",
+              "classify.scores": "classify", "rec.hog": "classify.scores",
+              "rec.heads": "classify.scores"}
+
+
+@pytest.fixture(scope="module")
+def rec_run():
+    """One recognition batch through ``RecognitionPipeline`` on the CPU
+    (eager, as the CPU runs it), its stamps' marks read before ``collect``
+    resolves them."""
+    import opencv_traffic_sign_detector_tpu_torch.models.rec_pipeline as trp
+    import opencv_traffic_sign_detector_tpu_torch.models.recognizer as trec
+
+    mser = tcfg.MSERConfig.from_string("MSER_7_200_2000_1", max_regions=32)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(graphs.CapturedFn, "EAGER_DEVICES", ("cpu",))
+        pipe = trp.RecognitionPipeline(
+            cfg=tcfg.PipelineConfig(mser=mser, batch_size=2),
+            classifier=trec.SignClassifier.load("artifacts/sign_classifier_r5_cnn"),
+            device="cpu")
+        frames = make_frames(2, 96, 128, seed=24)
+        handle = pipe.dispatch(frames)
+        batch = handle[2]
+        ((_, _, marks),) = batch.pending
+        records = pipe.collect(handle, NAMES)
+        yield types.SimpleNamespace(pipe=pipe, frames=frames, batch=batch, marks=marks,
+                                    records=records)
+
+
+def test_a_recognition_dispatch_and_collect_record_their_spans_under_one_batch(rec_run):
+    b = rec_run.batch
+    assert all(s.batch == b.id for s in b.spans)
+    kids, dispatch = _children(b, "dispatch")
+    assert set(kids) == DISPATCH | {"eager"}
+    done, collect = _children(b, "collect")
+    assert set(done) == {"wait", "unpack"}
+    assert dispatch.end_ns <= collect.start_ns
+    for parent, inner in ((dispatch, kids), (collect, done)):
+        for s in inner.values():
+            assert parent.start_ns <= s.start_ns <= s.end_ns <= parent.end_ns
+    assert kids["pin"].end_ns <= kids["eager"].start_ns <= kids["eager"].end_ns
+    assert kids["eager"].end_ns <= kids["to_host"].start_ns
+    assert not b.captured and not b.pending
+
+
+def test_the_recognition_stages_are_stamped_and_sweep_ccl_nests_in_sweep(rec_run):
+    marks = rec_run.marks
+    assert marks[0] == ("h2d", trace.POINT) and marks[-1] == ("end", trace.POINT)
+    entered = [n for n, kind in marks if kind == trace.ENTER]
+    levels = entered.count("sweep.ccl")
+    assert levels == 39   # the levels 0..266 of 7
+    assert entered[:2] == ["preprocess", "sweep"]
+    assert entered[2:2 + 3 * levels] == ["sweep", "sweep.ccl", "topk"] * levels
+    assert entered[2 + 3 * levels:] == [
+        "topk", "refine", "classify", "classify.crops", "classify.dedup", "classify.scores",
+        "rec.hog", "classify.scores", "rec.hog", "rec.heads"]
+    inside = []
+    for name, kind in marks[1:-1]:
+        if kind == trace.ENTER:
+            assert (inside[-1] if inside else None) == REC_PARENT.get(name)
+            inside.append(name)
+        else:
+            assert kind == trace.EXIT and inside.pop() == name
+    assert inside == []
+    (d,) = rec_run.batch.devices
+    assert set(d.stages_ns) == REC_STAGES and d.device == "cpu"
+    for name, parent in REC_PARENT.items():
+        assert d.stages_ns[name] <= d.stages_ns[parent]
+    outer = sum(v for k, v in d.stages_ns.items() if k not in REC_PARENT)
+    assert d.h2d_ns <= d.first_ns == d.opened_ns["preprocess"] and outer <= d.end_ns - d.first_ns
+
+
+def test_the_recognition_records_are_the_untraced_ones(rec_run):
+    trace.enable(False)
+    try:
+        handle = rec_run.pipe.dispatch(rec_run.frames)
+        assert handle[2] is None
+        assert rec_run.pipe.collect(handle, NAMES) == rec_run.records
+    finally:
+        trace.enable(True)
+
+
+def test_the_fused_path_gains_no_stamp_of_the_level_sweep_or_recognition(run):
+    (stamps,) = [held[2] for key, held in run.pipe._detect.graphs._entries.items() if key[-1]]
+    assert len(stamps.marks) == 2 + 2 * len(ENTERED)
+    assert {n for n, _ in stamps.marks} == set(ENTERED) | {"h2d", "end"}
+    for b in run.batches:
+        assert set(b.devices[0].stages_ns) == set(ENTERED)
