@@ -177,8 +177,12 @@ Phases:
     batch at a time and two in flight; a batch's ms replayed and eager); K4
     on the path's B x 384 windows and K5
     at its ``[2B, 802, 1362]`` sweep call are held against their plain
-    versions exactly and timed as in phase 3; one frame's proposals,
-    boxes, labels and scores (1e-4) against the CPU path
+    versions exactly and timed as in phase 3; the level sweep's candidate
+    select (``csrc/level_topk.cu``, a pair of launches a level, 39 of each
+    in the graph) against the plain merge on that batch's own sweep and on
+    made-up maps, and timed both ways (:func:`_level_topk_recognition`,
+    :func:`_level_topk_maps`; alone: :func:`topk_phase`); one frame's
+    proposals, boxes, labels and scores (1e-4) against the CPU path
     (:func:`_recognition_phases`);
 13. práctica 2, CNN proposals (the CLI's default source): mining (the
     detector's dispatch: one capture, then replays), validation and
@@ -2034,6 +2038,157 @@ def _serve_phases(rt, dev, frames, work, smi: str) -> dict:
     return paths
 
 
+# The level sweep's candidate select (csrc/level_topk.cu): the made-up byte
+# maps its kernel pair is held to against the plain merge, each a few levels
+# of [B, P] bytes: fillers only, fewer than n set, a level that evicts part of
+# the list, equal bytes (the lower index first), level 0's lowest indices set
+# (where the fillers begin), one frame dense beside one empty (the merge's
+# chunks), and a map at an odd byte offset (the compaction's head and tail).
+TOPK_KINDS = ("all zero", "fewer than n", "more than n, evicting", "equal bytes",
+              "level 0's lowest indices", "one dense, one empty", "unaligned")
+# (frames, keys a level, n, kinds): the recognition sweep's [8, 2 x 802 x 1362]
+# at n 384, and a tiny map whose n is all of its 70 keys
+TOPK_SHAPES = ((8, 2 * 802 * 1362, 384, TOPK_KINDS),
+               (3, 70, 70, ("all zero", "more than n, evicting", "unaligned")))
+
+
+def _topk_maps(kind: str, b: int, p: int, n: int, gen) -> list:
+    dev = gen.device
+
+    def sparse(count: int, lo: int = 1, hi: int = 256):
+        m = torch.zeros((b, p), dtype=torch.uint8, device=dev)
+        idx = torch.randint(0, p, (b, count), generator=gen, device=dev)
+        val = torch.randint(lo, hi, (b, count), generator=gen, device=dev).to(torch.uint8)
+        return m.scatter_(1, idx, val)
+
+    zeros = torch.zeros((b, p), dtype=torch.uint8, device=dev)
+    if kind == "all zero":
+        return [zeros] * 3
+    if kind == "fewer than n":
+        return [sparse(max(1, n // 8)) for _ in range(3)]
+    if kind == "more than n, evicting":
+        return [sparse(max(1, n // 2)), sparse(2 * n), sparse(n, lo=200)]
+    if kind == "equal bytes":
+        return [sparse(n, lo=77, hi=78) for _ in range(3)]
+    if kind == "level 0's lowest indices":
+        first = sparse(max(1, n // 4))
+        first[:, :n:2] = 9
+        return [first, sparse(16), zeros]
+    if kind == "one dense, one empty":
+        maps = [sparse(64) for _ in range(2)]
+        for m in maps:
+            m[0] = torch.randint(1, 256, (p,), generator=gen, device=dev).to(torch.uint8)
+            m[min(1, b - 1)] = 0
+        return maps
+    if kind == "unaligned":
+        maps = []
+        for _ in range(3):
+            buf = torch.zeros(b * p + 16, dtype=torch.uint8, device=dev)
+            sb = buf[3:3 + b * p].view(b, p)
+            maps.append(sb.copy_(sparse(200)))
+        return maps
+    raise ValueError(kind)
+
+
+def _topk_chain(lt, maps: list, n: int, plain: bool) -> tuple[list, int]:
+    """Each level's running list (cloned) and the keys kept, merged by the
+    plain version or by the kernel pair with one scratch."""
+    b, p = maps[0].shape
+    best, kept = None, torch.zeros((), dtype=torch.int64, device=maps[0].device)
+    work = lt.topk_work(b, p, maps[0].device)
+    out = []
+    for t, sb in enumerate(maps):
+        best = (lt.level_topk_plain(best, sb, t, n, kept) if plain
+                else lt.level_topk(best, sb, t, n, kept, work))
+        out.append(best.clone())
+    if not plain:
+        _require(not work.counts.any().item(), "level_topk: a frame's count left nonzero")
+    return out, int(kept)
+
+
+def _level_topk_maps(lt, gen, shapes=TOPK_SHAPES) -> None:
+    """The kernel pair against the plain merge on the made-up maps of
+    :data:`TOPK_SHAPES`, every level's list bit for bit and the kept counts
+    alike."""
+    for b, p, n, kinds in shapes:
+        for kind in kinds:
+            t0 = time.perf_counter()
+            maps = _topk_maps(kind, b, p, n, gen)
+            (want, want_kept), (got, got_kept) = (_topk_chain(lt, maps, n, plain)
+                                                  for plain in (True, False))
+            same = [torch.equal(x, y) for x, y in zip(got, want)]
+            valid = int(((want[-1] >> lt.IDX_BITS) > 0).sum())
+            print(f"[level_topk map] {kind}: [{b},{p}] n {n}, {len(maps)} levels: the kernel "
+                  f"pair's list equals the plain merge's at each level {same}, kept keys "
+                  f"{got_kept} (plain's count {want_kept}), {valid} valid in the last list; "
+                  f"{time.perf_counter() - t0:.2f} s")
+            _require(all(same) and got_kept == want_kept,
+                     f"level_topk {kind} [{b},{p}] n {n}: differs from the plain merge")
+            del maps, want, got
+
+
+def _level_topk_recognition(mser, lt, args: tuple, smi: str) -> dict:
+    """The recognition sweep's candidate select on its own frames:
+    ``_sweep_topk`` with the kernel pair against the plain merge (seeds,
+    levels, polarities and valid bit for bit), the keys kept a frame and
+    level, and the 39 levels' select timed both ways on the sweep's own byte
+    maps (queued behind a spin: the graph's launches, not the host's)."""
+    im2, cfg, d_idx, num_levels = args[:4]
+    got = mser._sweep_topk(im2, cfg, d_idx, num_levels)
+    orig = mser.level_topk
+    mser.level_topk = lambda best, sb, t, n, kept=None, work=None: lt.level_topk_plain(
+        best, sb, t, n, kept)
+    try:
+        want = mser._sweep_topk(im2, cfg, d_idx, num_levels)
+    finally:
+        mser.level_topk = orig
+    same = {k: torch.equal(x, y) for k, x, y in zip(("seeds", "levels", "polarity", "valid"),
+                                                   got, want)}
+    b = im2.shape[0]
+    maps = [sb.reshape(b, -1).clone() for sb in mser._level_sweep(im2, cfg, d_idx, num_levels)]
+    p = maps[0].shape[1]
+    n = min(cfg.max_regions, p)
+    chain = {plain: _topk_chain(lt, maps, n, plain) for plain in (True, False)}
+    per_level = [0] * len(maps)
+    best = None
+    for t, sb in enumerate(maps):
+        kept = torch.zeros((), dtype=torch.int64, device=sb.device)
+        best = lt.level_topk_plain(best, sb, t, n, kept)
+        per_level[t] = int(kept)
+    nonzero = [int((sb != 0).sum()) for sb in maps]
+    work = lt.topk_work(b, p, maps[0].device)
+
+    def kernel():
+        best = None
+        for t, sb in enumerate(maps):
+            best = lt.level_topk(best, sb, t, n, work=work)
+
+    def plain():
+        best = None
+        for t, sb in enumerate(maps):
+            best = lt.level_topk_plain(best, sb, t, n)
+
+    ms = {"kernel": _queued_ms(kernel), "plain": _queued_ms(plain, runs=3)}
+    bound_ms = 1e3 * b * p / HBM_BYTES_S
+    equal_chain = all(torch.equal(x, y) for x, y in zip(*(chain[k][0] for k in (True, False))))
+    print(f"[level_topk recognition] _sweep_topk on [{b},2,{im2.shape[2]},{im2.shape[3]}], "
+          f"{num_levels} levels, n {n}: the kernel pair against the plain merge, bit for bit "
+          f"{same}; every level's list alike {equal_chain}; nonzero bytes a frame and level "
+          f"{sum(nonzero) / (b * len(maps)):.2f} (0-{max(nonzero)} a level over {b} frames), "
+          f"kept {chain[False][1]} (plain's count {chain[True][1]}), "
+          f"{chain[False][1] / (b * len(maps)):.2f} a frame and level; {smi}")
+    print(f"[level_topk recognition] kept a level over the batch: {per_level}")
+    print(f"[level_topk time] the select of {num_levels} levels a batch of {b}, queued: kernel "
+          f"pair {ms['kernel']:.4f} ms ({1e3 * ms['kernel'] / num_levels:.2f} us a level), "
+          f"plain merge (torch.topk twice a level) {ms['plain']:.4f} ms "
+          f"({1e3 * ms['plain'] / num_levels:.2f} us a level); bound a level "
+          f"{1e3 * bound_ms:.2f} us ({b * p / 1e6:.2f} MB of bytes read once at "
+          f"{HBM_BYTES_S / 1e12:.2f} TB/s); {smi}")
+    _require(all(same.values()) and equal_chain and chain[False][1] == chain[True][1],
+             f"level_topk recognition: the kernel pair differs from the plain merge {same}")
+    return ms
+
+
 def _recognition_phases(rt, dev, work, smi: str, seed: int) -> tuple[list[dict], dict]:
     """Phases 12-13: práctica 2 on synthetic GTSDB-style frames of 1360x800.
     ``run_validation`` on a train directory with MSER proposals (the
@@ -2064,6 +2219,7 @@ def _recognition_phases(rt, dev, work, smi: str, seed: int) -> tuple[list[dict],
     from opencv_traffic_sign_detector_tpu_torch.models.cnn_detector import CNNDetector
     from opencv_traffic_sign_detector_tpu_torch.models.detector import upload
     from opencv_traffic_sign_detector_tpu_torch.ops import ccl, mser, prop_cuda
+    from opencv_traffic_sign_detector_tpu_torch.ops import level_topk as lt
     from opencv_traffic_sign_detector_tpu_torch.runtime import trace
 
     t0 = time.perf_counter()
@@ -2130,16 +2286,18 @@ def _recognition_phases(rt, dev, work, smi: str, seed: int) -> tuple[list[dict],
     # the first batch is the eager warm-up that captures the graph: the kept
     # calls are that run's
     with _record_nth(mser, "flood_bbox", 0, kept, "flood_bbox"), \
-            _record_nth(ccl, "propagate_rolls", 40, kept, "propagate_rolls"), _dumped_graphs():
+            _record_nth(ccl, "propagate_rolls", 40, kept, "propagate_rolls"), \
+            _record_nth(mser, "_sweep_topk", 0, kept, "sweep_topk"), _dumped_graphs():
         pipe.recognize_frames(first, files[:8])
     torch.cuda.synchronize()
-    want = ("tile_luts", "clahe_apply", "flood_bbox", "propagate_rolls")
+    want = ("tile_luts", "clahe_apply", "flood_bbox", "propagate_rolls", "topk_compact",
+            "topk_merge")
     _graph_report("recognition MSER", pipe._recognize, want)
     _graph_kernel_names("recognition MSER", pipe._recognize, want)
     # the graph captured traced (its stamps, runtime/trace.py) against one
     # captured with the tracer off: the same packed output bit for bit, and
     # the same launches a replay, K5's at the level sweep among them (two
-    # rounds a level)
+    # rounds a level) and the candidate select's pair a level
     traced = _packed(pipe.dispatch(first))
     trace.enable(False)
     try:
@@ -2149,15 +2307,24 @@ def _recognition_phases(rt, dev, work, smi: str, seed: int) -> tuple[list[dict],
         trace.enable(True)
     launches = {key[-1]: entry.launches for key, entry in pipe._recognize.entries().items()}
     k5 = {on: launches[on].get("propagate_rolls") for on in (True, False)}
+    pair = {on: (launches[on].get("topk_compact"), launches[on].get("topk_merge"))
+            for on in (True, False)}
     levels = len(range(0, 256 + 2 * mcfg.delta + 1, mcfg.delta))
     same = traced.tobytes() == untraced.tobytes()
     print(f"[recognition MSER trace] the traced graph's packed output against the untraced "
           f"graph's, bit for bit: {same}; K5 launches a replay (propagate_rolls), traced "
-          f"{k5[True]}, untraced {k5[False]} ({levels} levels, 2 rounds each); the launches "
-          f"a replay alike: {launches[True] == launches[False]}")
-    _require(same and launches[True] == launches[False] and k5[True] == 2 * levels,
+          f"{k5[True]}, untraced {k5[False]} ({levels} levels, 2 rounds each); the candidate "
+          f"select's (topk_compact, topk_merge) traced {pair[True]}, untraced {pair[False]} "
+          f"(a pair a level); the launches a replay alike: {launches[True] == launches[False]}")
+    _require(same and launches[True] == launches[False] and k5[True] == 2 * levels
+             and pair[True] == (levels, levels),
              f"recognition MSER: traced {k5[True]} K5 launches against untraced {k5[False]} "
-             f"(want {2 * levels}), outputs equal {same}")
+             f"(want {2 * levels}), the select's {pair[True]} (want {levels} each), outputs "
+             f"equal {same}")
+    # the candidate select on this batch's own sweep, kernel pair against the
+    # plain merge, and on made-up maps
+    _level_topk_recognition(mser, lt, kept.pop("sweep_topk")[0], smi)
+    _level_topk_maps(lt, torch.Generator(device=dev).manual_seed(seed))
     dets, counts = infer("recognition MSER", pipe)
     for name in want:
         _require(counts[name] > 0, f"recognition MSER: {name} never launched")
@@ -3647,7 +3814,8 @@ GRAPH_KERNELS = {"tile_luts": ("tile_hist_kernel", "tile_lut_kernel"),
                  "level_sweep": ("sweep_tile_kernel", "scan_band_kernel"),
                  "flood_bbox": ("flood_bbox_kernel",),
                  "propagate_rolls": _ROLLS, "propagate_rolls_refine": _ROLLS,
-                 "crop_resize": ("crop_resize_kernel",)}
+                 "crop_resize": ("crop_resize_kernel",),
+                 "topk_compact": ("topk_compact_kernel",), "topk_merge": ("topk_merge_kernel",)}
 
 
 @contextlib.contextmanager
@@ -4968,6 +5136,48 @@ def crop_phase(seed: int = 0) -> int:
         del calls, a
     _crop_shapes(resize, dev, torch.Generator(device=dev).manual_seed(seed), seed)
     _crop_callers(resize, dev, seed)
+    return 0
+
+
+def topk_phase(seed: int = 0) -> int:
+    """The candidate select's lines of phase 12 alone::
+
+        python3 -c "import chip_smoke, sys; sys.exit(chip_smoke.topk_phase())"
+
+    builds the kernels, runs one batch of phase 12's 8 test frames through
+    recognition's MSER proposals, and holds the level sweep's candidate
+    select (``csrc/level_topk.cu``) against the plain merge there and on
+    :data:`TOPK_KINDS` (:func:`_level_topk_recognition`,
+    :func:`_level_topk_maps`); a failed check raises."""
+    _, smi = _device_phase()
+    from opencv_traffic_sign_detector_tpu_torch.config import MSERConfig
+    from opencv_traffic_sign_detector_tpu_torch.data.images import (
+        list_frame_files,
+        load_frames_batch,
+    )
+    from opencv_traffic_sign_detector_tpu_torch.data.synthetic import write_gt_dir
+    from opencv_traffic_sign_detector_tpu_torch.models import recognizer as rec
+    from opencv_traffic_sign_detector_tpu_torch.ops import level_topk as lt
+    from opencv_traffic_sign_detector_tpu_torch.ops import mser
+    from opencv_traffic_sign_detector_tpu_torch.runtime import build as rt
+
+    dev = torch.device("cuda:0")
+    torch.cuda.set_device(dev)
+    rt.library()
+    work = rt.BUILD_ROOT.parent / "chip_smoke_topk"
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        write_gt_dir(str(work), 8, 800, 1360, seed=seed + 12)
+        frames = load_frames_batch(str(work), list_frame_files(str(work))[:8])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    mcfg = MSERConfig.from_string("MSER_7_200_2000_1")
+    kept = {}
+    with torch.inference_mode():
+        with _record_nth(mser, "_sweep_topk", 0, kept, "sweep_topk"):
+            rec.propose_batch(torch.from_numpy(frames).to(dev), mcfg)
+        _level_topk_recognition(mser, lt, kept.pop("sweep_topk")[0], smi)
+        _level_topk_maps(lt, torch.Generator(device=dev).manual_seed(seed))
     return 0
 
 

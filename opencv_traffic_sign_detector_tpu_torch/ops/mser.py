@@ -9,7 +9,8 @@ mser_regions``: optional 2x2-mean downscale (area thresholds / 4), the
   the frame has a strip plan;
 * otherwise the XLA level sweep (:func:`_level_sweep`: pixel-count
   stability, propagation by :func:`.ccl.propagate_min_keys` with kernel K5)
-  with an exact top-k over every level's byte map;
+  with an exact top-k over every level's byte map, merged level by level
+  (:mod:`.level_topk`: on a card the kernel pair of ``csrc/level_topk.cu``);
 
 and the native-resolution refine: the seed flood (kernel K4) when
 ``refine_scan_passes > 0``, else the roll flood (kernel K5).  With
@@ -31,6 +32,7 @@ import torch
 from ..config import MSERConfig
 from ..runtime.trace import TRACER
 from .ccl import propagate_min_keys
+from .level_topk import IDX_BITS, level_topk, topk_work
 from .mser_cuda import fused_level_sweep, packing_bits, plan_halo, sweep_plan
 from .prop_cuda import bbox_area, candidate_windows, flood_bbox
 from .resident import const_f32
@@ -38,8 +40,6 @@ from .resident import const_f32
 _WIN = 128
 # Roll-flood radius of the refine: two rounds of 48 passes, as the reference's
 _REFINE_ROLLS = 48
-# The XLA sweep's top-k key: (byte << 40) | (2^40 - 1 - flat index)
-_IDX_BITS = 40
 
 
 def stage_scope(timer, name: str):
@@ -199,32 +199,31 @@ def _sweep_topk(im2: torch.Tensor, cfg: MSERConfig, d_idx: int, num_levels: int,
     """Top ``max_regions`` of each frame's [L, 2, H*W] byte map, as
     ``lax.top_k`` over the flat map gives them (ties: lower index first).
 
-    Each level's top-k is taken as the level is emitted and merged into the
-    running top-k; under the total order of the packed key (byte, inverted
-    flat index) every element of the global top-k is in its own level's
-    top-k, so this is exact without materialising the map.
+    Each level's keys are merged into the running top-k as the level is
+    emitted (:func:`.level_topk.level_topk`: ``torch.topk`` on the CPU, the
+    kernel pair of ``csrc/level_topk.cu`` on a card); under the total order
+    of the packed key (byte, inverted flat index) every element of the
+    global top-k is in its own level's top-k, so this is exact without
+    materialising the map.  Inside a traced call the keys the card kept
+    add to the tracer's counter ``topk_kept``.
     -> (seeds_yx [B, N, 2], level_vals [B, N], pol_idx [B, N], valid [B, N]).
     """
     b, p, h, w = im2.shape
     hw, per_level = h * w, p * h * w
-    n = cfg.max_regions
-    low = (1 << _IDX_BITS) - 1
-    inv_idx = low - torch.arange(per_level, dtype=torch.int64, device=im2.device)
+    n = min(cfg.max_regions, per_level)
+    stamps = TRACER.armed()
+    kept = None if stamps is None else stamps.counter("topk_kept")
+    work = topk_work(b, per_level, im2.device)
     best = None
     levels = _level_sweep(im2, cfg, d_idx, num_levels)
     for t in range(num_levels):
         with stage_scope(timer, "sweep"):
             sb = next(levels)
         with stage_scope(timer, "topk"):
-            packed = (sb.reshape(b, per_level).to(torch.int64) << _IDX_BITS) | (
-                inv_idx - t * per_level)
-            top = torch.topk(packed, min(n, per_level), dim=1).values
-            if best is not None:
-                top = torch.cat([best, top], dim=1)
-                top = torch.topk(top, min(n, top.shape[1]), dim=1).values
-            best = top
+            best = level_topk(best, sb.reshape(b, per_level), t, n, kept=kept, work=work)
     with stage_scope(timer, "topk"):
-        valid = (best >> _IDX_BITS) > 0
+        low = (1 << IDX_BITS) - 1
+        valid = (best >> IDX_BITS) > 0
         flat = low - (best & low)
         t_idx = flat // per_level
         rem = flat - t_idx * per_level

@@ -43,10 +43,12 @@ NVCC_FLAGS = (
 # Launch counters, one per kernel wrapper.  K5 counts its two call sites
 # apart: the XLA level sweep (propagate_rolls) and the roll-flood refine
 # (propagate_rolls_refine).  tile_luts is K1 with the LUT tail.  crop_resize
-# is the crops' window path (csrc/crop_resize.cu), which replaces no TPU kernel.
+# is the crops' window path (csrc/crop_resize.cu), which replaces no TPU kernel;
+# topk_compact and topk_merge the level sweep's candidate select
+# (csrc/level_topk.cu), a pair a level, which replaces none either.
 KERNELS = ("tile_histograms", "tile_luts", "clahe_apply", "level_sweep", "flood_bbox",
            "propagate_rolls", "propagate_rolls_refine", "propagate_scan",
-           "level_sweep_full", "crop_resize")
+           "level_sweep_full", "crop_resize", "topk_compact", "topk_merge")
 
 _V, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -62,6 +64,7 @@ _SIGNATURES = {
     "tsd_propagate_rolls_form": [_I, _I],
     "tsd_stamp": [_V, _I, _V],
     "tsd_crop_resize": [_V] * 6 + [_I] * 6 + [_V],
+    "tsd_level_topk": [_V] * 5 + [_I] * 5 + [_V],
 }
 
 _launches = dict.fromkeys(KERNELS, 0)

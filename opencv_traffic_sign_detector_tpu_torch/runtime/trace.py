@@ -41,7 +41,14 @@ round trips; half that round trip is the offset's error.
 
 **Counters**, a batch: whether it captured, its port kernel launches (the
 graph's, recorded at its capture) and, after a capture (where evictions
-happen), the card's graph bytes (``runtime/graphs.py: held_bytes``).
+happen), the card's graph bytes (``runtime/graphs.py: held_bytes``).  The
+device counters (:data:`COUNTERS`) are counted on the card: a traced call's
+:class:`Stamps` holds them in a small int64 buffer, zeroed where the call
+first asks for one (:meth:`Stamps.counter`; in a graph, a node before the
+kernels that add to it), copied back beside the stamps and added to the
+batch in ``collect``: ``topk_kept``, the keys the level sweep's candidate
+select kept over the batch's levels and frames (``ops/level_topk.py``;
+None where no call ran it).
 
 Off (:func:`enable`), nothing is recorded and graphs capture without
 stamps; ``CapturedFn`` keys its graphs by the state, so a toggle captures
@@ -64,6 +71,7 @@ from . import build
 
 SLOTS = 1024   # stamps a traced call holds (the XLA sweep of the recall config takes ~360)
 RING = 2048    # batches kept: a 20 s window of the MSER cells, its warm-up and more
+COUNTERS = ("topk_kept",)  # the device counters a traced call holds, in buffer order
 ENTER, EXIT, POINT = 1, -1, 0
 _NULL = contextlib.nullcontext()
 
@@ -108,6 +116,7 @@ class Batch:
     captured: bool = False
     launches: int | None = None
     held_bytes: int | None = None
+    topk_kept: int | None = None
 
     @property
     def start_ns(self) -> int:
@@ -127,12 +136,25 @@ class Batch:
 
 class Stamps:
     """A traced call's stamp buffer (int64 [:data:`SLOTS`] on its device)
-    and what each slot marks: ``(name, ENTER | EXIT | POINT)``."""
+    and what each slot marks: ``(name, ENTER | EXIT | POINT)``; its device
+    counters (int64 [len(:data:`COUNTERS`)]) and whether its function asked
+    for them."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.buf = torch.zeros(SLOTS, dtype=torch.int64, device=device)
         self.marks: list | tuple = [("h2d", POINT)]
+        self.counts = torch.zeros(len(COUNTERS), dtype=torch.int64, device=device)
+        self.counted = False
+
+    def counter(self, name: str) -> torch.Tensor:
+        """Counter ``name``'s slot (a 0-dim int64 view) for the running call
+        to add to, on its device; the buffer is zeroed at the call's first
+        request."""
+        if not self.counted:
+            self.counts.zero_()
+            self.counted = True
+        return self.counts[COUNTERS.index(name)]
 
     def write(self, slot: int) -> None:
         if self.device.type == "cpu":
@@ -249,6 +271,7 @@ class Tracer:
 
         def run(*args):
             stamps.marks = [("h2d", POINT)]
+            stamps.counted = False
             outer, state.stamps = state.stamps, stamps
             try:
                 out = fn(*args)
@@ -275,22 +298,31 @@ class Tracer:
         if held_bytes is not None:
             batch.held_bytes = held_bytes
         if stamps is not None:
+            # the stamps, then the counters where the call asked for them
             n = len(stamps.marks)
+            parts = (stamps.buf[:n], stamps.counts) if stamps.counted else (stamps.buf[:n],)
             if stamps.device.type == "cuda":
-                host = torch.empty(n, dtype=torch.int64, pin_memory=True)
-                host.copy_(stamps.buf[:n], non_blocking=True)
+                host = torch.empty(sum(len(x) for x in parts), dtype=torch.int64,
+                                   pin_memory=True)
+                host[:n].copy_(parts[0], non_blocking=True)
+                if stamps.counted:
+                    host[n:].copy_(parts[1], non_blocking=True)
             else:
-                host = stamps.buf[:n].clone()
+                host = torch.cat(parts)
             batch.pending.append((stamps.device, host, tuple(stamps.marks)))
 
     def resolve(self, batch: Batch | None) -> None:
-        """Map ``batch``'s arrived stamps onto the host's clock and sum each
-        stage (``collect``, once its wait has returned)."""
+        """Map ``batch``'s arrived stamps onto the host's clock, sum each
+        stage and add the counters that follow them (``collect``, once its
+        wait has returned)."""
         if batch is None:
             return
         for device, host, marks in batch.pending:
             offset = self.clocks.get(device, (0, 0))[0]
-            t = [v + offset for v in host.tolist()]
+            values = host.tolist()
+            for name, v in zip(COUNTERS, values[len(marks):]):
+                setattr(batch, name, (getattr(batch, name) or 0) + v)
+            t = [v + offset for v in values[:len(marks)]]
             stages, first, inside, end = defaultdict(int), {}, [], None
             for (name, kind), v in zip(marks, t):
                 if kind == ENTER:

@@ -436,3 +436,16 @@ def test_the_fused_path_gains_no_stamp_of_the_level_sweep_or_recognition(run):
     assert {n for n, _ in stamps.marks} == set(ENTERED) | {"h2d", "end"}
     for b in run.batches:
         assert set(b.devices[0].stages_ns) == set(ENTERED)
+
+
+def test_the_recognition_batch_counts_the_keys_its_top_k_kept(rec_run):
+    """The level sweep's candidate select adds its kept keys (every nonzero
+    byte while the list holds fillers, then those above its n-th) to the
+    batch's counter ``topk_kept``."""
+    kept = rec_run.batch.topk_kept
+    assert isinstance(kept, int) and kept > 0
+    assert rec_run.batch.as_dict()["topk_kept"] == kept
+
+
+def test_the_fused_path_counts_no_kept_top_k_keys(run):
+    assert all(b.topk_kept is None and b.as_dict()["topk_kept"] is None for b in run.batches)
